@@ -3,15 +3,29 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from the checkout's sources, holds each
-kernel against its plain PyTorch version, drives the c2c main path through
-``create_plan(...)(x)`` (the batched 1-D headline plan and a 256^3 plan),
-checks the results against ``torch.fft`` as an independent oracle, and times
-each kernel beside its plain version.  Every phase raises on failure, so the
-script exits non-zero; it never falls back to the CPU.
+kernel against its plain PyTorch version (at the shapes the paths below give
+it, and at other splits), and drives four paths through the
+port's entry points, each with the kernels' launch counts set to 0 just
+before it and read just after (each must launch both kernels):
 
-Tolerance everywhere: max|actual - expected| <= 1e-5 * max|expected|, the
-JAX package's f32 accuracy bar.  TF32 is switched off for this process so
-the plain versions and the oracle contract in full f32.
+- c2c: ``create_plan(...)(x)`` on the batched 1-D headline plan and a 256^3
+  plan;
+- r2c: the 256^3 batch-3 plan of the Navier-Stokes step;
+- c2r: the 256^3 batch-6 plan of the same step;
+- ns3d: the 3-D Navier-Stokes solver (``webgpufft_tpu_torch.examples.
+  navier_stokes3d``) at 256^3, nu = 2e-2, dt = 1e-2, on the embedded
+  Taylor-Green vortex and the ABC flow, held against their analytic
+  solutions at rel err < 1e-4.
+
+Plans and kernels are checked against ``torch.fft`` as an independent
+oracle, as are the Rader, Bluestein and four-step axes and the odd-length
+r2c paths.  Then each kernel, plan and the solver step are timed beside
+their plain versions.  Every phase raises on failure, so the script exits
+non-zero; it never falls back to the CPU.
+
+Tolerance, unless a phase says otherwise: max|actual - expected| <= 1e-5 *
+max|expected|, the JAX package's f32 accuracy bar.  TF32 is switched off for
+this process so the plain versions and the oracle contract in full f32.
 
 Output: one line per result; then the kernel record as one JSON object, the
 ``nvidia-smi`` name/power-limit line, and as the last line
@@ -27,9 +41,12 @@ import numpy as np
 import torch
 
 TOL = 1e-5
+NS_TOL = 1e-4      # the solver against its analytic solutions
 SEED = 1234
 WARMUP = 5
 RUNS = 25          # timed launches per block; two blocks per version
+NS_N, NS_NU, NS_DT, NS_STEPS = 256, 2e-2, 1e-2, 5
+RFFT_DIMS = (2, 3, 1)   # torch.fft.rfftn packs the last dim given: logical axis 0
 
 
 def rel_err(actual, expected):
@@ -108,9 +125,13 @@ def phase_k1(gen):
     from webgpufft_tpu_torch.core import fused
     cases = {}
     worst = 0.0
+    # the headline and non-square splits, then the shapes the r2c
+    # (batch 3) and c2r (batch 6) paths give K1 at 256^3: b*128*256 body
+    # lines and b*256 Nyquist-slab lines of 256
     for n, lines, direction, normalize in [
             (1024, 4096, "forward", "unitary"), (1024, 4096, "inverse", "unitary"),
-            (2048, 4096, "forward", "none"), (360, 4096, "inverse", "backward")]:
+            (2048, 4096, "forward", "none"), (360, 4096, "inverse", "backward"),
+            (256, 3 * 128 * 256, "forward", "none"), (256, 6 * 256, "inverse", "none")]:
         scale = {"none": 1.0, "unitary": 1.0 / math.sqrt(n),
                  "backward": 1.0 / n if direction == "inverse" else 1.0}[normalize]
         tables = to_dev(fused.lines_consts(n, direction, scale, "p"))
@@ -126,15 +147,22 @@ def phase_k2(gen):
     from webgpufft_tpu_torch.core import fused_cols
     cases = {}
     worst = 0.0
-    for pre, h, lanes in [(256, 256, 512), (1, 256, 131072), (64, 360, 512), (256, 16, 512)]:
+    # the c2c 256^3 view and other splits, then the views the r2c (batch 3)
+    # and c2r (batch 6) paths give K2 at 256^3: (b*128, 256, 512) bodies and
+    # the (b, 256, 512) Nyquist slab
+    for pre, h, lanes, direction in [
+            (256, 256, 512, "forward"), (1, 256, 131072, "forward"),
+            (64, 360, 512, "forward"), (256, 16, 512, "forward"),
+            (3 * 128, 256, 512, "forward"), (6 * 128, 256, 512, "inverse"),
+            (3, 256, 512, "forward")]:
         if h == 16:
-            tables = cols_tables_h2_is_1(h, "forward", 1.0)
+            tables = cols_tables_h2_is_1(h, direction, 1.0)
             split = (16, 1)
         else:
-            tables = to_dev(fused_cols.cols_consts(h, "forward", 1.0, "p"))
+            tables = to_dev(fused_cols.cols_consts(h, direction, 1.0, "p"))
             split = fused_cols.choose_split(h)
         x = torch.randn(pre, h, lanes, device="cuda", generator=gen)
-        label = f"K2 fused_cols view=({pre}, {h}, {lanes}) split={split} forward"
+        label = f"K2 fused_cols view=({pre}, {h}, {lanes}) split={split} {direction}"
         worst = max(worst, compare(label, fused_cols.fused_cols,
                                    fused_cols.fused_cols_reference, x, tables))
         cases[(pre, h, lanes)] = (x, tables)
@@ -190,6 +218,111 @@ def phase_3d(gen):
     print(f"3-D plan round trip: max rel err {err:.3e} vs input (limit {TOL:.0e} * max|x|)")
     require(err <= TOL, "3-D plan round trip does not return the input")
     return fwd, x
+
+
+def real_plan(kind, batch, normalize):
+    import webgpufft_tpu_torch as T
+    return T.create_plan({"type": kind, "shape": [NS_N] * 3, "batch": batch,
+                          "direction": "forward" if kind == "r2c" else "inverse",
+                          "normalize": normalize}, device="cuda")
+
+
+def check_real_route(label, plan):
+    kind = plan.spec.plan_type
+    want = (f"{kind}-axis1-fused-cols", f"{kind}-axis2-fused-lines")
+    print(f"{label}: route {plan.route.mode}, reasons {list(plan.route.reasons)}")
+    require(plan.route.mode == "pallas-mixed" and all(r in plan.route.reasons for r in want),
+            f"{label}: route {plan.route.mode} {plan.route.reasons}")
+
+
+def phase_r2c(gen):
+    """The solver's r2c plan, [256]^3 batch 3, on six fields in two calls;
+    returns the fields and their packed spectra for the c2r path."""
+    plan = real_plan("r2c", 3, "none")
+    check_real_route("r2c 256^3 b3", plan)
+    x = torch.randn(6, NS_N, NS_N, NS_N, device="cuda", generator=gen)
+    y = torch.cat([plan(x[:3]), plan(x[3:])])
+    require(tuple(y.shape) == (6, NS_N // 2 + 1, NS_N, NS_N, 2), f"r2c: output {tuple(y.shape)}")
+    check_oracle("r2c 256^3 b3", y, torch.fft.rfftn(x, dim=RFFT_DIMS))
+    return x, y
+
+
+def phase_c2r(y):
+    """The solver's c2r plan, [256]^3 batch 6, on the r2c spectra."""
+    plan = real_plan("c2r", 6, "backward")
+    check_real_route("c2r 256^3 b6", plan)
+    back = plan(y)
+    torch.cuda.synchronize()
+    want = torch.fft.irfftn(torch.view_as_complex(y), s=(NS_N,) * 3, dim=RFFT_DIMS)
+    err = rel_err(back, want)
+    print(f"c2r 256^3 b6: max rel err {err:.3e} vs torch.fft (limit {TOL:.0e} * max|expected|)")
+    require(bool(torch.isfinite(back).all()) and err <= TOL, "c2r disagrees with torch.fft")
+    return back
+
+
+def phase_real_round_trips(x, y, back):
+    err = rel_err(back, x)
+    print(f"r2c -> c2r round trip 256^3: max rel err {err:.3e} vs input (limit {TOL:.0e})")
+    require(err <= TOL, "r2c -> c2r round trip does not return the input")
+    again = real_plan("r2c", 3, "none")(back[:3])
+    torch.cuda.synchronize()
+    err = rel_err(again, y[:3])
+    print(f"c2r -> r2c round trip 256^3: max rel err {err:.3e} vs spectrum (limit {TOL:.0e})")
+    require(err <= TOL, "c2r -> r2c round trip does not return the spectrum")
+
+
+def phase_axis_kinds(gen):
+    """Rader, Bluestein and four-step c2c axes and the odd-n0 r2c paths
+    against torch.fft."""
+    import webgpufft_tpu_torch as T
+    for shape, batch, kind in [([4093], 256, "rader"), ([4099], 256, "bluestein"),
+                               ([1048576], 4, "four-step")]:
+        plan = T.create_plan({"type": "c2c", "shape": shape, "batch": batch}, device="cuda")
+        require(kind in plan.route.axis_kinds or plan.route.mode == "four-step-hbm",
+                f"c2c {shape}: route {plan.route.mode} {plan.route.axis_kinds}")
+        x = torch.randn(batch, *shape, 2, device="cuda", generator=gen)
+        check_oracle(f"c2c {shape} b{batch} ({kind}, route {plan.route.mode})", plan(x),
+                     torch.fft.fft(torch.view_as_complex(x)))
+    for shape in ([17], [9, 4]):
+        plan = T.create_plan({"type": "r2c", "shape": shape, "batch": 4096}, device="cuda")
+        x = torch.randn(4096, *shape, device="cuda", generator=gen)
+        dims = tuple(range(2, 1 + len(shape))) + (1,)
+        check_oracle(f"r2c {shape} b4096 (odd n0, route {plan.route.mode})", plan(x),
+                     torch.fft.rfftn(x, dim=dims))
+
+
+def phase_ns3d():
+    """The solver at 256^3 on two flows with analytic solutions."""
+    from webgpufft_tpu_torch.examples import navier_stokes3d as ns
+    t_end = NS_DT * NS_STEPS
+    for label, make in [("embedded Taylor-Green", ns.taylor_green_embedded),
+                        ("ABC flow", ns.abc_flow)]:
+        u = ns.run3(make(NS_N, 0.0, NS_NU, device="cuda"), NS_N, NS_NU, NS_DT, NS_STEPS,
+                    device="cuda")
+        ref = make(NS_N, t_end, NS_NU, device="cuda")
+        torch.cuda.synchronize()
+        require(tuple(u.shape) == (3, NS_N, NS_N, NS_N) and bool(torch.isfinite(u).all()),
+                f"NS-3D {label}: output {tuple(u.shape)}")
+        err = rel_err(u, ref)
+        print(f"NS-3D {label} {NS_N}^3, nu={NS_NU}, dt={NS_DT}, {NS_STEPS} steps (t={t_end:g}): "
+              f"max rel err {err:.3e} vs analytic (limit {NS_TOL:.0e})")
+        require(err < NS_TOL, f"NS-3D {label} departs from its analytic solution")
+
+
+def drive(name, paths, fn, *args):
+    """Run one path with both launch counts set to 0 just before it and
+    read just after; both kernels must have launched."""
+    from webgpufft_tpu_torch.core import fused, fused_cols
+    fused.fused_lines.launches = 0
+    fused_cols.fused_cols.launches = 0
+    out = fn(*args)
+    torch.cuda.synchronize()
+    k1, k2 = fused.fused_lines.launches, fused_cols.fused_cols.launches
+    print(f"path {name} launches: fused_lines {k1}, fused_cols {k2}")
+    require(k1 > 0, f"path {name} never launched fused_lines")
+    require(k2 > 0, f"path {name} never launched fused_cols")
+    paths[name] = (k1, k2)
+    return out
 
 
 def time_ms(fn, *args):
@@ -252,6 +385,36 @@ def phase_timing(k1_cases, k2_cases, headline, volume, card):
     return out
 
 
+def phase_solver_timing(gen, x, y, card):
+    """The solver's plans beside torch.fft, and one solver step beside the
+    same step on torch.fft.rfftn/irfftn (ms per step, CUDA events)."""
+    from webgpufft_tpu_torch.examples import navier_stokes3d as ns
+    r2c, c2r = real_plan("r2c", 3, "none"), real_plan("c2r", 6, "backward")
+    x3 = x[:3].contiguous()
+    for label, plan, arg, plain in [
+            ("r2c 256^3 b3", r2c, x3, lambda v: torch.fft.rfftn(v, dim=RFFT_DIMS)),
+            ("c2r 256^3 b6", c2r, y,
+             lambda v: torch.fft.irfftn(torch.view_as_complex(v), s=(NS_N,) * 3, dim=RFFT_DIMS))]:
+        pm = median(time_ms(plan, arg))
+        fm = median(time_ms(plain, arg))
+        print(f"time {label} plan(x): {pm:.4f} ms; torch.fft (cuFFT) {fm:.4f} ms [{card}]")
+    step, to_s, _ = ns.make_stepper3(NS_N, NS_NU, NS_DT, device="cuda")
+    fstep, _, _ = ns.make_torch_fft_stepper3(NS_N, NS_NU, NS_DT, device="cuda")
+    u_hat = to_s(0.1 * torch.randn(3, NS_N, NS_N, NS_N, device="cuda", generator=gen))
+    err = rel_err(step(u_hat), fstep(u_hat))
+    print(f"NS-3D step {NS_N}^3: max rel err {err:.3e} vs the torch.fft step "
+          f"(limit {TOL:.0e} * max|expected|)")
+    require(err <= TOL, "NS-3D step disagrees with the torch.fft step")
+    p = time_ms(fstep, u_hat)
+    k = time_ms(step, u_hat)
+    k += time_ms(step, u_hat)
+    p += time_ms(fstep, u_hat)
+    km, pm = median(k), median(p)
+    print(f"time NS-3D step {NS_N}^3 (RK2: 2 x (c2r b6 + r2c b3) + pointwise): "
+          f"port {km:.4f} ms/step, torch.fft step {pm:.4f} ms/step [{card}]")
+    return km, pm
+
+
 def main():
     card_name, smi = phase_device()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -259,31 +422,31 @@ def main():
     k1_cases, k1_err = phase_k1(gen)
     k2_cases, k2_err = phase_k2(gen)
 
-    from webgpufft_tpu_torch.core import fused, fused_cols
-    # the main path: the counts below are launches made by create_plan(...)(x) only
-    fused.fused_lines.launches = 0
-    fused_cols.fused_cols.launches = 0
-    headline = phase_headline(gen)
-    volume = phase_3d(gen)
-    k1_launches = fused.fused_lines.launches
-    k2_launches = fused_cols.fused_cols.launches
-    print(f"main path launches: fused_lines {k1_launches}, fused_cols {k2_launches}")
-    require(k1_launches > 0, "main path never launched fused_lines")
-    require(k2_launches > 0, "main path never launched fused_cols")
+    # the main paths: the counts of each are launches made by its own
+    # entry-point calls only
+    paths = {}
+    headline, volume = drive("c2c", paths, lambda: (phase_headline(gen), phase_3d(gen)))
+    x, y = drive("r2c", paths, phase_r2c, gen)
+    back = drive("c2r", paths, phase_c2r, y)
+    phase_real_round_trips(x, y, back)
+    del back
+    phase_axis_kinds(gen)
+    drive("ns3d", paths, phase_ns3d)
 
     times = phase_timing(k1_cases, k2_cases, headline, volume, smi)
+    phase_solver_timing(gen, x, y, smi)
     k1_ms, k1_plain = times[("K1", 1024)]
     k2_ms, k2_plain = times[("K2", 256, 256, 512)]
     record = {"kernels": [
-        {"name": "fused_lines", "route": "cuda",
-         "source": "webgpufft_tpu_torch/csrc/fused_lines.cu",
-         "replaces": "webgpufft_tpu/core/fused.py:223", "launches": k1_launches,
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "fused_cols", "route": "cuda",
-         "source": "webgpufft_tpu_torch/csrc/fused_cols.cu",
-         "replaces": "webgpufft_tpu/core/fused_cols.py:161", "launches": k2_launches,
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
-    ]}
+        {"name": name, "route": "cuda", "source": f"webgpufft_tpu_torch/csrc/{src}",
+         "replaces": replaces, "launches": sum(c[i] for c in paths.values()),
+         "launches_by_path": {p: c[i] for p, c in paths.items()},
+         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        for i, (name, src, replaces, err, ms, plain_ms) in enumerate([
+            ("fused_lines", "fused_lines.cu", "webgpufft_tpu/core/fused.py:223",
+             k1_err, k1_ms, k1_plain),
+            ("fused_cols", "fused_cols.cu", "webgpufft_tpu/core/fused_cols.py:161",
+             k2_err, k2_ms, k2_plain)])]}
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,

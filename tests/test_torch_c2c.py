@@ -14,6 +14,7 @@ import torch
 
 import webgpufft_tpu as W
 import webgpufft_tpu_torch as T
+from webgpufft_tpu.utils import mathref as R
 from webgpufft_tpu_torch.core.cplx import interleave
 
 CASES = [([1024], 8, "forward", "unitary"), ([2048], 8, "inverse", "backward"),
@@ -79,4 +80,62 @@ def test_routes_off_the_kernels_match_jax(shape, batch, rng, assert_close):
     tplan = T.create_plan(opts, device="cpu", cache=T.PlanCache())
     assert_close(tplan(torch.from_numpy(x)).numpy(), np.asarray(jplan(x)), label=str(shape))
     assert tplan.route.mode == jplan.route.mode
+    assert _axis_reasons(tplan.route) == _axis_reasons(jplan.route)
+
+
+def _reference_case_lists():
+    """The c2c cases of tests/test_c2c.py and tests/test_fused.py as
+    (shape, batch, direction, normalize, tuning), repeats merged."""
+    cases = []
+    for shape in [(4,), (8,), (16,), (1024,), (12,), (60,), (2310,),   # mixed radix
+                  (17,), (97,), (101,),                                # Rader primes
+                  (34,), (646,),                                       # Bluestein composites
+                  (8, 8), (16, 12), (9, 4), (17, 8), (34, 6), (4, 4, 4), (8, 3, 5),
+                  (4, 3, 2, 5), (32, 15), (1, 8), (30,)]:
+        for direction in ("forward", "inverse"):
+            cases.append((shape, 2, direction, "none", {}))
+    for normalize in ("none", "backward", "unitary"):
+        for direction in ("forward", "inverse"):
+            cases.append(((24,), 3, direction, normalize, {}))
+    cases += [((13,), 2, "forward", "none", {"forceBluesteinAxes": [0]}),
+              ((13,), 2, "forward", "none", {"forceRaderAxes": [0]}),
+              ((31,), 1, "forward", "none", {"raderMaxPrime": 20}),
+              ((30,), 1, "forward", "none", {}), ((30,), 37, "forward", "none", {}),
+              ((512, 4), 2, "forward", "none", {"maxSubLength": 8}),
+              ((32, 15), 2, "inverse", "backward", {})]
+    for n in (16, 64, 256, 1024, 4096, 12, 60, 2310):              # test_fused.py
+        for direction in ("forward", "inverse"):
+            cases.append(((n,), 16, direction, "none", {}))
+    cases += [((1024,), 16, "inverse", "backward", {}),
+              ((1024,), 16, "inverse", "unitary", {}),
+              ((256,), 32, "forward", "none", {}),
+              ((256,), 32, "forward", "none", {"impl": "xla"}),
+              ((17,), 16, "forward", "none", {}), ((64,), 2, "forward", "none", {})]
+    unique = {}
+    for shape, batch, direction, normalize, tuning in cases:
+        key = "-".join(["x".join(map(str, shape)), f"b{batch}", direction, normalize]
+                       + [f"{k}={v}" for k, v in tuning.items()])
+        unique[key] = (shape, batch, direction, normalize, tuning)
+    return [pytest.param(*c, id=k) for k, c in unique.items()]
+
+
+@pytest.mark.parametrize("shape,batch,direction,normalize,tuning", _reference_case_lists())
+def test_reference_case_lists_match_jax(shape, batch, direction, normalize, tuning,
+                                        rng, assert_close):
+    """Every c2c case of the JAX package's own c2c and fused-kernel tests,
+    through both packages under ``impl: "pallas-auto"`` unless the case
+    names another impl: the same output (and the numpy oracle's), mode,
+    axis kinds and per-axis reasons."""
+    opts = {"type": "c2c", "shape": list(shape), "batch": batch, "direction": direction,
+            "normalize": normalize, "tuning": {"impl": "pallas-auto", **tuning}}
+    z = rng.standard_normal((batch, *shape)) + 1j * rng.standard_normal((batch, *shape))
+    x = interleave(z)
+    jplan = W.create_plan(opts, cache=W.PlanCache())
+    tplan = T.create_plan(opts, device="cpu", cache=T.PlanCache())
+    got = tplan(torch.from_numpy(x)).numpy()
+    assert_close(got, np.asarray(jplan(x)), label=f"{shape} vs JAX")
+    ref = R.fft_nd(z, shape, direction, normalize)
+    assert_close(got, np.stack([ref.real, ref.imag], -1), label=f"{shape} vs numpy")
+    assert tplan.route.mode == jplan.route.mode
+    assert tplan.route.axis_kinds == jplan.route.axis_kinds
     assert _axis_reasons(tplan.route) == _axis_reasons(jplan.route)

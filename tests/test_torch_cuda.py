@@ -104,3 +104,72 @@ def test_plan_rejects_input_on_another_device(cuda_device):
                          device=cuda_device, cache=T.PlanCache())
     with pytest.raises(T.PlanError, match="plan is on"):
         plan(torch.zeros(8, 64, 2))
+
+
+def _rfft_dims(rank):
+    """torch.fft.rfftn halves the last dim it is given: list logical axis 0
+    (array dim 1) last to pack it as the plans do."""
+    return tuple(range(2, 1 + rank)) + (1,)
+
+
+@pytest.mark.parametrize("shape,kernels", [
+    ([64, 64, 64], False),      # digits 8 x 8: the rank > 1 rule keeps every axis off K1/K2
+    ([64, 256, 256], True),     # body and Nyquist axis 1 on K2, axis 2 on K1
+    ([9, 256, 256], True),      # odd n0: the widened plan
+])
+def test_real_plans_on_gpu_match_torch_fft(shape, kernels, cuda_device):
+    batch, dims = 3, _rfft_dims(len(shape))
+    fwd = T.create_plan({"type": "r2c", "shape": shape, "batch": batch},
+                        device=cuda_device, cache=T.PlanCache())
+    inv = T.create_plan({"type": "c2r", "shape": shape, "batch": batch,
+                         "direction": "inverse", "normalize": "backward"},
+                        device=cuda_device, cache=T.PlanCache())
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.randn(batch, *shape, device=cuda_device, generator=gen)
+    before = (fused.fused_lines.launches, fused_cols.fused_cols.launches)
+    y = fwd(x)
+    back = inv(y)
+    torch.cuda.synchronize()
+    launched = (fused.fused_lines.launches - before[0], fused_cols.fused_cols.launches - before[1])
+    assert (min(launched) > 0) == kernels, (launched, fwd.route.reasons)
+    want = torch.fft.rfftn(x, dim=dims)
+    assert_close(y.cpu(), torch.view_as_real(want).cpu(), label=f"r2c {shape}")
+    assert_close(back.cpu(), x.cpu(), label=f"c2r(r2c) {shape}")
+    assert_close(inv(torch.view_as_real(want).contiguous()).cpu(),
+                 torch.fft.irfftn(want, s=shape[1:] + shape[:1], dim=dims).cpu(),
+                 label=f"c2r {shape}")
+
+
+@pytest.mark.parametrize("shape,batch,tuning,kind", [
+    ([4093], 4, {}, "rader"), ([101, 256], 2, {}, "rader"),
+    ([4099], 4, {}, "bluestein"), ([323], 8, {}, "bluestein"),
+    ([65536], 2, {}, "four-step"), ([8192], 2, {"fourStepMinN": 4096}, "four-step"),
+    ([4096, 4], 1, {"fourStepMinN": 4096}, "four-step")])
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+def test_axis_kinds_on_gpu_match_torch_fft(shape, batch, tuning, kind, direction,
+                                           cuda_device):
+    plan = T.create_plan({"type": "c2c", "shape": shape, "batch": batch,
+                          "direction": direction, "normalize": "backward",
+                          "tuning": tuning}, device=cuda_device, cache=T.PlanCache())
+    assert kind in plan.route.axis_kinds or plan.route.mode == "four-step-hbm"
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(batch, *shape, 2, device=cuda_device, generator=gen)
+    y = plan(x)
+    dims = tuple(range(1, 1 + len(shape)))
+    z = torch.view_as_complex(x)
+    want = torch.fft.fftn(z, dim=dims) if direction == "forward" else torch.fft.ifftn(z, dim=dims)
+    assert_close(y.cpu(), torch.view_as_real(want).cpu(), label=f"{kind} {shape}")
+
+
+def test_ns3d_step_on_gpu_matches_torch_fft_step(cuda_device):
+    from webgpufft_tpu_torch.examples import navier_stokes3d as ns
+    n, nu, dt = 64, 2e-2, 1e-2
+    step, to_s, to_p = ns.make_stepper3(n, nu, dt, device=cuda_device)
+    fstep, _, _ = ns.make_torch_fft_stepper3(n, nu, dt, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    u_hat = to_s(0.1 * torch.randn(3, n, n, n, device=cuda_device, generator=gen))
+    assert_close(step(u_hat).cpu(), fstep(u_hat).cpu(), label="NS-3D step 64^3")
+    tg = ns.taylor_green_embedded(n, 0.0, nu, device=cuda_device)
+    got = ns.run3(tg, n, nu, dt, 4, device=cuda_device)
+    assert_close(got.cpu(), ns.taylor_green_embedded(n, 4 * dt, nu, device=cuda_device).cpu(),
+                 label="Taylor-Green 64^3")

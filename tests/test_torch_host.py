@@ -72,6 +72,52 @@ def test_dft_tables_are_bitwise(n, direction):
                           jdft.ct_twiddle(n, 12, direction))
 
 
+@pytest.mark.parametrize("n", [1, 2, 5, 17, 101, 323, 4099])
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+def test_bluestein_tables_are_bitwise(n, direction):
+    assert np.array_equal(tdft.bluestein_chirp(n, direction),
+                          jdft.bluestein_chirp(n, direction))
+    m = tfactors.next_smooth_at_least(max(2 * n - 1, 1))
+    assert np.array_equal(tdft.bluestein_kernel_fft(n, m, direction),
+                          jdft.bluestein_kernel_fft(n, m, direction))
+
+
+@pytest.mark.parametrize("p", [3, 5, 7, 13, 23, 101, 4093])
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+def test_rader_tables_are_bitwise(p, direction):
+    got, want = tdft.rader_tables(p, direction), jdft.rader_tables(p, direction)
+    for g, w in zip(got[:3], want[:3]):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    assert got[3] == want[3]
+
+
+@pytest.mark.parametrize("n0", [4, 8, 16, 256, 1024])
+def test_real_transform_tables_are_bitwise(n0):
+    from webgpufft_tpu.plans import transforms as jtr
+    from webgpufft_tpu_torch.plans import transforms as ttr
+    assert ttr.packed_shape((n0, 5, 3)) == jtr.packed_shape((n0, 5, 3))
+    for inverse in (False, True):
+        got = ttr._half_trick_consts(n0, inverse)
+        want = jtr._half_trick_consts(n0, inverse)
+        assert set(got) == set(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), k
+    q = np.exp(0.3j * np.arange(n0)) * (1 + np.arange(n0))
+    for name in ("_conj_pair", "_re_pair"):
+        for g, w in zip(getattr(ttr, name)(q), getattr(jtr, name)(q)):
+            assert g.dtype == w.dtype and np.array_equal(g, w), name
+
+
+def test_real_oracles_match_jax(rng):
+    for shape in [(8,), (9, 4), (6, 5, 3)]:
+        x = rng.standard_normal((2, *shape))
+        for norm in ("none", "backward", "unitary"):
+            packed = jmathref.r2c_packed(x, shape, norm)
+            assert np.array_equal(tmathref.r2c_packed(x, shape, norm), packed)
+            assert np.array_equal(tmathref.c2r_packed(packed, shape, norm),
+                                  jmathref.c2r_packed(packed, shape, norm))
+
+
 def test_factors_match_jax():
     for n in range(1, 5000):
         assert tfactors.split_two_balanced(n, 128) == jfactors.split_two_balanced(n, 128)
@@ -132,6 +178,8 @@ def test_apply_nd_matches_jax(rng, assert_close):
     jplans = jengine.build_axis_plans(shape, "forward", tun)
     tplans = tengine.build_axis_plans(shape, "forward", tspec.TuningSpec())
     consts = jengine.collect_consts(jplans)
+    own = tengine.collect_consts(tplans)
+    assert set(own) == set(consts) and all(np.array_equal(own[k], consts[k]) for k in consts)
     x = rng.standard_normal((2, *shape, 2)).astype(np.float32)
     got = tengine.apply_nd(torch.from_numpy(x), tplans,
                            {k: torch.from_numpy(v) for k, v in consts.items()})
@@ -164,6 +212,7 @@ def test_port_imports_without_jax():
             "from webgpufft_tpu_torch.core import axis, engine, fused, fused_cols\n"
             "from webgpufft_tpu_torch.plans import base, stages, transforms\n"
             "from webgpufft_tpu_torch.runtime import cache, policy\n"
+            "from webgpufft_tpu_torch.examples import navier_stokes3d\n"
             "bad = [m for m, mod in sys.modules.items() if mod is not None and"
             " (m in ('jax', 'webgpufft_tpu') or m.startswith(('jax.', 'webgpufft_tpu.')))]\n"
             "assert not bad, bad\n"
@@ -181,16 +230,18 @@ def test_cuda_plan_raises_without_a_gpu():
 
 
 @pytest.mark.parametrize("opts,item", [
-    ({"type": "r2c", "shape": [16]}, "P4"),
-    ({"type": "c2r", "shape": [16], "direction": "inverse"}, "P4"),
+    ({"type": "r2c", "shape": [16], "layout": {"inputStrides": [1]}}, "P7"),
+    ({"type": "c2r", "shape": [16], "direction": "inverse",
+      "precision": "bf16-storage"}, "P7"),
     ({"type": "dct2", "shape": [16]}, "P5"),
     ({"type": "fftconv", "shape": [16]}, "P6"),
     ({"type": "conv2d", "shape": [8, 8], "conv": {"kernelSize": 3}}, "P6"),
-    ({"type": "c2c", "shape": [17]}, "P3"),                       # Rader
-    ({"type": "c2c", "shape": [4099]}, "P3"),                     # Bluestein (prime > raderMaxPrime)
-    ({"type": "c2c", "shape": [34]}, "P3"),                       # Bluestein (2 * 17)
-    ({"type": "c2c", "shape": [1 << 16]}, "P3"),                  # four-step
-    ({"type": "c2c", "shape": [64], "tuning": {"forceBluesteinAxes": [0]}}, "P3"),
+    ({"type": "dst4", "shape": [17]}, "P5"),
+    ({"type": "dct1", "shape": [8, 8]}, "P5"),
+    ({"type": "r2c", "shape": [8, 8], "zeroPad": {"read": {"start": [2, 0]}}}, "P7"),
+    ({"type": "c2r", "shape": [34], "direction": "inverse",
+      "ioView": {"output": {"shape": [16]}}}, "P7"),
+    ({"type": "r2c", "shape": [64], "tuning": {"rigor": "measure"}}, "P8"),
     ({"type": "c2c", "shape": [8], "layout": {"inputStrides": [1]}}, "P7"),
     ({"type": "c2c", "shape": [8], "zeroPad": {"read": {"start": [2]}}}, "P7"),
     ({"type": "c2c", "shape": [8], "ioView": {"input": {"shape": [4]}}}, "P7"),

@@ -11,9 +11,10 @@ first use):
                        device="cuda")
     y = plan(x)              # x: float32 (4096, 1024, 2) on the plan's device
 
-This slice ports c2c plans over smooth axis lengths.  Everything else raises
-``PlanError`` naming the ROADMAP item that ports it.  The package imports
-torch and numpy only, never JAX.
+c2c plans over any axis length (mixed-radix, four-step, Rader, Bluestein)
+and r2c/c2r plans (packed half-spectrum along logical axis 0) are ported.
+Everything else raises ``PlanError`` naming the ROADMAP item that ports it.
+The package imports torch and numpy only, never JAX.
 """
 
 from __future__ import annotations
@@ -36,8 +37,8 @@ __all__ = [
     "interleave", "uninterleave",
 ]
 
-# plan types outside this slice -> the ROADMAP item that ports them
-_NOT_PORTED = {"r2c": "P4", "c2r": "P4", "fftconv": "P6", "conv2d": "P6"}
+# plan types not ported yet -> the ROADMAP item that ports them
+_NOT_PORTED = {"fftconv": "P6", "conv2d": "P6"}
 
 
 def _resolve_device(device) -> torch.device:
@@ -60,6 +61,12 @@ def _build_plan(spec: PlanSpec, device: torch.device) -> Plan:
     if t == "c2c":
         from .plans.transforms import build_c2c
         return build_c2c(spec, device)
+    if t == "r2c":
+        from .plans.transforms import build_r2c
+        return build_r2c(spec, device)
+    if t == "c2r":
+        from .plans.transforms import build_c2r
+        return build_c2r(spec, device)
     item = _NOT_PORTED.get(t, "P5")  # dct1-4 / dst1-4
     raise PlanError(f"plan type {t!r} is not ported to the PyTorch port yet "
                     f"(ROADMAP {item})", plan_type=t)
@@ -110,9 +117,13 @@ def tables_from_reference(np_consts: Dict[str, np.ndarray],
                           device) -> Dict[str, torch.Tensor]:
     """Turn a JAX plan's numpy tables into this port's tables on ``device``.
 
-    ``ax*/…`` (einsum route) and ``fc*/…`` (K2) tables pass through.  The
-    K1 tables under each ``fl*`` prefix are recovered from the JAX
-    package's Mosaic layout by reshaping and slicing
+    Every table passes through with its dtype (Rader's ``perm_in`` and
+    ``scatter`` stay int32): the einsum route's ``ax*/…`` tables with their
+    four-step (``tw*``, ``s1``, ``s2``), Bluestein (``chirp*``, ``hfft*``)
+    and Rader (``bfft*``, ``perm_in``, ``scatter``) parts and inner
+    ``mf``/``mi`` plans, the r2c/c2r ``rc/*`` and ``cr/*`` tables, and the
+    K2 ``fc*/…`` tables.  The K1 tables under each ``fl*`` prefix are
+    recovered from the JAX package's Mosaic layout by reshaping and slicing
     (``core.fused.tables_from_reference``); its Mosaic-only tables (``pil``
     and the v2 ``ta``/``tb``) are dropped.  Nothing is recomputed.
     Load the result with ``Plan.load_consts``.

@@ -6,7 +6,9 @@ applied along its array axis.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Sequence
+
+import numpy as np
 
 from .axis import AxisPlan, apply_along_axis, build_axis_plan
 from ..utils.mathref import normalize_scale
@@ -16,6 +18,13 @@ def build_axis_plans(shape: Sequence[int], direction: str, tuning,
                      prefix: str = "ax") -> List[AxisPlan]:
     return [build_axis_plan(n, d, direction, tuning, f"{prefix}{d}")
             for d, n in enumerate(shape)]
+
+
+def collect_consts(axis_plans: Sequence[AxisPlan]) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for ap in axis_plans:
+        out.update(ap.consts())
+    return out
 
 
 def apply_nd(x, axis_plans: Sequence[AxisPlan], consts, batch_dims: int = 1):

@@ -2,9 +2,10 @@
 
 Port of ``webgpufft_tpu/plans/base.py`` for the no-layout case.  A plan
 lives on one torch device: its tables are tensors there, and ``plan(x)``
-checks that ``x`` is an interleaved float32 ``(batch, *shape, 2)`` tensor on
-that device before it runs, returning a fresh tensor.  Outputs are not
-differentiable yet (ROADMAP P9).
+checks that ``x`` is a float32 tensor of the plan's input shape on that
+device before it runs, returning a fresh tensor.  The input shape is
+interleaved ``(batch, *shape, 2)`` except for r2c, which takes real
+``(batch, *shape)``.  Outputs are not differentiable yet (ROADMAP P9).
 """
 
 from __future__ import annotations
@@ -34,11 +35,13 @@ class Plan:
 
     def __init__(self, spec: PlanSpec, consts: Dict[str, np.ndarray],
                  fn: Callable, route: RouteInfo, *, device: torch.device,
-                 input_shape: Tuple[int, ...], output_shape: Tuple[int, ...]):
+                 input_shape: Tuple[int, ...], output_shape: Tuple[int, ...],
+                 input_interleaved: bool = True):
         self.spec = spec
         self.route = route
         self.device = device
         self.input_shape = input_shape
+        self.input_interleaved = input_interleaved
         self.output_shape = output_shape
         self._fn = fn
         self._consts = {k: torch.as_tensor(np.ascontiguousarray(v), device=device)
@@ -51,14 +54,21 @@ class Plan:
 
     def load_consts(self, tables: Dict[str, torch.Tensor]) -> "Plan":
         """Replace the plan's tables with ``tables`` (e.g. the JAX package's,
-        converted by ``tables_from_reference``): same names and shapes."""
+        converted by ``tables_from_reference``): same names and shapes.
+        Each table takes the dtype of the plan's own, so index tables stay
+        integer; a float table for an integer one, or the reverse, raises."""
         if set(tables) != set(self._consts):
             raise PlanError("load_consts: table names differ from the plan's",
                             missing=sorted(set(self._consts) - set(tables)),
                             unexpected=sorted(set(tables) - set(self._consts)))
         new = {}
         for k, v in tables.items():
-            t = torch.as_tensor(v).to(device=self.device, dtype=torch.float32).contiguous()
+            t = torch.as_tensor(v)
+            want = self._consts[k].dtype
+            if t.is_floating_point() != want.is_floating_point:
+                raise PlanError(f"load_consts: table {k!r} has dtype {t.dtype}, "
+                                f"the plan's has {want}")
+            t = t.to(device=self.device, dtype=want).contiguous()
             if t.shape != self._consts[k].shape:
                 raise PlanError(f"load_consts: table {k!r} has shape "
                                 f"{tuple(t.shape)}, the plan's has "
@@ -89,7 +99,8 @@ class Plan:
             raise PlanError(f"{t}: plan outputs are not differentiable yet "
                             "(ROADMAP P9); pass a tensor that does not "
                             "require grad")
-        validate_input_shape(self, x, self.input_shape, True, self.spec.precision)
+        validate_input_shape(self, x, self.input_shape, self.input_interleaved,
+                             self.spec.precision)
         want = stages.expect_dtype(self.spec.precision)
         if x.dtype != want:
             raise PlanError(

@@ -7,7 +7,14 @@ keep the JAX package's names so route metadata compares across packages:
                   last axis, K2 on the others).  ``impl`` "pallas" and
                   "pallas-auto" keep their names and mean these kernels.
 - "pallas-mixed": some axes run the kernels, the rest the einsum route.
+- "four-step-hbm": no kernel runs and some axis takes the four-step
+                  einsum route (core/axis.FourStepAxisPlan).
 - "xla":          every axis runs the torch einsum route (core/axis.py).
+
+``resolve_route`` gives the plan-level verdict; the plan builders
+(plans/transforms.py) then set the mode from the kernel chosen for each
+axis pass.  Under ``impl: "xla"`` an r2c/c2r plan keeps the verdict, as in
+the JAX package.
 
 The JAX package's ``impl: "auto"`` consults a recorded TPU verdict; the
 port has none, and routes ``auto`` like ``pallas-auto`` with the reason code
