@@ -4,7 +4,9 @@
 
 Builds the hand-written CUDA kernels from the checkout's sources, holds each
 kernel against its plain PyTorch version (at the shapes the paths below give
-it, and at other splits), and drives four paths through the
+it, and at lengths that stress the radix chain: the shared-memory limit, every
+odd radix, one-butterfly lengths, a ragged column count, small digits), and
+drives four paths through the
 port's entry points, each with the kernels' launch counts set to 0 just
 before it and read just after (each must launch both kernels):
 
@@ -19,9 +21,13 @@ before it and read just after (each must launch both kernels):
 
 Plans and kernels are checked against ``torch.fft`` as an independent
 oracle, as are the Rader, Bluestein and four-step axes and the odd-length
-r2c paths.  Then each kernel, plan and the solver step are timed beside
-their plain versions.  Every phase raises on failure, so the script exits
-non-zero; it never falls back to the CPU.
+r2c paths.  Then each kernel is timed beside its plain version, its bound
+(the bytes it must move, one read and one write, over the data sheet's
+3.35 TB/s, or its flops over 67 TFLOP/s if that is more) and the one
+``torch.fft.fft`` call that computes the same function (cuFFT, a yardstick the
+port never calls), and each plan and the solver step beside ``torch.fft``.
+Every phase raises on failure, so the script exits non-zero; it never falls
+back to the CPU.
 
 Tolerance, unless a phase says otherwise: max|actual - expected| <= 1e-5 *
 max|expected|, the JAX package's f32 accuracy bar.  TF32 is switched off for
@@ -44,7 +50,10 @@ TOL = 1e-5
 NS_TOL = 1e-4      # the solver against its analytic solutions
 SEED = 1234
 WARMUP = 5
-RUNS = 25          # timed launches per block; two blocks per version
+RUNS = 25          # timed calls per block; two blocks per version
+QUEUED = 10        # back-to-back launches per timed run of a kernel
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, outside the tensor cores
 NS_N, NS_NU, NS_DT, NS_STEPS = 256, 2e-2, 1e-2, 5
 RFFT_DIMS = (2, 3, 1)   # torch.fft.rfftn packs the last dim given: logical axis 0
 
@@ -62,15 +71,20 @@ def require(cond, msg):
         raise AssertionError(msg)
 
 
+def card_line():
+    """The first card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     name = torch.cuda.get_device_name(0)
     print(f"device: {name}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"count {torch.cuda.device_count()}")
@@ -98,10 +112,11 @@ def to_dev(consts):
 
 def cols_tables_h2_is_1(h, direction, scale):
     """K2 tables for the degenerate split (h, 1): stage 1 is the identity."""
-    from webgpufft_tpu_torch.core import dft
+    from webgpufft_tpu_torch.core import dft, radix
     w1 = dft.dft_matrix(h, direction) * np.complex64(scale)
     ones = np.ones((h, 1, 1), np.float32)
-    return to_dev({"p/w1re": w1.real.astype(np.float32),
+    return to_dev({**radix.chain_consts(h, direction, scale, "p"),
+                   "p/w1re": w1.real.astype(np.float32),
                    "p/w1im": w1.imag.astype(np.float32),
                    "p/tre": ones, "p/tim": np.zeros_like(ones),
                    "p/w2re": np.ones((1, 1), np.float32),
@@ -122,39 +137,50 @@ def compare(label, kernel, plain, x, tables):
 
 
 def phase_k1(gen):
-    from webgpufft_tpu_torch.core import fused
+    from webgpufft_tpu_torch.core import fused, radix
     cases = {}
     worst = 0.0
-    # the headline and non-square splits, then the shapes the r2c
-    # (batch 3) and c2r (batch 6) paths give K1 at 256^3: b*128*256 body
-    # lines and b*256 Nyquist-slab lines of 256
+    # the headline and non-square splits; the shapes the r2c (batch 3) and c2r
+    # (batch 6) paths give K1 at 256^3 (b*128*256 body lines and b*256
+    # Nyquist-slab lines of 256); then lengths that stress the radix chain:
+    # 128 * 128 (the shared-memory limit), every odd radix, 13 * 13 * 8, short
+    # lines that take the multi-line CTA, and the small digits 8 * 8 and 8 * 16
     for n, lines, direction, normalize in [
             (1024, 4096, "forward", "unitary"), (1024, 4096, "inverse", "unitary"),
             (2048, 4096, "forward", "none"), (360, 4096, "inverse", "backward"),
-            (256, 3 * 128 * 256, "forward", "none"), (256, 6 * 256, "inverse", "none")]:
+            (256, 3 * 128 * 256, "forward", "none"), (256, 6 * 256, "inverse", "none"),
+            (16384, 512, "inverse", "backward"), (2310, 2048, "forward", "unitary"),
+            (4096, 4096, "forward", "none"), (1352, 1025, "inverse", "unitary"),
+            (16, 100003, "forward", "none"), (6, 77, "inverse", "backward"),
+            (64, 65536, "forward", "none"), (128, 8192, "inverse", "unitary")]:
         scale = {"none": 1.0, "unitary": 1.0 / math.sqrt(n),
                  "backward": 1.0 / n if direction == "inverse" else 1.0}[normalize]
         tables = to_dev(fused.lines_consts(n, direction, scale, "p"))
         x = torch.randn(lines, n, 2, device="cuda", generator=gen)
-        label = f"K1 fused_lines N={n} split={fused.choose_split(n)} lines={lines} {direction} {normalize}"
+        label = (f"K1 fused_lines N={n} chain={radix.radix_chain(n)} lines={lines} "
+                 f"{direction} {normalize}")
         worst = max(worst, compare(label, fused.fused_lines, fused.fused_lines_reference,
                                    x, tables))
-        cases[(n, lines, direction)] = (x, tables)
+        cases[(n, lines, direction)] = (x, tables, normalize)
     return cases, worst
 
 
 def phase_k2(gen):
-    from webgpufft_tpu_torch.core import fused_cols
+    from webgpufft_tpu_torch.core import fused_cols, radix
     cases = {}
     worst = 0.0
-    # the c2c 256^3 view and other splits, then the views the r2c (batch 3)
-    # and c2r (batch 6) paths give K2 at 256^3: (b*128, 256, 512) bodies and
-    # the (b, 256, 512) Nyquist slab
+    # the c2c 256^3 view and other splits; the views the r2c (batch 3) and c2r
+    # (batch 6) paths give K2 at 256^3 ((b*128, 256, 512) bodies and the
+    # (b, 256, 512) Nyquist slab); then a tall tile at the shared-memory limit,
+    # a ragged column count (33), every odd radix, and the small-digit views
+    # 8 * 16 and 8 * 8 of rank > 1 plans
     for pre, h, lanes, direction in [
             (256, 256, 512, "forward"), (1, 256, 131072, "forward"),
             (64, 360, 512, "forward"), (256, 16, 512, "forward"),
             (3 * 128, 256, 512, "forward"), (6 * 128, 256, 512, "inverse"),
-            (3, 256, 512, "forward")]:
+            (3, 256, 512, "forward"), (8, 16384, 64, "inverse"), (5, 2048, 66, "forward"),
+            (3, 2310, 66, "inverse"), (4, 1352, 130, "forward"),
+            (3 * 128, 128, 512, "forward"), (64, 64, 128, "inverse")]:
         if h == 16:
             tables = cols_tables_h2_is_1(h, direction, 1.0)
             split = (16, 1)
@@ -162,10 +188,11 @@ def phase_k2(gen):
             tables = to_dev(fused_cols.cols_consts(h, direction, 1.0, "p"))
             split = fused_cols.choose_split(h)
         x = torch.randn(pre, h, lanes, device="cuda", generator=gen)
-        label = f"K2 fused_cols view=({pre}, {h}, {lanes}) split={split} {direction}"
+        label = (f"K2 fused_cols view=({pre}, {h}, {lanes}) split={split} "
+                 f"chain={radix.radix_chain(h)} {direction}")
         worst = max(worst, compare(label, fused_cols.fused_cols,
                                    fused_cols.fused_cols_reference, x, tables))
-        cases[(pre, h, lanes)] = (x, tables)
+        cases[(pre, h, lanes)] = (x, tables, direction)
     return cases, worst
 
 
@@ -326,7 +353,8 @@ def drive(name, paths, fn, *args):
 
 
 def time_ms(fn, *args):
-    """Median of RUNS single-launch times from CUDA events, after WARMUP."""
+    """RUNS single-call times from CUDA events on an idle device, after
+    WARMUP: the host's share of the call is in each."""
     for _ in range(WARMUP):
         fn(*args)
     times = []
@@ -346,31 +374,88 @@ def median(xs):
     return xs[len(xs) // 2] if len(xs) % 2 else 0.5 * (xs[len(xs) // 2 - 1] + xs[len(xs) // 2])
 
 
-def time_pair(label, kernel, plain, args, nbytes, card):
-    """Plain, kernel, kernel, plain: medians over both blocks of each."""
-    p = time_ms(plain, *args)
-    k = time_ms(kernel, *args)
-    k += time_ms(kernel, *args)
-    p += time_ms(plain, *args)
-    km, pm = median(k), median(p)
-    print(f"time {label}: kernel {km:.4f} ms ({nbytes / km / 1e6:.1f} GB/s), "
-          f"plain {pm:.4f} ms ({nbytes / pm / 1e6:.1f} GB/s), "
-          f"min-bytes {nbytes} [{card}]")
-    return km, pm
+def time_queued(fn, *args, runs=RUNS):
+    """Device time of one call: median over ``runs`` of QUEUED back-to-back
+    calls between two CUDA events, over QUEUED.  A long elementwise pass is
+    queued first, so the device is still busy while the host enqueues and
+    the calls run back to back: the host's share of a call (tens of
+    microseconds in the wrappers) is left out unless it exceeds the device's."""
+    if time_queued.blocker is None:
+        time_queued.blocker = torch.zeros(1 << 28, device="cuda")
+    for _ in range(WARMUP):
+        fn(*args)
+    times = []
+    for _ in range(runs):
+        time_queued.blocker.add_(1.0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(QUEUED):
+            fn(*args)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / QUEUED)
+    return times
+
+
+time_queued.blocker = None
+
+
+def fft_norm(direction, normalize):
+    """The ``norm`` of torch.fft that matches a plan's normalize."""
+    if normalize == "unitary":
+        return "ortho"
+    unscaled = "backward" if direction == "forward" else "forward"
+    return unscaled if normalize == "none" else "backward"
+
+
+def time_kernel(label, kernel, plain, library, args, n, transforms, card):
+    """One kernel shape: the kernel's device time beside its plain version's
+    and the library call's (plain, library, kernel, kernel, library, plain:
+    medians over both blocks of each), its bound, and the single-call time
+    from an idle device, host share included."""
+    nbytes = 16 * n * transforms                       # one read, one write
+    flops = 5.0 * n * math.log2(n) * transforms        # a radix-2 FFT's count
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    bound, bound_by = max((by_bytes, "bytes"), (by_ops, "operations"))
+    p = time_queued(plain, *args, runs=8)
+    f = time_queued(library, args[0])
+    k = time_queued(kernel, *args)
+    k += time_queued(kernel, *args)
+    f += time_queued(library, args[0])
+    p += time_queued(plain, *args, runs=8)
+    km, pm, fm = median(k), median(p), median(f)
+    idle = median(time_ms(kernel, *args))
+    print(f"time {label}: kernel {km:.4f} ms ({nbytes / km / 1e6:.1f} GB/s, "
+          f"roofline share {bound / km:.2f}), plain {pm:.4f} ms, bound {bound:.4f} ms by "
+          f"{bound_by} ({nbytes} bytes at 3.35 TB/s), torch.fft.fft (cuFFT) {fm:.4f} ms; "
+          f"one call from idle {idle:.4f} ms [{card}]")
+    return {"ms": km, "plain_ms": pm, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": fm}
 
 
 def phase_timing(k1_cases, k2_cases, headline, volume, card):
     from webgpufft_tpu_torch.core import fused, fused_cols
     out = {}
-    for (n, lines, direction), (x, t) in k1_cases.items():
+    for (n, lines, direction), (x, t, normalize) in k1_cases.items():
         if (n, direction) == (1024, "inverse"):
             continue  # same work as the forward headline
-        out[("K1", n)] = time_pair(f"K1 fused_lines N={n} lines={lines}", fused.fused_lines,
-                                   fused.fused_lines_reference, (x, t), 16 * n * lines, card)
-    for (pre, h, lanes), (x, t) in k2_cases.items():
-        out[("K2", pre, h, lanes)] = time_pair(
+        fft = torch.fft.fft if direction == "forward" else torch.fft.ifft
+        norm = fft_norm(direction, normalize)
+        out[("K1", n, lines)] = time_kernel(
+            f"K1 fused_lines N={n} lines={lines}", fused.fused_lines,
+            fused.fused_lines_reference,
+            lambda v, fft=fft, norm=norm: fft(torch.view_as_complex(v), dim=-1, norm=norm),
+            (x, t), n, lines, card)
+    for (pre, h, lanes), (x, t, direction) in k2_cases.items():
+        fft = torch.fft.fft if direction == "forward" else torch.fft.ifft
+        norm = fft_norm(direction, "none")
+        out[("K2", pre, h, lanes)] = time_kernel(
             f"K2 fused_cols view=({pre}, {h}, {lanes})", fused_cols.fused_cols,
-            fused_cols.fused_cols_reference, (x, t), 8 * pre * h * lanes, card)
+            fused_cols.fused_cols_reference,
+            lambda v, fft=fft, norm=norm: fft(
+                torch.view_as_complex(v.view(v.shape[0], v.shape[1], -1, 2)), dim=1, norm=norm),
+            (x, t), h, pre * lanes // 2, card)
     for label, (plan, x), oracle in [
             ("headline plan(x) c2c [1024] b4096", headline,
              lambda z: torch.fft.fft(z, norm="ortho")),
@@ -435,18 +520,17 @@ def main():
 
     times = phase_timing(k1_cases, k2_cases, headline, volume, smi)
     phase_solver_timing(gen, x, y, smi)
-    k1_ms, k1_plain = times[("K1", 1024)]
-    k2_ms, k2_plain = times[("K2", 256, 256, 512)]
+    # each kernel's record carries the times of its headline shape
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": f"webgpufft_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": sum(c[i] for c in paths.values()),
          "launches_by_path": {p: c[i] for p, c in paths.items()},
-         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        for i, (name, src, replaces, err, ms, plain_ms) in enumerate([
+         "max_abs_err": err, "shape": shape, **times[key]}
+        for i, (name, src, replaces, err, shape, key) in enumerate([
             ("fused_lines", "fused_lines.cu", "webgpufft_tpu/core/fused.py:223",
-             k1_err, k1_ms, k1_plain),
+             k1_err, "N=1024 x 4096 lines", ("K1", 1024, 4096)),
             ("fused_cols", "fused_cols.cu", "webgpufft_tpu/core/fused_cols.py:161",
-             k2_err, k2_ms, k2_plain)])]}
+             k2_err, "view (256, 256, 512)", ("K2", 256, 256, 512))])]}
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,

@@ -29,7 +29,14 @@ def _dev_tables(consts, device):
 
 @pytest.mark.parametrize("n,lines,direction", [
     (1024, 512, "forward"), (2048, 64, "inverse"), (360, 64, "forward"),
-    (1000, 33, "inverse"), (2310, 16, "forward"), (16384, 3, "inverse"), (4, 9, "forward")])
+    (1000, 33, "inverse"), (2310, 16, "forward"), (16384, 3, "inverse"), (4, 9, "forward"),
+    # the radix chain's corners: every odd radix, 13 * 13 * 8, all-16 and
+    # all-3 chains, one- and two-butterfly lines, a ragged last CTA, chains
+    # that need the 1024-thread kernel, and the small digits 8 * 8 and 8 * 16
+    # at the line counts of a rank > 1 plan
+    (4096, 5, "inverse"), (1352, 11, "forward"), (16, 1001, "forward"), (6, 77, "inverse"),
+    (121, 50, "forward"), (14641, 2, "forward"), (15360, 2, "inverse"), (6561, 3, "forward"),
+    (8192, 3, "inverse"), (256, 1537, "forward"), (64, 8192, "forward"), (128, 8192, "inverse")])
 def test_fused_lines_kernel_matches_plain(n, lines, direction, cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(n)
     t = _dev_tables(fused.lines_consts(n, direction, 1.0 / math.sqrt(n), "p"), cuda_device)
@@ -43,7 +50,12 @@ def test_fused_lines_kernel_matches_plain(n, lines, direction, cuda_device):
 
 @pytest.mark.parametrize("pre,h,lanes", [
     (4, 256, 512), (1, 256, 8192), (3, 360, 130), (2, 7, 128), (2, 16, 6),
-    (2, 16384, 4), (2, 2048, 66)])
+    (2, 16384, 4), (2, 2048, 66),
+    # tall tiles at the shared-memory limit, ragged column counts (33, 65),
+    # every odd radix, one-butterfly heights, and the small-digit views
+    # 8 * 16 and 8 * 8 inside rank > 1 geometry
+    (8, 16384, 64), (3, 2310, 66), (2, 1352, 130), (5, 121, 256), (3, 14641, 2),
+    (2, 13, 70), (3, 16, 512), (2, 4096, 66), (384, 128, 512), (64, 64, 128)])
 def test_fused_cols_kernel_matches_plain(pre, h, lanes, cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(h)
     t = _dev_tables(fused_cols.cols_consts(h, "inverse", 1.0 / h, "p"), cuda_device)
@@ -70,7 +82,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
             fused.fused_lines(x, lt)
     with pytest.raises(ValueError, match="table"):
         fused.fused_lines(torch.zeros(8, 256, 2, device=cuda_device),
-                          {**lt, "f1re": lt["f1re"].cpu()})
+                          {**lt, "cw": lt["cw"].cpu()})
+    with pytest.raises(ValueError, match="table"):
+        fused_cols.fused_cols(torch.zeros(2, 256, 8, device=cuda_device),
+                              {**ct, "cp": ct["cp"][:1]})
     with pytest.raises(ValueError):
         fused_cols.fused_cols(torch.zeros(2, 256, 7, device=cuda_device), ct)  # odd L
     assert (fused.fused_lines.launches, fused_cols.fused_cols.launches) == before

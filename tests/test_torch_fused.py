@@ -56,15 +56,18 @@ def test_split_matches_jax(n):
     assert fused.supports_length(n) == jfused.supports_length(n, TuningSpec())
 
 
-@pytest.mark.parametrize("n", [2048, 360, 1000, 2310])
-def test_tables_from_reference_are_bitwise(n):
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+@pytest.mark.parametrize("n", [2048, 360, 1000, 2310, 4, 1352, 16384])
+def test_tables_from_reference_are_bitwise(n, direction):
     """The K1 tables recovered from the JAX package's Mosaic layout equal
-    the port's own, bit for bit (non-square splits pin the digit order)."""
+    the port's own, bit for bit (non-square splits pin the digit order),
+    and so do the CUDA kernel's tables (``cw``, ``cp``), rebuilt from the
+    length, direction and scale that the recovered tables give."""
     scale = 1.0 / math.sqrt(n)
-    ref = jfused.fused_consts(n, "inverse", scale, "fl0")
+    ref = jfused.fused_consts(n, direction, scale, "fl0")
     got = fused.tables_from_reference(ref, "fl0")
-    own = fused.lines_consts(n, "inverse", scale, "fl0")
-    assert set(got) == set(own)
+    own = fused.lines_consts(n, direction, scale, "fl0")
+    assert set(got) == set(own) == {f"fl0/{k}" for k in fused.TABLE_NAMES}
     for k in own:
         assert got[k].shape == own[k].shape, k
         assert np.array_equal(got[k], own[k]), k

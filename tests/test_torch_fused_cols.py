@@ -30,6 +30,7 @@ def test_cols_match_jax(h, lanes, direction, rng, assert_close):
     fn = jcols.build_fused_cols(PRE, h, lanes, direction, scale, consts, "p", BIG_VMEM)
     want = np.asarray(fn(jnp.asarray(x), {k: jnp.asarray(v) for k, v in consts.items()}))
     own = fused_cols.cols_consts(h, direction, scale, "p")
+    assert set(own) - set(consts) == {"p/cw", "p/cp"}  # the CUDA kernel's own
     for k, v in consts.items():  # same host tables, bit for bit
         assert np.array_equal(own[k], v), k
     tables = {k.rsplit("/", 1)[1]: torch.from_numpy(v) for k, v in own.items()}
@@ -44,6 +45,21 @@ def test_cols_match_jax(h, lanes, direction, rng, assert_close):
 def test_split_matches_jax(h):
     assert fused_cols.choose_split(h) == jcols.choose_split(h)
     assert fused_cols.supports_length(h) == jcols.supports_length(h)
+
+
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+@pytest.mark.parametrize("h", [256, 2048, 360, 7, 2, 3, 16, 1352])
+def test_tables_from_reference_are_bitwise(h, direction):
+    """The JAX package's K2 tables pass through, and the CUDA kernel's tables
+    (``cw``, ``cp``), rebuilt from the length, direction and scale that those
+    tables give, equal the port's own bit for bit."""
+    scale = 1.0 / h if direction == "inverse" else 0.125
+    ref = jcols.cols_consts(h, direction, scale, "fc1")
+    got = fused_cols.tables_from_reference(ref, "fc1")
+    own = fused_cols.cols_consts(h, direction, scale, "fc1")
+    assert set(got) == set(own) == {f"fc1/{k}" for k in fused_cols.TABLE_NAMES}
+    for k in own:
+        assert got[k].dtype == own[k].dtype and np.array_equal(got[k], own[k]), k
 
 
 def test_wrapper_rejects_unsupported_device():

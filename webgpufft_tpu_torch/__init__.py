@@ -125,14 +125,19 @@ def tables_from_reference(np_consts: Dict[str, np.ndarray],
     K2 ``fc*/…`` tables.  The K1 tables under each ``fl*`` prefix are
     recovered from the JAX package's Mosaic layout by reshaping and slicing
     (``core.fused.tables_from_reference``); its Mosaic-only tables (``pil``
-    and the v2 ``ta``/``tb``) are dropped.  Nothing is recomputed.
+    and the v2 ``ta``/``tb``) are dropped.  Only the CUDA kernels' own
+    tables (``cw``, ``cp`` under each ``fl*`` and ``fc*`` prefix), which the
+    JAX package has no counterpart of, are built anew, from the length,
+    direction and scale that the prefix's other tables give.
     Load the result with ``Plan.load_consts``.
     """
-    from .core import fused
+    from .core import fused, fused_cols
     line_prefixes = {k.rsplit("/", 1)[0] for k in np_consts if k.endswith("/g1")}
     out = {k: v for k, v in np_consts.items()
            if k.rsplit("/", 1)[0] not in line_prefixes}
     for prefix in sorted(line_prefixes):
         out.update(fused.tables_from_reference(np_consts, prefix))
+    for prefix in sorted(k.rsplit("/", 1)[0] for k in np_consts if k.endswith("/w1re")):
+        out.update(fused_cols.tables_from_reference(np_consts, prefix))
     return {k: torch.as_tensor(np.ascontiguousarray(v), device=device)
             for k, v in out.items()}

@@ -1,42 +1,50 @@
 """Build the package's CUDA kernels on first use and bind them with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface (no PyTorch headers, so the build takes seconds, not minutes):
+``nvcc`` compiles every ``csrc/*.cu`` (which include ``csrc/*.cuh``) into
+one shared library with a plain C interface (no PyTorch headers, so the
+build takes seconds, not minutes).  One ``nvcc -c`` per source, all started
+together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o _build/libwgfft_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o _build/<name>.o csrc/<name>.cu
+    nvcc -shared -o _build/libwgfft_<hash>.so _build/*.o
 
 The library lands in ``_build/`` beside this file, named by a hash of the
-sources and the flags, so a later process in the same checkout reuses it and
-an edited source builds anew.  Nothing is prebuilt or downloaded.  Only the
-first CUDA launch calls :func:`library`; importing this module touches
-neither ``nvcc`` nor the GPU.
+sources, the headers and the flags, so a later process in the same checkout
+reuses it and an edited source builds anew.  Nothing is prebuilt or
+downloaded.  Only the first CUDA launch calls :func:`library`; importing
+this module touches neither ``nvcc`` nor the GPU.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+from functools import lru_cache
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
+_INTS = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
-    # x, y, f2re, f2im, twre, twim, f1re, f1im, lines, n1, n2, stream
-    "wgfft_fused_lines": (_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
-                          ctypes.c_int, ctypes.c_int, _P),
-    # x, y, w1re, w1im, tre, tim, w2re, w2im, pre, h1, h2, cols, stream
-    "wgfft_fused_cols": (_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
-                         ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P),
+    # x, y, cw, cp, lines, n, radices, count, stream
+    "wgfft_fused_lines": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                          _INTS, ctypes.c_int, _P),
+    # x, y, cw, cp, pre, h, cols, radices, count, stream
+    "wgfft_fused_cols": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                         ctypes.c_longlong, _INTS, ctypes.c_int, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -59,10 +67,14 @@ def sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers():
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libwgfft_{h.hexdigest()[:16]}.so"
@@ -75,14 +87,31 @@ def build() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}: "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent process sees all or nothing
+    stem = f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in sources():
+        obj = BUILD_DIR / f"{stem}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    logs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, _, proc in jobs]
+    tmp = BUILD_DIR / f"{stem}.tmp.so"
+    try:
+        for cmd, log, rc in logs:
+            _require_ok(cmd, log, rc)
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        _require_ok(cmd, proc.stdout, proc.returncode)
+        os.replace(tmp, out)  # atomic: a concurrent process sees all or nothing
+    finally:
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
     return out
+
+
+def _require_ok(cmd, log: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed with exit code {rc}: {' '.join(cmd)}\n{log}")
 
 
 def library() -> ctypes.CDLL:
@@ -98,6 +127,21 @@ def library() -> ctypes.CDLL:
         lib.wgfft_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+@lru_cache(maxsize=None)
+def chain_arg(radices: Tuple[int, ...]):
+    """The radix chain as the (int*, count) pair the entry points take."""
+    return (ctypes.c_int * len(radices))(*radices), len(radices)
+
+
+def on_device(device):
+    """Context in which ``device`` is the current CUDA device: a launch goes
+    to the current device's stream.  Nothing to switch, and nothing to pay,
+    when it already is."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def table_ptrs(x, tables, shapes, kernel: str):

@@ -1,7 +1,12 @@
 """K1, the fused line kernel: batched c2c FFT along the contiguous last axis.
 
-Port of ``webgpufft_tpu/core/fused.py``.  For N = n1 * n2 (``choose_split``,
-both factors in [2, 128]) and input index n = a + n1 * b:
+Port of ``webgpufft_tpu/core/fused.py``: the natural-order DFT of every line
+of interleaved f32 (lines, N, 2), times the plan's scale, in one read and
+one write of each line.  Eligible lengths are those of the JAX package,
+N = n1 * n2 (``choose_split``, both factors in [2, 128]).
+
+``fused_lines_reference``, the plain version, keeps the JAX kernel's
+two-digit staging as torch einsums (input index n = a + n1 * b):
 
 1. stage A  — contract the high digit b against DFT(n2);
 2. twiddle  — multiply by W_N^(a * k2);
@@ -9,10 +14,12 @@ both factors in [2, 128]) and input index n = a + n1 * b:
               scale folded in, writing X[k] at k = n2 * k1 + k2 (natural
               order).
 
-One read and one write of each line.  ``fused_lines`` launches the
-hand-written CUDA kernel (``csrc/fused_lines.cu``) for a CUDA tensor and runs
-``fused_lines_reference``, the same staging as torch einsums, for a CPU
-tensor.  There is no fallback between the two.
+``fused_lines`` launches the hand-written CUDA kernel
+(``csrc/fused_lines.cu``) for a CUDA tensor and runs the plain version for a
+CPU tensor; there is no fallback between the two.  The CUDA kernel reaches
+the same result by a chain of in-register radix butterflies
+(``core/radix.py``) and reads only the ``cw`` and ``cp`` tables;
+``fused_lines_chain_reference`` is its pass schedule on the CPU, a test aid.
 """
 
 from __future__ import annotations
@@ -22,12 +29,12 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from . import dft
+from . import dft, radix
 from .. import _build
 from ..utils import factors
 
 MAX_SUB = 128  # both digits of the split; bounds the kernel's shared memory
-TABLE_NAMES = ("f2re", "f2im", "twre", "twim", "f1re", "f1im")
+TABLE_NAMES = ("f2re", "f2im", "twre", "twim", "f1re", "f1im") + radix.TABLE_NAMES
 
 
 def choose_split(n: int) -> Optional[Tuple[int, int]]:
@@ -41,8 +48,9 @@ def supports_length(n: int, tuning=None) -> bool:
 
 
 def lines_consts(n: int, direction: str, scale: float, prefix: str) -> Dict[str, np.ndarray]:
-    """The kernel's tables as natural complex matrices (re/im f32 pairs),
-    from the same float64 host math as the JAX package's ``fused_consts``."""
+    """The plain version's tables as natural complex matrices (re/im f32
+    pairs), from the same float64 host math as the JAX package's
+    ``fused_consts``, and the CUDA kernel's (``radix.chain_consts``)."""
     n1, n2 = choose_split(n)
     w2 = dft.dft_matrix(n2, direction)             # complex64 (n2, n2)
     w1 = dft.dft_matrix(n1, direction)             # complex64 (n1, n1)
@@ -55,6 +63,7 @@ def lines_consts(n: int, direction: str, scale: float, prefix: str) -> Dict[str,
         f"{prefix}/twim": tw.imag.astype(np.float32),
         f"{prefix}/f1re": (w1.real * scale).astype(np.float32),
         f"{prefix}/f1im": (w1.imag * scale).astype(np.float32),
+        **radix.chain_consts(n, direction, scale, prefix),
     }
 
 
@@ -65,19 +74,25 @@ def tables_from_reference(np_consts: Dict[str, np.ndarray], prefix: str) -> Dict
     - ``f2re``/``f2im`` pass through;
     - ``twre``/``twim`` invert ``const_pair`` on ``ta1``/``tb1`` (n2, 2*n1);
     - ``f1re``/``f1im`` undo the block reshape of ``g1``, whose row 2*a + i
-      and column j*n1 + c hold component (i, j) of DFT(n1)[a, c] * scale.
+      and column j*n1 + c hold component (i, j) of DFT(n1)[a, c] * scale;
+    - ``cw``/``cp`` are built anew from what those tables say: N from their
+      shapes, the scale from DFT(n1)[0, 0] * scale = ``f1re[0, 0]`` and the
+      direction from the sign of Im W_N^1 = ``twim[1, 1]``.
     """
     ta1 = np_consts[f"{prefix}/ta1"]
     n2, n1 = ta1.shape[0], ta1.shape[1] // 2
     tb1 = np_consts[f"{prefix}/tb1"]
     g1 = np_consts[f"{prefix}/g1"].reshape(n1, 2, 2, n1)   # [a, i, j, c]
+    twim = tb1.reshape(n2, n1, 2)[..., 1].T
+    direction = "forward" if twim[1, 1] < 0 else "inverse"
     return {
         f"{prefix}/f2re": np_consts[f"{prefix}/f2re"],
         f"{prefix}/f2im": np_consts[f"{prefix}/f2im"],
         f"{prefix}/twre": ta1.reshape(n2, n1, 2)[..., 0].T,
-        f"{prefix}/twim": tb1.reshape(n2, n1, 2)[..., 1].T,
+        f"{prefix}/twim": twim,
         f"{prefix}/f1re": g1[:, 0, 0, :],
         f"{prefix}/f1im": g1[:, 0, 1, :],
+        **radix.chain_consts(n1 * n2, direction, g1[0, 0, 0, 0], prefix),
     }
 
 
@@ -102,6 +117,12 @@ def fused_lines_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> t
     return torch.stack([yr, yi], dim=-1).reshape(lines, n1 * n2, 2)
 
 
+def fused_lines_chain_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The CUDA kernel's pass schedule on the CPU (``radix.radix_chain_reference``
+    with the chain and tables the kernel gets): a test aid, on no plan path."""
+    return radix.radix_chain_reference(x, radix.radix_chain(x.shape[1]), tables)
+
+
 def fused_lines(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> torch.Tensor:
     """FFT along axis 1 of interleaved float32 x (lines, N, 2) with the
     tables of ``lines_consts`` (unprefixed names).  A CUDA tensor runs the
@@ -111,20 +132,19 @@ def fused_lines(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> torch.Tenso
         return fused_lines_reference(x, tables)
     if x.device.type != "cuda":
         raise ValueError(f"fused_lines: unsupported device {x.device}")
-    n1, n2 = tables["f1re"].shape[0], tables["f2re"].shape[0]
-    if (x.dtype != torch.float32 or x.dim() != 3 or x.shape[1] != n1 * n2
-            or x.shape[2] != 2 or x.shape[0] < 1 or not x.is_contiguous()):
+    if (x.dtype != torch.float32 or x.dim() != 3 or x.shape[2] != 2 or x.shape[0] < 1
+            or not x.is_contiguous()):
         raise ValueError(
-            f"fused_lines: x must be a contiguous float32 (lines, {n1 * n2}, 2) "
-            f"tensor, got {x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
-    ptrs = _build.table_ptrs(x, tables, {
-        "f2re": (n2, n2), "f2im": (n2, n2), "twre": (n1, n2), "twim": (n1, n2),
-        "f1re": (n1, n1), "f1im": (n1, n1)}, "fused_lines")
+            f"fused_lines: x must be a contiguous float32 (lines, N, 2) tensor, "
+            f"got {x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
+    n = x.shape[1]
+    ptrs = _build.table_ptrs(x, tables, {"cw": (n, 2), "cp": (2,)}, "fused_lines")
     lib = _build.library()
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = lib.wgfft_fused_lines(x.data_ptr(), y.data_ptr(), *ptrs, x.shape[0],
-                                   n1, n2, torch.cuda.current_stream().cuda_stream)
+    with _build.on_device(x.device):
+        rc = lib.wgfft_fused_lines(x.data_ptr(), y.data_ptr(), *ptrs, x.shape[0], n,
+                                   *_build.chain_arg(radix.radix_chain(n)),
+                                   torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "fused_lines")
     fused_lines.launches += 1
     return y

@@ -5,15 +5,18 @@ the transform axis as interleaved complex columns, so FFT along logical
 axis d of an ND c2c is this kernel on the view
 (batch * prod(shape[:d]), shape[d], 2 * prod(shape[d+1:])).
 
-For H = h1 * h2 (``choose_split``; (h, 1) when there is no two-factor
-split) and input row h = a + h1 * b: contract the high digit b against
-DFT(h2), twiddle W_H^(a * k2), contract a against DFT(h1) with the scale
-folded in, and write row k = h2 * k1 + k2.
+``fused_cols_reference``, the plain version, keeps the JAX kernel's
+two-digit staging as torch einsums.  For H = h1 * h2 (``choose_split``;
+(h, 1) when there is no two-factor split) and input row h = a + h1 * b:
+contract the high digit b against DFT(h2), twiddle W_H^(a * k2), contract a
+against DFT(h1) with the scale folded in, and write row k = h2 * k1 + k2.
 
 ``fused_cols`` launches the hand-written CUDA kernel
-(``csrc/fused_cols.cu``) for a CUDA tensor and runs
-``fused_cols_reference``, the same staging as torch einsums, for a CPU
-tensor.  There is no fallback between the two.
+(``csrc/fused_cols.cu``) for a CUDA tensor and runs the plain version for a
+CPU tensor; there is no fallback between the two.  The CUDA kernel reaches
+the same natural-order result by a chain of in-register radix butterflies
+(``core/radix.py``) and reads only the ``cw`` and ``cp`` tables;
+``fused_cols_chain_reference`` is its pass schedule on the CPU, a test aid.
 """
 
 from __future__ import annotations
@@ -23,12 +26,13 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from . import dft
+from . import dft, radix
 from .. import _build
 from ..utils import factors
 
 MAX_SUB = 128
-TABLE_NAMES = ("w1re", "w1im", "tre", "tim", "w2re", "w2im")
+PLAIN_TABLE_NAMES = ("w1re", "w1im", "tre", "tim", "w2re", "w2im")
+TABLE_NAMES = PLAIN_TABLE_NAMES + radix.TABLE_NAMES
 
 
 def choose_split(h: int) -> Optional[Tuple[int, int]]:
@@ -50,7 +54,8 @@ def supports_length(h: int) -> bool:
 
 
 def cols_consts(h: int, direction: str, scale: float, prefix: str) -> Dict[str, np.ndarray]:
-    """The kernel's tables, unchanged from the JAX package's ``cols_consts``."""
+    """The plain version's tables, unchanged from the JAX package's
+    ``cols_consts``, and the CUDA kernel's (``radix.chain_consts``)."""
     h1, h2 = choose_split(h)
     w1 = dft.dft_matrix(h1, direction) * np.complex64(scale)  # stage-2 matrix
     w2 = dft.dft_matrix(h2, direction)                        # stage-1 matrix
@@ -64,7 +69,23 @@ def cols_consts(h: int, direction: str, scale: float, prefix: str) -> Dict[str, 
         f"{prefix}/tim": tw.imag.astype(np.float32)[:, :, None],
         f"{prefix}/w2re": np.ascontiguousarray(w2.real.astype(np.float32)),
         f"{prefix}/w2im": np.ascontiguousarray(w2.imag.astype(np.float32)),
+        **radix.chain_consts(h, direction, scale, prefix),
     }
+
+
+def tables_from_reference(np_consts: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
+    """This kernel's tables from the JAX package's ``cols_consts`` under
+    ``prefix``: its six tables pass through, and ``cw``/``cp`` are built anew
+    from what they say: H from their shapes, the scale from
+    DFT(h1)[0, 0] * scale = ``w1re[0, 0]`` and the direction from the sign of
+    Im W_H^1 (``tim[1, 1]``, or ``w1im[1, 1]`` when h2 = 1)."""
+    out = {f"{prefix}/{k}": np_consts[f"{prefix}/{k}"] for k in PLAIN_TABLE_NAMES}
+    w1re, w1im, tim = (np_consts[f"{prefix}/{k}"] for k in ("w1re", "w1im", "tim"))
+    h1, h2 = w1re.shape[0], np_consts[f"{prefix}/w2re"].shape[0]
+    im = tim[1, 1, 0] if h2 > 1 else w1im[1, 1]
+    direction = "forward" if im < 0 else "inverse"
+    out.update(radix.chain_consts(h1 * h2, direction, w1re[0, 0], prefix))
+    return out
 
 
 def fused_cols_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -88,6 +109,15 @@ def fused_cols_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> to
     return torch.stack([yr, yi], dim=-1).reshape(pre, h, lanes)
 
 
+def fused_cols_chain_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The CUDA kernel's pass schedule on the CPU (``radix.radix_chain_reference``
+    with the chain and tables the kernel gets): a test aid, on no plan path."""
+    pre, h, lanes = x.shape
+    y = radix.radix_chain_reference(x.reshape(pre, h, lanes // 2, 2),
+                                    radix.radix_chain(h), tables)
+    return y.reshape(pre, h, lanes)
+
+
 def fused_cols(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> torch.Tensor:
     """FFT along axis 1 of float32 x (pre, H, L), L even, with the tables
     of ``cols_consts`` (unprefixed names).  A CUDA tensor runs the CUDA
@@ -97,21 +127,18 @@ def fused_cols(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> torch.Tensor
         return fused_cols_reference(x, tables)
     if x.device.type != "cuda":
         raise ValueError(f"fused_cols: unsupported device {x.device}")
-    h1, h2 = tables["w1re"].shape[0], tables["w2re"].shape[0]
-    if (x.dtype != torch.float32 or x.dim() != 3 or x.shape[1] != h1 * h2
-            or x.shape[2] % 2 or min(x.shape) < 1 or not x.is_contiguous()):
+    if (x.dtype != torch.float32 or x.dim() != 3 or x.shape[2] % 2 or min(x.shape) < 1
+            or not x.is_contiguous()):
         raise ValueError(
-            f"fused_cols: x must be a contiguous float32 (pre, {h1 * h2}, L) "
-            f"tensor with L even, got {x.dtype} {tuple(x.shape)} "
-            f"contiguous={x.is_contiguous()}")
-    ptrs = _build.table_ptrs(x, tables, {
-        "w1re": (h1, h1), "w1im": (h1, h1), "tre": (h1, h2, 1), "tim": (h1, h2, 1),
-        "w2re": (h2, h2), "w2im": (h2, h2)}, "fused_cols")
+            f"fused_cols: x must be a contiguous float32 (pre, H, L) tensor with L even, "
+            f"got {x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
+    h = x.shape[1]
+    ptrs = _build.table_ptrs(x, tables, {"cw": (h, 2), "cp": (2,)}, "fused_cols")
     lib = _build.library()
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = lib.wgfft_fused_cols(x.data_ptr(), y.data_ptr(), *ptrs, x.shape[0],
-                                  h1, h2, x.shape[2] // 2,
+    with _build.on_device(x.device):
+        rc = lib.wgfft_fused_cols(x.data_ptr(), y.data_ptr(), *ptrs, x.shape[0], h,
+                                  x.shape[2] // 2, *_build.chain_arg(radix.radix_chain(h)),
                                   torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "fused_cols")
     fused_cols.launches += 1

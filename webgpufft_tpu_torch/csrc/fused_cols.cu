@@ -3,160 +3,152 @@
 // Replaces the Pallas kernel of webgpufft_tpu/core/fused_cols.py
 // (build_fused_cols -> fn, kernel body _cols_kernel).  L = 2 * cols holds
 // interleaved complex columns (everything that trails the transform axis);
-// the transform runs down each column.  The Mosaic-only pieces (the
-// adjacent-lane fixes, the tbp = 1 pin) have no counterpart here.
+// the transform runs down each column and the result is in natural order,
+// times the plan's scale.  The TPU kernel's two direct digit DFTs
+// (8 * (h1 + h2) flops per point on the matrix unit) are replaced by the
+// chain of in-register radix butterflies of radix.cuh (about 5 * log2 H
+// flops per point), shared with K1.
 //
-// Math, for one column of H = h1 * h2 complex values (h1, h2 <= 128;
-// h2 = 1 when H has no two-factor split):
-//   input row     h = a + h1 * b          (a: low digit, b: high digit)
-//   stage 1       U[a, k2] = sum_b x[a + h1 b] * W2[b, k2]      (DFT h2)
-//   twiddle       U[a, k2] *= W_H^(a k2)
-//   stage 2       X[h2 k1 + k2] = sum_a U[a, k2] * W1[a, k1]    (DFT h1, scale folded)
-// Tables: cols_consts unchanged, as separate re/im f32 arrays:
-//   w1 (h1, h1), t (h1, h2, 1), w2 (h2, h2).
+// What bounds it on an H100: bytes.  One read and one write of the view,
+// 16 * H * cols * pre bytes (268 MB per axis pass of a 256^3 plan: 80 us at
+// the data sheet's 3.35 TB/s); the butterflies need about 40 flops per point
+// at H = 256 against the roughly 320 the card affords per 16-byte point.
 //
-// What bounds it on an H100: one read and one write of the view,
-// 16 * H * cols * pre bytes (134 MB per axis pass of a 256^3 plan: 40 us at
-// the data sheet's 3.35 TB/s); the arithmetic is 8 * (h1 + h2) FP32 flops
-// per complex element, the same direct-DFT cost as K1, so FP32 issue and
-// shared-memory throughput bound this form, not HBM.
+// Design: a CTA owns one pre index and a tile of tc neighbouring complex
+// columns (tc = 16, shrunk so H * tc <= 16384 points and no wider than the
+// column count; 32 for a one-pass H, which holds no tile).  One thread owns
+// the R rows of one column's butterfly, and neighbouring threads take
+// neighbouring columns: every global access of a row is one contiguous run
+// of tc * 8 >= 128 bytes although rows are L floats apart, a warp's
+// shared-memory access is whole rows of neighbouring points (conflict-free
+// by construction), and a row's twiddle is one broadcast load.  The first
+// pass loads rows straight into registers and the last stores them, so the
+// tile (H * tc * 8 bytes, 32 KB at H = 256 = 16 * 16) is crossed once per
+// inner pass, once in all at H = 256; a one-pass H (2..13, 16) uses no
+// shared memory.  Columns past the ragged edge load zeros and store
+// nothing.  A copy of the same tiles (read, write, no arithmetic) runs at
+// the speed of a contiguous copy, so the tile shape costs no bandwidth.
 //
-// Design: one CTA of 512 threads owns one pre index and a tile of tc
-// complex columns (tc a power of two <= 32, shrunk so H * tc <= 16384 and
-// no wider than the column count).  Neighbouring threads take neighbouring
-// columns, so every global load and store of a row is one contiguous run of
-// tc * 8 bytes even though rows are L floats apart.  The tile lives in
-// dynamic shared memory (H * tc * 8 <= 131072 bytes); stage-1 outputs stay
-// in registers across a barrier and are written back over the tile; stage 2
-// writes the rows in natural order.  Columns past the ragged edge load zeros
-// and store nothing.
-//
-// C interface: wgfft_fused_cols returns the cudaError_t of the launch.
+// C interface: wgfft_fused_cols returns the cudaError_t of the launch;
+// cudaErrorInvalidValue for a chain it cannot run.
 
 #include <cuda_runtime.h>
 
+#include "radix.cuh"
+
 namespace {
 
-constexpr int kThreads = 512;
+using wgfft::Chain;
+
 constexpr int kMaxTileElems = 16384;  // H * tc: 128 KB of float2
 
-__device__ __forceinline__ float2 cmac(float2 acc, float2 v, float re, float im) {
-  acc.x = fmaf(v.x, re, fmaf(-v.y, im, acc.x));
-  acc.y = fmaf(v.x, im, fmaf(v.y, re, acc.y));
-  return acc;
-}
+struct ColsLayout {
+  size_t base;      // offset of (p, row 0, first column of the tile)
+  long long cols;   // complex columns in the view: the row pitch
+  long long left;   // columns from the tile's first to the view's edge
+  int tc;           // columns in a tile, a power of two
+  int shift;        // log2(tc)
 
-template <int PER>
-__global__ void __launch_bounds__(kThreads)
+  __device__ __forceinline__ int units() const { return tc; }
+  __device__ __forceinline__ void split(int b, int, int& u, int& j) const {
+    j = b >> shift;
+    u = b & (tc - 1);
+  }
+  __device__ __forceinline__ bool live(int u) const { return u < left; }
+  __device__ __forceinline__ size_t global(int u, int pos) const {
+    return base + static_cast<size_t>(pos) * cols + u;
+  }
+  __device__ __forceinline__ int shared(int u, int pos) const { return pos * tc + u; }
+};
+
+template <int E, int MAXT, int MINB, int SET>
+__global__ void __launch_bounds__(MAXT, MINB)
 fused_cols_kernel(const float2* __restrict__ x, float2* __restrict__ y,
-                  const float* __restrict__ w1re, const float* __restrict__ w1im,
-                  const float* __restrict__ tre, const float* __restrict__ tim,
-                  const float* __restrict__ w2re, const float* __restrict__ w2im,
-                  int h1, int h2, long long cols, int tc, long long tiles) {
+                  const float2* __restrict__ tw, const float* __restrict__ params, int h,
+                  long long cols, int tc, int shift, long long tiles, const Chain chain) {
   extern __shared__ float2 sm[];  // H rows x tc columns
-  const int h = h1 * h2;
   const long long p = blockIdx.x / tiles;
-  const long long tile = blockIdx.x % tiles;
-  const int c = threadIdx.x % tc;       // column within the tile
-  const int r = threadIdx.x / tc;       // row slot
-  const int step = kThreads / tc;       // rows covered by one sweep
-  const long long col = tile * tc + c;
-  const bool live = col < cols;
-  const size_t base = static_cast<size_t>(p) * h * cols + col;
-
-  for (int i = r; i < h; i += step)
-    sm[i * tc + c] = live ? x[base + static_cast<size_t>(i) * cols]
-                          : make_float2(0.f, 0.f);
-  __syncthreads();
-
-  // stage 1 + twiddle: output row o = a + h1 * k2, held in registers
-  float2 acc[PER];
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int o = r + j * step;
-    float2 s = make_float2(0.f, 0.f);
-    if (o < h) {
-      const int a = o % h1;
-      const int k2 = o / h1;
-      for (int b = 0; b < h2; ++b) {
-        const int w = b * h2 + k2;
-        s = cmac(s, sm[(a + h1 * b) * tc + c], __ldg(w2re + w), __ldg(w2im + w));
-      }
-      const float t_re = __ldg(tre + a * h2 + k2);
-      const float t_im = __ldg(tim + a * h2 + k2);
-      s = make_float2(s.x * t_re - s.y * t_im, s.x * t_im + s.y * t_re);
-    }
-    acc[j] = s;
-  }
-  __syncthreads();  // every read of the tile is done: overwrite it
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int o = r + j * step;
-    if (o < h) sm[o * tc + c] = acc[j];
-  }
-  __syncthreads();
-
-  // stage 2: row k = h2 * k1 + k2
-  for (int k = r; k < h; k += step) {
-    const int k1 = k / h2;
-    const int k2 = k % h2;
-    float2 s = make_float2(0.f, 0.f);
-    for (int a = 0; a < h1; ++a) {
-      const int w = a * h1 + k1;
-      s = cmac(s, sm[(a + h1 * k2) * tc + c], __ldg(w1re + w), __ldg(w1im + w));
-    }
-    if (live) y[base + static_cast<size_t>(k) * cols] = s;
-  }
+  const long long col0 = (blockIdx.x % tiles) * tc;
+  ColsLayout lay;
+  lay.base = static_cast<size_t>(p) * h * cols + col0;
+  lay.cols = cols;
+  lay.left = cols - col0;
+  lay.tc = tc;
+  lay.shift = shift;
+  wgfft::radix_chain<E, SET>(lay, x, y, sm, tw, params, h, chain);
 }
 
-template <int PER>
-cudaError_t launch(const float2* x, float2* y, const float* w1re, const float* w1im,
-                   const float* tre, const float* tim, const float* w2re,
-                   const float* w2im, long long pre, int h1, int h2, long long cols,
-                   int tc, cudaStream_t stream) {
-  const long long tiles = (cols + tc - 1) / tc;
-  const long long blocks = pre * tiles;
+struct ColsArgs {
+  const float2* x;
+  float2* y;
+  const float2* tw;
+  const float* params;
+  long long pre, cols;
+  int h, tc, shift, threads;
+  cudaStream_t stream;
+};
+
+template <int E, int MAXT, int MINB, int SET>
+cudaError_t launch(const ColsArgs& a, const Chain& chain) {
+  const long long tiles = (a.cols + a.tc - 1) / a.tc;
+  const long long blocks = a.pre * tiles;
   if (blocks < 1 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(h1) * h2 * tc * sizeof(float2);
+  const size_t smem = chain.count > 1 ? static_cast<size_t>(a.h) * a.tc * sizeof(float2) : 0;
+  const auto kernel = fused_cols_kernel<E, MAXT, MINB, SET>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fused_cols_kernel<PER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  fused_cols_kernel<PER><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      x, y, w1re, w1im, tre, tim, w2re, w2im, h1, h2, cols, tc, tiles);
+  kernel<<<static_cast<unsigned>(blocks), a.threads, smem, a.stream>>>(
+      a.x, a.y, a.tw, a.params, a.h, a.cols, a.tc, a.shift, tiles, chain);
   return cudaGetLastError();
+}
+
+// One kernel per radix set, points per thread and thread limit.  Every one
+// gets 128 registers a thread (two CTAs of 256 threads, or one of 512, on an
+// SM): a radix-16 butterfly with its sixteen row addresses does not fit 64
+// unspilled, and this kernel measured faster unspilled at half the occupancy
+// than spilled at full.
+template <int SET>
+cudaError_t launch_set(int e, const ColsArgs& a, const Chain& chain) {
+  if (a.threads > 512) return launch<32, 1024, 1, SET>(a, chain);
+  if (e == 8 && a.threads <= 256) return launch<8, 256, 2, SET>(a, chain);
+  if (e == 8) return launch<8, 512, 1, SET>(a, chain);
+  if (e == 16) return launch<16, 512, 1, SET>(a, chain);
+  return launch<32, 512, 1, SET>(a, chain);
 }
 
 }  // namespace
 
-extern "C" int wgfft_fused_cols(const void* x, void* y, const void* w1re,
-                                const void* w1im, const void* tre, const void* tim,
-                                const void* w2re, const void* w2im, long long pre,
-                                int h1, int h2, long long cols, void* stream) {
-  if (pre < 1 || cols < 1 || h1 < 1 || h1 > 128 || h2 < 1 || h2 > 128 || h1 * h2 < 2)
+extern "C" int wgfft_fused_cols(const void* x, void* y, const void* tw, const void* params,
+                                long long pre, int h, long long cols, const int* radices,
+                                int count, void* stream) {
+  Chain chain;
+  if (pre < 1 || cols < 1 || !wgfft::make_chain(radices, count, h, &chain))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int h = h1 * h2;
-  int tc = 32;
-  while (tc > 1 && h * tc > kMaxTileElems) tc >>= 1;
-  while (tc > 1 && tc / 2 >= cols) tc >>= 1;
-  const int per = (h * tc + kThreads - 1) / kThreads;
-  const auto* xi = static_cast<const float2*>(x);
-  auto* yo = static_cast<float2*>(y);
-  const auto* a = static_cast<const float*>(w1re);
-  const auto* b = static_cast<const float*>(w1im);
-  const auto* c = static_cast<const float*>(tre);
-  const auto* d = static_cast<const float*>(tim);
-  const auto* e = static_cast<const float*>(w2re);
-  const auto* f = static_cast<const float*>(w2im);
-  auto s = static_cast<cudaStream_t>(stream);
+  int tc = chain.count > 1 ? 16 : 32;
+  int shift = chain.count > 1 ? 4 : 5;
+  while (tc > 1 && h * tc > kMaxTileElems) { tc >>= 1; --shift; }
+  while (tc > 1 && tc / 2 >= cols) { tc >>= 1; --shift; }
+  // points a thread holds: the least of 8, 16, 32 that fits the tile's
+  // widest pass into 512 threads (1024 as the last resort)
+  int e = 8;
+  int t = wgfft::threads_needed(chain, h, e, tc);
+  while (t > 512 && e < 32) {
+    e *= 2;
+    t = wgfft::threads_needed(chain, h, e, tc);
+  }
+  if (t > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = (t + 31) / 32 * 32;
+  const ColsArgs a = {static_cast<const float2*>(x), static_cast<float2*>(y),
+                      static_cast<const float2*>(tw), static_cast<const float*>(params),
+                      pre, cols, h, tc, shift, threads, static_cast<cudaStream_t>(stream)};
   cudaError_t r;
-  if (per <= 1) r = launch<1>(xi, yo, a, b, c, d, e, f, pre, h1, h2, cols, tc, s);
-  else if (per <= 2) r = launch<2>(xi, yo, a, b, c, d, e, f, pre, h1, h2, cols, tc, s);
-  else if (per <= 4) r = launch<4>(xi, yo, a, b, c, d, e, f, pre, h1, h2, cols, tc, s);
-  else if (per <= 8) r = launch<8>(xi, yo, a, b, c, d, e, f, pre, h1, h2, cols, tc, s);
-  else if (per <= 16) r = launch<16>(xi, yo, a, b, c, d, e, f, pre, h1, h2, cols, tc, s);
-  else r = launch<32>(xi, yo, a, b, c, d, e, f, pre, h1, h2, cols, tc, s);
+  switch (wgfft::radix_set(chain)) {
+    case wgfft::kSetPow2: r = launch_set<wgfft::kSetPow2>(e, a, chain); break;
+    case wgfft::kSetSmall: r = launch_set<wgfft::kSetSmall>(e, a, chain); break;
+    default: r = launch_set<wgfft::kSetAll>(e, a, chain); break;
+  }
   return static_cast<int>(r);
 }
