@@ -3,9 +3,10 @@
     python3 chip_profile.py
 
 Profiles, with ``torch.profiler`` (CPU and CUDA activities), a few calls of
-the headline c2c plan ([1024] x 4096), the c2c 256^3 plan, the Navier-Stokes
-step's r2c (256^3 batch 3) and c2r (256^3 batch 6) plans, and the solver step
-itself, and prints for each: device time per call, the device's busy share
+the headline c2c plan ([1024] x 4096), the c2c 256^3 plan, the dct2
+[512, 512] x 8 plan, the fftconv [1000, 1000] x 8 plan (25 x 25 taps), the
+overlap-save plan on [2^20], the Navier-Stokes step's r2c (256^3 batch 3) and
+c2r (256^3 batch 6) plans, and the solver step itself, and prints for each: device time per call, the device's busy share
 (device time over the host's time for the same calls, synchronised at the
 end, profiler off), and the device time per call of every kernel by name
 (rows whose key starts with ``aten::`` repeat their kernels' time and are left
@@ -76,6 +77,22 @@ def main():
     plan = T.create_plan({"type": "c2c", "shape": [256] * 3, "batch": 1}, device="cuda")
     profile_calls("c2c 256^3 b1",
                   plan, torch.randn(1, 256, 256, 256, 2, device="cuda", generator=gen))
+    plan = T.create_plan({"type": "dct2", "shape": [512, 512], "batch": 8,
+                          "normalize": "unitary"}, device="cuda")
+    profile_calls("dct2 [512, 512] b8", plan,
+                  torch.randn(8, 512, 512, device="cuda", generator=gen))
+    plan = T.create_plan({"type": "fftconv", "shape": [1000, 1000], "batch": 8,
+                          "fftConv": {"kernelShape": [25, 25], "boundary": "linear-same"}},
+                         device="cuda")
+    k = torch.randn(25, 25, 2, device="cuda", generator=gen)
+    profile_calls("fftconv [1000, 1000] b8 k25x25", lambda v: plan(v, kernel=k),
+                  torch.randn(8, 1000, 1000, 2, device="cuda", generator=gen))
+    os_plan = T.create_plan({"type": "fftconv", "shape": [1 << 20], "batch": 1,
+                             "fftConv": {"kernelShape": [129], "boundary": "circular"}},
+                            device="cuda")
+    k = torch.randn(129, 2, device="cuda", generator=gen)
+    profile_calls("fftconv overlap-save [2^20] k129", lambda v: os_plan(v, kernel=k),
+                  torch.randn(1, 1 << 20, 2, device="cuda", generator=gen))
     r2c = T.create_plan({"type": "r2c", "shape": [NS_N] * 3, "batch": 3}, device="cuda")
     x = torch.randn(3, NS_N, NS_N, NS_N, device="cuda", generator=gen)
     profile_calls("r2c 256^3 b3", r2c, x)

@@ -6,26 +6,40 @@ Builds the hand-written CUDA kernels from the checkout's sources, holds each
 kernel against its plain PyTorch version (at the shapes the paths below give
 it, and at lengths that stress the radix chain: the shared-memory limit, every
 odd radix, one-butterfly lengths, a ragged column count, small digits), and
-drives four paths through the
+drives eight paths through the
 port's entry points, each with the kernels' launch counts set to 0 just
-before it and read just after (each must launch both kernels):
+before it and read just after (each must launch the kernels named):
 
 - c2c: ``create_plan(...)(x)`` on the batched 1-D headline plan and a 256^3
-  plan;
-- r2c: the 256^3 batch-3 plan of the Navier-Stokes step;
-- c2r: the 256^3 batch-6 plan of the same step;
+  plan (K1, K2);
+- r2c: the 256^3 batch-3 plan of the Navier-Stokes step (K1, K2);
+- c2r: the 256^3 batch-6 plan of the same step (K1, K2);
+- dct: dct2 and dct3 [512, 512] x 8 (K1, K2), dct2 [8, 8] x 16384 (the
+  matmul route), dct4 and dst1 [32768] x 32 (the einsum route), against a
+  float64 trig-matrix oracle on the card and scipy;
+- fftconv: [1000, 1000] x 8 with a 25 x 25 kernel, ``linear-same`` (K1, K2),
+  the 64 -> 128 channel-lane preset at [256] x 4 (K1 on the product only) and
+  overlap-save on [2^20] with 129 taps (K1 on the blocks), against
+  ``torch.fft`` convolutions in complex128;
+- conv2d: [1024, 1024] x 8, k = 3, ``same``, complex data with a complex
+  kernel and real with real, cuDNN's TF32 switched ON around the call to show
+  the plan scopes it off (no kernel of the port's own);
+- staging: the headline plan with a strided input and a ``whdcn`` output
+  lane, an ioView crop merged into ``out=``, an exec-time input offset,
+  ``inPlace`` and bf16-storage, against the unstaged plan (K1);
 - ns3d: the 3-D Navier-Stokes solver (``webgpufft_tpu_torch.examples.
   navier_stokes3d``) at 256^3, nu = 2e-2, dt = 1e-2, on the embedded
   Taylor-Green vortex and the ABC flow, held against their analytic
-  solutions at rel err < 1e-4.
+  solutions at rel err < 1e-4 (K1, K2).
 
 Plans and kernels are checked against ``torch.fft`` as an independent
 oracle, as are the Rader, Bluestein and four-step axes and the odd-length
-r2c paths.  Then each kernel is timed beside its plain version, its bound
+r2c paths.  Then each kernel shape is timed beside its plain version, its bound
 (the bytes it must move, one read and one write, over the data sheet's
 3.35 TB/s, or its flops over 67 TFLOP/s if that is more) and the one
 ``torch.fft.fft`` call that computes the same function (cuFFT, a yardstick the
-port never calls), and each plan and the solver step beside ``torch.fft``.
+port never calls), and each plan and the solver step beside ``torch.fft``
+(a DCT-II and the convolutions written on ``torch.fft`` in this script).
 Every phase raises on failure, so the script exits non-zero; it never falls
 back to the CPU.
 
@@ -54,7 +68,11 @@ RUNS = 25          # timed calls per block; two blocks per version
 QUEUED = 10        # back-to-back launches per timed run of a kernel
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, outside the tensor cores
-NS_N, NS_NU, NS_DT, NS_STEPS = 256, 2e-2, 1e-2, 5
+BF16_TOL = 3e-2    # a bf16-storage plan, as the JAX package's tests hold it
+NS_N, NS_NU, NS_DT, NS_STEPS = 256, 2e-2, 1e-2, 3
+OS_N, OS_TAPS, OS_BLOCK, OS_BLOCKS = 1 << 20, 129, 8192, 131   # the overlap-save path
+HEADLINE = {"type": "c2c", "shape": [1024], "batch": 4096,
+            "direction": "forward", "normalize": "unitary"}
 RFFT_DIMS = (2, 3, 1)   # torch.fft.rfftn packs the last dim given: logical axis 0
 
 
@@ -144,7 +162,10 @@ def phase_k1(gen):
     # (batch 6) paths give K1 at 256^3 (b*128*256 body lines and b*256
     # Nyquist-slab lines of 256); then lengths that stress the radix chain:
     # 128 * 128 (the shared-memory limit), every odd radix, 13 * 13 * 8, short
-    # lines that take the multi-line CTA, and the small digits 8 * 8 and 8 * 16
+    # lines that take the multi-line CTA, and the small digits 8 * 8 and 8 * 16;
+    # then what the dct path (512 x 4096), the fftconv path (1024 x 8192 data
+    # and product lines, 1024 kernel lines, 8 product lines of the channel-lane
+    # preset) and the overlap-save blocks give it
     for n, lines, direction, normalize in [
             (1024, 4096, "forward", "unitary"), (1024, 4096, "inverse", "unitary"),
             (2048, 4096, "forward", "none"), (360, 4096, "inverse", "backward"),
@@ -152,7 +173,11 @@ def phase_k1(gen):
             (16384, 512, "inverse", "backward"), (2310, 2048, "forward", "unitary"),
             (4096, 4096, "forward", "none"), (1352, 1025, "inverse", "unitary"),
             (16, 100003, "forward", "none"), (6, 77, "inverse", "backward"),
-            (64, 65536, "forward", "none"), (128, 8192, "inverse", "unitary")]:
+            (64, 65536, "forward", "none"), (128, 8192, "inverse", "unitary"),
+            (512, 4096, "forward", "none"), (1024, 8192, "forward", "none"),
+            (1024, 1024, "forward", "none"), (256, 8, "inverse", "none"),
+            (OS_BLOCK, OS_BLOCKS, "forward", "none"), (OS_BLOCK, OS_BLOCKS, "inverse", "none"),
+            (4, 1000, "forward", "none"), (8, 1000, "inverse", "none")]:
         scale = {"none": 1.0, "unitary": 1.0 / math.sqrt(n),
                  "backward": 1.0 / n if direction == "inverse" else 1.0}[normalize]
         tables = to_dev(fused.lines_consts(n, direction, scale, "p"))
@@ -173,15 +198,21 @@ def phase_k2(gen):
     # (batch 6) paths give K2 at 256^3 ((b*128, 256, 512) bodies and the
     # (b, 256, 512) Nyquist slab); then a tall tile at the shared-memory limit,
     # a ragged column count (33), every odd radix, and the small-digit views
-    # 8 * 16 and 8 * 8 of rank > 1 plans
+    # 8 * 16 and 8 * 8 of rank > 1 plans; then the views of the dct path
+    # (8, 512, 1024), the fftconv path (data and product (8, 1024, 2048), the
+    # kernel (1, 1024, 2048)), axis 0 of the 256^3 r2c/c2r plans
+    # ((b, 128, 131072)) and one-butterfly heights a short axis 0 gives (3, 9)
     for pre, h, lanes, direction in [
             (256, 256, 512, "forward"), (1, 256, 131072, "forward"),
             (64, 360, 512, "forward"), (256, 16, 512, "forward"),
             (3 * 128, 256, 512, "forward"), (6 * 128, 256, 512, "inverse"),
             (3, 256, 512, "forward"), (8, 16384, 64, "inverse"), (5, 2048, 66, "forward"),
             (3, 2310, 66, "inverse"), (4, 1352, 130, "forward"),
-            (3 * 128, 128, 512, "forward"), (64, 64, 128, "inverse")]:
-        if h == 16:
+            (3 * 128, 128, 512, "forward"), (64, 64, 128, "inverse"),
+            (8, 512, 1024, "forward"), (8, 1024, 2048, "forward"),
+            (1, 1024, 2048, "forward"), (3, 128, 131072, "forward"),
+            (6, 128, 131072, "inverse"), (8, 3, 512, "forward"), (8, 9, 512, "inverse")]:
+        if (pre, h) == (256, 16):
             tables = cols_tables_h2_is_1(h, direction, 1.0)
             split = (16, 1)
         else:
@@ -196,19 +227,25 @@ def phase_k2(gen):
     return cases, worst
 
 
-def check_oracle(label, y, expected):
+def check_close(label, y, expected, what, tol=TOL):
     torch.cuda.synchronize()
+    require(tuple(y.shape) == tuple(expected.shape),
+            f"{label}: shape {tuple(y.shape)} != {tuple(expected.shape)}")
     require(bool(torch.isfinite(y).all()), f"{label}: non-finite output")
-    err = rel_err(torch.view_as_complex(y), expected)
-    print(f"{label}: max rel err {err:.3e} vs torch.fft (limit {TOL:.0e} * max|expected|)")
-    require(err <= TOL, f"{label}: disagrees with torch.fft")
+    wide = torch.complex128 if y.is_complex() or expected.is_complex() else torch.float64
+    err = rel_err(y.to(wide), expected.to(wide))
+    print(f"{label}: max rel err {err:.3e} vs {what} (limit {tol:.0e} * max|expected|)")
+    require(err <= tol, f"{label}: disagrees with {what}")
+
+
+def check_oracle(label, y, expected):
+    """Interleaved ``y`` against a complex ``torch.fft`` result."""
+    check_close(label, torch.view_as_complex(y), expected, "torch.fft")
 
 
 def phase_headline(gen):
     import webgpufft_tpu_torch as T
-    opts = {"type": "c2c", "shape": [1024], "batch": 4096,
-            "direction": "forward", "normalize": "unitary"}
-    plan = T.create_plan(opts, device="cuda")
+    plan = T.create_plan(HEADLINE, device="cuda")
     x = torch.randn(4096, 1024, 2, device="cuda", generator=gen)
     y = plan(x)
     require(tuple(y.shape) == (4096, 1024, 2) and y.dtype == torch.float32,
@@ -256,9 +293,9 @@ def real_plan(kind, batch, normalize):
 
 def check_real_route(label, plan):
     kind = plan.spec.plan_type
-    want = (f"{kind}-axis1-fused-cols", f"{kind}-axis2-fused-lines")
+    want = (f"{kind}-axis0-fused-cols", f"{kind}-axis1-fused-cols", f"{kind}-axis2-fused-lines")
     print(f"{label}: route {plan.route.mode}, reasons {list(plan.route.reasons)}")
-    require(plan.route.mode == "pallas-mixed" and all(r in plan.route.reasons for r in want),
+    require(plan.route.mode == "pallas-fused" and all(r in plan.route.reasons for r in want),
             f"{label}: route {plan.route.mode} {plan.route.reasons}")
 
 
@@ -336,20 +373,312 @@ def phase_ns3d():
         require(err < NS_TOL, f"NS-3D {label} departs from its analytic solution")
 
 
-def drive(name, paths, fn, *args):
+def launches():
+    from webgpufft_tpu_torch.core import fused, fused_cols
+    return fused.fused_lines.launches, fused_cols.fused_cols.launches
+
+
+def drive(name, paths, fn, *args, k1=True, k2=True):
     """Run one path with both launch counts set to 0 just before it and
-    read just after; both kernels must have launched."""
+    read just after; each kernel of the path (``k1``, ``k2``) must have
+    launched, and a kernel the path has none of must not."""
     from webgpufft_tpu_torch.core import fused, fused_cols
     fused.fused_lines.launches = 0
     fused_cols.fused_cols.launches = 0
     out = fn(*args)
     torch.cuda.synchronize()
-    k1, k2 = fused.fused_lines.launches, fused_cols.fused_cols.launches
-    print(f"path {name} launches: fused_lines {k1}, fused_cols {k2}")
-    require(k1 > 0, f"path {name} never launched fused_lines")
-    require(k2 > 0, f"path {name} never launched fused_cols")
-    paths[name] = (k1, k2)
+    n1, n2 = launches()
+    print(f"path {name} launches: fused_lines {n1}, fused_cols {n2}")
+    require((n1 > 0) == k1, f"path {name}: fused_lines launched {n1} times")
+    require((n2 > 0) == k2, f"path {name}: fused_cols launched {n2} times")
+    paths[name] = (n1, n2)
     return out
+
+
+def run_counted(label, plan, *args, **kw):
+    """One ``plan(...)`` call; prints and returns the launches it made."""
+    before = launches()
+    y = plan(*args, **kw)
+    after = launches()
+    made = (after[0] - before[0], after[1] - before[1])
+    print(f"{label}: route {plan.route.mode}, launches fused_lines {made[0]}, "
+          f"fused_cols {made[1]}, passes "
+          f"{[r for r in plan.route.reasons if '-axis' in r]}")
+    return y, made
+
+
+# ---------------------------------------------------------------------------
+# dct
+# ---------------------------------------------------------------------------
+
+def dct_oracle(x, shape, kind, direction, normalize):
+    """The dense trig-matrix transform (``mathref.trig_matrix``, the matrices
+    of ``mathref.dct_nd``) in float64 on the card."""
+    from webgpufft_tpu_torch.utils import mathref
+    y = x.double()
+    for d, n in enumerate(shape):
+        mdir = "forward" if kind[-1] in "14" else direction
+        m = torch.as_tensor(mathref.trig_matrix(kind, n, mdir), device=x.device)
+        y = torch.movedim(torch.movedim(y, 1 + d, -1) @ m.T, -1, 1 + d)
+    return y * mathref.normalize_scale(normalize, direction, math.prod(shape))
+
+
+def torch_fft_dct2(x, scale):
+    """DCT-II (the port's convention: no factor 2) over the last two dims on
+    ``torch.fft``: even/odd reorder, one complex FFT, a half-sample twist per
+    axis.  The yardstick for the dct2 plan; the port never calls it."""
+    for dim in (-1, -2):
+        n = x.shape[dim]
+        v = torch.cat([x.index_select(dim, torch.arange(0, n, 2, device=x.device)),
+                       x.index_select(dim, torch.arange(n - 1 - n % 2, 0, -2, device=x.device))],
+                      dim=dim)
+        w = torch.exp(-0.5j * math.pi * torch.arange(n, device=x.device) / n).to(torch.complex64)
+        v = torch.fft.fft(v, dim=dim)
+        x = (v * (w if dim == -1 else w[:, None])).real
+    return x * scale
+
+
+def phase_dct(gen):
+    """Returns the dct2 [512, 512] plan and its input for the timing phase."""
+    import scipy.fft
+    import webgpufft_tpu_torch as T
+    keep = None
+    for kind in ("dct2", "dct3"):
+        plan = T.create_plan({"type": kind, "shape": [512, 512], "batch": 8,
+                              "normalize": "unitary"}, device="cuda")
+        x = torch.randn(8, 512, 512, device="cuda", generator=gen)
+        y, made = run_counted(f"{kind} [512, 512] b8 unitary", plan, x)
+        require(made == (1, 1) and plan.route.mode == "pallas-fused",
+                f"{kind} 512^2: launches {made}, route {plan.route.reasons}")
+        check_close(f"{kind} [512, 512] b8", y,
+                    dct_oracle(x, (512, 512), kind, "forward", "unitary"), "float64 trig matrices")
+        if kind == "dct2":
+            keep = (plan, x)
+            check_close("torch.fft DCT-II yardstick", torch_fft_dct2(x, 1.0 / 512), y,
+                        "the dct2 plan")
+    plan = T.create_plan({"type": "dct2", "shape": [8, 8], "batch": 16384,
+                          "normalize": "unitary"}, device="cuda")
+    x = torch.randn(16384, 8, 8, device="cuda", generator=gen)
+    y, made = run_counted("dct2 [8, 8] b16384 unitary", plan, x)
+    require(made == (0, 0) and "dct-axis0-matmul" in plan.route.reasons,
+            f"dct2 8x8: launches {made}, route {plan.route.reasons}")
+    check_close("dct2 [8, 8] b16384", y, dct_oracle(x, (8, 8), "dct2", "forward", "unitary"),
+                "float64 trig matrices")
+    n = 32768
+    for kind, conv in (("dct4", 0.5), ("dst1", 0.5)):
+        plan = T.create_plan({"type": kind, "shape": [n], "batch": 32,
+                              "normalize": "unitary"}, device="cuda")
+        x = torch.randn(32, n, device="cuda", generator=gen)
+        y, made = run_counted(f"{kind} [{n}] b32 unitary", plan, x)
+        require(made == (0, 0), f"{kind} {n}: launches {made}")
+        f = scipy.fft.dct if kind == "dct4" else scipy.fft.dst
+        ref = f(x.double().cpu().numpy(), type=int(kind[-1]), axis=-1) * conv / math.sqrt(n)
+        check_close(f"{kind} [{n}] b32", y, torch.as_tensor(ref, device="cuda"), "scipy.fft")
+    return keep
+
+
+# ---------------------------------------------------------------------------
+# fftconv
+# ---------------------------------------------------------------------------
+
+def torch_fft_conv(x, k, fft_shape, out_shape, out_off, dtype=torch.complex128):
+    """FFT convolution of complex x (batch, *shape) with complex k on
+    ``torch.fft`` at ``fft_shape``, cropped: oracle (complex128) and yardstick
+    (complex64)."""
+    dims = tuple(range(1, x.ndim))
+    xf = torch.fft.fftn(x.to(dtype), s=fft_shape, dim=dims)
+    kf = torch.fft.fftn(k.to(dtype), s=fft_shape)
+    y = torch.fft.ifftn(xf * kf, dim=dims)
+    crop = (slice(None),) + tuple(slice(o, o + n) for o, n in zip(out_off, out_shape))
+    return y[crop]
+
+
+def phase_fftconv(gen):
+    """Returns (plan, x, kernel, geometry) of the 2-D path for the timing phase."""
+    import webgpufft_tpu_torch as T
+    from webgpufft_tpu_torch.utils import mathref
+
+    # 2-D: [1000, 1000] x 8, 25 x 25 taps, linear-same -> fft shape 1024^2
+    shape, kshape = [1000, 1000], [25, 25]
+    plan = T.create_plan({"type": "fftconv", "shape": shape, "batch": 8,
+                          "fftConv": {"kernelShape": kshape, "boundary": "linear-same"}},
+                         device="cuda")
+    geo = mathref.fftconv_out_shape(shape, kshape, "linear-same")
+    require(tuple(geo[0]) == (1024, 1024) == plan.fft_shape, f"fftconv 2-D: fft shape {geo[0]}")
+    x = torch.randn(8, 1000, 1000, 2, device="cuda", generator=gen)
+    k = torch.randn(25, 25, 2, device="cuda", generator=gen)
+    y, made = run_counted("fftconv [1000, 1000] b8 k25x25 linear-same", plan, x, kernel=k)
+    require(made == (3, 3) and plan.route.mode == "pallas-fused",
+            f"fftconv 2-D: launches {made}, route {plan.route.reasons}")
+    ref = torch_fft_conv(torch.view_as_complex(x), torch.view_as_complex(k), *geo)
+    check_close("fftconv [1000, 1000] b8", torch.view_as_complex(y), ref, "torch.fft complex128")
+    keep = (plan, x, k, geo)
+    del ref, y
+
+    # the channel-lane preset: [256] x 4, 2 kernels, 64 -> 128 channels
+    preset = T.create_fftconv_kernel_major_channel_lane_preset({
+        "shape": [256], "batch": 4, "kernelCount": 2,
+        "input": {"channels": 64, "channelIndex": 0},
+        "output": {"channels": 128, "channelIndex": 0, "kernelStepChannels": 64}})
+    plan = T.create_plan({"type": "fftconv", **preset}, device="cuda")
+    lanes = 0.05 * torch.randn(4, 64, 256, 2, device="cuda", generator=gen)
+    kern = 0.05 * torch.randn(2, 256, 2, device="cuda", generator=gen)
+    y, made = run_counted("fftconv channel-lane preset [256] b4 kc2 64->128", plan,
+                          lanes.reshape(-1, 2), kernel=kern)
+    require(made == (1, 0), f"fftconv preset: launches {made} (K1 on the 8 product lines only)")
+    out = y.reshape(4, 128, 256, 2)
+    for kk in range(2):
+        ref = mathref.fftconv(torch.view_as_complex(lanes[:, 0]).cpu().numpy(),
+                              torch.view_as_complex(kern[kk]).cpu().numpy(), [256], batch=4)
+        check_close(f"fftconv preset lane {64 * kk}", torch.view_as_complex(out[:, 64 * kk]),
+                    torch.as_tensor(ref, device="cuda"), "mathref.fftconv")
+    untouched = torch.ones(128, dtype=torch.bool, device="cuda")
+    untouched[[0, 64]] = False
+    require(bool((out[:, untouched] == 0).all()), "fftconv preset: an untouched lane is not 0")
+    print("fftconv preset: the 126 untouched lanes are exactly 0")
+
+    # overlap-save: [2^20] x 1, 129 taps, circular
+    plan = T.create_plan({"type": "fftconv", "shape": [OS_N], "batch": 1,
+                          "fftConv": {"boundary": "circular", "kernelShape": [OS_TAPS]}},
+                         device="cuda")
+    require(plan.route.mode == "overlap-save" and f"os-block({OS_BLOCK})" in plan.route.reasons
+            and f"os-blocks({OS_BLOCKS})" in plan.route.reasons,
+            f"overlap-save: route {plan.route.mode} {plan.route.reasons}")
+    x = 0.05 * torch.randn(1, OS_N, 2, device="cuda", generator=gen)
+    k = 0.05 * torch.randn(OS_TAPS, 2, device="cuda", generator=gen)
+    y, made = run_counted(f"fftconv overlap-save [2^20] b1 k{OS_TAPS} circular", plan, x, kernel=k)
+    require(made == (2, 0), f"overlap-save: launches {made} (blocks forward and inverse)")
+    ref = torch_fft_conv(torch.view_as_complex(x), torch.view_as_complex(k), (OS_N,), (OS_N,),
+                         (0,))
+    check_close("fftconv overlap-save [2^20]", torch.view_as_complex(y), ref,
+                "torch.fft complex128")
+    return keep, (plan, x, k)
+
+
+# ---------------------------------------------------------------------------
+# conv2d
+# ---------------------------------------------------------------------------
+
+def shifted_conv2d(x, w, pads, out_hw):
+    """k^2 shifted multiply-adds in float64 (cross-correlation, zero
+    boundary): x (batch, Hin, Win) and w (k, k), real or complex."""
+    pt, pb, pl, pr = pads
+    xp = torch.nn.functional.pad(x, (pl, pr, pt, pb))
+    h, wd = out_hw
+    out = torch.zeros(x.shape[0], h, wd, dtype=xp.dtype, device=x.device)
+    for i in range(w.shape[0]):
+        for j in range(w.shape[1]):
+            out += xp[:, i:i + h, j:j + wd] * w[i, j]
+    return out
+
+
+def phase_conv2d(gen):
+    """cuDNN's TF32 flag is switched ON around the plan calls: the plan
+    itself must keep it off for its convolution.  The data (1 + 2^-12 steps)
+    is what TF32's 10-bit mantissa visibly rounds wherever cuDNN picks a TF32
+    algorithm; the bare call's error with the flag on is printed beside the
+    plan's (for so few channels cuDNN may pick none)."""
+    import webgpufft_tpu_torch as T
+    shape, k = [1024, 1024], 3
+    out = {}
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for ktype in ("complex", "real"):
+            plan = T.create_plan({"type": "conv2d", "shape": shape, "batch": 8,
+                                  "conv": {"kernelSize": k, "padding": "same",
+                                           "kernelType": ktype}}, device="cuda")
+            tail = (2,) if ktype == "complex" else ()
+            x = 1.0 + torch.randint(0, 4096, (8, *plan.in_shape, *tail), device="cuda",
+                                    generator=gen).float() / 4096.0
+            w = torch.randn(k, k, *tail, device="cuda", generator=gen)
+            y, made = run_counted(f"conv2d [1024, 1024] b8 k3 same, {ktype} data and kernel",
+                                  plan, x, kernel=w)
+            require(made == (0, 0), f"conv2d: launches {made}")
+            if ktype == "complex":
+                ref = shifted_conv2d(torch.view_as_complex(x).to(torch.complex128),
+                                     torch.view_as_complex(w).to(torch.complex128),
+                                     plan.pad, shape)
+                check_close("conv2d complex (cuDNN TF32 flag on outside the plan)",
+                            torch.view_as_complex(y), ref, "float64 shifted multiply-adds")
+            else:
+                ref = shifted_conv2d(x.double(), w.double(), plan.pad, shape)
+                check_close("conv2d real (cuDNN TF32 flag on outside the plan)", y, ref,
+                            "float64 shifted multiply-adds")
+                bare = torch.nn.functional.conv2d(x[:, None], w[None, None], padding=1)[:, 0]
+                print(f"conv2d real: the bare F.conv2d call with the TF32 flag on has max rel "
+                      f"err {rel_err(bare.double(), ref):.3e} on the same data")
+            out[ktype] = (plan, x, w)
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+    return out
+
+
+# ---------------------------------------------------------------------------
+# staging
+# ---------------------------------------------------------------------------
+
+def phase_staging(gen, headline):
+    """The headline plan's options with each staging option, against the
+    unstaged plan's output placed by hand."""
+    import webgpufft_tpu_torch as T
+    base, x = headline
+    n, batch = 1024, 4096
+    ref = base(x)
+    opts = HEADLINE
+
+    # (a) strided input (every second element, an offset, a padded batch
+    # stride) and a whdcn output lane (channel 1 of 3)
+    stride, off, bstride = 2, 5, 2 * n + 7
+    plan = T.create_plan({**opts, "layout": {
+        "inputStrides": [stride], "inputOffsetElements": off,
+        "inputBatchStrideElements": bstride,
+        "whdcn": {"output": {"channels": 3, "channelIndex": 1}}}}, device="cuda")
+    flat = torch.randn(off + bstride * batch, 2, device="cuda", generator=gen)
+    idx = (off + bstride * torch.arange(batch, device="cuda")[:, None]
+           + stride * torch.arange(n, device="cuda")[None, :])
+    flat[idx.reshape(-1)] = x.reshape(-1, 2)
+    y, made = run_counted("staging (a) strided input + whdcn output lane", plan, flat)
+    require(made == (1, 0), f"staging (a): launches {made}")
+    # batch b's lane 1 starts at (3 b + 1) n; the flat result ends with it
+    require(y.shape[0] == (3 * batch - 1) * n, f"staging (a): {y.shape[0]} flat elements")
+    lanes = torch.cat([y, y.new_zeros(n, 2)]).reshape(batch, 3, n, 2)
+    check_close("staging (a) lane 1", lanes[:, 1], ref, "the unstaged plan")
+    require(bool((lanes[:, 0] == 0).all() and (lanes[:, 2] == 0).all()),
+            "staging (a): lanes 0 and 2 are not 0")
+
+    # (b) ioView output crop [100, 700) merged into out=, keep-outside
+    plan = T.create_plan({**opts, "ioView": {"output": {"shape": [800], "offset": [-100]}}},
+                         device="cuda")
+    out = torch.full((batch, 800, 2), 7.5, device="cuda")
+    y, made = run_counted("staging (b) ioView output + out= keep-outside", plan, x, out=out)
+    require(made == (1, 0) and y is out, f"staging (b): launches {made}, returned out: {y is out}")
+    check_close("staging (b) overlap", y[:, 100:], ref[:, :700], "the unstaged plan")
+    require(bool((y[:, :100] == 7.5).all()), "staging (b): cells outside the overlap changed")
+
+    # (c) exec-time input offset on the shaped side
+    flat = torch.randn(33 + batch * n, 2, device="cuda", generator=gen)
+    flat[33:] = x.reshape(-1, 2)
+    y, made = run_counted("staging (c) input_offset_elements=33", base, flat,
+                          input_offset_elements=33)
+    require(made == (1, 0), f"staging (c): launches {made}")
+    check_close("staging (c)", y, ref, "the unstaged plan")
+
+    # (d) inPlace
+    plan = T.create_plan({**opts, "inPlace": True}, device="cuda")
+    xin = x.clone()
+    y, made = run_counted("staging (d) inPlace", plan, xin)
+    require(made == (1, 0) and y is xin, f"staging (d): launches {made}, in place: {y is xin}")
+    check_close("staging (d)", xin, ref, "the unstaged plan")
+
+    # (e) bf16-storage: the einsum route, f32 between the bf16 load and store
+    plan = T.create_plan({**opts, "precision": "bf16-storage"}, device="cuda")
+    xb = x.to(torch.bfloat16)
+    y, made = run_counted("staging (e) bf16-storage", plan, xb)
+    require(made == (0, 0) and y.dtype == torch.bfloat16,
+            f"staging (e): launches {made}, dtype {y.dtype}")
+    check_close("staging (e)", y.float(), base(xb.float()), "the f32 plan on the rounded input",
+                tol=BF16_TOL)
 
 
 def time_ms(fn, *args):
@@ -438,8 +767,8 @@ def phase_timing(k1_cases, k2_cases, headline, volume, card):
     from webgpufft_tpu_torch.core import fused, fused_cols
     out = {}
     for (n, lines, direction), (x, t, normalize) in k1_cases.items():
-        if (n, direction) == (1024, "inverse"):
-            continue  # same work as the forward headline
+        if ("K1", n, lines) in out:
+            continue  # same work as the other direction, timed already
         fft = torch.fft.fft if direction == "forward" else torch.fft.ifft
         norm = fft_norm(direction, normalize)
         out[("K1", n, lines)] = time_kernel(
@@ -468,6 +797,32 @@ def phase_timing(k1_cases, k2_cases, headline, volume, card):
               f"(cuFFT) yardstick {fm:.4f} ms ({nbytes / fm / 1e6:.1f} GB/s), "
               f"min-bytes {nbytes} [{card}]")
     return out
+
+
+def phase_new_plan_timing(dct, conv, overlap, conv2d, card):
+    """The dct2, fftconv and conv2d plans beside a yardstick on ``torch.fft``
+    (or, for conv2d, the bare library call the plan wraps)."""
+    plan, x = dct
+    pm = median(time_ms(plan, x))
+    fm = median(time_ms(torch_fft_dct2, x, 1.0 / 512))
+    print(f"time dct2 [512, 512] b8 plan(x): {pm:.4f} ms; DCT-II on torch.fft (cuFFT) "
+          f"{fm:.4f} ms [{card}]")
+    plan, x, k, geo = conv
+    pm = median(time_ms(lambda: plan(x, kernel=k)))
+    xc, kc = torch.view_as_complex(x), torch.view_as_complex(k)
+    fm = median(time_ms(lambda: torch_fft_conv(xc, kc, *geo, dtype=torch.complex64)))
+    print(f"time fftconv [1000, 1000] b8 k25x25 plan(x, kernel): {pm:.4f} ms; the same on "
+          f"torch.fft (cuFFT, complex64) {fm:.4f} ms [{card}]")
+    plan, x, k = overlap
+    pm = median(time_ms(lambda: plan(x, kernel=k)))
+    xc, kc = torch.view_as_complex(x), torch.view_as_complex(k)
+    fm = median(time_ms(lambda: torch_fft_conv(xc, kc, (OS_N,), (OS_N,), (0,),
+                                               dtype=torch.complex64)))
+    print(f"time fftconv overlap-save [2^20] k{OS_TAPS} plan(x, kernel): {pm:.4f} ms; one "
+          f"length-2^20 convolution on torch.fft (cuFFT, complex64) {fm:.4f} ms [{card}]")
+    for ktype, (plan, x, w) in conv2d.items():
+        pm = median(time_ms(lambda: plan(x, kernel=w)))
+        print(f"time conv2d [1024, 1024] b8 k3 {ktype} plan(x, kernel): {pm:.4f} ms [{card}]")
 
 
 def phase_solver_timing(gen, x, y, card):
@@ -516,16 +871,24 @@ def main():
     phase_real_round_trips(x, y, back)
     del back
     phase_axis_kinds(gen)
+    dct = drive("dct", paths, phase_dct, gen)
+    conv, overlap = drive("fftconv", paths, phase_fftconv, gen)
+    conv2d = drive("conv2d", paths, phase_conv2d, gen, k1=False, k2=False)
+    drive("staging", paths, phase_staging, gen, headline, k2=False)
     drive("ns3d", paths, phase_ns3d)
 
     times = phase_timing(k1_cases, k2_cases, headline, volume, smi)
+    phase_new_plan_timing(dct, conv, overlap, conv2d, smi)
+    del dct, conv, overlap, conv2d
     phase_solver_timing(gen, x, y, smi)
-    # each kernel's record carries the times of its headline shape
+    # each kernel's record carries the times of its headline shape, and
+    # under "shapes" those of every shape timed
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": f"webgpufft_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": sum(c[i] for c in paths.values()),
          "launches_by_path": {p: c[i] for p, c in paths.items()},
-         "max_abs_err": err, "shape": shape, **times[key]}
+         "max_abs_err": err, "shape": shape, **times[key],
+         "shapes": [{"shape": list(k[1:]), **v} for k, v in times.items() if k[0] == key[0]]}
         for i, (name, src, replaces, err, shape, key) in enumerate([
             ("fused_lines", "fused_lines.cu", "webgpufft_tpu/core/fused.py:223",
              k1_err, "N=1024 x 4096 lines", ("K1", 1024, 4096)),

@@ -1,5 +1,6 @@
 """GPU-only tests of the PyTorch port: the CUDA kernels against their plain
-torch versions, and c2c plans on the card against ``torch.fft``.
+torch versions, and every plan type and the staging pipeline on the card
+against ``torch.fft`` or float64 torch.
 
 This file imports torch only (no JAX), so it runs where the JAX package is
 absent.  On a machine with an NVIDIA GPU and nvcc:
@@ -36,7 +37,11 @@ def _dev_tables(consts, device):
     # at the line counts of a rank > 1 plan
     (4096, 5, "inverse"), (1352, 11, "forward"), (16, 1001, "forward"), (6, 77, "inverse"),
     (121, 50, "forward"), (14641, 2, "forward"), (15360, 2, "inverse"), (6561, 3, "forward"),
-    (8192, 3, "inverse"), (256, 1537, "forward"), (64, 8192, "forward"), (128, 8192, "inverse")])
+    (8192, 3, "inverse"), (256, 1537, "forward"), (64, 8192, "forward"), (128, 8192, "inverse"),
+    # what the dct, fftconv and overlap-save paths give K1, and the one-butterfly
+    # last axes of small rank > 1 plans
+    (512, 4096, "forward"), (1024, 8192, "inverse"), (8192, 131, "forward"),
+    (256, 8, "inverse"), (8, 16, "forward"), (15, 8, "inverse"), (12, 6, "forward")])
 def test_fused_lines_kernel_matches_plain(n, lines, direction, cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(n)
     t = _dev_tables(fused.lines_consts(n, direction, 1.0 / math.sqrt(n), "p"), cuda_device)
@@ -55,7 +60,11 @@ def test_fused_lines_kernel_matches_plain(n, lines, direction, cuda_device):
     # every odd radix, one-butterfly heights, and the small-digit views
     # 8 * 16 and 8 * 8 inside rank > 1 geometry
     (8, 16384, 64), (3, 2310, 66), (2, 1352, 130), (5, 121, 256), (3, 14641, 2),
-    (2, 13, 70), (3, 16, 512), (2, 4096, 66), (384, 128, 512), (64, 64, 128)])
+    (2, 13, 70), (3, 16, 512), (2, 4096, 66), (384, 128, 512), (64, 64, 128),
+    # the views of the dct and fftconv paths, axis 0 of a 256^3 r2c plan, and
+    # the short heights a small axis 0 gives now that no digit rule holds
+    (8, 512, 1024), (1, 1024, 2048), (3, 128, 131072), (8, 3, 512), (8, 9, 512),
+    (4, 6, 202), (2, 4, 128)])
 def test_fused_cols_kernel_matches_plain(pre, h, lanes, cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(h)
     t = _dev_tables(fused_cols.cols_consts(h, "inverse", 1.0 / h, "p"), cuda_device)
@@ -93,7 +102,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
 
 @pytest.mark.parametrize("shape,batch,mode", [
     ([1024], 16, "pallas-fused"), ([256, 256], 2, "pallas-fused"),
-    ([16, 256, 256], 1, "pallas-mixed"), ([12, 18], 3, "xla")])
+    ([16, 256, 256], 1, "pallas-fused"), ([12, 18], 3, "pallas-mixed"),
+    ([4, 4, 4], 2, "pallas-mixed"), ([6, 101], 2, "pallas-mixed"), ([7, 9], 1, "xla")])
 @pytest.mark.parametrize("direction", ["forward", "inverse"])
 def test_plan_on_gpu_matches_cpu_plan_and_torch_fft(shape, batch, mode, direction,
                                                    cuda_device):
@@ -128,9 +138,11 @@ def _rfft_dims(rank):
 
 
 @pytest.mark.parametrize("shape,kernels", [
-    ([64, 64, 64], False),      # digits 8 x 8: the rank > 1 rule keeps every axis off K1/K2
+    ([64, 64, 64], True),       # digits 8 x 8 and 4 x 8 (the half axis 0): all on K1/K2
     ([64, 256, 256], True),     # body and Nyquist axis 1 on K2, axis 2 on K1
     ([9, 256, 256], True),      # odd n0: the widened plan
+    ([6, 256], True),           # half axis 0 of 3: a one-butterfly K2
+    ([34, 6], False),           # half axis 0 of 17 and 2 Nyquist lines: K1 only
 ])
 def test_real_plans_on_gpu_match_torch_fft(shape, kernels, cuda_device):
     batch, dims = 3, _rfft_dims(len(shape))
@@ -166,7 +178,7 @@ def test_axis_kinds_on_gpu_match_torch_fft(shape, batch, tuning, kind, direction
     plan = T.create_plan({"type": "c2c", "shape": shape, "batch": batch,
                           "direction": direction, "normalize": "backward",
                           "tuning": tuning}, device=cuda_device, cache=T.PlanCache())
-    assert kind in plan.route.axis_kinds or plan.route.mode == "four-step-hbm"
+    assert kind in plan.route.axis_kinds or any("xla-four-step" in r for r in plan.route.reasons)
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     x = torch.randn(batch, *shape, 2, device=cuda_device, generator=gen)
     y = plan(x)
@@ -188,3 +200,217 @@ def test_ns3d_step_on_gpu_matches_torch_fft_step(cuda_device):
     got = ns.run3(tg, n, nu, dt, 4, device=cuda_device)
     assert_close(got.cpu(), ns.taylor_green_embedded(n, 4 * dt, nu, device=cuda_device).cpu(),
                  label="Taylor-Green 64^3")
+
+
+# ---------------------------------------------------------------------------
+# DCT/DST, fftconv, conv2d and the staging pipeline on the card
+# ---------------------------------------------------------------------------
+
+def _launched(fn):
+    before = (fused.fused_lines.launches, fused_cols.fused_cols.launches)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (fused.fused_lines.launches - before[0],
+                 fused_cols.fused_cols.launches - before[1])
+
+
+def _trig_oracle(x, shape, kind, direction):
+    """Dense trig matrices in float64 on the card."""
+    from webgpufft_tpu_torch.utils import mathref
+    y = x.double()
+    for d, n in enumerate(shape):
+        mdir = "forward" if kind[-1] in "14" else direction
+        m = torch.as_tensor(mathref.trig_matrix(kind, n, mdir), device=x.device)
+        y = torch.movedim(torch.movedim(y, 1 + d, -1) @ m.T, -1, 1 + d)
+    return y
+
+
+@pytest.mark.parametrize("kind", ["dct1", "dct2", "dct3", "dct4", "dst1", "dst2", "dst3", "dst4"])
+@pytest.mark.parametrize("shape,batch,want", [
+    ((512, 512), 2, (1, 1)),        # K2 on (2, m, 2 * 512), K1 on 1024 lines of m
+    ((16, 512, 64), 1, (0, 1)),     # a mid axis on K2, matmul axes around it
+    ((8, 8), 64, (0, 0)),           # the matmul route
+])
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+def test_dct_on_gpu_matches_float64(kind, shape, batch, want, direction, cuda_device):
+    plan = T.create_plan({"type": kind, "shape": list(shape), "batch": batch,
+                          "direction": direction}, device=cuda_device, cache=T.PlanCache())
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(batch, *shape, device=cuda_device, generator=gen)
+    y, made = _launched(lambda: plan(x))
+    if kind in ("dct1", "dst1") and 512 in shape:
+        # work lengths 1022 = 2 * 7 * 73 and 1026 = 2 * 3^3 * 19: Bluestein
+        assert made == (0, 0), (made, plan.route.reasons)
+    else:
+        assert made == want, (made, plan.route.reasons)
+    assert_close(y.cpu(), _trig_oracle(x, shape, kind, direction).cpu(),
+                 label=f"{kind}{shape} {direction}")
+
+
+def _torch_fft_conv(x, k, shape, kshape, boundary, mode="convolution"):
+    from webgpufft_tpu_torch.utils import mathref
+    fft_shape, out_shape, out_off = mathref.fftconv_out_shape(shape, kshape, boundary)
+    dims = tuple(range(1, x.ndim))
+    kf = torch.fft.fftn(k.to(torch.complex128), s=fft_shape)
+    if mode == "correlation":
+        kf = kf.conj()
+    y = torch.fft.ifftn(torch.fft.fftn(x.to(torch.complex128), s=fft_shape, dim=dims) * kf,
+                        dim=dims)
+    return y[(slice(None),) + tuple(slice(o, o + n) for o, n in zip(out_off, out_shape))]
+
+
+@pytest.mark.parametrize("shape,kshape,batch,boundary,mode,want", [
+    ([1000, 1000], [25, 25], 2, "linear-same", "convolution", (3, 3)),
+    ([1000, 1000], [25, 25], 2, "linear-full", "correlation", (3, 3)),
+    ([60, 250], [5, 7], 8, "linear-full", "convolution", (3, 3)),      # fft shape (64, 256)
+    ([256], [9], 8, "circular", "convolution", (2, 0)),                 # the lone kernel: einsum
+    ([12, 10], [3, 3], 2, "linear-valid", "convolution", (3, 0)),       # 20 lanes: no K2
+])
+def test_fftconv_on_gpu_matches_torch_fft(shape, kshape, batch, boundary, mode, want,
+                                          cuda_device):
+    plan = T.create_plan({"type": "fftconv", "shape": shape, "batch": batch,
+                          "fftConv": {"kernelShape": kshape, "boundary": boundary,
+                                      "mode": mode}}, device=cuda_device, cache=T.PlanCache())
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn(batch, *shape, 2, device=cuda_device, generator=gen)
+    k = torch.randn(*kshape, 2, device=cuda_device, generator=gen)
+    y, made = _launched(lambda: plan(x, kernel=k))
+    assert made == want, (made, plan.route.reasons)
+    ref = _torch_fft_conv(torch.view_as_complex(x), torch.view_as_complex(k), shape, kshape,
+                          boundary, mode)
+    assert_close(y.cpu(), torch.view_as_real(ref).cpu(), label=f"fftconv {shape} {boundary}")
+
+
+def test_fftconv_multi_kernel_lanes_on_gpu(cuda_device):
+    """Channel-lane gather and scatter with index tensors on the card, and
+    ``out=`` merged in place."""
+    preset = T.create_fftconv_batch_major_channel_lane_preset({
+        "shape": [256], "batch": 4, "kernelCount": 2,
+        "input": {"channels": 3, "channelIndex": 1},
+        "output": {"channels": 4, "channelIndex": 1, "kernelStepChannels": 2}})
+    plan = T.create_plan({"type": "fftconv", **preset}, device=cuda_device, cache=T.PlanCache())
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    lanes = torch.randn(4, 3, 256, 2, device=cuda_device, generator=gen)
+    k = torch.randn(2, 256, 2, device=cuda_device, generator=gen)
+    out = torch.full((4 * 4 * 256, 2), 7.5, device=cuda_device)
+    y = plan(lanes.reshape(-1, 2), kernel=k, out=out)
+    assert y is out
+    got = out.reshape(4, 4, 256, 2)
+    for kk in range(2):
+        ref = _torch_fft_conv(torch.view_as_complex(lanes[:, 1]), torch.view_as_complex(k[kk]),
+                              [256], [256], "circular")
+        assert_close(got[:, 1 + 2 * kk].cpu(), torch.view_as_real(ref).cpu(), label=f"lane {kk}")
+    assert bool((got[:, 0] == 7.5).all() and (got[:, 2] == 7.5).all())
+
+
+@pytest.mark.parametrize("n,taps,batch,boundary,block", [
+    (1 << 16, 129, 2, "circular", None),          # block 8192 = 64 * 128 on K1
+    (1 << 16, 129, 1, "linear-same", None),
+    (5000, 33, 3, "linear-full", 360),            # a non-power-of-two block
+    (777, 9, 2, "linear-valid", 60),
+])
+def test_overlap_save_on_gpu_matches_torch_fft(n, taps, batch, boundary, block, cuda_device):
+    tuning = {"overlapSave": "on", **({"overlapBlock": block} if block else {})}
+    plan = T.create_plan({"type": "fftconv", "shape": [n], "batch": batch,
+                          "fftConv": {"kernelShape": [taps], "boundary": boundary,
+                                      "tuning": tuning}}, device=cuda_device,
+                         cache=T.PlanCache())
+    assert plan.route.mode == "overlap-save"
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    x = torch.randn(batch, n, 2, device=cuda_device, generator=gen)
+    k = torch.randn(taps, 2, device=cuda_device, generator=gen)
+    y, made = _launched(lambda: plan(x, kernel=k))
+    assert made == (2, 0), (made, plan.route.reasons)
+    ref = _torch_fft_conv(torch.view_as_complex(x), torch.view_as_complex(k), [n], [taps],
+                          boundary)
+    assert_close(y.cpu(), torch.view_as_real(ref).cpu(), label=f"overlap-save {n} {boundary}")
+
+
+@pytest.mark.parametrize("ktype,data", [("real", "real"), ("real", "complex"),
+                                        ("complex", "complex")])
+def test_conv2d_on_gpu_runs_without_tf32(ktype, data, cuda_device):
+    """With cuDNN's TF32 flag ON for the process, on data whose low mantissa
+    bits TF32 drops (1 + m * 2^-12), the plan still meets 1e-5: it scopes the
+    flag off around its own convolution, and restores it."""
+    k, shape, batch = 3, [256, 320], 4
+    plan = T.create_plan({"type": "conv2d", "shape": shape, "batch": batch,
+                          "conv": {"kernelSize": k, "padding": "same", "kernelType": ktype}},
+                         device=cuda_device, cache=T.PlanCache())
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    tail = (2,) if data == "complex" else ()
+    x = 1.0 + torch.randint(0, 4096, (batch, *plan.in_shape, *tail), device=cuda_device,
+                            generator=gen).float() / 4096.0
+    w = torch.randn(k, k, *((2,) if ktype == "complex" else ()), device=cuda_device,
+                    generator=gen)
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        y = plan(x, kernel=w)
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+    xc = torch.view_as_complex(x).to(torch.complex128) if data == "complex" else x.double()
+    wc = torch.view_as_complex(w).to(torch.complex128) if ktype == "complex" else w.double()
+    xp = torch.nn.functional.pad(xc, (1, 1, 1, 1))
+    ref = sum(xp[:, i:i + shape[0], j:j + shape[1]] * wc[i, j]
+              for i in range(k) for j in range(k))
+    ref = torch.view_as_real(ref) if data == "complex" else ref
+    assert_close(y.cpu(), ref.cpu(), label=f"conv2d {data}/{ktype}")
+
+
+def test_staging_on_gpu_out_and_in_place_alias(cuda_device):
+    """Strided gather and scatter with index tensors on the card; ``out=``
+    and inPlace write the caller's tensors; offsets are Python ints."""
+    n, batch = 1024, 64
+    opts = {"type": "c2c", "shape": [n], "batch": batch, "normalize": "unitary"}
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    x = torch.randn(batch, n, 2, device=cuda_device, generator=gen)
+    ref = torch.view_as_real(torch.fft.fft(torch.view_as_complex(x), norm="ortho"))
+
+    plan = T.create_plan({**opts, "layout": {"inputStrides": [2], "outputStrides": [3]}},
+                         device=cuda_device, cache=T.PlanCache())
+    span_in, span_out = 2 * (n - 1) + 1, 3 * (n - 1) + 1
+    flat = torch.zeros(span_in * batch + 5, 2, device=cuda_device)
+    flat[5:].reshape(batch, span_in, 2)[:, ::2] = x
+    out = torch.full((span_out * batch + 7, 2), 7.5, device=cuda_device)
+    (y, made) = _launched(lambda: plan(flat, out=out, input_offset_elements=5,
+                                       output_offset_elements=7))
+    assert y is out and made == (1, 0)
+    got = out[7:].reshape(batch, span_out, 2)
+    assert_close(got[:, ::3].cpu(), ref.cpu(), label="strided in/out with offsets")
+    assert bool((got[:, 1::3] == 7.5).all() and (out[:7] == 7.5).all())
+
+    plan = T.create_plan({**opts, "ioView": {"output": {"shape": [n + 8], "offset": [-4]}}},
+                         device=cuda_device, cache=T.PlanCache())
+    out = torch.full((batch, n + 8, 2), 7.5, device=cuda_device)
+    assert plan(x, out=out) is out
+    assert_close(out[:, 4:n + 4].cpu(), ref.cpu(), label="keep-outside merge")
+    assert bool((out[:, :4] == 7.5).all() and (out[:, n + 4:] == 7.5).all())
+
+    plan = T.create_plan({**opts, "inPlace": True}, device=cuda_device, cache=T.PlanCache())
+    xin = x.clone()
+    assert plan(xin) is xin
+    assert_close(xin.cpu(), ref.cpu(), label="inPlace")
+
+
+def test_bf16_storage_on_gpu(cuda_device):
+    n, batch = 1024, 64
+    plan = T.create_plan({"type": "c2c", "shape": [n], "batch": batch,
+                          "precision": "bf16-storage"}, device=cuda_device, cache=T.PlanCache())
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    x = (0.5 * torch.randn(batch, n, 2, device=cuda_device, generator=gen)).to(torch.bfloat16)
+    y, made = _launched(lambda: plan(x))
+    assert y.dtype == torch.bfloat16 and made == (0, 0)
+    ref = torch.view_as_real(torch.fft.fft(torch.view_as_complex(x.float())))
+    assert_close(y.float().cpu(), ref.cpu(), atol_scale=3e-2, label="bf16-storage c2c")
+
+
+def test_ns3d_bf16_storage_step_on_gpu(cuda_device):
+    from webgpufft_tpu_torch.examples import navier_stokes3d as ns
+    n, nu, dt = 64, 2e-2, 1e-2
+    step, to_s, _ = ns.make_stepper3(n, nu, dt, device=cuda_device)
+    step_b, _, _ = ns.make_stepper3(n, nu, dt, device=cuda_device, precision="bf16-storage")
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    u_hat = to_s(0.1 * torch.randn(3, n, n, n, device=cuda_device, generator=gen))
+    assert_close(step_b(u_hat).cpu(), step(u_hat).cpu(), atol_scale=1e-3,
+                 label="bf16-storage step 64^3")

@@ -1,7 +1,8 @@
 """The 3-D Navier-Stokes example on the PyTorch port
 (``webgpufft_tpu_torch.examples.navier_stokes3d``) against the JAX example
 (``examples/navier_stokes3d.py``, loaded as tests/test_example_ns3d.py
-loads it), at n = 16 on the CPU.  Tolerance: 1e-5 * max|expected|.
+loads it), at n = 16 on the CPU.  Tolerance: 1e-5 * max|expected|; the
+bf16-storage step at the JAX example's own limit, 1e-3 of the f32 step.
 """
 
 import importlib.util
@@ -92,5 +93,24 @@ def test_energy_decays():
 def test_options_not_ported_raise():
     with pytest.raises(T.PlanError, match="ROADMAP P12"):
         P.make_stepper3(N, NU, DT, device="cpu", mesh=object())
-    with pytest.raises(T.PlanError, match="ROADMAP P7"):
-        P.make_stepper3(N, NU, DT, device="cpu", precision="bf16-storage")
+    with pytest.raises(T.PlanError, match="precision"):
+        P.make_stepper3(N, NU, DT, device="cpu", precision="f64")
+
+
+def test_bf16_storage_step_tracks_f32_and_jax(ns3):
+    """precision="bf16-storage": the plans take and return bfloat16, the
+    solver state stays float32; a step tracks the f32 step, and the JAX
+    example's bf16-storage step, within 1e-3 (the JAX test's limit)."""
+    u0 = (np.random.default_rng(3).standard_normal((3, N, N, N)) * 0.1).astype(np.float32)
+    step_f, to_s, _ = P.make_stepper3(N, NU, DT, device="cpu")
+    step_b, to_s_b, to_p_b = P.make_stepper3(N, NU, DT, device="cpu", precision="bf16-storage")
+    jstep_b, _, _ = ns3.make_stepper3(N, NU, DT, precision="bf16-storage")
+    u_hat = to_s(torch.from_numpy(u0))
+    vf, vb = step_f(u_hat).numpy(), step_b(u_hat)
+    assert vb.dtype == torch.float32 and tuple(vb.shape) == (3, N // 2 + 1, N, N, 2)
+    scale = np.max(np.abs(vf))
+    assert np.max(np.abs(vb.numpy() - vf)) / scale < 1e-3
+    assert np.max(np.abs(vb.numpy() - np.asarray(jstep_b(u_hat.numpy())))) / scale < 1e-3
+    assert to_p_b(vb).dtype == torch.float32
+    assert np.max(np.abs(to_s_b(torch.from_numpy(u0)).numpy() - u_hat.numpy())) \
+        / np.max(np.abs(u_hat.numpy())) < 2e-2

@@ -28,3 +28,61 @@ def assert_close(actual, expected, atol_scale=1e-5, label=""):
     scale = max(np.max(np.abs(expected)), 1e-12)
     err = np.max(np.abs(actual - expected)) / scale
     assert err <= atol_scale, f"{label}: max rel err {err:.3e} > {atol_scale:.0e}"
+
+
+def run_both(opts, x, *, impl="auto", kernel=None, out=None, **exec_kw):
+    """Build the JAX plan and the port's CPU plan from the same options
+    (``tuning.impl`` set to ``impl``), run both on the same numpy input and
+    return ``(jax_plan, port_plan, jax_result, port_result)`` with the
+    results as float numpy arrays (lists of them for a ``BufferView`` out).
+
+    ``x`` and ``out`` are numpy arrays or lists of numpy segments (wrapped
+    in each package's ``BufferView``); a bf16-storage plan gets them rounded
+    to bfloat16.  The JAX package is imported here, not at module import, so
+    the GPU-only tests can use this module where JAX is absent.
+    """
+    import jax.numpy as jnp
+    import webgpufft_tpu as W
+    import webgpufft_tpu_torch as T
+
+    opts = dict(opts)
+    opts["tuning"] = {**(opts.get("tuning") or {}), "impl": impl}
+    jplan = W.create_plan(opts, cache=W.PlanCache())
+    tplan = T.create_plan(opts, device="cpu", cache=T.PlanCache())
+    bf16 = tplan.spec.precision == "bf16-storage"
+
+    def to_jax(a):
+        if a is None:
+            return None
+        if isinstance(a, list):
+            return W.BufferView([to_jax(s) for s in a])
+        return jnp.asarray(a).astype(jnp.bfloat16) if bf16 else a
+
+    def to_torch(a):
+        if a is None:
+            return None
+        if isinstance(a, list):
+            return T.BufferView([to_torch(s) for s in a])
+        t = torch.from_numpy(np.array(a))
+        return t.to(torch.bfloat16) if bf16 else t
+
+    def to_numpy(y):
+        if isinstance(y, (list, tuple)):
+            return [to_numpy(p) for p in y]
+        if isinstance(y, torch.Tensor):
+            return y.float().numpy()
+        return np.asarray(y.astype(jnp.float32))
+
+    kw = {k: v for k, v in exec_kw.items() if v is not None}
+    if kernel is not None:
+        kw["kernel"] = kernel
+    jy = jplan.exec(to_jax(x), out=to_jax(out), **kw)
+    ty = tplan.exec(to_torch(x), out=to_torch(out), **kw)
+    return jplan, tplan, to_numpy(jy), to_numpy(ty)
+
+
+def same_route(jplan, tplan):
+    """Route metadata equal field for field (expected under ``impl: "xla"``)."""
+    jr, tr = jplan.route, tplan.route
+    assert (tr.mode, tr.impl, tr.axis_kinds, tr.reasons) == \
+        (jr.mode, jr.impl, jr.axis_kinds, jr.reasons)

@@ -11,10 +11,14 @@ first use):
                        device="cuda")
     y = plan(x)              # x: float32 (4096, 1024, 2) on the plan's device
 
-c2c plans over any axis length (mixed-radix, four-step, Rader, Bluestein)
-and r2c/c2r plans (packed half-spectrum along logical axis 0) are ported.
-Everything else raises ``PlanError`` naming the ROADMAP item that ports it.
-The package imports torch and numpy only, never JAX.
+Every plan type of ``spec.py`` is ported: c2c over any axis length
+(mixed-radix, four-step, Rader, Bluestein), r2c/c2r (packed half-spectrum
+along logical axis 0), dct1-4/dst1-4, fftconv (with its overlap-save route
+and channel-lane presets) and conv2d, each with the staging options (layout
+strides, ``whdcn`` lanes, ioView, zeroPad, bf16-storage, inPlace, exec-time
+offsets, ``out=``, ``BufferView``).  ``rigor: "measure"``, cache snapshots,
+autograd and ``mesh=`` raise ``PlanError`` naming the ROADMAP item that
+ports them.  The package imports torch and numpy only, never JAX.
 """
 
 from __future__ import annotations
@@ -28,17 +32,18 @@ from .spec import PlanError, PlanSpec, normalize_spec
 from .plans.base import Plan, RouteInfo
 from .runtime.cache import PlanCache, default_cache
 from .core.cplx import interleave, uninterleave
+from .utils.bufferview import BufferView
 
 __version__ = "0.1.0"
 
 __all__ = [
     "create_plan", "create_fft_plan", "tables_from_reference", "Plan",
     "PlanSpec", "PlanError", "RouteInfo", "PlanCache", "default_cache",
-    "interleave", "uninterleave",
+    "interleave", "uninterleave", "BufferView",
+    "create_fftconv_channel_lane_preset",
+    "create_fftconv_kernel_major_channel_lane_preset",
+    "create_fftconv_batch_major_channel_lane_preset",
 ]
-
-# plan types not ported yet -> the ROADMAP item that ports them
-_NOT_PORTED = {"fftconv": "P6", "conv2d": "P6"}
 
 
 def _resolve_device(device) -> torch.device:
@@ -67,9 +72,16 @@ def _build_plan(spec: PlanSpec, device: torch.device) -> Plan:
     if t == "c2r":
         from .plans.transforms import build_c2r
         return build_c2r(spec, device)
-    item = _NOT_PORTED.get(t, "P5")  # dct1-4 / dst1-4
-    raise PlanError(f"plan type {t!r} is not ported to the PyTorch port yet "
-                    f"(ROADMAP {item})", plan_type=t)
+    if t.startswith("dct") or t.startswith("dst"):
+        from .plans.transforms import build_dct
+        return build_dct(spec, device)
+    if t == "fftconv":
+        from .plans.fftconv import build_fftconv
+        return build_fftconv(spec, device)
+    if t == "conv2d":
+        from .plans.conv2d import build_conv2d
+        return build_conv2d(spec, device)
+    raise PlanError(f"unknown plan type {t!r}")
 
 
 def create_plan(opts: Optional[Dict[str, Any]] = None, *, device="cuda",
@@ -113,6 +125,64 @@ def create_fft_plan(opts: Optional[Dict[str, Any]] = None, *, device="cuda",
     return create_plan(merged, device=device)
 
 
+# ---------------------------------------------------------------------------
+# FFTConv channel-lane preset helpers
+# ---------------------------------------------------------------------------
+
+def _lane_fragment(d: Dict[str, Any], output_side: bool) -> Dict[str, Any]:
+    if not isinstance(d, dict) or "channels" not in d:
+        raise PlanError("channel-lane descriptor requires 'channels'")
+    out = {"channels": int(d["channels"])}
+    for k in ("channelIndex", "channelStrideElements", "batchStrideElements",
+              "offsetElements"):
+        if k in d:
+            out[k] = int(d[k])
+    if output_side and "kernelStepChannels" in d:
+        out["kernelStepChannels"] = int(d["kernelStepChannels"])
+    return out
+
+
+def create_fftconv_channel_lane_preset(opts: Dict[str, Any]) -> Dict[str, Any]:
+    """Build a validated fftconv channelPolicy plan fragment.
+
+    Returns a dict merging into create_plan options:
+    ``create_plan({"type": "fftconv", **preset})``.
+    """
+    shape = list(opts["shape"])
+    batch = int(opts.get("batch", 1))
+    layout = opts.get("layout")
+    if layout is not None:
+        extra = set(layout) - {"interleavedComplex"}
+        if extra:
+            raise PlanError(f"preset layout must not include stride/whdcn fields: {extra}")
+    frag: Dict[str, Any] = {
+        "shape": shape,
+        "batch": batch,
+        "fftConv": {
+            "mode": opts.get("mode", "convolution"),
+            "boundary": opts.get("boundary", "circular"),
+            "kernelCount": int(opts.get("kernelCount", 1)),
+            "channelPolicy": {
+                "input": _lane_fragment(opts["input"], False),
+                "output": _lane_fragment(opts["output"], True),
+            },
+        },
+    }
+    if "kernelShape" in opts:
+        frag["fftConv"]["kernelShape"] = list(opts["kernelShape"])
+    if "outputLayout" in opts:
+        frag["fftConv"]["outputLayout"] = opts["outputLayout"]
+    return frag
+
+
+def create_fftconv_kernel_major_channel_lane_preset(opts: Dict[str, Any]) -> Dict[str, Any]:
+    return create_fftconv_channel_lane_preset({**opts, "outputLayout": "kernel-major"})
+
+
+def create_fftconv_batch_major_channel_lane_preset(opts: Dict[str, Any]) -> Dict[str, Any]:
+    return create_fftconv_channel_lane_preset({**opts, "outputLayout": "batch-major"})
+
+
 def tables_from_reference(np_consts: Dict[str, np.ndarray],
                           device) -> Dict[str, torch.Tensor]:
     """Turn a JAX plan's numpy tables into this port's tables on ``device``.
@@ -129,6 +199,15 @@ def tables_from_reference(np_consts: Dict[str, np.ndarray],
     tables (``cw``, ``cp`` under each ``fl*`` and ``fc*`` prefix), which the
     JAX package has no counterpart of, are built anew, from the length,
     direction and scale that the prefix's other tables give.
+
+    The DCT/DST tables (``trig{d}``; ``dct{d}/perm``, ``/inv``, ``/xm`` as
+    int32; ``/wa``, ``/wb``, ``/ua``, ``/ub``, ``/xm0``, ``/p_re``, ``/p_im``,
+    ``/t_re``, ``/t_im``; the inner ``dct{d}/f/…`` or ``/i/…`` axis tables),
+    fftconv's ``f/ax*`` and ``i/ax*`` and overlap-save's ``os/f``, ``os/i``
+    pass through under their own names.  The JAX package runs these plan
+    types on its einsum route only, so their tables match a port plan built
+    with ``impl: "xla"``; a port plan whose inner passes run K1/K2 holds
+    kernel tables the JAX plan has none for.
     Load the result with ``Plan.load_consts``.
     """
     from .core import fused, fused_cols

@@ -1,24 +1,27 @@
-"""c2c, r2c and c2r plan builders.
+"""c2c, r2c, c2r and DCT/DST plan builders.
 
-Port of ``build_c2c``, ``build_r2c`` and ``build_c2r`` from
+Port of ``build_c2c``, ``build_r2c``, ``build_c2r`` and ``build_dct`` from
 ``webgpufft_tpu/plans/transforms.py``, minus the JAX package's TPU-only
 parts (the operand-size and batch chunking, the giant-transform route and
-the per-rank VMEM split).
+the per-rank VMEM split).  Every builder wraps its core in the staging
+pipeline of ``plans/base.build_staged_fn``.
 
-Every complex pass of every plan is one ``AxisPass``, chosen by
-``axis_pass`` from the array it runs on:
+Every complex pass of every plan (the inner FFT of an FFT-routed DCT axis
+and the passes of ``plans/fftconv.py`` included) is one ``AxisPass``, chosen
+by ``axis_pass`` from the array it runs on:
 
 - last axis → K1 (core/fused.py) when a split exists and there are at least
-  8 lines, with both digits >= 16 when rank > 1;
-- earlier axes → K2 (core/fused_cols.py) when the riding lanes number at
-  least 128 and both digits are >= 16;
+  8 lines;
+- earlier axes → K2 (core/fused_cols.py) when a split exists and the riding
+  lanes number at least 128;
 - any other axis → the einsum route (core/axis.py: mixed-radix, four-step,
   Rader or Bluestein).
 
-The kernels are allowed under ``impl`` "auto", "pallas" and "pallas-auto";
-"xla" keeps every axis on the einsum route.  A c2c plan folds its normalize
-scale into the last axis's table and runs the axes last to first.  r2c and
-c2r apply the scale in one pass at the end, as the JAX package does.
+The kernels are allowed under ``impl`` "auto", "pallas" and "pallas-auto" on
+f32 plans; "xla" and bf16-storage plans keep every axis on the einsum route.
+A c2c plan folds its normalize scale into the last axis's table and runs the
+axes last to first.  r2c, c2r and the DCT/DST plans apply the scale in one
+pass at the end, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -30,15 +33,13 @@ import numpy as np
 import torch
 
 from ..core import engine, fused, fused_cols
-from ..core.axis import AxisPlan, apply_along_axis, make_smooth_plan, select_axis_kind
+from ..core.axis import (AxisPlan, apply_along_axis, build_axis_plan, make_smooth_plan,
+                         select_axis_kind)
 from ..core.cplx import cmul_const, const_pair
 from ..runtime.policy import FUSED_MIN_BATCH, resolve_route
 from ..spec import PlanError, PlanSpec
+from ..utils.mathref import trig_matrix
 from .base import Plan, RouteInfo, build_staged_fn
-
-# the digit floor for K1/K2 in a rank > 1 plan (a Mosaic VMEM fact of the
-# JAX package, kept so both packages route alike; ROADMAP P-X)
-MIN_DIGIT_RANK_GT1 = 16
 
 
 def _route_for(spec: PlanSpec) -> RouteInfo:
@@ -55,13 +56,16 @@ class AxisPass:
     ``(lead, *shape, 2)`` array: K1, K2 or an einsum axis plan.
 
     ``kind`` is the route name ("fused-lines", "fused-cols", "xla" or
-    "xla-four-step"), ``scaled`` whether the pass applies the scale it was
-    chosen for, and ``note`` why a split length stayed off the kernels."""
+    "xla-four-step"), ``detail`` the same with the einsum axis's algorithm
+    named when it is Rader or Bluestein ("xla-bluestein"), and ``scaled``
+    whether the pass applies the scale it was chosen for."""
 
     def __init__(self, kind: str, shape: Tuple[int, ...], lead: int, d: int,
-                 obj, scaled: bool, note: Optional[str] = None):
+                 obj, scaled: bool):
         self.kind, self.shape, self.lead, self.d = kind, tuple(shape), lead, d
-        self.obj, self.scaled, self.note = obj, scaled, note
+        self.obj, self.scaled = obj, scaled
+        named = not kind.startswith("fused") and obj.kind in ("rader", "bluestein")
+        self.detail = f"xla-{obj.kind}" if named else kind
 
     def __call__(self, y, c):
         shape, lead, d = self.shape, self.lead, self.d
@@ -80,29 +84,37 @@ class AxisPass:
         return y.reshape(lead, *shape, 2)
 
 
-def axis_pass(shape: Sequence[int], lead: int, d: int, direction: str, scale: float,
-              tuning, consts: Dict[str, np.ndarray], axis_plan: AxisPlan) -> AxisPass:
-    """Choose how the c2c pass along logical axis ``d`` of an interleaved
-    ``(lead, *shape, 2)`` array runs, and add its tables to ``consts``.
+def kernels_allowed(spec: PlanSpec) -> bool:
+    """May this plan's passes run K1/K2?  Not under ``impl: "xla"``, and not
+    on a bf16-storage plan (``fused-requires-f32``, as in the JAX package)."""
+    return spec.tuning.impl != "xla" and spec.precision == "f32"
 
-    K1 and K2 fold ``scale`` into their tables; on the einsum route
-    ``axis_plan`` is rebuilt with ``scale`` folded in when it is mixed-radix
-    or four-step, and left unscaled otherwise (``AxisPass.scaled``)."""
+
+def axis_pass(shape: Sequence[int], lead: int, d: int, direction: str, scale: float,
+              tuning, consts: Dict[str, np.ndarray], axis_plan: AxisPlan,
+              kernels: bool, prefix: str = "") -> AxisPass:
+    """Choose how the c2c pass along logical axis ``d`` of an interleaved
+    ``(lead, *shape, 2)`` array runs, and add its tables to ``consts``
+    (a kernel's under ``{prefix}fl{d}`` or ``{prefix}fc{d}``).
+
+    K1 and K2 (chosen only when ``kernels``) fold ``scale`` into their
+    tables; on the einsum route ``axis_plan`` is rebuilt with ``scale``
+    folded in when it is mixed-radix or four-step, and left unscaled
+    otherwise (``AxisPass.scaled``)."""
     shape = tuple(shape)
     n, rank = shape[d], len(shape)
-    note = None
-    if tuning.impl != "xla" and n > 1:
-        last = d == rank - 1
-        split = fused.choose_split(n) if last else fused_cols.choose_split(n)
-        if split is not None and rank > 1 and min(split) < MIN_DIGIT_RANK_GT1:
-            split, note = None, f"min-digit-below-{MIN_DIGIT_RANK_GT1}"
-        if split is not None and last:
-            if lead * math.prod(shape[:-1]) >= FUSED_MIN_BATCH:
-                consts.update(fused.lines_consts(n, direction, scale, f"fl{d}"))
-                return AxisPass("fused-lines", shape, lead, d, f"fl{d}", True)
-        elif split is not None and 2 * math.prod(shape[d + 1:]) >= 128:
-            consts.update(fused_cols.cols_consts(n, direction, scale, f"fc{d}"))
-            return AxisPass("fused-cols", shape, lead, d, f"fc{d}", True)
+    if kernels and n > 1:
+        if d == rank - 1:
+            if (fused.choose_split(n) is not None
+                    and lead * math.prod(shape[:-1]) >= FUSED_MIN_BATCH):
+                name = f"{prefix}fl{d}"
+                consts.update(fused.lines_consts(n, direction, scale, name))
+                return AxisPass("fused-lines", shape, lead, d, name, True)
+        elif (fused_cols.choose_split(n) is not None
+                and 2 * math.prod(shape[d + 1:]) >= 128):
+            name = f"{prefix}fc{d}"
+            consts.update(fused_cols.cols_consts(n, direction, scale, name))
+            return AxisPass("fused-cols", shape, lead, d, name, True)
     ap = axis_plan
     if scale != 1.0 and ap.kind in ("mixed", "four-step") and n > 1:
         ap = make_smooth_plan(n, direction, ap.prefix, tuning.max_sub_length,
@@ -110,7 +122,7 @@ def axis_pass(shape: Sequence[int], lead: int, d: int, direction: str, scale: fl
     consts.update(ap.consts())
     kind = "xla-four-step" if ap.kind == "four-step" else "xla"
     scaled = scale == 1.0 or getattr(ap, "out_scale", 1.0) == scale
-    return AxisPass(kind, shape, lead, d, ap, scaled, note)
+    return AxisPass(kind, shape, lead, d, ap, scaled)
 
 
 def _set_mode(route: RouteInfo, kinds: Sequence[str], tuning) -> None:
@@ -151,7 +163,8 @@ def build_c2c(spec: PlanSpec, device: torch.device) -> Plan:
     consts: Dict[str, np.ndarray] = {}
     axis_plans = engine.build_axis_plans(shape, spec.direction, tun)
     passes = [axis_pass(shape, batch, d, spec.direction,
-                        scale if d == rank - 1 else 1.0, tun, consts, axis_plans[d])
+                        scale if d == rank - 1 else 1.0, tun, consts, axis_plans[d],
+                        kernels_allowed(spec))
               for d in range(rank)]
     kinds = tuple(p.kind for p in passes)
     route.reasons = route.reasons + tuple(
@@ -166,9 +179,17 @@ def build_c2c(spec: PlanSpec, device: torch.device) -> Plan:
         y = _run(passes, x, c)
         return y if scale_in_kernel else y * scale
 
-    fn, in_shape, out_shape = build_staged_fn(spec, core, shape, shape, True, True)
-    return Plan(spec, consts, fn, route, device=device,
-                input_shape=in_shape, output_shape=out_shape)
+    fn, in_shape, out_shape, s_in, s_out = build_staged_fn(
+        spec, core, shape, shape, True, True, device)
+    plan = Plan(spec, consts, fn, route, device=device, input_shape=in_shape,
+                output_shape=out_shape,
+                workspace_bytes=2 * batch * spec.n_total * 8)  # ping-pong estimate
+    plan.supports_exec_offsets = True
+    # inPlace (the JAX package donates the input buffer): the result is
+    # written into the caller's tensor when both sides are plain shaped
+    plan.in_place = (spec.in_place and not s_in.has_layout and not s_out.has_layout
+                     and spec.io_view.input is None and spec.io_view.output is None)
+    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -243,6 +264,7 @@ class _RealPasses:
 
     def __init__(self, spec: PlanSpec, direction: str, consts: Dict[str, np.ndarray]):
         shape, tun, batch = tuple(spec.shape), spec.tuning, spec.batch
+        kernels = kernels_allowed(spec)
         n0, rest = shape[0], shape[1:]
         self.half = n0 % 2 == 0 and n0 >= 4
         if self.half:
@@ -250,21 +272,21 @@ class _RealPasses:
             plans = engine.build_axis_plans(hshape, direction, tun)
 
             def pick(s, d):
-                return axis_pass(s, batch, d, direction, 1.0, tun, consts, plans[d])
+                return axis_pass(s, batch, d, direction, 1.0, tun, consts, plans[d], kernels)
 
             self.axis0 = pick(hshape, 0)
             self.body = [pick(hshape, d) for d in range(1, len(shape))]
             self.nyq = [pick((1,) + rest, d) for d in range(1, len(shape))]
         else:
             plans = engine.build_axis_plans(shape, direction, tun)
-            self.full = [axis_pass(shape, batch, d, direction, 1.0, tun, consts, plans[d])
+            self.full = [axis_pass(shape, batch, d, direction, 1.0, tun, consts, plans[d],
+                                   kernels)
                          for d in range(len(shape))]
 
     def record(self, route: RouteInfo, tag: str, tuning) -> None:
         """Add ``{tag}-axis{d}-<kind>`` reasons (``-nyquist-<kind>`` where
-        the Nyquist slab's pass differs from the body's, and the reason a
-        split axis stayed off the kernels) and set the mode.  Under
-        ``impl: "xla"`` the route stays as the JAX package reports it."""
+        the Nyquist slab's pass differs from the body's) and set the mode.
+        Under ``impl: "xla"`` the route stays as the JAX package reports it."""
         if tuning.impl == "xla":
             return
         if self.half:
@@ -276,8 +298,6 @@ class _RealPasses:
             reasons.append(f"{tag}-axis{d}-{ps[0].kind}")
             if len(ps) > 1 and ps[1].kind != ps[0].kind:
                 reasons.append(f"{tag}-axis{d}-nyquist-{ps[1].kind}")
-            for note in dict.fromkeys(p.note for p in ps if p.note):
-                reasons.append(f"{tag}-axis{d}-{note}")
         route.reasons = route.reasons + tuple(reasons)
         _set_mode(route, [p.kind for ps in per_axis for p in ps], tuning)
 
@@ -325,10 +345,13 @@ def build_r2c(spec: PlanSpec, device: torch.device) -> Plan:
             y = y[:, :p0]                                # non-negative bins of axis 0
         return y if scale == 1.0 else y * scale
 
-    fn, in_shape, out_shape = build_staged_fn(spec, core, shape, packed_shape(shape),
-                                              False, True)
-    return Plan(spec, consts, fn, route, device=device, input_shape=in_shape,
-                output_shape=out_shape, input_interleaved=False)
+    fn, in_shape, out_shape, _, _ = build_staged_fn(
+        spec, core, shape, packed_shape(shape), False, True, device)
+    plan = Plan(spec, consts, fn, route, device=device, input_shape=in_shape,
+                output_shape=out_shape, input_interleaved=False,
+                workspace_bytes=3 * spec.batch * spec.n_total * 8)
+    plan.supports_exec_offsets = True
+    return plan
 
 
 def build_c2r(spec: PlanSpec, device: torch.device) -> Plan:
@@ -383,7 +406,230 @@ def build_c2r(spec: PlanSpec, device: torch.device) -> Plan:
         y = core_half(xp, c) if passes.half else core_mirror(xp, c)
         return y.contiguous() if scale == 1.0 else y * scale
 
-    fn, in_shape, out_shape = build_staged_fn(spec, core, packed_shape(shape), shape,
-                                              True, False)
-    return Plan(spec, consts, fn, route, device=device,
-                input_shape=in_shape, output_shape=out_shape)
+    fn, in_shape, out_shape, _, _ = build_staged_fn(
+        spec, core, packed_shape(shape), shape, True, False, device)
+    plan = Plan(spec, consts, fn, route, device=device, input_shape=in_shape,
+                output_shape=out_shape,
+                workspace_bytes=3 * spec.batch * spec.n_total * 8)
+    plan.supports_exec_offsets = True
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# DCT / DST 1-4
+# ---------------------------------------------------------------------------
+# Two routes per axis:
+#
+# - "matmul": a dense trig-matrix contraction (``mathref.trig_matrix``), for
+#   short axes (8x8 blocks).
+# - "fft": from ``tuning.dctFftMinN`` on, every type lowers to a complex-FFT
+#   embedding, O(N log N):
+#     dct2/dct3/dst2/dst3: length-N FFT with even/odd reorder + half-sample
+#       phase twist;
+#     dct1: symmetric extension to M=2(N-1), y = Re(FFT(v))[:N];
+#     dst1: odd extension to M=2(N+1), y = -Im(FFT(v))[1:N+1] / 2;
+#     dct4/dst4: pre-twiddle e^{-i pi n/(2N)}, zero-pad to M=2N,
+#       post-twiddle e^{-i pi (2k+1)/(4N)}: y = Re / -Im of the product.
+#   The inner complex FFT is an ``AxisPass``: K1 for the last axis, K2 for an
+#   earlier one, else the einsum route.  At power-of-two N the dct1/dst1 work
+#   lengths 2(N-1) and 2(N+1) are often not smooth (dst1 at N = 4096:
+#   8194 = 2 * 17 * 241); their inner axis is then Bluestein at about twice
+#   the length, recorded as ``dct-axis{d}-fft-xla-bluestein``.
+#
+# Matmul trig tables are guarded at DCT_MATMUL_MAX_ELEMS: an axis that would
+# build a larger dense table raises at plan build.
+
+DCT_MATMUL_MAX_ELEMS = 1 << 24
+
+
+def _dct_reorder_perms(n: int):
+    """Even/odd reorder: v[m] = x[2m], v[n-1-m] = x[2m+1]."""
+    perm = np.concatenate([np.arange(0, n, 2), np.arange(1, n, 2)[::-1]])
+    inv = np.argsort(perm)
+    return perm.astype(np.int32), inv.astype(np.int32)
+
+
+def _dct_work_length(n: int, eff_kind: str) -> int:
+    """Length of the complex FFT inside one FFT-routed axis."""
+    return {"dct1": 2 * n - 2, "dst1": 2 * n + 2, "dct4": 2 * n, "dst4": 2 * n}.get(eff_kind, n)
+
+
+def _dct_axis_fft_consts(n: int, eff_kind: str, prefix: str, tuning):
+    """(inner axis plan, the axis's own constants) for one FFT-routed axis;
+    the inner plan's tables are added by the ``axis_pass`` that takes it.
+
+    eff_kind is "dct2"-like (forward trig) or "dct3"-like (inverse trig);
+    dst variants add sign/reverse wrappers at apply time.
+    """
+    m = _dct_work_length(n, eff_kind)
+    if eff_kind in ("dct1", "dst1"):
+        return build_axis_plan(m, 0, "forward", tuning, f"{prefix}/f"), {}
+    if eff_kind in ("dct4", "dst4"):
+        # pre/post half-sample twiddles around a length-2N FFT
+        nn = np.arange(n, dtype=np.float64)
+        pre = np.exp(-1j * np.pi * nn / (2 * n))
+        post = np.exp(-1j * np.pi * (2 * nn + 1) / (4 * n))
+        consts = {f"{prefix}/p_re": pre.real.astype(np.float32),
+                  f"{prefix}/p_im": pre.imag.astype(np.float32),
+                  f"{prefix}/t_re": post.real.astype(np.float32),
+                  f"{prefix}/t_im": post.imag.astype(np.float32)}
+        return build_axis_plan(m, 0, "forward", tuning, f"{prefix}/f"), consts
+    perm, inv = _dct_reorder_perms(n)
+    w = np.exp(-1j * np.pi * np.arange(n) / (2 * n))
+    consts: Dict[str, np.ndarray] = {f"{prefix}/perm": perm, f"{prefix}/inv": inv}
+    if eff_kind in ("dct2", "dst2"):
+        ap = build_axis_plan(n, 0, "forward", tuning, f"{prefix}/f")
+        consts[f"{prefix}/wa"], consts[f"{prefix}/wb"] = const_pair(w)
+    else:
+        ap = build_axis_plan(n, 0, "inverse", tuning, f"{prefix}/i")
+        # U[k] = 0.5 * conj(w_k) * (X[k] - i*X[n-k]);  X[n-0] := 0
+        consts[f"{prefix}/ua"], consts[f"{prefix}/ub"] = const_pair(0.5 * np.conj(w))
+        consts[f"{prefix}/xm"] = np.concatenate([[0], np.arange(n - 1, 0, -1)]).astype(np.int32)
+        consts[f"{prefix}/xm0"] = np.concatenate(
+            [[0.0], np.ones(n - 1)]).astype(np.float32)  # masks X[n-0] to 0
+    return ap, consts
+
+
+def _apply_dct_fft_axis(x, c, fft, prefix: str, eff_kind: str, n: int, mid: bool = False):
+    """Apply one FFT-routed DCT/DST axis.  ``fft(v, c)`` is the inner complex
+    FFT along the transform axis of interleaved ``v``.
+
+    mid=False: along the LAST axis of real x.
+    mid=True: the axis sits at axis -2 of real x (..., n, L) with trailing
+    dims riding in L; gathers and flips address axis -2 (-3 of interleaved
+    data) and constants broadcast over L.  No movedim passes either way.
+    """
+    ax = -2 if mid else -1
+    cax = -3 if mid else -2          # the same axis on interleaved (.., 2)
+
+    def bc(t):       # per-n real constant: ride the lane dim in mid form
+        return t[:, None] if mid else t
+
+    def bc2(t):      # per-n complex const pair (n, 2): (n, 1, 2) rides L
+        return t[:, None, :] if mid else t
+
+    def rsl(t, a, b):  # slice [a:b) along the transform axis of a REAL array
+        return t[..., a:b, :] if mid else t[..., a:b]
+
+    def csl(t, a, b):  # same slice on an interleaved complex array
+        return t[..., a:b, :, :] if mid else t[..., a:b, :]
+
+    def take(t, idx):  # gather along the transform axis of a REAL array
+        return t.index_select(t.ndim + ax, idx)
+
+    def sign():        # (+1, -1, +1, ...) along the transform axis
+        s = torch.ones(n, dtype=x.dtype, device=x.device)
+        s[1::2] = -1.0
+        return bc(s)
+
+    if eff_kind == "dct1":
+        # v = [x_0..x_{N-1}, x_{N-2}..x_1], M=2(N-1): Re(FFT(v))[k] ==
+        # x_0 + (-1)^k x_{N-1} + 2 sum cos == trig_matrix("dct1") row k
+        v = torch.cat([x, torch.flip(rsl(x, 1, n - 1), dims=(ax,))], dim=ax)
+        vi = torch.stack([v, torch.zeros_like(v)], dim=-1)
+        return csl(fft(vi, c), 0, n)[..., 0]
+    if eff_kind == "dst1":
+        # v = [0, x, 0, -rev(x)], M=2(N+1): FFT(v)[k+1] = -2i sum sin, and
+        # trig_matrix("dst1") has no factor 2 -> y = -Im(FFT(v))[1:N+1]/2
+        z1 = torch.zeros_like(rsl(x, 0, 1))
+        v = torch.cat([z1, x, z1, -torch.flip(x, dims=(ax,))], dim=ax)
+        vi = torch.stack([v, torch.zeros_like(v)], dim=-1)
+        return csl(fft(vi, c), 1, n + 1)[..., 1] * (-0.5)
+    if eff_kind in ("dct4", "dst4"):
+        # u[m] = x[m] e^{-i pi m / 2N} zero-padded to 2N;
+        # y = Re / -Im of e^{-i pi (2k+1)/(4N)} FFT(u)[k], k < N
+        u = torch.stack([x * bc(c[f"{prefix}/p_re"]), x * bc(c[f"{prefix}/p_im"])], dim=-1)
+        ui = torch.cat([u, torch.zeros_like(u)], dim=cax)
+        U = csl(fft(ui, c), 0, n)
+        ur, ui_ = U[..., 0], U[..., 1]
+        tr, ti = bc(c[f"{prefix}/t_re"]), bc(c[f"{prefix}/t_im"])
+        if eff_kind == "dct4":
+            return ur * tr - ui_ * ti
+        return -(ui_ * tr + ur * ti)
+
+    if eff_kind == "dst2":
+        x = x * sign()                   # dst2(x)[k] = reverse(dct2(altsign(x)))[k]
+    if eff_kind == "dst3":
+        x = torch.flip(x, dims=(ax,))
+    if eff_kind in ("dct2", "dst2"):
+        v = take(x, c[f"{prefix}/perm"])
+        vi = torch.stack([v, torch.zeros_like(v)], dim=-1)
+        y = cmul_const(fft(vi, c), bc2(c[f"{prefix}/wa"]), bc2(c[f"{prefix}/wb"]))[..., 0]
+        return torch.flip(y, dims=(ax,)) if eff_kind == "dst2" else y
+    # dct3 / dst3
+    xm = take(x, c[f"{prefix}/xm"]) * bc(c[f"{prefix}/xm0"])
+    u = torch.stack([x, -xm], dim=-1)                   # X[k] - i*X[n-k]
+    u = cmul_const(u, bc2(c[f"{prefix}/ua"]), bc2(c[f"{prefix}/ub"]))
+    y = take(fft(u, c)[..., 0], c[f"{prefix}/inv"])     # Re(IFFT_unnorm(U))
+    return y * sign() if eff_kind == "dst3" else y
+
+
+def build_dct(spec: PlanSpec, device: torch.device) -> Plan:
+    """ND DCT/DST (types 1-4) of real ``(batch, *shape)``."""
+    kind = spec.plan_type
+    route = _route_for(spec)
+    shape, rank, batch, tun = tuple(spec.shape), spec.rank, spec.batch, spec.tuning
+    kernels = kernels_allowed(spec)
+    consts: Dict[str, np.ndarray] = {}
+    self_inverse = kind in ("dct1", "dst1", "dct4", "dst4")
+    mdir = "forward" if self_inverse else spec.direction
+    # effective per-direction kind: dct2 inverse == dct3 forward etc.
+    alias = {"dct2": "dct3", "dct3": "dct2", "dst2": "dst3", "dst3": "dst2"}
+    eff_kind = kind if (self_inverse or spec.direction == "forward") else alias[kind]
+
+    passes: List[Optional[AxisPass]] = []      # the inner FFT of each fft axis
+    for d, n in enumerate(shape):
+        if n >= tun.dct_fft_min_n:
+            ap, cc = _dct_axis_fft_consts(n, eff_kind, f"dct{d}", tun)
+            consts.update(cc)
+            # the inner FFT's own array: (lines, m, 2) for the last axis,
+            # (pre, m, L, 2) for an earlier one
+            lead = batch * math.prod(shape[:d])
+            inner = (ap.n,) if d == rank - 1 else (ap.n, math.prod(shape[d + 1:]))
+            passes.append(axis_pass(inner, lead, 0, ap.direction, 1.0, tun, consts, ap,
+                                    kernels, prefix=f"dct{d}/"))
+        else:
+            if n * n > DCT_MATMUL_MAX_ELEMS:
+                raise PlanError(
+                    f"{kind} axis {d} of length {n} would build a dense "
+                    f"{n}x{n} trig table ({n * n * 4 / 2**30:.1f} GiB) on "
+                    f"the matmul route; the FFT route engages at "
+                    f"tuning.dctFftMinN={tun.dct_fft_min_n} — "
+                    "lower it below this axis length instead of "
+                    "materializing a multi-GB constant")
+            consts[f"trig{d}"] = trig_matrix(kind, n, mdir).T.astype(np.float32)  # x @ T
+            passes.append(None)
+    route.reasons = route.reasons + tuple(
+        f"dct-axis{d}-{'matmul' if p is None else 'fft'}" for d, p in enumerate(passes))
+    if tun.impl != "xla":
+        route.reasons = route.reasons + tuple(
+            f"dct-axis{d}-fft-{p.detail}" for d, p in enumerate(passes) if p is not None)
+        _set_mode(route, ["xla" if p is None else p.kind for p in passes], tun)
+    scale = engine.plan_scale(spec.normalize, spec.direction, spec.n_total)
+
+    def core(x, c):
+        y = x
+        # last axis first; the trig axes are separable, so order is free
+        for d in range(rank - 1, -1, -1):
+            n, p = shape[d], passes[d]
+            last = d == rank - 1
+            v = y if last else y.reshape(batch, *shape[:d], n, -1)
+            if p is not None:
+                def fft(vi, c_, p=p):
+                    return p(vi, c_).reshape(vi.shape)
+                v = _apply_dct_fft_axis(v, c, fft, f"dct{d}", eff_kind, n, mid=not last)
+            elif last:
+                v = torch.matmul(v, c[f"trig{d}"])
+            else:
+                # mid-axis trig contraction: trailing dims ride as a lane dim
+                v = torch.einsum("...aL,ak->...kL", v, c[f"trig{d}"])
+            y = v.reshape(batch, *shape)
+        return y if scale == 1.0 else y * scale
+
+    fn, in_shape, out_shape, _, _ = build_staged_fn(
+        spec, core, shape, shape, False, False, device)
+    plan = Plan(spec, consts, fn, route, device=device, input_shape=in_shape,
+                output_shape=out_shape, input_interleaved=False,
+                workspace_bytes=2 * batch * spec.n_total * 4)
+    plan.supports_exec_offsets = True
+    return plan

@@ -24,10 +24,11 @@ recorded as ``ignored-tpu-knob:<key>``.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import List, Tuple
 
-from ..spec import PlanSpec
+from ..spec import PlanSpec, resolve_auto_tuning
 
 FUSED_MIN_BATCH = 8        # fewest lines the line kernel is routed for
 IMPL_AUTO_REASON = "impl-auto-hopper-kernels"
@@ -38,7 +39,6 @@ TPU_ONLY_KNOBS = (
     ("batch_tile", None, "batchTile"),
     ("fused_variant", "v1", "fusedVariant"),
     ("fused_precision", "highest", "fusedPrecision"),
-    ("matmul_precision", "highest", "matmulPrecision"),
 )
 
 
@@ -70,9 +70,14 @@ def knob_reasons(spec: PlanSpec) -> Tuple[str, ...]:
     """Route reasons recording accepted no-op knobs: the reference's
     WebGPU-only keys and the JAX package's TPU-only keys."""
     t = spec.tuning
+    # matmulPrecision "auto" has been resolved by now, to a value that
+    # depends on the plan's precision: only another value is the caller's
+    auto = resolve_auto_tuning(dataclasses.replace(t, matmul_precision="auto"),
+                               spec.precision).matmul_precision
+    knobs = TPU_ONLY_KNOBS + (("matmul_precision", auto, "matmulPrecision"),)
     return (tuple(f"ignored-webgpu-knob:{k}" for k in t.ignored_webgpu_knobs)
             + tuple(f"ignored-tpu-knob:{key}" for field, default, key
-                    in TPU_ONLY_KNOBS if getattr(t, field) != default))
+                    in knobs if getattr(t, field) != default))
 
 
 def resolve_route(spec: PlanSpec, axis_kinds: Tuple[str, ...]):
