@@ -6,11 +6,13 @@ Profiles, with ``torch.profiler`` (CPU and CUDA activities), a few calls of
 the headline c2c plan ([1024] x 4096), the c2c 256^3 plan, the dct2
 [512, 512] x 8 plan, the fftconv [1000, 1000] x 8 plan (25 x 25 taps), the
 overlap-save plan on [2^20], the Navier-Stokes step's r2c (256^3 batch 3) and
-c2r (256^3 batch 6) plans, and the solver step itself, and prints for each: device time per call, the device's busy share
-(device time over the host's time for the same calls, synchronised at the
-end, profiler off), and the device time per call of every kernel by name
-(rows whose key starts with ``aten::`` repeat their kernels' time and are left
-out).  The port's own kernels show as ``fused_lines_kernel`` and
+c2r (256^3 batch 6) plans, the solver step itself, and the reverse-mode
+gradient of the kinetic energy after one step with respect to the initial
+velocity (forward + backward), and prints for each: device time per call,
+the device's busy share (device time over the host's time for the same
+calls, synchronised at the end, profiler off), and the device time per call
+of every kernel by name (operator rows repeat their kernels' time and are
+left out).  The port's own kernels show as ``fused_lines_kernel`` and
 ``fused_cols_kernel``.  It needs a GPU and builds the kernels on first use.
 """
 
@@ -48,9 +50,10 @@ def profile_calls(label, fn, *args):
         for _ in range(CALLS):
             fn(*args)
         torch.cuda.synchronize()
+    # kernel and memcpy rows only: an operator's row (aten::, an autograd
+    # node, a Function) repeats the device time of the kernels it launched
     rows = [(e.key, device_time_us(e) / 1e3 / CALLS, e.count / CALLS)
-            for e in prof.key_averages()
-            if not e.key.startswith(("aten::", "Activity Buffer"))]  # the profiler's own
+            for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
     if total <= 0:
@@ -104,8 +107,21 @@ def main():
     step, to_s, _ = ns.make_stepper3(NS_N, NS_NU, NS_DT, device="cuda")
     u_hat = to_s(0.1 * torch.randn(3, NS_N, NS_N, NS_N, device="cuda", generator=gen))
     profile_calls("NS-3D step 256^3", step, u_hat)
-    fstep, _, _ = ns.make_torch_fft_stepper3(NS_N, NS_NU, NS_DT, device="cuda")
+    fstep, fto_s, fto_p = ns.make_torch_fft_stepper3(NS_N, NS_NU, NS_DT, device="cuda")
     profile_calls("NS-3D step 256^3 on torch.fft", fstep, u_hat)
+    del u_hat
+
+    # forward + backward: d(kinetic energy after one step)/d(u0), reverse mode
+    _, _, to_p = ns.make_stepper3(NS_N, NS_NU, NS_DT, device="cuda")
+    u0 = 0.1 * torch.randn(3, NS_N, NS_N, NS_N, device="cuda", generator=gen)
+
+    def energy(u, s=step, a=to_s, b=to_p):
+        return 0.5 * b(s(a(u))).pow(2).sum(0).mean()
+
+    profile_calls("NS-3D energy forward alone 256^3", energy, u0)
+    profile_calls("NS-3D energy gradient (forward + backward) 256^3", torch.func.grad(energy), u0)
+    profile_calls("NS-3D energy gradient 256^3 on torch.fft",
+                  torch.func.grad(lambda u: energy(u, fstep, fto_s, fto_p)), u0)
 
 
 if __name__ == "__main__":

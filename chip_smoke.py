@@ -6,9 +6,10 @@ Builds the hand-written CUDA kernels from the checkout's sources, holds each
 kernel against its plain PyTorch version (at the shapes the paths below give
 it, and at lengths that stress the radix chain: the shared-memory limit, every
 odd radix, one-butterfly lengths, a ragged column count, small digits), and
-drives eight paths through the
-port's entry points, each with the kernels' launch counts set to 0 just
-before it and read just after (each must launch the kernels named):
+holds each kernel's adjoint launch (the backward of autograd) against the
+plain adjoint and the dot test <K x, u> = <x, K^H u>, and drives ten paths
+through the port's entry points, each with the kernels' launch counts set to
+0 just before it and read just after (each must launch the kernels named):
 
 - c2c: ``create_plan(...)(x)`` on the batched 1-D headline plan and a 256^3
   plan (K1, K2);
@@ -30,13 +31,25 @@ before it and read just after (each must launch the kernels named):
 - ns3d: the 3-D Navier-Stokes solver (``webgpufft_tpu_torch.examples.
   navier_stokes3d``) at 256^3, nu = 2e-2, dt = 1e-2, on the embedded
   Taylor-Green vortex and the ABC flow, held against their analytic
-  solutions at rel err < 1e-4 (K1, K2).
+  solutions at rel err < 1e-4 (K1, K2);
+- autodiff: gradients at full size through the same entry points, launch
+  counts asserted forward + backward, each against a closed form or the same
+  loss written on ``torch.fft`` in float64: the headline plan (Parseval), c2c
+  256^3 forward then inverse, r2c -> spectral mask -> c2r 256^3 x 3, dct2
+  [512, 512] x 8, fftconv [1000, 1000] x 8 (kernel and input), conv2d
+  [1024, 1024] x 8 (kernel), one Navier-Stokes step at 256^3 by reverse mode
+  held against ``torch.func.jvp``, and ``torch.func.vmap`` of the headline
+  plan (K1, K2);
+- runtime: ``rigor: "measure"`` on four plans, a snapshot round trip that
+  reuses the winners without timing, the golden corpus
+  (``tests/golden_corpus.json``), the selftest, ``export_plan`` ->
+  ``load_exported_plan`` and a ``trace()`` of one headline call (K1, K2).
 
 Plans and kernels are checked against ``torch.fft`` as an independent
 oracle, as are the Rader, Bluestein and four-step axes and the odd-length
 r2c paths.  Then each kernel shape is timed beside its plain version, its bound
-(the bytes it must move, one read and one write, over the data sheet's
-3.35 TB/s, or its flops over 67 TFLOP/s if that is more) and the one
+(``runtime/profile.bound_ms``: the bytes it must move, one read and one write,
+over the data sheet's 3.35 TB/s, or its flops over 67 TFLOP/s if that is more) and the one
 ``torch.fft.fft`` call that computes the same function (cuFFT, a yardstick the
 port never calls), and each plan and the solver step beside ``torch.fft``
 (a DCT-II and the convolutions written on ``torch.fft`` in this script).
@@ -54,22 +67,24 @@ Output: one line per result; then the kernel record as one JSON object, the
 
 import json
 import math
+import os
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from webgpufft_tpu_torch.runtime import profile
+
 TOL = 1e-5
 NS_TOL = 1e-4      # the solver against its analytic solutions
 SEED = 1234
-WARMUP = 5
-RUNS = 25          # timed calls per block; two blocks per version
-QUEUED = 10        # back-to-back launches per timed run of a kernel
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, outside the tensor cores
+DOT_TOL = 1e-5     # <K x, u> against <x, K^H u>, relative
+JVP_TOL = 1e-4     # reverse mode against forward mode through the solver step
+GRAD_RUNS = 10     # timed forward+backward calls per version
 BF16_TOL = 3e-2    # a bf16-storage plan, as the JAX package's tests hold it
-NS_N, NS_NU, NS_DT, NS_STEPS = 256, 2e-2, 1e-2, 3
+NS_N, NS_NU, NS_DT, NS_STEPS = 256, 2e-2, 1e-2, 2
 OS_N, OS_TAPS, OS_BLOCK, OS_BLOCKS = 1 << 20, 129, 8192, 131   # the overlap-save path
 HEADLINE = {"type": "c2c", "shape": [1024], "batch": 4096,
             "direction": "forward", "normalize": "unitary"}
@@ -681,53 +696,399 @@ def phase_staging(gen, headline):
                 tol=BF16_TOL)
 
 
-def time_ms(fn, *args):
-    """RUNS single-call times from CUDA events on an idle device, after
-    WARMUP: the host's share of the call is in each."""
-    for _ in range(WARMUP):
-        fn(*args)
-    times = []
-    for _ in range(RUNS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn(*args)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return times
+def call_ms(fn, *args, runs=profile.RUNS):
+    """Median single-call time from an idle device, host share included."""
+    return profile.median(profile.time_calls(fn, *args, runs=runs))
 
 
-def median(xs):
-    xs = sorted(xs)
-    return xs[len(xs) // 2] if len(xs) % 2 else 0.5 * (xs[len(xs) // 2 - 1] + xs[len(xs) // 2])
+# ---------------------------------------------------------------------------
+# kernel adjoints
+# ---------------------------------------------------------------------------
+
+ADJOINT_K1 = [(1024, 4096, "forward"), (1024, 4096, "inverse"), (2048, 4096, "forward"),
+              (360, 4096, "inverse"), (2310, 2048, "forward"), (OS_BLOCK, OS_BLOCKS, "forward"),
+              (OS_BLOCK, OS_BLOCKS, "inverse"), (256, 3 * 128 * 256, "forward"),
+              (16384, 512, "inverse"), (16, 100003, "forward"), (6, 77, "inverse")]
+ADJOINT_K2 = [(256, 256, 512), (6 * 128, 256, 512), (3 * 128, 128, 512), (6, 128, 131072),
+              (8, 1024, 2048), (64, 360, 512), (256, 16, 512), (8, 3, 512), (3, 2310, 66),
+              (4, 1352, 130)]
 
 
-def time_queued(fn, *args, runs=RUNS):
-    """Device time of one call: median over ``runs`` of QUEUED back-to-back
-    calls between two CUDA events, over QUEUED.  A long elementwise pass is
-    queued first, so the device is still busy while the host enqueues and
-    the calls run back to back: the host's share of a call (tens of
-    microseconds in the wrappers) is left out unless it exceeds the device's."""
-    if time_queued.blocker is None:
-        time_queued.blocker = torch.zeros(1 << 28, device="cuda")
-    for _ in range(WARMUP):
-        fn(*args)
-    times = []
-    for _ in range(runs):
-        time_queued.blocker.add_(1.0)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(QUEUED):
-            fn(*args)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / QUEUED)
-    return times
+def phase_adjoint(gen, k1_cases, k2_cases):
+    """Each kernel's adjoint launch against the plain adjoint (the bar of
+    ``compare``), and the dot test <K x, u> = <x, K^H u> in float64, over
+    shapes that cover every radix set, both directions and the (h, 1)
+    one-pass heights.  These launches count for no path."""
+    from webgpufft_tpu_torch.core import fused, fused_cols
+
+    def one(label, kernel, plain, x, tables):
+        err = compare(f"{label} adjoint", lambda v, t: kernel(v, t, adjoint=True),
+                      lambda v, t: plain(v, t, adjoint=True), x, tables)
+        u = torch.randn(x.shape, device="cuda", generator=gen)
+        lhs = float((kernel(x, tables).double() * u.double()).sum())
+        rhs = float((x.double() * kernel(u, tables, adjoint=True).double()).sum())
+        rel = abs(lhs - rhs) / max(abs(lhs), abs(rhs), 1e-30)
+        # a sum of ~1e7 products of unit normals: hold the difference against
+        # the norms, not against a sum that may cancel
+        scale = float(kernel(x, tables).double().norm() * u.double().norm())
+        print(f"{label} dot test: <Kx,u> {lhs:.6e}, <x,K^H u> {rhs:.6e}, difference "
+              f"{abs(lhs - rhs) / scale:.3e} of |Kx||u| (limit {DOT_TOL:.0e})")
+        require(abs(lhs - rhs) <= DOT_TOL * scale, f"{label}: dot test fails (rel {rel:.3e})")
+        return err
+
+    worst = 0.0
+    for key in ADJOINT_K1:
+        x, tables, _ = k1_cases[key]
+        worst = max(worst, one(f"K1 fused_lines N={key[0]} lines={key[1]} {key[2]}",
+                               fused.fused_lines, fused.fused_lines_reference, x, tables))
+    for key in ADJOINT_K2:
+        x, tables, direction = k2_cases[key]
+        worst = max(worst, one(f"K2 fused_cols view={key} {direction}", fused_cols.fused_cols,
+                               fused_cols.fused_cols_reference, x, tables))
+    return worst
 
 
-time_queued.blocker = None
+# ---------------------------------------------------------------------------
+# autodiff
+# ---------------------------------------------------------------------------
+
+def counted(fn, *args, **kw):
+    """``fn(...)`` and the (K1, K2) launches it made."""
+    before = launches()
+    out = fn(*args, **kw)
+    after = launches()
+    return out, (after[0] - before[0], after[1] - before[1])
+
+
+def grad_case(label, made, want, pairs, tol=TOL):
+    """Launch counts of one forward + backward, and each gradient against
+    what it should be."""
+    print(f"autodiff {label}: launches forward + backward fused_lines {made[0]}, "
+          f"fused_cols {made[1]} (expected {want[0]}, {want[1]})")
+    require(made == want, f"autodiff {label}: launches {made}, expected {want}")
+    for name, got, expected, what in pairs:
+        check_close(f"autodiff {label}: d/d{name}", got, expected, what, tol=tol)
+
+
+def grad_time(label, ours, yardstick, card, what="torch.fft", forward=None):
+    """Forward + backward from an idle device, ours beside the yardstick's
+    (yardstick, ours, ours, yardstick), and the forward alone where given."""
+    a = profile.time_calls(yardstick, runs=GRAD_RUNS, warmup=2) if yardstick else []
+    b = profile.time_calls(ours, runs=GRAD_RUNS, warmup=2)
+    b += profile.time_calls(ours, runs=GRAD_RUNS, warmup=0)
+    a += profile.time_calls(yardstick, runs=GRAD_RUNS, warmup=0) if yardstick else []
+    both = profile.median(b)
+    beside = f", the same loss on {what} {profile.median(a):.4f} ms" if a else ""
+    alone = ""
+    if forward is not None:
+        fwd = call_ms(forward, runs=GRAD_RUNS)
+        alone = f"; forward alone {fwd:.4f} ms, forward+backward over forward {both / fwd:.2f}"
+    print(f"time autodiff {label} forward+backward: port {both:.4f} ms{beside}{alone} [{card}]")
+
+
+def phase_autodiff_timing(timers, card):
+    """The gradients of the autodiff path, timed after it so that the path's
+    launch counts are those of its own calls."""
+    for label, ours, yardstick, what, forward in timers:
+        grad_time(label, ours, yardstick, card, what=what, forward=forward)
+
+
+def phase_autodiff(gen):
+    """Gradients at full size through ``create_plan(...)(x)``.  Returns what
+    ``phase_autodiff_timing`` times: (label, forward+backward, the same on
+    the yardstick, the yardstick's name, the forward alone)."""
+    import torch.nn.functional as F
+    import webgpufft_tpu_torch as T
+    from webgpufft_tpu_torch.examples import navier_stokes3d as ns
+    from webgpufft_tpu_torch.utils import mathref
+    grad = torch.autograd.grad
+    timers = []
+
+    # (a) headline, normalize none: d/dx sum |F x|^2 = 2 n x
+    plan = T.create_plan({**HEADLINE, "normalize": "none"}, device="cuda")
+    x = torch.randn(4096, 1024, 2, device="cuda", generator=gen).requires_grad_()
+    (g,), made = counted(lambda: grad(plan(x).pow(2).sum(), x))
+    grad_case("headline c2c [1024] b4096 none, sum|Fx|^2", made, (2, 0),
+              [("x", g, 2.0 * 1024 * x.detach(), "2 n x")])
+    timers.append(("headline c2c [1024] b4096, sum|Fx|^2",
+                   lambda plan=plan, x=x: grad(plan(x).pow(2).sum(), x),
+                   lambda x=x: grad(torch.view_as_real(torch.fft.fft(torch.view_as_complex(x)))
+                                    .pow(2).sum(), x),
+                   "torch.fft", lambda plan=plan, x=x: plan(x).pow(2).sum()))
+
+    # (a') vmap: batch 1 over 4096 (the einsum route, batched by torch) and
+    # batch 1024 over 4 (K1 through the Function's vmap rule) == batch 4096
+    full = T.create_plan(HEADLINE, device="cuda")
+    ref = full(x.detach())
+    one = T.create_plan({**HEADLINE, "batch": 1}, device="cuda")
+    y, made = counted(lambda: torch.func.vmap(lambda v: one(v))(
+        x.detach().reshape(4096, 1, 1024, 2)))
+    check_close("autodiff vmap of the batch-1 plan over 4096", y.reshape(4096, 1024, 2), ref,
+                "the batch-4096 plan")
+    print(f"autodiff vmap batch 1 over 4096: route {one.route.mode}, launches {made}")
+    quarter = T.create_plan({**HEADLINE, "batch": 1024}, device="cuda")
+    y, made = counted(lambda: torch.func.vmap(lambda v: quarter(v))(
+        x.detach().reshape(4, 1024, 1024, 2)))
+    require(made == (1, 0), f"autodiff vmap batch 1024 over 4: launches {made}")
+    check_close("autodiff vmap of the batch-1024 plan over 4 (one K1 launch)",
+                y.reshape(4096, 1024, 2), ref, "the batch-4096 plan", tol=1e-6)
+    del g, y, ref
+
+    # (b) c2c 256^3 forward then inverse, unitary: d/dx sum w * ifft(fft(x)) = w
+    shape = [256, 256, 256]
+    fwd = T.create_plan({"type": "c2c", "shape": shape, "batch": 1, "normalize": "unitary"},
+                        device="cuda")
+    inv = T.create_plan({"type": "c2c", "shape": shape, "batch": 1, "normalize": "unitary",
+                         "direction": "inverse"}, device="cuda")
+    x = torch.randn(1, *shape, 2, device="cuda", generator=gen).requires_grad_()
+    w = torch.randn(1, *shape, 2, device="cuda", generator=gen)
+    (g,), made = counted(lambda: grad((w * inv(fwd(x))).sum(), x))
+    grad_case("c2c 256^3 forward then inverse", made, (4, 8), [("x", g, w, "w")])
+
+    def cufft_pair(x=x, w=w):
+        z = torch.fft.ifftn(torch.fft.fftn(torch.view_as_complex(x), dim=(1, 2, 3), norm="ortho"),
+                            dim=(1, 2, 3), norm="ortho")
+        return grad((w * torch.view_as_real(z)).sum(), x)
+
+    timers.append(("c2c 256^3 forward then inverse",
+                   lambda x=x, w=w: grad((w * inv(fwd(x))).sum(), x), cufft_pair, "torch.fft",
+                   lambda x=x, w=w: (w * inv(fwd(x))).sum()))
+    del g
+
+    # (c) r2c 256^3 b3 -> spectral mask -> c2r, against torch.fft in float64
+    r2c = real_plan("r2c", 3, "none")
+    c2r = real_plan("c2r", 3, "backward")
+    mask = ns.spectral_grids3(NS_N, "cuda")[4][..., None]
+    x = torch.randn(3, NS_N, NS_N, NS_N, device="cuda", generator=gen).requires_grad_()
+    w = torch.randn(3, NS_N, NS_N, NS_N, device="cuda", generator=gen)
+    (g,), made = counted(lambda: grad((w * c2r(r2c(x) * mask)).sum(), x))
+    xd = x.detach().double().requires_grad_()
+
+    def cufft_real(v, wv, m):
+        z = torch.fft.rfftn(v, dim=RFFT_DIMS) * m
+        return grad((wv * torch.fft.irfftn(z, s=(NS_N,) * 3, dim=RFFT_DIMS)).sum(), v)
+
+    want, = cufft_real(xd, w.double(), mask[..., 0].double())
+    grad_case("r2c -> mask -> c2r 256^3 b3", made, (8, 12),
+              [("x", g, want, "torch.fft in float64")])
+    del xd, want, g
+    timers.append(("r2c -> mask -> c2r 256^3 b3",
+                   lambda x=x, w=w: grad((w * c2r(r2c(x) * mask)).sum(), x),
+                   lambda x=x, w=w: cufft_real(x, w, mask[..., 0]), "torch.fft",
+                   lambda x=x, w=w: (w * c2r(r2c(x) * mask)).sum()))
+
+    # (d) dct2 [512, 512] b8 unitary: d/dx sum w * dct2(x) = the transposed
+    # trig matrices on w, in float64
+    plan = T.create_plan({"type": "dct2", "shape": [512, 512], "batch": 8,
+                          "normalize": "unitary"}, device="cuda")
+    x = torch.randn(8, 512, 512, device="cuda", generator=gen).requires_grad_()
+    w = torch.randn(8, 512, 512, device="cuda", generator=gen)
+    (g,), made = counted(lambda: grad((w * plan(x)).sum(), x))
+    want = w.double()
+    for d in (1, 2):
+        m = torch.as_tensor(mathref.trig_matrix("dct2", 512, "forward"), device="cuda")
+        want = torch.movedim(torch.movedim(want, d, -1) @ m, -1, d)
+    want = want * mathref.normalize_scale("unitary", "forward", 512 * 512)
+    grad_case("dct2 [512, 512] b8 unitary", made, (2, 2),
+              [("x", g, want, "float64 transposed trig matrices")])
+    timers.append(("dct2 [512, 512] b8", lambda plan=plan, x=x, w=w: grad((w * plan(x)).sum(), x),
+                   lambda x=x, w=w: grad((w * torch_fft_dct2(x, 1.0 / 512)).sum(), x),
+                   "torch.fft", lambda plan=plan, x=x, w=w: (w * plan(x)).sum()))
+    del g, want
+
+    # (e) fftconv [1000, 1000] b8, 25 x 25 taps: kernel and input gradients
+    shape, kshape = [1000, 1000], [25, 25]
+    plan = T.create_plan({"type": "fftconv", "shape": shape, "batch": 8,
+                          "fftConv": {"kernelShape": kshape, "boundary": "linear-same"}},
+                         device="cuda")
+    geo = mathref.fftconv_out_shape(shape, kshape, "linear-same")
+    x = torch.randn(8, 1000, 1000, 2, device="cuda", generator=gen).requires_grad_()
+    k = torch.randn(25, 25, 2, device="cuda", generator=gen).requires_grad_()
+    w = torch.randn(8, 1000, 1000, 2, device="cuda", generator=gen)
+    (gx, gk), made = counted(lambda: grad((w * plan(x, kernel=k)).sum(), (x, k)))
+
+    def cufft_conv(xv, kv, wv, dtype):
+        y = torch_fft_conv(torch.view_as_complex(xv), torch.view_as_complex(kv), *geo, dtype=dtype)
+        return grad((wv * torch.view_as_real(y)).sum(), (xv, kv))
+
+    xd, kd = x.detach().double().requires_grad_(), k.detach().double().requires_grad_()
+    wx, wk = cufft_conv(xd, kd, w.double(), torch.complex128)
+    grad_case("fftconv [1000, 1000] b8 k25x25", made, (6, 6),
+              [("x", gx, wx, "torch.fft complex128"), ("kernel", gk, wk, "torch.fft complex128")])
+    del xd, kd, wx, wk, gx, gk
+    timers.append(("fftconv [1000, 1000] b8 k25x25 (kernel and input)",
+                   lambda plan=plan, x=x, k=k, w=w: grad((w * plan(x, kernel=k)).sum(), (x, k)),
+                   lambda x=x, k=k, w=w: cufft_conv(x, k, w, torch.complex64), "torch.fft",
+                   lambda plan=plan, x=x, k=k, w=w: (w * plan(x, kernel=k)).sum()))
+
+    # (f) conv2d [1024, 1024] b8 real: kernel gradient, the caller's TF32 flag
+    # ON around forward and backward
+    plan = T.create_plan({"type": "conv2d", "shape": [1024, 1024], "batch": 8,
+                          "conv": {"kernelSize": 3, "padding": "same", "kernelType": "real"}},
+                         device="cuda")
+    x = 1.0 + torch.randint(0, 4096, (8, *plan.in_shape), device="cuda",
+                            generator=gen).float() / 4096.0
+    k = torch.randn(3, 3, device="cuda", generator=gen).requires_grad_()
+    w = torch.randn(8, 1024, 1024, device="cuda", generator=gen)
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        (gk,), made = counted(lambda: grad((w * plan(x, kernel=k)).sum(), k))
+        bare, = grad((w * F.conv2d(x[:, None], k[None, None], padding=1)[:, 0]).sum(), k)
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+    kd = k.detach().double().requires_grad_()
+    want, = grad((w.double() * F.conv2d(x.double()[:, None], kd[None, None], padding=1)[:, 0])
+                 .sum(), kd)
+    grad_case("conv2d [1024, 1024] b8 k3 real (cuDNN TF32 flag on outside)", made, (0, 0),
+              [("kernel", gk, want, "float64 F.conv2d")])
+    print(f"autodiff conv2d: the bare F.conv2d gradient with the TF32 flag on has max rel err "
+          f"{rel_err(bare.double(), want):.3e} on the same data")
+    timers.append(("conv2d [1024, 1024] b8 k3 real (kernel)",
+                   lambda plan=plan, x=x, k=k, w=w: grad((w * plan(x, kernel=k)).sum(), k),
+                   None, None, lambda plan=plan, x=x, k=k, w=w: (w * plan(x, kernel=k)).sum()))
+    del gk, want
+
+    # (g) one Navier-Stokes step at 256^3: the gradient of the kinetic energy
+    # after the step with respect to the initial velocity, by reverse mode,
+    # against forward mode along one direction
+    step, to_s, to_p = ns.make_stepper3(NS_N, NS_NU, NS_DT, device="cuda")
+
+    def energy(u0):
+        u = to_p(step(to_s(u0)))
+        return 0.5 * u.pow(2).sum(0).mean()
+
+    u0 = ns.taylor_green_embedded(NS_N, 0.0, NS_NU, device="cuda") + 0.05 * torch.randn(
+        3, NS_N, NS_N, NS_N, device="cuda", generator=gen)
+    v = torch.randn(3, NS_N, NS_N, NS_N, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    g, made = counted(torch.func.grad(energy), u0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    require(made == (24, 36), f"autodiff NS-3D reverse mode: launches {made}, expected (24, 36)")
+    (e, de), made_f = counted(torch.func.jvp, energy, (u0,), (v,))
+    require(made_f == (24, 36), f"autodiff NS-3D forward mode: launches {made_f}")
+    lhs, rhs = float(de), float((g.double() * v.double()).sum())
+    rel = abs(lhs - rhs) / max(abs(lhs), 1e-30)
+    print(f"autodiff NS-3D step {NS_N}^3, d(energy after the step)/d(u0): launches reverse "
+          f"{made}, forward mode {made_f}; <J v> by jvp {lhs:.6e}, <v, J^T 1> by reverse mode "
+          f"{rhs:.6e}, rel diff {rel:.3e} (limit {JVP_TOL:.0e}); energy {float(e):.6f}; peak "
+          f"memory of the reverse pass {peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB held "
+          f"before it)")
+    require(bool(torch.isfinite(g).all()) and rel <= JVP_TOL,
+            "autodiff NS-3D: reverse and forward mode disagree")
+    fstep, fto_s, fto_p = ns.make_torch_fft_stepper3(NS_N, NS_NU, NS_DT, device="cuda")
+    gf = torch.func.grad(lambda u: 0.5 * fto_p(fstep(fto_s(u))).pow(2).sum(0).mean())(u0)
+    check_close("autodiff NS-3D step gradient", g, gf, "the torch.fft step's gradient",
+                tol=JVP_TOL)
+    del gf, g, v
+    timers.append((f"NS-3D step {NS_N}^3 energy gradient (to_spectral, step, to_physical)",
+                   lambda: torch.func.grad(energy)(u0),
+                   lambda: torch.func.grad(
+                       lambda u: 0.5 * fto_p(fstep(fto_s(u))).pow(2).sum(0).mean())(u0),
+                   "the torch.fft step", lambda: energy(u0)))
+    return timers
+
+
+# ---------------------------------------------------------------------------
+# runtime services
+# ---------------------------------------------------------------------------
+
+MEASURED = [HEADLINE,
+            {"type": "c2c", "shape": [256, 256, 256], "batch": 1},
+            {"type": "c2c", "shape": [1 << 20], "batch": 4},
+            {"type": "r2c", "shape": [256, 256, 256], "batch": 3}]
+
+
+def phase_runtime(gen, card):
+    import webgpufft_tpu_torch as T
+    from webgpufft_tpu_torch import selftest
+    from webgpufft_tpu_torch.runtime import golden, measure, trace
+
+    # the measured planner on four plans, in a cache of its own
+    cache = T.PlanCache()
+    for opts in MEASURED:
+        t0 = time.perf_counter()
+        plan = T.create_plan({**opts, "tuning": {"rigor": "measure"}}, device="cuda", cache=cache)
+        secs = time.perf_counter() - t0
+        rec = cache.measured[measure.measure_key(plan.spec, "cuda")]
+        note = [r for r in plan.route.reasons if r.startswith("measure")]
+        print(f"runtime measure {opts['type']} {opts['shape']} b{opts['batch']}: winner "
+              f"{rec['winner']}, trials_ms {json.dumps(rec.get('trials_ms'))}, note {note}, "
+              f"route {plan.route.mode}, {secs:.1f} s [{card}]")
+        require(len(note) == 1 and note[0].startswith("measured-winner:")
+                and len(rec["trials_ms"]) >= 2, f"runtime measure {opts}: {note} {rec}")
+    # snapshot -> JSON -> a fresh cache: the same winners, nothing timed
+    snap = json.loads(json.dumps(T.export_plan_cache_snapshot(cache)))
+    require(snap["version"] == 3 and len(snap["measured"]) == len(MEASURED)
+            and snap["metadata"]["framework"].startswith("webgpufft-tpu-torch/"),
+            f"runtime snapshot: {snap['metadata']} {len(snap['measured'])} measured")
+    fresh = T.PlanCache()
+    T.import_plan_cache_snapshot(snap, cache=fresh, build=False)
+    timer = measure._call_time
+
+    def no_timing(*_a, **_k):
+        raise AssertionError("runtime snapshot: a cached decision was timed again")
+
+    measure._call_time = no_timing
+    try:
+        for opts in MEASURED:
+            plan = T.create_plan({**opts, "tuning": {"rigor": "measure"}}, device="cuda",
+                                 cache=fresh)
+            rec = cache.measured[measure.measure_key(plan.spec, "cuda")]
+            require(f"measured-cached:{rec['winner']}" in plan.route.reasons,
+                    f"runtime snapshot {opts}: {plan.route.reasons}")
+            for key, val in (rec["overrides"] or {}).items():
+                require(getattr(plan.spec.tuning, key) == val, f"runtime snapshot {opts}: {key}")
+    finally:
+        measure._call_time = timer
+    print(f"runtime snapshot: {len(snap['specs'])} specs and {len(snap['measured'])} measured "
+          f"decisions exported, imported into a fresh cache, the {len(MEASURED)} winners came "
+          f"back as measured-cached with nothing timed")
+    n = T.import_plan_cache_snapshot(snap, cache=T.PlanCache(), device="cuda")
+    print(f"runtime snapshot: {n} plans rebuilt on the card by a building import")
+    del cache, fresh
+
+    # the committed golden corpus on the card
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden_corpus.json")
+    arts = golden.load_artifacts(path)
+    results, made = counted(lambda: [golden.compare_golden(a, atol_scale=1e-4, device="cuda")
+                                     for a in arts])
+    worst = max(r["max_rel_err"] for r in results)
+    print(f"runtime golden corpus: {sum(r['ok'] for r in results)} of {len(results)} artifacts "
+          f"pass on the card at 1e-4, worst max rel err {worst:.3e}, launches {made}")
+    require(len(results) == 15 and all(r["ok"] for r in results),
+            f"runtime golden corpus: {[r for r in results if not r['ok']]}")
+
+    require(selftest.run(device="cuda"), "runtime selftest failed")
+
+    # export -> load of the headline plan: bit-equal output
+    plan = T.create_plan(HEADLINE, device="cuda")
+    x = torch.randn(4096, 1024, 2, device="cuda", generator=gen)
+    blob = T.export_plan(plan)
+    loaded = T.load_exported_plan(blob, device="cuda")
+    require(torch.equal(loaded(x), plan(x)) and loaded.route_mode == "pallas-fused",
+            "runtime export: the loaded plan's output differs")
+    print(f"runtime export_plan -> load_exported_plan: headline plan, {len(blob)} bytes, "
+          f"output bit-equal, route {loaded.route_mode}")
+
+    # a trace of one headline call
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace.trace(os.path.join(tmp, "trace")) as prof:
+            plan(x)
+        text = open(prof.trace_path).read()
+        require("wgfft:c2c" in text and "fused_lines_kernel" in text,
+                "runtime trace: the plan's span or the kernel's name is missing")
+        print(f"runtime trace: {os.path.basename(prof.trace_path)} ({len(text)} bytes) names "
+              f"wgfft:c2c and fused_lines_kernel")
+    stats = trace.plan_stats(plan, x)
+    print(f"runtime plan_stats headline: {json.dumps(stats)}")
+    require(stats["fused_lines_launches"] == 1 and stats["fused_cols_launches"] == 0,
+            f"runtime plan_stats: {stats}")
+    mem = trace.memory_stats()
+    require(mem is not None and "allocated_bytes.all.peak" in mem, "runtime memory_stats")
 
 
 def fft_norm(direction, normalize):
@@ -745,22 +1106,23 @@ def time_kernel(label, kernel, plain, library, args, n, transforms, card):
     from an idle device, host share included."""
     nbytes = 16 * n * transforms                       # one read, one write
     flops = 5.0 * n * math.log2(n) * transforms        # a radix-2 FFT's count
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
-    bound, bound_by = max((by_bytes, "bytes"), (by_ops, "operations"))
-    p = time_queued(plain, *args, runs=8)
-    f = time_queued(library, args[0])
-    k = time_queued(kernel, *args)
-    k += time_queued(kernel, *args)
-    f += time_queued(library, args[0])
-    p += time_queued(plain, *args, runs=8)
-    km, pm, fm = median(k), median(p), median(f)
-    idle = median(time_ms(kernel, *args))
+    bound, bound_by = profile.bound_ms(nbytes, flops)
+    p = profile.time_queued(plain, *args, runs=8)
+    f = profile.time_queued(library, args[0])
+    k = profile.time_queued(kernel, *args)
+    k += profile.time_queued(kernel, *args)
+    am = profile.median(profile.time_queued(lambda v, t: kernel(v, t, adjoint=True), *args))
+    f += profile.time_queued(library, args[0])
+    p += profile.time_queued(plain, *args, runs=8)
+    km, pm, fm = profile.median(k), profile.median(p), profile.median(f)
+    idle = call_ms(kernel, *args)
     print(f"time {label}: kernel {km:.4f} ms ({nbytes / km / 1e6:.1f} GB/s, "
-          f"roofline share {bound / km:.2f}), plain {pm:.4f} ms, bound {bound:.4f} ms by "
+          f"roofline share {bound / km:.2f}), adjoint launch {am:.4f} ms, "
+          f"plain {pm:.4f} ms, bound {bound:.4f} ms by "
           f"{bound_by} ({nbytes} bytes at 3.35 TB/s), torch.fft.fft (cuFFT) {fm:.4f} ms; "
           f"one call from idle {idle:.4f} ms [{card}]")
     return {"ms": km, "plain_ms": pm, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": fm}
+            "library_ms": fm, "adjoint_ms": am}
 
 
 def phase_timing(k1_cases, k2_cases, headline, volume, card):
@@ -785,13 +1147,24 @@ def phase_timing(k1_cases, k2_cases, headline, volume, card):
             lambda v, fft=fft, norm=norm: fft(
                 torch.view_as_complex(v.view(v.shape[0], v.shape[1], -1, 2)), dim=1, norm=norm),
             (x, t), h, pre * lanes // 2, card)
+    # what Function.apply costs a caller who never differentiates: the
+    # headline plan's one kernel pass from an idle device, launched directly
+    # (what an untracked call does) and through the Function
+    x, tables, _ = k1_cases[(1024, 4096, "forward")]
+    direct = profile.time_calls(fused.fused_lines, x, tables)
+    via = profile.time_calls(fused.FusedLines.apply, x, tables, False)
+    via += profile.time_calls(fused.FusedLines.apply, x, tables, False)
+    direct += profile.time_calls(fused.fused_lines, x, tables)
+    print(f"time K1 N=1024 lines=4096 one call from idle: direct launch (untracked input) "
+          f"{profile.median(direct):.4f} ms, through FusedLines.apply "
+          f"{profile.median(via):.4f} ms [{card}]")
     for label, (plan, x), oracle in [
             ("headline plan(x) c2c [1024] b4096", headline,
              lambda z: torch.fft.fft(z, norm="ortho")),
             ("3-D plan(x) c2c 256^3 b1", volume,
              lambda z: torch.fft.fftn(z, dim=(1, 2, 3)))]:
-        pm = median(time_ms(plan, x))
-        fm = median(time_ms(lambda v: torch.view_as_real(oracle(torch.view_as_complex(v))), x))
+        pm = call_ms(plan, x)
+        fm = call_ms(lambda v: torch.view_as_real(oracle(torch.view_as_complex(v))), x)
         nbytes = 8 * x.numel()
         print(f"time {label}: {pm:.4f} ms ({nbytes / pm / 1e6:.1f} GB/s); torch.fft "
               f"(cuFFT) yardstick {fm:.4f} ms ({nbytes / fm / 1e6:.1f} GB/s), "
@@ -803,25 +1176,24 @@ def phase_new_plan_timing(dct, conv, overlap, conv2d, card):
     """The dct2, fftconv and conv2d plans beside a yardstick on ``torch.fft``
     (or, for conv2d, the bare library call the plan wraps)."""
     plan, x = dct
-    pm = median(time_ms(plan, x))
-    fm = median(time_ms(torch_fft_dct2, x, 1.0 / 512))
+    pm = call_ms(plan, x)
+    fm = call_ms(torch_fft_dct2, x, 1.0 / 512)
     print(f"time dct2 [512, 512] b8 plan(x): {pm:.4f} ms; DCT-II on torch.fft (cuFFT) "
           f"{fm:.4f} ms [{card}]")
     plan, x, k, geo = conv
-    pm = median(time_ms(lambda: plan(x, kernel=k)))
+    pm = call_ms(lambda: plan(x, kernel=k))
     xc, kc = torch.view_as_complex(x), torch.view_as_complex(k)
-    fm = median(time_ms(lambda: torch_fft_conv(xc, kc, *geo, dtype=torch.complex64)))
+    fm = call_ms(lambda: torch_fft_conv(xc, kc, *geo, dtype=torch.complex64))
     print(f"time fftconv [1000, 1000] b8 k25x25 plan(x, kernel): {pm:.4f} ms; the same on "
           f"torch.fft (cuFFT, complex64) {fm:.4f} ms [{card}]")
     plan, x, k = overlap
-    pm = median(time_ms(lambda: plan(x, kernel=k)))
+    pm = call_ms(lambda: plan(x, kernel=k))
     xc, kc = torch.view_as_complex(x), torch.view_as_complex(k)
-    fm = median(time_ms(lambda: torch_fft_conv(xc, kc, (OS_N,), (OS_N,), (0,),
-                                               dtype=torch.complex64)))
+    fm = call_ms(lambda: torch_fft_conv(xc, kc, (OS_N,), (OS_N,), (0,), dtype=torch.complex64))
     print(f"time fftconv overlap-save [2^20] k{OS_TAPS} plan(x, kernel): {pm:.4f} ms; one "
           f"length-2^20 convolution on torch.fft (cuFFT, complex64) {fm:.4f} ms [{card}]")
     for ktype, (plan, x, w) in conv2d.items():
-        pm = median(time_ms(lambda: plan(x, kernel=w)))
+        pm = call_ms(lambda: plan(x, kernel=w))
         print(f"time conv2d [1024, 1024] b8 k3 {ktype} plan(x, kernel): {pm:.4f} ms [{card}]")
 
 
@@ -835,8 +1207,8 @@ def phase_solver_timing(gen, x, y, card):
             ("r2c 256^3 b3", r2c, x3, lambda v: torch.fft.rfftn(v, dim=RFFT_DIMS)),
             ("c2r 256^3 b6", c2r, y,
              lambda v: torch.fft.irfftn(torch.view_as_complex(v), s=(NS_N,) * 3, dim=RFFT_DIMS))]:
-        pm = median(time_ms(plan, arg))
-        fm = median(time_ms(plain, arg))
+        pm = call_ms(plan, arg)
+        fm = call_ms(plain, arg)
         print(f"time {label} plan(x): {pm:.4f} ms; torch.fft (cuFFT) {fm:.4f} ms [{card}]")
     step, to_s, _ = ns.make_stepper3(NS_N, NS_NU, NS_DT, device="cuda")
     fstep, _, _ = ns.make_torch_fft_stepper3(NS_N, NS_NU, NS_DT, device="cuda")
@@ -845,11 +1217,11 @@ def phase_solver_timing(gen, x, y, card):
     print(f"NS-3D step {NS_N}^3: max rel err {err:.3e} vs the torch.fft step "
           f"(limit {TOL:.0e} * max|expected|)")
     require(err <= TOL, "NS-3D step disagrees with the torch.fft step")
-    p = time_ms(fstep, u_hat)
-    k = time_ms(step, u_hat)
-    k += time_ms(step, u_hat)
-    p += time_ms(fstep, u_hat)
-    km, pm = median(k), median(p)
+    p = profile.time_calls(fstep, u_hat)
+    k = profile.time_calls(step, u_hat)
+    k += profile.time_calls(step, u_hat)
+    p += profile.time_calls(fstep, u_hat)
+    km, pm = profile.median(k), profile.median(p)
     print(f"time NS-3D step {NS_N}^3 (RK2: 2 x (c2r b6 + r2c b3) + pointwise): "
           f"port {km:.4f} ms/step, torch.fft step {pm:.4f} ms/step [{card}]")
     return km, pm
@@ -861,6 +1233,8 @@ def main():
     phase_build()
     k1_cases, k1_err = phase_k1(gen)
     k2_cases, k2_err = phase_k2(gen)
+    adj_err = phase_adjoint(gen, k1_cases, k2_cases)
+    print(f"kernel adjoints: worst max abs err vs the plain adjoint {adj_err:.3e}")
 
     # the main paths: the counts of each are launches made by its own
     # entry-point calls only
@@ -876,11 +1250,19 @@ def main():
     conv2d = drive("conv2d", paths, phase_conv2d, gen, k1=False, k2=False)
     drive("staging", paths, phase_staging, gen, headline, k2=False)
     drive("ns3d", paths, phase_ns3d)
+    grad_timers = drive("autodiff", paths, phase_autodiff, gen)
+    # forward + backward of every sub-phase: headline 2, vmap and its reference
+    # 2, c2c pair 4 + 8, r2c -> c2r 8 + 12, dct2 2 + 2, fftconv 6 + 6, the
+    # solver gradient 24 + 36 by reverse and again by forward mode
+    require(paths["autodiff"] == (72, 100), f"path autodiff: launches {paths['autodiff']}")
+    drive("runtime", paths, phase_runtime, gen, smi)
 
     times = phase_timing(k1_cases, k2_cases, headline, volume, smi)
     phase_new_plan_timing(dct, conv, overlap, conv2d, smi)
     del dct, conv, overlap, conv2d
     phase_solver_timing(gen, x, y, smi)
+    del x, y
+    phase_autodiff_timing(grad_timers, smi)
     # each kernel's record carries the times of its headline shape, and
     # under "shapes" those of every shape timed
     record = {"kernels": [

@@ -414,3 +414,162 @@ def test_ns3d_bf16_storage_step_on_gpu(cuda_device):
     u_hat = to_s(0.1 * torch.randn(3, n, n, n, device=cuda_device, generator=gen))
     assert_close(step_b(u_hat).cpu(), step(u_hat).cpu(), atol_scale=1e-3,
                  label="bf16-storage step 64^3")
+
+
+# ---------------------------------------------------------------------------
+# autodiff: the kernels' adjoint launch and gradients through the plans
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,lines,direction", [
+    (1024, 512, "forward"), (2048, 64, "inverse"), (360, 64, "forward"),
+    (2310, 16, "forward"), (8192, 3, "inverse"), (16384, 3, "forward"), (16, 1001, "inverse"),
+    (6, 77, "forward"), (1352, 11, "inverse"), (256, 1537, "forward")])
+def test_fused_lines_adjoint_launch(n, lines, direction, cuda_device):
+    """The adjoint launch against the plain adjoint, and the backward of the
+    Function (one more launch) against autograd through the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    t = _dev_tables(fused.lines_consts(n, direction, 1.0 / math.sqrt(n), "p"), cuda_device)
+    x = torch.randn(lines, n, 2, device=cuda_device, generator=gen)
+    u = torch.randn(lines, n, 2, device=cuda_device, generator=gen)
+    assert_close(fused.fused_lines(u, t, adjoint=True).cpu(),
+                 fused.fused_lines_reference(u, t, adjoint=True).cpu(), label="adjoint")
+    xr = x.clone().requires_grad_()
+    want, = torch.autograd.grad((fused.fused_lines_reference(xr, t) * u).sum(), xr)
+    xk = x.clone().requires_grad_()
+    before = fused.fused_lines.launches
+    got, = torch.autograd.grad((fused.fused_lines(xk, t) * u).sum(), xk)
+    torch.cuda.synchronize()
+    assert fused.fused_lines.launches == before + 2      # forward + backward
+    assert_close(got.cpu(), want.cpu(), label="backward")
+
+
+@pytest.mark.parametrize("pre,h,lanes", [
+    (4, 256, 512), (3, 360, 130), (2, 7, 128), (2, 16384, 4), (3, 2310, 66), (2, 13, 70),
+    (1, 1024, 2048), (3, 128, 8192), (8, 3, 512), (2, 1352, 130)])
+def test_fused_cols_adjoint_launch(pre, h, lanes, cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(h)
+    t = _dev_tables(fused_cols.cols_consts(h, "forward", 1.0 / math.sqrt(h), "p"), cuda_device)
+    x = torch.randn(pre, h, lanes, device=cuda_device, generator=gen)
+    u = torch.randn(pre, h, lanes, device=cuda_device, generator=gen)
+    assert_close(fused_cols.fused_cols(u, t, adjoint=True).cpu(),
+                 fused_cols.fused_cols_reference(u, t, adjoint=True).cpu(), label="adjoint")
+    xr = x.clone().requires_grad_()
+    want, = torch.autograd.grad((fused_cols.fused_cols_reference(xr, t) * u).sum(), xr)
+    xk = x.clone().requires_grad_()
+    before = fused_cols.fused_cols.launches
+    got, = torch.autograd.grad((fused_cols.fused_cols(xk, t) * u).sum(), xk)
+    torch.cuda.synchronize()
+    assert fused_cols.fused_cols.launches == before + 2
+    assert_close(got.cpu(), want.cpu(), label="backward")
+
+
+def test_function_rules_launch_the_kernel_on_gpu(cuda_device):
+    """jvp, vmap and double backward through the Function on CUDA tensors:
+    every rule launches the kernel, and an untracked call makes no node."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    t = _dev_tables(fused.lines_consts(256, "forward", 1.0, "p"), cuda_device)
+    x = torch.randn(16, 256, 2, device=cuda_device, generator=gen)
+    u = torch.randn(16, 256, 2, device=cuda_device, generator=gen)
+    assert fused.fused_lines(x, t).grad_fn is None
+    before = fused.fused_lines.launches
+    _, tang = torch.func.jvp(lambda a: fused.fused_lines(a, t), (x,), (u,))
+    assert fused.fused_lines.launches == before + 2      # primal + tangent
+    assert_close(tang.cpu(), fused.fused_lines_reference(u, t).cpu(), label="jvp")
+    before = fused.fused_lines.launches
+    y = torch.func.vmap(lambda a: fused.fused_lines(a, t))(torch.stack([x, u]))
+    assert fused.fused_lines.launches == before + 1      # the batch folds into lines
+    assert_close(y[1].cpu(), fused.fused_lines_reference(u, t).cpu(), label="vmap")
+
+    def second(fn):
+        a = x.clone().requires_grad_()
+        g, = torch.autograd.grad(fn(a, t).pow(2).sum(), a, create_graph=True)
+        return torch.autograd.grad(g.pow(3).sum(), a)[0]
+
+    assert_close(second(fused.fused_lines).cpu(), second(fused.fused_lines_reference).cpu(),
+                 label="double backward")
+
+
+@pytest.mark.parametrize("opts,kshape", [
+    ({"type": "c2c", "shape": [1024], "batch": 64, "normalize": "unitary"}, None),
+    ({"type": "c2c", "shape": [16, 8, 256], "batch": 2, "direction": "inverse"}, None),
+    ({"type": "c2c", "shape": [4093], "batch": 4}, None),
+    ({"type": "r2c", "shape": [32, 16, 64], "batch": 3}, None),
+    ({"type": "c2r", "shape": [32, 16, 64], "batch": 3, "direction": "inverse",
+      "normalize": "backward"}, None),
+    ({"type": "dct2", "shape": [64, 512], "batch": 4, "normalize": "unitary"}, None),
+    ({"type": "dst3", "shape": [512], "batch": 16}, None),
+    ({"type": "fftconv", "shape": [60, 250], "batch": 8,
+      "fftConv": {"kernelShape": [5, 7], "boundary": "linear-same"}}, (5, 7, 2)),
+    ({"type": "fftconv", "shape": [1 << 15], "batch": 2,
+      "fftConv": {"kernelShape": [33], "boundary": "circular"}}, (33, 2)),
+    ({"type": "conv2d", "shape": [64, 64], "batch": 2,
+      "conv": {"kernelSize": 3, "kernelType": "complex"}}, (3, 3, 2)),
+], ids=["c2c1d", "c2c3d", "rader", "r2c", "c2r", "dct2", "dst3", "fftconv2d", "overlap-save",
+        "conv2d"])
+def test_plan_gradients_on_gpu_match_cpu_plan(opts, kshape, cuda_device):
+    """The gradient through the plan on the card (kernel passes: adjoint
+    launches) equals the gradient through the same plan on the CPU (plain
+    versions), for the input and the kernel payload."""
+    gplan = T.create_plan(opts, device=cuda_device, cache=T.PlanCache())
+    cplan = T.create_plan(opts, device="cpu", cache=T.PlanCache())
+    gen = torch.Generator().manual_seed(11)
+    shape = gplan.input_shape or (opts["batch"], *gplan.in_shape, 2)
+    x = torch.randn(tuple(shape), generator=gen)
+    k = torch.randn(kshape, generator=gen) if kshape else None
+    grads = []
+    for plan, dev in ((gplan, cuda_device), (cplan, "cpu")):
+        args = [x.to(dev).requires_grad_()]
+        kw = {}
+        if k is not None:
+            args.append(k.to(dev).requires_grad_())
+            kw["kernel"] = args[1]
+        y = plan(args[0], **kw)
+        w = torch.randn(tuple(y.shape), generator=torch.Generator().manual_seed(12)).to(dev)
+        grads.append([g.cpu() for g in torch.autograd.grad((w * y).sum(), args)])
+    for got, want in zip(*grads):
+        assert_close(got, want, label=f"{opts['type']} gradient")
+
+
+def test_measured_planner_and_snapshot_on_gpu(cuda_device):
+    from webgpufft_tpu_torch.runtime import measure
+    cache = T.PlanCache()
+    opts = {"type": "c2c", "shape": [1024], "batch": 512, "tuning": {"rigor": "measure"}}
+    plan = T.create_plan(opts, device=cuda_device, cache=cache)
+    (key, rec), = cache.measured.items()
+    assert key.startswith(f"cuda/{torch.cuda.get_device_name(0)}|")
+    assert any(r.startswith("measured-winner:") for r in plan.route.reasons)
+    assert {"as-requested", "impl=xla"} <= set(rec["trials_ms"])
+    fresh = T.PlanCache()
+    T.import_plan_cache_snapshot(T.export_plan_cache_snapshot(cache), cache=fresh, build=False)
+    timer, measure._call_time = measure._call_time, None
+    try:
+        again = T.create_plan(opts, device=cuda_device, cache=fresh)
+    finally:
+        measure._call_time = timer
+    assert f"measured-cached:{rec['winner']}" in again.route.reasons
+
+
+def test_golden_corpus_selftest_export_and_trace_on_gpu(cuda_device, tmp_path):
+    import os
+    from webgpufft_tpu_torch import selftest
+    from webgpufft_tpu_torch.runtime import golden, profile, trace
+    corpus = os.path.join(os.path.dirname(__file__), "golden_corpus.json")
+    for art in golden.load_artifacts(corpus):
+        res = golden.compare_golden(art, atol_scale=1e-4, device=cuda_device)
+        assert res["ok"], res
+    assert selftest.run(device=cuda_device)
+    plan = T.create_plan({"type": "c2c", "shape": [1024], "batch": 64}, device=cuda_device)
+    x = torch.randn(64, 1024, 2, device=cuda_device)
+    loaded = T.load_exported_plan(T.export_plan(plan), device=cuda_device)
+    assert torch.equal(loaded(x), plan(x))
+    with trace.trace(str(tmp_path)) as prof:
+        plan(x)
+    text = open(prof.trace_path).read()
+    assert "wgfft:c2c" in text and "fused_lines_kernel" in text
+    stats = trace.plan_stats(plan, x)
+    assert stats["fused_lines_launches"] == 1 and stats["device_kernels"] >= 1
+    assert profile.device_hbm_gbps(cuda_device) > 0
+    ms = profile.time_queued(plan, x, runs=3, device=cuda_device)
+    assert len(ms) == 3 and all(0 < t < 50 for t in ms)
+    r = profile.bench_transform(lambda v: plan(v), x, 1024, 64, iters=5)
+    assert r.avg_ms > 0 and r.eff_gbps > 0

@@ -424,8 +424,10 @@ def test_out_requires_mergeable_output():
         plan(torch.zeros(1, 8, 2), kernel=np.zeros(3, np.float32))
     with pytest.raises(T.PlanError, match="torch.Tensor"):
         plan(np.zeros((1, 8, 2), np.float32))
-    with pytest.raises(T.PlanError, match="not differentiable"):
-        plan(torch.zeros(1, 8, 2, requires_grad=True))
+    # a tensor that requires grad runs and carries the graph
+    x = torch.ones(1, 8, 2, requires_grad=True)
+    g, = torch.autograd.grad(plan(x).pow(2).sum(), x)
+    assert torch.allclose(g, 2 * 8 * x.detach(), atol=1e-5)
 
 
 @pytest.mark.parametrize("impl", IMPLS)

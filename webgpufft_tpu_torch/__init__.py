@@ -16,13 +16,19 @@ Every plan type of ``spec.py`` is ported: c2c over any axis length
 along logical axis 0), dct1-4/dst1-4, fftconv (with its overlap-save route
 and channel-lane presets) and conv2d, each with the staging options (layout
 strides, ``whdcn`` lanes, ioView, zeroPad, bf16-storage, inPlace, exec-time
-offsets, ``out=``, ``BufferView``).  ``rigor: "measure"``, cache snapshots,
-autograd and ``mesh=`` raise ``PlanError`` naming the ROADMAP item that
+offsets, ``out=``, ``BufferView``).  Plans are differentiable
+(``torch.autograd.grad``, ``torch.func.grad/vjp/jvp/vmap``): the backward of
+a kernel pass is the adjoint launch of the same kernel.  The runtime
+services are ported too: the plan cache with snapshots, the measured planner
+(``tuning.rigor: "measure"``), golden-artifact replay, profiling and tracing
+helpers, the selftest and single-plan export.  ``mesh=`` and the pipeline
+and distributed exports raise ``PlanError`` naming the ROADMAP item that
 ports them.  The package imports torch and numpy only, never JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -30,7 +36,12 @@ import torch
 
 from .spec import PlanError, PlanSpec, normalize_spec
 from .plans.base import Plan, RouteInfo
-from .runtime.cache import PlanCache, default_cache
+from .runtime.cache import (PlanCache, default_cache,
+                            enable_persistent_compilation_cache,
+                            export_plan_cache_snapshot,
+                            import_plan_cache_snapshot)
+from .runtime.aot import (ExportedPlan, export_distributed_plan, export_pipeline,
+                          export_plan, load_exported_pipeline, load_exported_plan)
 from .core.cplx import interleave, uninterleave
 from .utils.bufferview import BufferView
 
@@ -39,11 +50,28 @@ __version__ = "0.1.0"
 __all__ = [
     "create_plan", "create_fft_plan", "tables_from_reference", "Plan",
     "PlanSpec", "PlanError", "RouteInfo", "PlanCache", "default_cache",
+    "export_plan_cache_snapshot", "import_plan_cache_snapshot",
+    "enable_persistent_compilation_cache",
+    "export_plan", "load_exported_plan", "ExportedPlan",
+    "export_pipeline", "load_exported_pipeline", "export_distributed_plan",
     "interleave", "uninterleave", "BufferView",
+    "upload_complex", "download_complex",
     "create_fftconv_channel_lane_preset",
     "create_fftconv_kernel_major_channel_lane_preset",
     "create_fftconv_batch_major_channel_lane_preset",
 ]
+
+
+def upload_complex(z, device="cuda") -> torch.Tensor:
+    """numpy complex array -> interleaved float32 tensor on ``device``."""
+    return torch.as_tensor(interleave(np.asarray(z)), device=_resolve_device(device))
+
+
+def download_complex(x) -> np.ndarray:
+    """Interleaved tensor (or array) -> numpy complex128."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().float().cpu().numpy()
+    return uninterleave(np.asarray(x))
 
 
 def _resolve_device(device) -> torch.device:
@@ -91,6 +119,12 @@ def create_plan(opts: Optional[Dict[str, Any]] = None, *, device="cuda",
 
     Accepts a reference-style options dict and/or keyword arguments, as
     ``webgpufft_tpu.create_plan`` does.
+
+    A reference-style ``cache`` option may carry a snapshot to prewarm from:
+    ``create_plan({..., "cache": {"snapshot": snap}})`` imports the snapshot
+    into the active plan cache (its plans built on ``device``) before
+    building.  ``tuning.rigor: "measure"`` times route candidates on
+    ``device`` and returns the winner (``runtime/measure.py``).
     """
     merged = dict(opts or {})
     merged.update(kwargs)
@@ -106,12 +140,29 @@ def create_plan(opts: Optional[Dict[str, Any]] = None, *, device="cuda",
     if copt is not None:
         if not isinstance(copt, dict):
             raise PlanError("cache option must be a dict (e.g. {'snapshot': snap})")
-        if copt.get("snapshot") is not None:
-            raise PlanError("plan-cache snapshots are not ported yet (ROADMAP P8)")
+    dev = _resolve_device(device)
+    if copt is not None and copt.get("snapshot") is not None:
+        import_plan_cache_snapshot(copt["snapshot"], cache=target, device=dev)
     spec = normalize_spec(merged)
     if spec.tuning.rigor == "measure":
-        raise PlanError("tuning.rigor 'measure' is not ported yet (ROADMAP P8)")
-    return target.get_or_create(spec, _resolve_device(device))
+        # FFTW_MEASURE-style planner: time route candidates on the device
+        # and build the winner; the decision caches on the PlanCache and
+        # persists through snapshots
+        from .runtime.measure import run_measure
+        spec, notes, built = run_measure(spec, target, dev)
+        fresh = target.get(spec, dev) is None
+        if built is not None:
+            target.adopt(spec, built)    # reuse the plan built for timing
+        plan = target.get_or_create(spec, dev)
+        if fresh and notes:
+            # annotate only a plan this call created: a cache-shared plan
+            # may already be held by estimate-rigor callers whose route
+            # metadata must not change under them
+            plan.route = dataclasses.replace(
+                plan.route, reasons=plan.route.reasons + tuple(
+                    n for n in notes if n not in plan.route.reasons))
+        return plan
+    return target.get_or_create(spec, dev)
 
 
 def create_fft_plan(opts: Optional[Dict[str, Any]] = None, *, device="cuda",

@@ -39,15 +39,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _INTS = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
-    # x, y, cw, cp, lines, n, radices, count, stream
+    # x, y, cw, cp, lines, n, radices, count, adjoint, stream
     "wgfft_fused_lines": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                          _INTS, ctypes.c_int, _P),
-    # x, y, cw, cp, pre, h, cols, radices, count, stream
+                          _INTS, ctypes.c_int, ctypes.c_int, _P),
+    # x, y, cw, cp, pre, h, cols, radices, count, adjoint, stream
     "wgfft_fused_cols": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                         ctypes.c_longlong, _INTS, ctypes.c_int, _P),
+                         ctypes.c_longlong, _INTS, ctypes.c_int, ctypes.c_int, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
+
+
+def set_build_dir(directory: Path) -> None:
+    """Build into, and load from, ``directory`` from now on (it is created
+    at the first build).  A library already loaded stays loaded."""
+    global BUILD_DIR
+    BUILD_DIR = Path(directory)
 
 
 def find_nvcc() -> str:
@@ -86,7 +93,7 @@ def build() -> Path:
     if out.exists():
         return out
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(exist_ok=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     stem = f"{out.stem}.{os.getpid()}"
     jobs = []
     for src in sources():

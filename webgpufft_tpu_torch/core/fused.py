@@ -20,6 +20,16 @@ CPU tensor; there is no fallback between the two.  The CUDA kernel reaches
 the same result by a chain of in-register radix butterflies
 (``core/radix.py``) and reads only the ``cw`` and ``cp`` tables;
 ``fused_lines_chain_reference`` is its pass schedule on the CPU, a test aid.
+
+Autodiff.  The pass is the real-linear map y = s * F x, so its VJP is
+g_x = s * F^H g_y (same length and scale, opposite direction), its JVP is
+the pass itself on the tangent, and an extra batch dim folds into ``lines``.
+``FusedLines`` is the one ``torch.autograd.Function`` that says so on both
+devices: every rule calls the ``Function`` again with the ``adjoint`` switch
+set as needed, so the backward of a CUDA tensor is a launch of the same
+kernel (F^H g = conj(F conj g): the adjoint launch conjugates on load and on
+store and reads the same tables), double backward works, and the CPU holds
+the hand-written rules against autograd through the plain version.
 """
 
 from __future__ import annotations
@@ -96,9 +106,14 @@ def tables_from_reference(np_consts: Dict[str, np.ndarray], prefix: str) -> Dict
     }
 
 
-def fused_lines_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> torch.Tensor:
+def fused_lines_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor],
+                          adjoint: bool = False) -> torch.Tensor:
     """Plain torch version of the kernel: the same staging in f32 einsums.
-    x is interleaved (lines, N, 2); returns a new (lines, N, 2) tensor."""
+    x is interleaved (lines, N, 2); returns a new (lines, N, 2) tensor.
+    ``adjoint`` gives the conjugate transpose of the tables' transform,
+    conj(F conj x), as the kernel's adjoint launch computes it."""
+    if adjoint:
+        return radix.conj_pairs(fused_lines_reference(radix.conj_pairs(x), tables))
     n1, n2 = tables["f1re"].shape[0], tables["f2re"].shape[0]
     lines = x.shape[0]
     v = x.reshape(lines, n2, n1, 2)                # [l, b, a]: n = a + n1*b
@@ -117,37 +132,81 @@ def fused_lines_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> t
     return torch.stack([yr, yi], dim=-1).reshape(lines, n1 * n2, 2)
 
 
-def fused_lines_chain_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> torch.Tensor:
+def fused_lines_chain_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor],
+                                adjoint: bool = False) -> torch.Tensor:
     """The CUDA kernel's pass schedule on the CPU (``radix.radix_chain_reference``
     with the chain and tables the kernel gets): a test aid, on no plan path."""
-    return radix.radix_chain_reference(x, radix.radix_chain(x.shape[1]), tables)
+    return radix.radix_chain_reference(x, radix.radix_chain(x.shape[1]), tables, adjoint)
 
 
-def fused_lines(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """FFT along axis 1 of interleaved float32 x (lines, N, 2) with the
-    tables of ``lines_consts`` (unprefixed names).  A CUDA tensor runs the
-    CUDA kernel (and counts one launch); a CPU tensor runs
-    ``fused_lines_reference``."""
+def _run(x: torch.Tensor, tables: Dict[str, torch.Tensor], adjoint: bool) -> torch.Tensor:
+    """The pass on contiguous ``x``, outside autograd: the plain version on a
+    CPU tensor, one kernel launch (counted) on a CUDA tensor."""
     if x.device.type == "cpu":
-        return fused_lines_reference(x, tables)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_lines: unsupported device {x.device}")
-    if (x.dtype != torch.float32 or x.dim() != 3 or x.shape[2] != 2 or x.shape[0] < 1
-            or not x.is_contiguous()):
-        raise ValueError(
-            f"fused_lines: x must be a contiguous float32 (lines, N, 2) tensor, "
-            f"got {x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
+        return fused_lines_reference(x, tables, adjoint)
     n = x.shape[1]
     ptrs = _build.table_ptrs(x, tables, {"cw": (n, 2), "cp": (2,)}, "fused_lines")
     lib = _build.library()
     y = torch.empty_like(x)
     with _build.on_device(x.device):
         rc = lib.wgfft_fused_lines(x.data_ptr(), y.data_ptr(), *ptrs, x.shape[0], n,
-                                   *_build.chain_arg(radix.radix_chain(n)),
+                                   *_build.chain_arg(radix.radix_chain(n)), int(adjoint),
                                    torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "fused_lines")
     fused_lines.launches += 1
     return y
+
+
+class FusedLines(torch.autograd.Function):
+    """``FusedLines.apply(x, tables, adjoint)``: the pass with its autodiff
+    and batching rules (see the module docstring).  ``x`` is contiguous
+    (lines, N, 2); gradients and tangents are made contiguous here."""
+
+    @staticmethod
+    def forward(x, tables, adjoint):
+        return _run(x.contiguous(), tables, adjoint)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.tables, ctx.adjoint = inputs
+
+    @staticmethod
+    def backward(ctx, g):
+        return FusedLines.apply(g.contiguous(), ctx.tables, not ctx.adjoint), None, None
+
+    @staticmethod
+    def jvp(ctx, t, _tables, _adjoint):
+        return FusedLines.apply(t.contiguous(), ctx.tables, ctx.adjoint)
+
+    @staticmethod
+    def vmap(info, in_dims, x, tables, adjoint):
+        x = x.movedim(in_dims[0], 0)
+        b, lines, n, _ = x.shape
+        y = FusedLines.apply(x.reshape(b * lines, n, 2).contiguous(), tables, adjoint)
+        return y.reshape(b, lines, n, 2), 0
+
+
+def fused_lines(x: torch.Tensor, tables: Dict[str, torch.Tensor],
+                adjoint: bool = False) -> torch.Tensor:
+    """FFT along axis 1 of interleaved float32 x (lines, N, 2) with the
+    tables of ``lines_consts`` (unprefixed names); with ``adjoint`` the
+    conjugate transpose of that transform.  A CUDA tensor runs the CUDA
+    kernel (and counts one launch); a CPU tensor runs
+    ``fused_lines_reference``.  Differentiable: the backward of a CUDA
+    tensor is one more launch of the kernel."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_lines: unsupported device {x.device}")
+    if x.device.type == "cuda" and (
+            x.dtype != torch.float32 or x.dim() != 3 or x.shape[2] != 2 or x.shape[0] < 1
+            or not x.is_contiguous()):
+        raise ValueError(
+            f"fused_lines: x must be a contiguous float32 (lines, N, 2) tensor, "
+            f"got {x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
+    if not radix.tracked(x):
+        # nothing differentiates or batches through x: skip Function.apply,
+        # whose host work would be paid by every call
+        return _run(x, tables, adjoint)
+    return FusedLines.apply(x, tables, adjoint)
 
 
 fused_lines.launches = 0

@@ -17,6 +17,12 @@ CPU tensor; there is no fallback between the two.  The CUDA kernel reaches
 the same natural-order result by a chain of in-register radix butterflies
 (``core/radix.py``) and reads only the ``cw`` and ``cp`` tables;
 ``fused_cols_chain_reference`` is its pass schedule on the CPU, a test aid.
+
+Autodiff: as for K1 (``core/fused.py``).  ``FusedCols`` is the one
+``torch.autograd.Function`` for both devices; its backward is the adjoint
+launch of the same kernel on the same tables (same H and scale, opposite
+direction), its JVP the pass on the tangent, and an extra batch dim folds
+into ``pre``.
 """
 
 from __future__ import annotations
@@ -88,13 +94,18 @@ def tables_from_reference(np_consts: Dict[str, np.ndarray], prefix: str) -> Dict
     return out
 
 
-def fused_cols_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> torch.Tensor:
+def fused_cols_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor],
+                         adjoint: bool = False) -> torch.Tensor:
     """Plain torch version of the kernel: the same staging in f32 einsums.
-    x is (pre, H, L) with L = 2 * columns; returns a new (pre, H, L)."""
+    x is (pre, H, L) with L = 2 * columns; returns a new (pre, H, L).
+    ``adjoint`` gives the conjugate transpose of the tables' transform,
+    conj(F conj x), as the kernel's adjoint launch computes it."""
     h1, h2 = tables["w1re"].shape[0], tables["w2re"].shape[0]
     pre, h, lanes = x.shape
     v = x.reshape(pre, h2, h1, lanes // 2, 2)      # [p, b, a, c]: row = a + h1*b
     xr, xi = v[..., 0], v[..., 1]
+    if adjoint:
+        xi = -xi
     w2re, w2im = tables["w2re"], tables["w2im"]
     # stage 1: contract b -> [p, a, k2, c]
     ur = torch.einsum("pbac,bk->pakc", xr, w2re) - torch.einsum("pbac,bk->pakc", xi, w2im)
@@ -106,32 +117,26 @@ def fused_cols_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> to
     w1re, w1im = tables["w1re"], tables["w1im"]
     yr = torch.einsum("pakc,aq->pqkc", vr, w1re) - torch.einsum("pakc,aq->pqkc", vi, w1im)
     yi = torch.einsum("pakc,aq->pqkc", vr, w1im) + torch.einsum("pakc,aq->pqkc", vi, w1re)
+    if adjoint:
+        yi = -yi
     return torch.stack([yr, yi], dim=-1).reshape(pre, h, lanes)
 
 
-def fused_cols_chain_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> torch.Tensor:
+def fused_cols_chain_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor],
+                               adjoint: bool = False) -> torch.Tensor:
     """The CUDA kernel's pass schedule on the CPU (``radix.radix_chain_reference``
     with the chain and tables the kernel gets): a test aid, on no plan path."""
     pre, h, lanes = x.shape
     y = radix.radix_chain_reference(x.reshape(pre, h, lanes // 2, 2),
-                                    radix.radix_chain(h), tables)
+                                    radix.radix_chain(h), tables, adjoint)
     return y.reshape(pre, h, lanes)
 
 
-def fused_cols(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """FFT along axis 1 of float32 x (pre, H, L), L even, with the tables
-    of ``cols_consts`` (unprefixed names).  A CUDA tensor runs the CUDA
-    kernel (and counts one launch); a CPU tensor runs
-    ``fused_cols_reference``."""
+def _run(x: torch.Tensor, tables: Dict[str, torch.Tensor], adjoint: bool) -> torch.Tensor:
+    """The pass on contiguous ``x``, outside autograd: the plain version on a
+    CPU tensor, one kernel launch (counted) on a CUDA tensor."""
     if x.device.type == "cpu":
-        return fused_cols_reference(x, tables)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_cols: unsupported device {x.device}")
-    if (x.dtype != torch.float32 or x.dim() != 3 or x.shape[2] % 2 or min(x.shape) < 1
-            or not x.is_contiguous()):
-        raise ValueError(
-            f"fused_cols: x must be a contiguous float32 (pre, H, L) tensor with L even, "
-            f"got {x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
+        return fused_cols_reference(x, tables, adjoint)
     h = x.shape[1]
     ptrs = _build.table_ptrs(x, tables, {"cw": (h, 2), "cp": (2,)}, "fused_cols")
     lib = _build.library()
@@ -139,10 +144,60 @@ def fused_cols(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> torch.Tensor
     with _build.on_device(x.device):
         rc = lib.wgfft_fused_cols(x.data_ptr(), y.data_ptr(), *ptrs, x.shape[0], h,
                                   x.shape[2] // 2, *_build.chain_arg(radix.radix_chain(h)),
-                                  torch.cuda.current_stream().cuda_stream)
+                                  int(adjoint), torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "fused_cols")
     fused_cols.launches += 1
     return y
+
+
+class FusedCols(torch.autograd.Function):
+    """``FusedCols.apply(x, tables, adjoint)``: the pass with its autodiff
+    and batching rules.  ``x`` is contiguous (pre, H, L); gradients and
+    tangents are made contiguous here."""
+
+    @staticmethod
+    def forward(x, tables, adjoint):
+        return _run(x.contiguous(), tables, adjoint)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.tables, ctx.adjoint = inputs
+
+    @staticmethod
+    def backward(ctx, g):
+        return FusedCols.apply(g.contiguous(), ctx.tables, not ctx.adjoint), None, None
+
+    @staticmethod
+    def jvp(ctx, t, _tables, _adjoint):
+        return FusedCols.apply(t.contiguous(), ctx.tables, ctx.adjoint)
+
+    @staticmethod
+    def vmap(info, in_dims, x, tables, adjoint):
+        x = x.movedim(in_dims[0], 0)
+        b, pre, h, lanes = x.shape
+        y = FusedCols.apply(x.reshape(b * pre, h, lanes).contiguous(), tables, adjoint)
+        return y.reshape(b, pre, h, lanes), 0
+
+
+def fused_cols(x: torch.Tensor, tables: Dict[str, torch.Tensor],
+               adjoint: bool = False) -> torch.Tensor:
+    """FFT along axis 1 of float32 x (pre, H, L), L even, with the tables
+    of ``cols_consts`` (unprefixed names); with ``adjoint`` the conjugate
+    transpose of that transform.  A CUDA tensor runs the CUDA kernel (and
+    counts one launch); a CPU tensor runs ``fused_cols_reference``.
+    Differentiable: the backward of a CUDA tensor is one more launch of the
+    kernel."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_cols: unsupported device {x.device}")
+    if x.device.type == "cuda" and (
+            x.dtype != torch.float32 or x.dim() != 3 or x.shape[2] % 2 or min(x.shape) < 1
+            or not x.is_contiguous()):
+        raise ValueError(
+            f"fused_cols: x must be a contiguous float32 (pre, H, L) tensor with L even, "
+            f"got {x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
+    if not radix.tracked(x):
+        return _run(x, tables, adjoint)
+    return FusedCols.apply(x, tables, adjoint)
 
 
 fused_cols.launches = 0

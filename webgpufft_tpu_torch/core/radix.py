@@ -188,19 +188,36 @@ def _butterfly_odd(v, s):
 _BUTTERFLIES = {2: _butterfly2, 4: _butterfly4, 8: _butterfly8, 16: _butterfly16}
 
 
+def conj_pairs(x: torch.Tensor) -> torch.Tensor:
+    """The complex conjugate of (..., 2) pairs, a new tensor."""
+    return torch.stack([x[..., 0], -x[..., 1]], dim=-1)
+
+
+def tracked(x: torch.Tensor) -> bool:
+    """Does anything differentiate or batch through ``x`` right now: reverse
+    mode (``x`` requires grad under grad mode), forward mode (a dual level is
+    open) or a ``torch.func`` transform?  When not, a kernel wrapper may skip
+    ``torch.autograd.Function.apply`` and launch directly."""
+    return ((x.requires_grad and torch.is_grad_enabled())
+            or torch._C._are_functorch_transforms_active()
+            or torch.autograd.forward_ad._current_level >= 0)
+
+
 def radix_chain_reference(x: torch.Tensor, radices: Sequence[int],
-                          tables: Dict[str, torch.Tensor]) -> torch.Tensor:
+                          tables: Dict[str, torch.Tensor],
+                          adjoint: bool = False) -> torch.Tensor:
     """The kernels' pass schedule in plain torch, along axis 1 of float32
     ``x`` (units, N, ..., 2): the same passes, index maps, twiddle table
     (``cw``) and butterfly algebra, the scale (``cp[0]``) applied in the
-    last pass.  Returns a new tensor of x's shape."""
+    last pass.  ``adjoint`` conjugates on the first load and the last store,
+    as the kernels' adjoint launch does.  Returns a new tensor of x's shape."""
     n = x.shape[1]
     if math.prod(radices) != n:
         raise ValueError(f"radix_chain_reference: radices {tuple(radices)} do not multiply to {n}")
     tw = tables["cw"]
     scale, s = float(tables["cp"][0]), float(tables["cp"][1])
     ride = (1,) * (x.dim() - 3) + (2,)            # broadcast over what trails axis 1
-    cur = x
+    cur = conj_pairs(x) if adjoint else x
     ns = 1
     for radix in radices:
         m = n // radix
@@ -220,4 +237,4 @@ def radix_chain_reference(x: torch.Tensor, radices: Sequence[int],
             out[:, j0 + r * ns] = v[r]
         cur = out
         ns *= radix
-    return cur * scale
+    return (conj_pairs(cur) if adjoint else cur) * scale

@@ -30,7 +30,8 @@
 // the speed of a contiguous copy, so the tile shape costs no bandwidth.
 //
 // C interface: wgfft_fused_cols returns the cudaError_t of the launch;
-// cudaErrorInvalidValue for a chain it cannot run.
+// cudaErrorInvalidValue for a chain it cannot run.  adjoint != 0 runs the
+// conjugate transpose of the same tables' transform (autograd's backward).
 
 #include <cuda_runtime.h>
 
@@ -65,7 +66,8 @@ template <int E, int MAXT, int MINB, int SET>
 __global__ void __launch_bounds__(MAXT, MINB)
 fused_cols_kernel(const float2* __restrict__ x, float2* __restrict__ y,
                   const float2* __restrict__ tw, const float* __restrict__ params, int h,
-                  long long cols, int tc, int shift, long long tiles, const Chain chain) {
+                  long long cols, int tc, int shift, long long tiles, const Chain chain,
+                  float cj) {
   extern __shared__ float2 sm[];  // H rows x tc columns
   const long long p = blockIdx.x / tiles;
   const long long col0 = (blockIdx.x % tiles) * tc;
@@ -75,7 +77,7 @@ fused_cols_kernel(const float2* __restrict__ x, float2* __restrict__ y,
   lay.left = cols - col0;
   lay.tc = tc;
   lay.shift = shift;
-  wgfft::radix_chain<E, SET>(lay, x, y, sm, tw, params, h, chain);
+  wgfft::radix_chain<E, SET>(lay, x, y, sm, tw, params, h, chain, cj);
 }
 
 struct ColsArgs {
@@ -85,6 +87,7 @@ struct ColsArgs {
   const float* params;
   long long pre, cols;
   int h, tc, shift, threads;
+  float cj;  // +1, or -1 for the adjoint
   cudaStream_t stream;
 };
 
@@ -101,7 +104,7 @@ cudaError_t launch(const ColsArgs& a, const Chain& chain) {
     if (e != cudaSuccess) return e;
   }
   kernel<<<static_cast<unsigned>(blocks), a.threads, smem, a.stream>>>(
-      a.x, a.y, a.tw, a.params, a.h, a.cols, a.tc, a.shift, tiles, chain);
+      a.x, a.y, a.tw, a.params, a.h, a.cols, a.tc, a.shift, tiles, chain, a.cj);
   return cudaGetLastError();
 }
 
@@ -123,7 +126,7 @@ cudaError_t launch_set(int e, const ColsArgs& a, const Chain& chain) {
 
 extern "C" int wgfft_fused_cols(const void* x, void* y, const void* tw, const void* params,
                                 long long pre, int h, long long cols, const int* radices,
-                                int count, void* stream) {
+                                int count, int adjoint, void* stream) {
   Chain chain;
   if (pre < 1 || cols < 1 || !wgfft::make_chain(radices, count, h, &chain))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -143,7 +146,8 @@ extern "C" int wgfft_fused_cols(const void* x, void* y, const void* tw, const vo
   const int threads = (t + 31) / 32 * 32;
   const ColsArgs a = {static_cast<const float2*>(x), static_cast<float2*>(y),
                       static_cast<const float2*>(tw), static_cast<const float*>(params),
-                      pre, cols, h, tc, shift, threads, static_cast<cudaStream_t>(stream)};
+                      pre, cols, h, tc, shift, threads, adjoint ? -1.f : 1.f,
+                      static_cast<cudaStream_t>(stream)};
   cudaError_t r;
   switch (wgfft::radix_set(chain)) {
     case wgfft::kSetPow2: r = launch_set<wgfft::kSetPow2>(e, a, chain); break;

@@ -29,7 +29,8 @@
 // values, so no thread divides by a digit per output.
 //
 // C interface: wgfft_fused_lines returns the cudaError_t of the launch;
-// cudaErrorInvalidValue for a chain it cannot run.
+// cudaErrorInvalidValue for a chain it cannot run.  adjoint != 0 runs the
+// conjugate transpose of the same tables' transform (autograd's backward).
 
 #include <cuda_runtime.h>
 
@@ -64,7 +65,8 @@ template <int E, int MAXT, int MINB, int SET>
 __global__ void __launch_bounds__(MAXT, MINB)
 fused_lines_kernel(const float2* __restrict__ x, float2* __restrict__ y,
                    const float2* __restrict__ tw, const float* __restrict__ params,
-                   long long lines, int n, int per_cta, int pitch, const Chain chain) {
+                   long long lines, int n, int per_cta, int pitch, const Chain chain,
+                   float cj) {
   extern __shared__ float2 sm[];
   LinesLayout lay;
   lay.line0 = static_cast<long long>(blockIdx.x) * per_cta;
@@ -72,7 +74,7 @@ fused_lines_kernel(const float2* __restrict__ x, float2* __restrict__ y,
   lay.n = n;
   lay.per_cta = per_cta;
   lay.pitch = pitch;
-  wgfft::radix_chain<E, SET>(lay, x, y, sm, tw, params, n, chain);
+  wgfft::radix_chain<E, SET>(lay, x, y, sm, tw, params, n, chain, cj);
 }
 
 struct LinesArgs {
@@ -82,6 +84,7 @@ struct LinesArgs {
   const float* params;
   long long lines;
   int n, per_cta, threads;
+  float cj;  // +1, or -1 for the adjoint
   cudaStream_t stream;
 };
 
@@ -98,7 +101,7 @@ cudaError_t launch(const LinesArgs& a, const Chain& chain) {
   }
   const long long blocks = (a.lines + a.per_cta - 1) / a.per_cta;
   kernel<<<static_cast<unsigned>(blocks), a.threads, smem, a.stream>>>(
-      a.x, a.y, a.tw, a.params, a.lines, a.n, a.per_cta, pitch, chain);
+      a.x, a.y, a.tw, a.params, a.lines, a.n, a.per_cta, pitch, chain, a.cj);
   return cudaGetLastError();
 }
 
@@ -121,7 +124,7 @@ cudaError_t launch_set(int e, const LinesArgs& a, const Chain& chain) {
 
 extern "C" int wgfft_fused_lines(const void* x, void* y, const void* tw, const void* params,
                                  long long lines, int n, const int* radices, int count,
-                                 void* stream) {
+                                 int adjoint, void* stream) {
   Chain chain;
   if (lines < 1 || lines > 0x7fffffffLL || !wgfft::make_chain(radices, count, n, &chain))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -139,7 +142,8 @@ extern "C" int wgfft_fused_lines(const void* x, void* y, const void* tw, const v
   const int threads = (wgfft::threads_needed(chain, n, e, per_cta) + 31) / 32 * 32;
   const LinesArgs a = {static_cast<const float2*>(x), static_cast<float2*>(y),
                        static_cast<const float2*>(tw), static_cast<const float*>(params),
-                       lines, n, per_cta, threads, static_cast<cudaStream_t>(stream)};
+                       lines, n, per_cta, threads, adjoint ? -1.f : 1.f,
+                       static_cast<cudaStream_t>(stream)};
   cudaError_t r;
   switch (wgfft::radix_set(chain)) {
     case wgfft::kSetPow2: r = launch_set<wgfft::kSetPow2>(e, a, chain); break;

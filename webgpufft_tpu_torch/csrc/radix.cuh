@@ -27,7 +27,9 @@
 //
 // The direction is a sign s (-1 forward, +1 inverse) read with the scale
 // from a two-float table: the butterflies multiply their imaginary
-// constants by s, so one instantiation serves both directions.
+// constants by s, so one instantiation serves both directions.  The adjoint
+// of a pass (the backward of autograd: same length and scale, opposite
+// direction) is the same launch with cj = -1, see radix_chain.
 //
 // Cost: about 5 * log2(n) FP32 flops per point instead of the
 // 8 * (n1 + n2) of two direct digit DFTs.  Tensor cores are not used: at
@@ -231,7 +233,7 @@ __device__ __forceinline__ void radix_pass(const Layout& lay, const float2* __re
                                            float2* __restrict__ y, float2* sm,
                                            const float2* __restrict__ tw, int n, int ns,
                                            bool first_arg, bool last_arg, float s,
-                                           float scale) {
+                                           float scale, float cj) {
   const bool first = FIRST < 0 ? first_arg : FIRST != 0;
   const bool last = LAST < 0 ? last_arg : LAST != 0;
   constexpr int PER = per_thread(E, R);
@@ -247,8 +249,10 @@ __device__ __forceinline__ void radix_pass(const Layout& lay, const float2* __re
       if (first) {
         const bool live = lay.live(u);
 #pragma unroll
-        for (int r = 0; r < R; ++r)
+        for (int r = 0; r < R; ++r) {
           v[q][r] = live ? x[lay.global(u, j + r * m)] : make_float2(0.f, 0.f);
+          v[q][r].y *= cj;
+        }
       } else {
 #pragma unroll
         for (int r = 0; r < R; ++r) v[q][r] = sm[lay.shared(u, j + r * m)];
@@ -272,7 +276,8 @@ __device__ __forceinline__ void radix_pass(const Layout& lay, const float2* __re
         if (lay.live(u)) {
 #pragma unroll
           for (int r = 0; r < R; ++r)
-            y[lay.global(u, j0 + r * ns)] = make_float2(v[q][r].x * scale, v[q][r].y * scale);
+            y[lay.global(u, j0 + r * ns)] =
+                make_float2(v[q][r].x * scale, v[q][r].y * (scale * cj));
         }
       } else {
 #pragma unroll
@@ -291,13 +296,16 @@ constexpr int kSetPow2 = 0;   // 2, 4, 8, 16
 constexpr int kSetSmall = 1;  // and 3, 5
 constexpr int kSetAll = 2;    // and 7, 11, 13
 
-// The whole chain on the CTA's units.  params = {scale, s}.
+// The whole chain on the CTA's units.  params = {scale, s}.  cj is +1 for
+// the transform itself and -1 for its adjoint: F^H g = conj(F conj g), so the
+// adjoint conjugates on the first pass's load and the last pass's store (two
+// sign flips a point, in registers) and reads the same tables.
 template <int E, int SET, class Layout>
 __device__ __forceinline__ void radix_chain(const Layout& lay, const float2* __restrict__ x,
                                             float2* __restrict__ y, float2* sm,
                                             const float2* __restrict__ tw,
                                             const float* __restrict__ params, int n,
-                                            const Chain& chain) {
+                                            const Chain& chain, float cj) {
   const float scale = __ldg(params);
   const float s = __ldg(params + 1);
   int ns = 1;
@@ -311,7 +319,7 @@ __device__ __forceinline__ void radix_chain(const Layout& lay, const float2* __r
     // instruction cache that way and keep one copy with run-time flags.
     constexpr bool kSplit = SET == kSetPow2 && E == 8;
 #define WGFFT_RUN(R, F, L) \
-  radix_pass<E, R, F, L>(lay, x, y, sm, tw, n, ns, first, last, s, scale)
+  radix_pass<E, R, F, L>(lay, x, y, sm, tw, n, ns, first, last, s, scale, cj)
 #define WGFFT_PASS(R)                          \
   do {                                         \
     if constexpr (!kSplit) WGFFT_RUN(R, -1, -1); \

@@ -11,7 +11,16 @@ A plan returns a fresh tensor unless the caller gives it somewhere to write:
 ``out=`` is written in place and returned, and an ``inPlace`` c2c plan
 writes its result into the input tensor and returns that.  Exec-time offsets
 are Python ints and become slices or index shifts; nothing on the exec path
-reads a device value back.  Outputs are not differentiable yet (ROADMAP P9).
+reads a device value back.
+
+Plans are differentiable: every stage is a torch op or one of the two kernel
+``torch.autograd.Function``s (``core/fused.py``, ``core/fused_cols.py``), so
+``torch.autograd.grad`` and ``torch.func.grad/vjp/jvp/vmap`` compose with
+``plan(x)``, for the input and for an fftconv or conv2d ``kernel=`` payload.
+As with torch's own ``out=``, an ``out=`` tensor that requires grad raises,
+and values merged into a caller's ``out=`` carry no gradient to what ``out``
+held before; ``inPlace`` on a leaf that requires grad raises torch's own
+in-place error.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import numpy as np
 import torch
 
 from ..spec import PlanError, PlanSpec
+from ..runtime import trace
 from ..utils.bufferview import BufferView
 from . import stages
 
@@ -123,8 +133,13 @@ class Plan:
         if isinstance(out, BufferView):
             out_view = out
             out = out_view.pack()
-        y = self._exec_inner(x, kernel, out, input_offset_elements,
-                             output_offset_elements)
+        if trace.tracing():
+            with trace.annotate(f"wgfft:{self.spec.plan_type}"):
+                y = self._exec_inner(x, kernel, out, input_offset_elements,
+                                     output_offset_elements)
+        else:
+            y = self._exec_inner(x, kernel, out, input_offset_elements,
+                                 output_offset_elements)
         return out_view.unpack(y) if out_view is not None else y
 
     def _require_tensor(self, t, what: str):
@@ -135,10 +150,10 @@ class Plan:
         if t.device != self.device:
             raise PlanError(f"{kind}: {what} is on {t.device}, the plan is on "
                             f"{self.device}", device=str(self.device))
-        if t.requires_grad:
-            raise PlanError(f"{kind}: plan outputs are not differentiable yet "
-                            "(ROADMAP P9); pass a tensor that does not "
-                            "require grad")
+        if what == "out=" and t.requires_grad:
+            raise PlanError(f"{kind}: out= tensors that require grad are not "
+                            "supported (the plan writes into out in place); "
+                            "pass out.detach() or drop out=")
 
     def _exec_inner(self, x, kernel=None, out=None, in_off=None, out_off=None):
         kind = self.spec.plan_type
@@ -216,6 +231,15 @@ class Plan:
         return self._kernel_tensor(kernel)
 
     # -- introspection -----------------------------------------------------
+
+    _plan_cache = None  # set by PlanCache.get_or_create
+
+    def get_pipeline_cache_snapshot(self):
+        """Snapshot of the plan cache this plan was created through: pass it
+        to a later ``create_plan(..., cache={"snapshot": snap})`` or
+        ``import_plan_cache_snapshot`` to prewarm."""
+        from ..runtime.cache import export_plan_cache_snapshot
+        return export_plan_cache_snapshot(cache=self._plan_cache)
 
     def get_workspace_size_bytes(self) -> int:
         """Estimated peak intermediate footprint.  Informational: torch's

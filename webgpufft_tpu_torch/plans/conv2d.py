@@ -9,7 +9,10 @@ channel-mixing real convolutions (two channels in and out with the
 Both compute cross-correlation (no kernel flip).  The JAX plan runs at
 ``Precision.HIGHEST``; cuDNN would run a float32 convolution in TF32 by
 default, so the convolution runs with TF32 switched off for its own call
-only (no global flag is touched).
+only (no global flag is touched).  Autograd runs the backward convolutions
+later, outside that scope, so the convolution is a ``torch.autograd.Function``
+(``_ConvF32``) whose backward and JVP open the same scope again: gradients
+with respect to data and kernel are full f32 whatever the caller's flag.
 """
 
 from __future__ import annotations
@@ -20,6 +23,56 @@ import torch.nn.functional as F
 from ..runtime.policy import knob_reasons
 from ..spec import PlanError, PlanSpec
 from .base import Plan, RouteInfo
+
+
+def _no_tf32():
+    """cuDNN flags scope with TF32 off; ``flags()`` resets what it is not
+    given, so the caller's other cuDNN settings are passed through."""
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
+
+
+class _ConvF32(torch.autograd.Function):
+    """``F.conv2d(x, w, groups=groups)`` (stride 1, no padding) in full f32,
+    forward, backward and forward-mode.  The map is bilinear in (x, w): the
+    JVP is the convolution of each tangent with the other operand, and the
+    backward runs torch's own convolution-gradient ops under the same scope."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, w, groups):
+        with _no_tf32():
+            return F.conv2d(x, w, groups=groups)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, ctx.groups = inputs
+        ctx.save_for_backward(x, w)
+        ctx.save_for_forward(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        with _no_tf32():
+            if ctx.needs_input_grad[0]:
+                gx = torch.nn.grad.conv2d_input(x.shape, w, g, groups=ctx.groups)
+            if ctx.needs_input_grad[1]:
+                gw = torch.nn.grad.conv2d_weight(x, w.shape, g, groups=ctx.groups)
+        return gx, gw, None
+
+    @staticmethod
+    def jvp(ctx, tx, tw, _groups):
+        x, w = ctx.saved_tensors
+        out = None
+        if tx is not None:
+            out = _ConvF32.apply(tx, w, ctx.groups)
+        if tw is not None:
+            part = _ConvF32.apply(x, tw, ctx.groups)
+            out = part if out is None else out + part
+        return out
 
 
 def conv2d_geometry(spec: PlanSpec):
@@ -57,13 +110,7 @@ def build_conv2d(spec: PlanSpec, device: torch.device) -> Plan:
                       attempts=("xla",))
 
     def conv(x_nchw, w_oihw, groups=1):
-        x_nchw = F.pad(x_nchw, (pl, pr, pt, pb))
-        cudnn = torch.backends.cudnn
-        # flags() resets what it is not given, so the caller's other cuDNN
-        # settings are passed through
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                         deterministic=cudnn.deterministic, allow_tf32=False):
-            return F.conv2d(x_nchw, w_oihw, groups=groups)
+        return _ConvF32.apply(F.pad(x_nchw, (pl, pr, pt, pb)), w_oihw.contiguous(), groups)
 
     def fn(consts_, x, kernel, out=None):
         if x.ndim == 3:  # real data (batch, Hin, Win)

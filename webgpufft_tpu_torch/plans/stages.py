@@ -10,6 +10,11 @@ vc = c - offset; out-of-view reads are zero; offsets may be negative.
 
 Where the JAX package returns a new array from a scatter, the port writes
 into the caller's ``out`` tensor and returns it.
+
+Every stage is a differentiable torch op: the index tables carry no
+gradient, a scatter into fresh zeros differentiates with respect to its
+values, and a merge into a caller's ``out`` is in place, so the result
+carries the gradient of the written values and none to what ``out`` held.
 """
 
 from __future__ import annotations
