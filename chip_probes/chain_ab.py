@@ -14,9 +14,9 @@ from pathlib import Path
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from chip_smoke import card_line, median, time_queued  # noqa: E402
 from webgpufft_tpu_torch import _build  # noqa: E402
 from webgpufft_tpu_torch.core import radix  # noqa: E402
+from webgpufft_tpu_torch.runtime.profile import card_line, median, time_queued  # noqa: E402
 
 K1_CASES = [(1024, 4096, [(8, 8, 4, 4), (8, 8, 16)]), (256, 98304, [(8, 8, 4)]),
             (2048, 4096, [(8, 8, 8, 4)]), (4096, 4096, [(8, 8, 8, 8)]),
@@ -37,7 +37,8 @@ def tables(n, chain):
 
 def run(entry, x, y, dims, chain, cw, cp):
     rc = entry(x.data_ptr(), y.data_ptr(), cw.data_ptr(), cp.data_ptr(), *dims,
-               *_build.chain_arg(tuple(chain)), torch.cuda.current_stream().cuda_stream)
+               *_build.chain_arg(tuple(chain)), 0,  # 0: the transform, not its adjoint
+               torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "chain_ab")
 
 

@@ -2,23 +2,21 @@
 
     python3 chip_probes/tile_copy.py        (from the repository root)
 
-Builds ``tile_copy.cu`` with nvcc and times, on the views the 256^3 plans
-give K2, a copy in K2's tiles (h rows by 16, 32, 64 or 128 complex columns a
-CTA) beside ``Tensor.copy_`` and K2 itself.  Needs a GPU.
+Times, on the views the 256^3 plans give K2, a copy in K2's tiles (h rows by
+16, 32, 64 or 128 complex columns a CTA; ``csrc/probes/tile_copy.cu``, built
+with the other probe kernels at first use) beside ``Tensor.copy_`` and K2
+itself.  Needs a GPU.
 """
 
-import ctypes
-import subprocess
 import sys
-import tempfile
 from pathlib import Path
 
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from chip_smoke import card_line, median, time_queued  # noqa: E402
 from webgpufft_tpu_torch import _build  # noqa: E402
 from webgpufft_tpu_torch.core import fused_cols  # noqa: E402
+from webgpufft_tpu_torch.runtime.profile import card_line, median, time_queued  # noqa: E402
 
 
 def device_ms(fn):
@@ -29,14 +27,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("tile_copy: needs an NVIDIA GPU")
     print(card_line())
-    with tempfile.TemporaryDirectory() as tmp:
-        so = Path(tmp) / "tile_copy.so"
-        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so),
-                        str(Path(__file__).with_suffix(".cu"))], check=True)
-        lib = ctypes.CDLL(str(so))
-    ptr = ctypes.c_void_p
-    lib.probe_tile_copy.argtypes = (ptr, ptr, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr)
+    lib = _build.library("probes")
     stream = torch.cuda.current_stream().cuda_stream
     for pre, h, lanes in [(256, 256, 512), (768, 256, 512), (384, 128, 512), (1, 256, 131072)]:
         x = torch.randn(pre, h, lanes, device="cuda")
@@ -51,8 +42,7 @@ def main():
             def copy():
                 rc = lib.probe_tile_copy(x.data_ptr(), y.data_ptr(), pre, h, lanes, tile_floats,
                                          width, threads, stream)
-                if rc:
-                    raise RuntimeError(f"probe_tile_copy: CUDA error {rc}")
+                _build.check(rc, "probe_tile_copy", "probes")
             y.zero_()
             copy()
             torch.cuda.synchronize()

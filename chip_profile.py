@@ -22,8 +22,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import webgpufft_tpu_torch as T
-from chip_smoke import card_line
 from webgpufft_tpu_torch.examples import navier_stokes3d as ns
+from webgpufft_tpu_torch.runtime.profile import card_line
 
 CALLS = 3
 NS_N, NS_NU, NS_DT = 256, 2e-2, 1e-2

@@ -7,9 +7,11 @@ kernel against its plain PyTorch version (at the shapes the paths below give
 it, and at lengths that stress the radix chain: the shared-memory limit, every
 odd radix, one-butterfly lengths, a ragged column count, small digits), and
 holds each kernel's adjoint launch (the backward of autograd) against the
-plain adjoint and the dot test <K x, u> = <x, K^H u>, and drives ten paths
-through the port's entry points, each with the kernels' launch counts set to
-0 just before it and read just after (each must launch the kernels named):
+plain adjoint and the dot test <K x, u> = <x, K^H u>, holds the three probe
+kernels (``webgpufft_tpu_torch.probes``) against theirs, and drives eleven
+paths through the port's entry points, each with the kernels' launch counts
+set to 0 just before it and read just after (each must launch the kernels
+named, and no other):
 
 - c2c: ``create_plan(...)(x)`` on the batched 1-D headline plan and a 256^3
   plan (K1, K2);
@@ -43,7 +45,13 @@ through the port's entry points, each with the kernels' launch counts set to
 - runtime: ``rigor: "measure"`` on four plans, a snapshot round trip that
   reuses the winners without timing, the golden corpus
   (``tests/golden_corpus.json``), the selftest, ``export_plan`` ->
-  ``load_exported_plan`` and a ``trace()`` of one headline call (K1, K2).
+  ``load_exported_plan`` and a ``trace()`` of one headline call (K1, K2);
+- probes: the measurement kernels through their entry points at full size:
+  ``stream_copy`` in every mode and stage count on the headline array
+  (4096, 2048) and a 128 MB array, ``lines_stages`` at every stop of the
+  headline chain with the last stop held against K1, ``lines_planes`` against
+  K1 on the interleaved form, and K1 in place (``stream_copy``,
+  ``lines_stages``, ``lines_planes``, K1).
 
 Plans and kernels are checked against ``torch.fft`` as an independent
 oracle, as are the Rader, Bluestein and four-step axes and the odd-length
@@ -52,7 +60,10 @@ r2c paths.  Then each kernel shape is timed beside its plain version, its bound
 over the data sheet's 3.35 TB/s, or its flops over 67 TFLOP/s if that is more) and the one
 ``torch.fft.fft`` call that computes the same function (cuFFT, a yardstick the
 port never calls), and each plan and the solver step beside ``torch.fft``
-(a DCT-II and the convolutions written on ``torch.fft`` in this script).
+(a DCT-II and the convolutions written on ``torch.fft`` in this script), and
+each probe variant beside its bound and the same-session ``Tensor.copy_``,
+with the difference between neighbouring stops of ``lines_stages`` (what a
+pass of K1's chain costs).
 Every phase raises on failure, so the script exits non-zero; it never falls
 back to the CPU.
 
@@ -68,7 +79,6 @@ Output: one line per result; then the kernel record as one JSON object, the
 import json
 import math
 import os
-import subprocess
 import tempfile
 import time
 
@@ -104,20 +114,13 @@ def require(cond, msg):
         raise AssertionError(msg)
 
 
-def card_line():
-    """The first card's name and power limit, as nvidia-smi gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-
-
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = card_line()
+    smi = profile.card_line()
     name = torch.cuda.get_device_name(0)
     print(f"device: {name}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"count {torch.cuda.device_count()}")
@@ -130,12 +133,13 @@ def phase_device():
 def phase_build():
     from webgpufft_tpu_torch import _build
     t0 = time.perf_counter()
-    path = _build.library_path()
-    fresh = not path.exists()
-    _build.library()
+    fresh = {which: not _build.library_path(which).exists() for which in ("core", "probes")}
+    paths = _build.build_all()   # both libraries, every nvcc at once
+    for which in paths:
+        _build.library(which)
     secs = time.perf_counter() - t0
-    print(f"build: {secs:.2f} s ({'compiled' if fresh else 'reused'} "
-          f"{path.name} with {' '.join(_build.NVCC_FLAGS)})")
+    names = ", ".join(f"{'compiled' if fresh[w] else 'reused'} {p.name}" for w, p in paths.items())
+    print(f"build: {secs:.2f} s ({names} with {' '.join(_build.NVCC_FLAGS)})")
 
 
 def to_dev(consts):
@@ -393,20 +397,34 @@ def launches():
     return fused.fused_lines.launches, fused_cols.fused_cols.launches
 
 
-def drive(name, paths, fn, *args, k1=True, k2=True):
-    """Run one path with both launch counts set to 0 just before it and
-    read just after; each kernel of the path (``k1``, ``k2``) must have
-    launched, and a kernel the path has none of must not."""
+def counters():
+    """The wrappers that count launches, by kernel name, K1 and K2 first."""
+    from webgpufft_tpu_torch import probes
     from webgpufft_tpu_torch.core import fused, fused_cols
-    fused.fused_lines.launches = 0
-    fused_cols.fused_cols.launches = 0
+    return {"fused_lines": fused.fused_lines, "fused_cols": fused_cols.fused_cols,
+            "stream_copy": probes.stream_copy, "lines_stages": probes.lines_stages,
+            "lines_planes": probes.lines_planes}
+
+
+PROBE_KERNELS = ("stream_copy", "lines_stages", "lines_planes")
+
+
+def drive(name, paths, fn, *args, k1=True, k2=True, probes=False):
+    """Run one path with every launch count set to 0 just before it and
+    read just after; each kernel of the path (``k1``, ``k2``, the three
+    ``probes``) must have launched, and a kernel the path has none of must
+    not.  ``paths[name]`` gets the counts in the order of ``counters()``."""
+    wrappers = counters()
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
     out = fn(*args)
     torch.cuda.synchronize()
-    n1, n2 = launches()
-    print(f"path {name} launches: fused_lines {n1}, fused_cols {n2}")
-    require((n1 > 0) == k1, f"path {name}: fused_lines launched {n1} times")
-    require((n2 > 0) == k2, f"path {name}: fused_cols launched {n2} times")
-    paths[name] = (n1, n2)
+    counts = {kernel: wrapper.launches for kernel, wrapper in wrappers.items()}
+    print(f"path {name} launches: " + ", ".join(f"{k} {n}" for k, n in counts.items()))
+    want = {"fused_lines": k1, "fused_cols": k2, **dict.fromkeys(PROBE_KERNELS, probes)}
+    for kernel, n in counts.items():
+        require((n > 0) == want[kernel], f"path {name}: {kernel} launched {n} times")
+    paths[name] = tuple(counts.values())
     return out
 
 
@@ -1091,6 +1109,196 @@ def phase_runtime(gen, card):
     require(mem is not None and "allocated_bytes.all.peak" in mem, "runtime memory_stats")
 
 
+# ---------------------------------------------------------------------------
+# probes
+# ---------------------------------------------------------------------------
+
+COPY_SHAPES = [(4096, 2048), (16384, 2048)]    # the headline array, and 128 MB
+COPY_SCALE = 1.000001
+STAGES_SHAPES = [(1024, 4096), (2048, 4096), (4096, 4096), (256, 98304), (360, 4096)]
+PLANES_SHAPES = [(1024, 4096), (256, 98304), (4096, 4096)]
+CUDA_ERROR_INVALID_VALUE = 1
+
+
+def copy_variants():
+    """Every mode and stage count of ``stream_copy``."""
+    from webgpufft_tpu_torch.probes import stream
+    yield {"mode": "direct"}
+    for mode in ("cp_async", "bulk"):
+        for stages in stream.STAGE_COUNTS:
+            yield {"mode": mode, "stages": stages}
+
+
+def variant_name(kw):
+    return " ".join(f"{k}={v}" for k, v in kw.items())
+
+
+def lines_case(gen, n, lines):
+    from webgpufft_tpu_torch.core import fused
+    tables = to_dev(fused.lines_consts(n, "forward", 1.0 / math.sqrt(n), "p"))
+    return torch.randn(lines, n, 2, device="cuda", generator=gen), tables
+
+
+def to_planes(x):
+    return torch.stack(x.unbind(-1), dim=1).contiguous()
+
+
+def phase_probe_kernels(gen):
+    """Each probe kernel against its plain version: ``stream_copy`` bit for
+    bit (every mode and stage count, plain and scaled, both arrays),
+    ``lines_stages`` at every stop of five shapes, ``lines_planes`` and K1 in
+    place at three, and that K1's entry point refuses a one-pass chain in
+    place.  Returns the worst max abs error of each probe and the cases for
+    the timing phase.  These launches count for no path."""
+    from webgpufft_tpu_torch import _build
+    from webgpufft_tpu_torch.core import fused, radix
+    from webgpufft_tpu_torch.probes import planes, stages, stream
+    worst = dict.fromkeys(PROBE_KERNELS, 0.0)
+    copies = [torch.randn(*shape, device="cuda", generator=gen) for shape in COPY_SHAPES]
+    for x in copies:
+        for kw in copy_variants():
+            for scale in (None, COPY_SCALE):
+                y = stream.stream_copy(x, scale, **kw)
+                torch.cuda.synchronize()
+                same = torch.equal(y, stream.stream_copy_reference(x, scale))
+                print(f"P1 stream_copy {tuple(x.shape)} {variant_name(kw)}"
+                      f"{' scaled' if scale else ''}: bit-equal to plain: {same}")
+                require(same, f"stream_copy {kw} scale={scale}: differs from its plain version")
+    lines_cases = {}
+    for n, lines in STAGES_SHAPES:
+        x, tables = lines_cases[(n, lines)] = lines_case(gen, n, lines)
+        chain = radix.radix_chain(n)
+        for stop in range(len(chain) + 1):
+            worst["lines_stages"] = max(worst["lines_stages"], compare(
+                f"P2 lines_stages N={n} chain={chain} lines={lines} stop={stop}",
+                lambda v, t, stop=stop: stages.lines_stages(v, t, stop),
+                lambda v, t, stop=stop: stages.lines_stages_reference(v, t, stop), x, tables))
+    for n, lines in PLANES_SHAPES:
+        x, tables = lines_cases[(n, lines)]
+        worst["lines_planes"] = max(worst["lines_planes"], compare(
+            f"P3 lines_planes N={n} lines={lines}", planes.lines_planes,
+            planes.lines_planes_reference, to_planes(x), tables))
+        compare(f"P3 K1 in place N={n} lines={lines}",
+                lambda v, t: planes.lines_inplace(v.clone(), t), fused.fused_lines_reference,
+                x, tables)
+    # a one-pass chain has no barrier between its reads and writes: refused
+    x, tables = lines_case(gen, 16, 4096)
+    rc = _build.library().wgfft_fused_lines(
+        x.data_ptr(), x.data_ptr(), tables["cw"].data_ptr(), tables["cp"].data_ptr(), 4096, 16,
+        *_build.chain_arg(radix.radix_chain(16)), 0, torch.cuda.current_stream().cuda_stream)
+    print(f"P3 K1 in place N=16 (one pass): entry point returned {rc} "
+          f"(cudaErrorInvalidValue = {CUDA_ERROR_INVALID_VALUE})")
+    require(rc == CUDA_ERROR_INVALID_VALUE, "K1 ran a one-pass chain in place")
+    return worst, copies, lines_cases
+
+
+def phase_probes(copies, lines_cases):
+    """The probes path: every probe through its entry point at full size."""
+    from webgpufft_tpu_torch import probes
+    from webgpufft_tpu_torch.core import fused, radix
+    for x in copies:
+        for kw in copy_variants():
+            for scale in (None, COPY_SCALE):
+                y = probes.stream_copy(x, scale, **kw)
+                require(y.shape == x.shape and torch.equal(y, x if scale is None else x * scale),
+                        f"probes: stream_copy {kw} scale={scale} is not the copy")
+    print(f"probes: stream_copy on {COPY_SHAPES}, {len(list(copy_variants()))} variants, plain "
+          f"and scaled: every output is the copy")
+    x, tables = lines_cases[(1024, 4096)]
+    k1 = fused.fused_lines(x, tables)
+    check_oracle("probes: K1 N=1024 x 4096", k1,
+                 torch.fft.fft(torch.view_as_complex(x), norm="ortho"))
+    count = len(radix.radix_chain(1024))
+    for stop in range(count + 1):
+        y = probes.lines_stages(x, tables, stop)
+        require(tuple(y.shape) == tuple(x.shape) and bool(torch.isfinite(y).all()),
+                f"probes: lines_stages stop={stop} output")
+        if stop == 0:
+            require(torch.equal(y, x), "probes: lines_stages stop=0 is not the copy")
+    check_close(f"probes: lines_stages stop={count} (every pass)", y, k1, "K1")
+    yp = probes.lines_planes(to_planes(x), tables)
+    check_close("probes: lines_planes", torch.stack(yp.unbind(1), dim=-1), k1,
+                "K1 on the interleaved form")
+    work = x.clone()
+    same = torch.equal(probes.lines_inplace(work, tables), k1)
+    print(f"probes: K1 in place bit-equal to K1 out of place: {same}")
+    require(same, "probes: K1 in place differs from K1 out of place")
+
+
+def timed(fn, *args, runs=profile.RUNS):
+    return profile.median(profile.time_queued(fn, *args, runs=runs))
+
+
+def phase_probe_timing(copies, lines_cases, card):
+    """Every probe variant beside its bound and the same-session
+    ``Tensor.copy_``; for ``lines_stages`` the difference between neighbouring
+    stops.  Returns the record of each probe's headline shape."""
+    from webgpufft_tpu_torch.core import fused, radix
+    from webgpufft_tpu_torch.probes import planes, stages, stream
+    out = {}
+    for x in copies:
+        nbytes = 8 * x.numel()
+        bound, bound_by = profile.bound_ms(nbytes, 0.0)
+        y = torch.empty_like(x)
+        copy_ms = timed(lambda: y.copy_(x))
+        ceiling = profile.measured_copy_ceiling_gbps(x)
+        print(f"time stream_copy {tuple(x.shape)}: bound {bound:.4f} ms ({nbytes} bytes at "
+              f"3.35 TB/s), Tensor.copy_ {copy_ms:.4f} ms, elementwise ceiling {ceiling:.0f} GB/s "
+              f"[{card}]")
+        for kw in copy_variants():
+            ms = timed(lambda: stream.stream_copy(x, **kw))
+            sm = timed(lambda: stream.stream_copy(x, COPY_SCALE, **kw))
+            print(f"time stream_copy {tuple(x.shape)} {variant_name(kw)}: {ms:.4f} ms "
+                  f"({nbytes / ms / 1e6:.1f} GB/s, roofline share {bound / ms:.2f}, Tensor.copy_ "
+                  f"over it {copy_ms / ms:.2f}), scaled {sm:.4f} ms [{card}]")
+            if tuple(x.shape) == COPY_SHAPES[0] and kw["mode"] == "direct":
+                out["stream_copy"] = {
+                    "ms": ms, "plain_ms": timed(stream.stream_copy_reference, x),
+                    "bound_ms": bound, "bound_by": bound_by, "library_ms": copy_ms}
+    for (n, lines) in STAGES_SHAPES:
+        x, tables = lines_cases[(n, lines)]
+        chain = radix.radix_chain(n)
+        nbytes = 16 * n * lines
+        bound, bound_by = profile.bound_ms(nbytes, 5.0 * n * math.log2(n) * lines)
+        y = torch.empty_like(x)
+        copy_ms = timed(lambda: y.copy_(x))
+        k1 = timed(fused.fused_lines, x, tables)
+        print(f"time lines_stages N={n} lines={lines} chain={chain}: bound {bound:.4f} ms, "
+              f"Tensor.copy_ {copy_ms:.4f} ms, K1 {k1:.4f} ms [{card}]")
+        before = None
+        for stop in range(len(chain) + 1):
+            ms = timed(stages.lines_stages, x, tables, stop)
+            delta = "" if before is None else f", + {ms - before:.4f} ms over stop {stop - 1}"
+            what = "copy" if stop == 0 else f"radix {chain[stop - 1]}"
+            print(f"time lines_stages N={n} lines={lines} stop={stop} ({what}): {ms:.4f} ms "
+                  f"(roofline share {bound / ms:.2f}{delta}) [{card}]")
+            before = ms
+        if (n, lines) == STAGES_SHAPES[0]:
+            z = torch.view_as_complex(x)
+            out["lines_stages"] = {
+                "ms": before, "bound_ms": bound, "bound_by": bound_by,
+                "plain_ms": timed(stages.lines_stages_reference, x, tables, len(chain), runs=4),
+                "library_ms": timed(lambda: torch.fft.fft(z, norm="ortho"))}
+    for (n, lines) in PLANES_SHAPES:
+        x, tables = lines_cases[(n, lines)]
+        xp, work = to_planes(x), x.clone()
+        bound, bound_by = profile.bound_ms(16 * n * lines, 5.0 * n * math.log2(n) * lines)
+        k1 = timed(fused.fused_lines, x, tables)
+        pm = timed(planes.lines_planes, xp, tables)
+        im = timed(planes.lines_inplace, work, tables)
+        pm += timed(planes.lines_planes, xp, tables)
+        k1 += timed(fused.fused_lines, x, tables)
+        k1, pm = k1 / 2, pm / 2
+        print(f"time lines_planes N={n} lines={lines}: planes {pm:.4f} ms (roofline share "
+              f"{bound / pm:.2f}), K1 interleaved {k1:.4f} ms, K1 in place {im:.4f} ms, bound "
+              f"{bound:.4f} ms [{card}]")
+        if (n, lines) == PLANES_SHAPES[0]:
+            out["lines_planes"] = {
+                "ms": pm, "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+                "plain_ms": timed(planes.lines_planes_reference, xp, tables, runs=8)}
+    return out
+
+
 def fft_norm(direction, normalize):
     """The ``norm`` of torch.fft that matches a plan's normalize."""
     if normalize == "unitary":
@@ -1235,6 +1443,7 @@ def main():
     k2_cases, k2_err = phase_k2(gen)
     adj_err = phase_adjoint(gen, k1_cases, k2_cases)
     print(f"kernel adjoints: worst max abs err vs the plain adjoint {adj_err:.3e}")
+    probe_err, copies, lines_cases = phase_probe_kernels(gen)
 
     # the main paths: the counts of each are launches made by its own
     # entry-point calls only
@@ -1254,8 +1463,9 @@ def main():
     # forward + backward of every sub-phase: headline 2, vmap and its reference
     # 2, c2c pair 4 + 8, r2c -> c2r 8 + 12, dct2 2 + 2, fftconv 6 + 6, the
     # solver gradient 24 + 36 by reverse and again by forward mode
-    require(paths["autodiff"] == (72, 100), f"path autodiff: launches {paths['autodiff']}")
+    require(paths["autodiff"][:2] == (72, 100), f"path autodiff: launches {paths['autodiff']}")
     drive("runtime", paths, phase_runtime, gen, smi)
+    drive("probes", paths, phase_probes, copies, lines_cases, k2=False, probes=True)
 
     times = phase_timing(k1_cases, k2_cases, headline, volume, smi)
     phase_new_plan_timing(dct, conv, overlap, conv2d, smi)
@@ -1263,19 +1473,37 @@ def main():
     phase_solver_timing(gen, x, y, smi)
     del x, y
     phase_autodiff_timing(grad_timers, smi)
+    probe_times = phase_probe_timing(copies, lines_cases, smi)
     # each kernel's record carries the times of its headline shape, and
     # under "shapes" those of every shape timed
+    order = list(counters())
+    by_path = {name: {p: c[order.index(name)] for p, c in paths.items()} for name in order}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": f"webgpufft_tpu_torch/csrc/{src}",
-         "replaces": replaces, "launches": sum(c[i] for c in paths.values()),
-         "launches_by_path": {p: c[i] for p, c in paths.items()},
+         "replaces": replaces, "launches": sum(by_path[name].values()),
+         "launches_by_path": by_path[name],
          "max_abs_err": err, "shape": shape, **times[key],
          "shapes": [{"shape": list(k[1:]), **v} for k, v in times.items() if k[0] == key[0]]}
-        for i, (name, src, replaces, err, shape, key) in enumerate([
+        for name, src, replaces, err, shape, key in [
             ("fused_lines", "fused_lines.cu", "webgpufft_tpu/core/fused.py:223",
              k1_err, "N=1024 x 4096 lines", ("K1", 1024, 4096)),
             ("fused_cols", "fused_cols.cu", "webgpufft_tpu/core/fused_cols.py:161",
-             k2_err, "view (256, 256, 512)", ("K2", 256, 256, 512))])]}
+             k2_err, "view (256, 256, 512)", ("K2", 256, 256, 512))]] + [
+        {"name": name, "route": "cuda", "source": f"webgpufft_tpu_torch/csrc/probes/{src}",
+         "replaces": replaces, "launches": sum(by_path[name].values()),
+         "launches_by_path": by_path[name], "max_abs_err": probe_err[name], "shape": shape,
+         **probe_times[name]}
+        for name, src, replaces, shape in [
+            ("stream_copy", "stream_copy.cu",
+             "benches/r12_pallas_dma.py:63, benches/r12_pallas_dma.py:130, "
+             "benches/r26_pallas_endgame.py:160, benches/r2_perf_experiments.py:225, "
+             "benches/r2_perf_experiments.py:253, benches/r2_perf_experiments.py:274",
+             "(4096, 2048) f32, mode direct"),
+            ("lines_stages", "lines_stages.cu", "benches/r2_pallas_probe.py:80",
+             "N=1024 x 4096 lines, every pass"),
+            ("lines_planes", "lines_planes.cu",
+             "benches/r26_pallas_endgame.py:139, benches/r26_pallas_endgame.py:223",
+             "N=1024 x 4096 lines, planes")]]}
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,

@@ -1,19 +1,26 @@
 """Build the package's CUDA kernels on first use and bind them with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` (which include ``csrc/*.cuh``) into
-one shared library with a plain C interface (no PyTorch headers, so the
-build takes seconds, not minutes).  One ``nvcc -c`` per source, all started
+Two shared libraries with a plain C interface (no PyTorch headers, so a
+build takes seconds, not minutes), each built at its own first use:
+
+- ``core``: every ``csrc/*.cu``, the kernels the plans launch (K1, K2);
+- ``probes``: every ``csrc/probes/*.cu``, the measurement kernels of
+  ``webgpufft_tpu_torch.probes``.  No plan path loads it, so importing or
+  running a plan never pays for it.
+
+Both include ``csrc/*.cuh``.  One ``nvcc -c`` per source, all started
 together, then one link:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
-         -Xcompiler -fPIC -c -o _build/<name>.o csrc/<name>.cu
+         -Xcompiler -fPIC -I csrc -c -o _build/<name>.o csrc/<name>.cu
     nvcc -shared -o _build/libwgfft_<hash>.so _build/*.o
 
-The library lands in ``_build/`` beside this file, named by a hash of the
+A library lands in ``_build/`` beside this file, named by a hash of its
 sources, the headers and the flags, so a later process in the same checkout
 reuses it and an edited source builds anew.  Nothing is prebuilt or
 downloaded.  Only the first CUDA launch calls :func:`library`; importing
-this module touches neither ``nvcc`` nor the GPU.
+this module touches neither ``nvcc`` nor the GPU.  :func:`build_all` builds
+both libraries at once, every compile in parallel.
 """
 
 from __future__ import annotations
@@ -24,9 +31,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -38,16 +46,35 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _INTS = ctypes.POINTER(ctypes.c_int)
+# library -> entry point -> argument types (every entry point returns an int,
+# the cudaError_t of its launch)
 _SIGNATURES = {
-    # x, y, cw, cp, lines, n, radices, count, adjoint, stream
-    "wgfft_fused_lines": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                          _INTS, ctypes.c_int, ctypes.c_int, _P),
-    # x, y, cw, cp, pre, h, cols, radices, count, adjoint, stream
-    "wgfft_fused_cols": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                         ctypes.c_longlong, _INTS, ctypes.c_int, ctypes.c_int, _P),
+    "core": {
+        # x, y, cw, cp, lines, n, radices, count, adjoint, stream
+        "wgfft_fused_lines": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                              _INTS, ctypes.c_int, ctypes.c_int, _P),
+        # x, y, cw, cp, pre, h, cols, radices, count, adjoint, stream
+        "wgfft_fused_cols": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                             ctypes.c_longlong, _INTS, ctypes.c_int, ctypes.c_int, _P),
+    },
+    "probes": {
+        # x, y, count, scale, use_scale, mode, stages, stage_bytes, ctas, stream
+        "wgfft_stream_copy": (_P, _P, ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
+        # x, y, cw, cp, lines, n, radices, count, stop, stream
+        "wgfft_lines_stages": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                               _INTS, ctypes.c_int, ctypes.c_int, _P),
+        # x, y, cw, cp, lines, n, radices, count, stream
+        "wgfft_lines_planes": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                               _INTS, ctypes.c_int, _P),
+        # x, y, pre, h, lanes, tile_floats, width, threads, stream
+        "probe_tile_copy": (_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                            ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
+    },
 }
+_SOURCE_DIRS = {"core": CSRC, "probes": CSRC / "probes"}
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def set_build_dir(directory: Path) -> None:
@@ -70,35 +97,40 @@ def find_nvcc() -> str:
         "(csrc/*.cu) with nvcc on first use; put nvcc on PATH or set CUDA_HOME")
 
 
-def sources():
-    return sorted(CSRC.glob("*.cu"))
+def sources(which: str = "core"):
+    return sorted(_SOURCE_DIRS[which].glob("*.cu"))
 
 
 def headers():
     return sorted(CSRC.glob("*.cuh"))
 
 
-def library_path() -> Path:
+def _flags():
+    return (*NVCC_FLAGS, "-I", str(CSRC))
+
+
+def library_path(which: str = "core") -> Path:
     """Where the library for the current sources, headers and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources() + headers():
+    for src in sources(which) + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libwgfft_{h.hexdigest()[:16]}.so"
+    tag = "" if which == "core" else f"{which}_"
+    return BUILD_DIR / f"libwgfft_{tag}{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
+def build(which: str = "core") -> Path:
     """Compile the sources unless the library for them already exists."""
-    out = library_path()
+    out = library_path(which)
     if out.exists():
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     stem = f"{out.stem}.{os.getpid()}"
     jobs = []
-    for src in sources():
+    for src in sources(which):
         obj = BUILD_DIR / f"{stem}.{src.stem}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        cmd = [nvcc, *_flags(), "-c", "-o", str(obj), str(src)]
         jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.STDOUT, text=True)))
     logs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, _, proc in jobs]
@@ -116,24 +148,30 @@ def build() -> Path:
     return out
 
 
+def build_all() -> Dict[str, Path]:
+    """Build both libraries side by side (a thread each, so every ``nvcc``
+    of both runs at once) and return their paths."""
+    with ThreadPoolExecutor(max_workers=len(_SOURCE_DIRS)) as pool:
+        return dict(zip(_SOURCE_DIRS, pool.map(build, _SOURCE_DIRS)))
+
+
 def _require_ok(cmd, log: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"nvcc failed with exit code {rc}: {' '.join(cmd)}\n{log}")
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on the first call."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
+def library(which: str = "core") -> ctypes.CDLL:
+    """The loaded kernel library ``which``, built on the first call."""
+    if which not in _libs:
+        lib = ctypes.CDLL(str(build(which)))
+        for name, argtypes in _SIGNATURES[which].items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         lib.wgfft_error_string.argtypes = (ctypes.c_int,)
         lib.wgfft_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _libs[which] = lib
+    return _libs[which]
 
 
 @lru_cache(maxsize=None)
@@ -170,8 +208,8 @@ def table_ptrs(x, tables, shapes, kernel: str):
     return ptrs
 
 
-def check(rc: int, kernel: str) -> None:
-    """Raise when a C entry point reports a CUDA error."""
+def check(rc: int, kernel: str, which: str = "core") -> None:
+    """Raise when a C entry point of library ``which`` reports a CUDA error."""
     if rc != 0:
-        msg = library().wgfft_error_string(rc).decode()
+        msg = library(which).wgfft_error_string(rc).decode()
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc} ({msg})")

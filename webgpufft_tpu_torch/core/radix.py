@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import math
 from functools import lru_cache
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -126,7 +126,7 @@ def _butterfly4(v, s):
 
 
 def _butterfly8(v, s):
-    h = np.float32(math.sqrt(0.5))
+    h = float(np.float32(math.sqrt(0.5)))
     e = _butterfly4([v[0], v[2], v[4], v[6]], s)
     o = _butterfly4([v[1], v[3], v[5], v[7]], s)
     x, y = o[1][..., 0], o[1][..., 1]
@@ -146,8 +146,9 @@ def _rot(v, c, si):
 def _butterfly16(v, s):
     """16 = 4 x 4: radix-4 on the residue classes of r mod 4, rotation of
     G_b[d] by w16^(b d), radix-4 across the classes; X[d + 4 c]."""
-    h = np.float32(math.sqrt(0.5))
-    c1, s1 = np.float32(math.cos(math.pi / 8)), np.float32(math.sin(math.pi / 8))
+    h = float(np.float32(math.sqrt(0.5)))
+    c1 = float(np.float32(math.cos(math.pi / 8)))
+    s1 = float(np.float32(math.sin(math.pi / 8)))
     g = [_butterfly4([v[b], v[b + 4], v[b + 8], v[b + 12]], s) for b in range(4)]
     g[1][1] = _rot(g[1][1], c1, s * s1)
     g[1][2] = _rot(g[1][2], h, s * h)
@@ -173,7 +174,9 @@ def _butterfly_odd(v, s):
     radix = len(v)
     half = (radix - 1) // 2
     ang = 2.0 * np.pi * np.arange(radix) / radix
-    cos, sin = np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+    # f32 values as Python floats: a numpy scalar cannot multiply a CUDA tensor
+    cos = np.cos(ang).astype(np.float32).tolist()
+    sin = np.sin(ang).astype(np.float32).tolist()
     a = [None] + [v[k] + v[radix - k] for k in range(1, half + 1)]
     b = [None] + [v[k] - v[radix - k] for k in range(1, half + 1)]
     out = [None] * radix
@@ -205,12 +208,15 @@ def tracked(x: torch.Tensor) -> bool:
 
 def radix_chain_reference(x: torch.Tensor, radices: Sequence[int],
                           tables: Dict[str, torch.Tensor],
-                          adjoint: bool = False) -> torch.Tensor:
+                          adjoint: bool = False, stop: Optional[int] = None) -> torch.Tensor:
     """The kernels' pass schedule in plain torch, along axis 1 of float32
     ``x`` (units, N, ..., 2): the same passes, index maps, twiddle table
     (``cw``) and butterfly algebra, the scale (``cp[0]``) applied in the
     last pass.  ``adjoint`` conjugates on the first load and the last store,
-    as the kernels' adjoint launch does.  Returns a new tensor of x's shape."""
+    as the kernels' adjoint launch does.  ``stop`` cuts the chain after that
+    many passes (0 .. len(radices)) and returns what the next pass would
+    read, unscaled unless every pass ran.  Returns a new tensor of x's
+    shape."""
     n = x.shape[1]
     if math.prod(radices) != n:
         raise ValueError(f"radix_chain_reference: radices {tuple(radices)} do not multiply to {n}")
@@ -218,10 +224,16 @@ def radix_chain_reference(x: torch.Tensor, radices: Sequence[int],
     scale, s = float(tables["cp"][0]), float(tables["cp"][1])
     ride = (1,) * (x.dim() - 3) + (2,)            # broadcast over what trails axis 1
     cur = conj_pairs(x) if adjoint else x
+    if stop is None:
+        stop = len(radices)
+    if not 0 <= stop <= len(radices):
+        raise ValueError(f"radix_chain_reference: stop {stop} outside [0, {len(radices)}]")
+    if stop < len(radices):
+        scale = 1.0
     ns = 1
-    for radix in radices:
+    for radix in radices[:stop]:
         m = n // radix
-        j = torch.arange(m)
+        j = torch.arange(m, device=x.device)
         k = j % ns
         v = [cur[:, j + r * m] for r in range(radix)]
         if ns > 1:

@@ -34,32 +34,14 @@
 
 #include <cuda_runtime.h>
 
+#include "lines.cuh"
 #include "radix.cuh"
 
 namespace {
 
 using wgfft::Chain;
-
-struct LinesLayout {
-  long long line0;  // first line of this CTA
-  long long lines;  // lines in the array
-  int n;
-  int per_cta;      // lines a CTA takes
-  int pitch;        // points a line takes in shared memory, padding included
-
-  __device__ __forceinline__ int units() const { return per_cta; }
-  __device__ __forceinline__ void split(int b, int m, int& u, int& j) const {
-    u = b / m;
-    j = b - u * m;
-  }
-  __device__ __forceinline__ bool live(int u) const { return line0 + u < lines; }
-  __device__ __forceinline__ size_t global(int u, int pos) const {
-    return static_cast<size_t>(line0 + u) * n + pos;
-  }
-  __device__ __forceinline__ int shared(int u, int pos) const {
-    return u * pitch + pos + (pos >> 4);
-  }
-};
+using wgfft::LinesLayout;
+using wgfft::LinesShape;
 
 template <int E, int MAXT, int MINB, int SET>
 __global__ void __launch_bounds__(MAXT, MINB)
@@ -77,80 +59,48 @@ fused_lines_kernel(const float2* __restrict__ x, float2* __restrict__ y,
   wgfft::radix_chain<E, SET>(lay, x, y, sm, tw, params, n, chain, cj);
 }
 
-struct LinesArgs {
+struct LaunchLines {
   const float2* x;
   float2* y;
   const float2* tw;
   const float* params;
   long long lines;
-  int n, per_cta, threads;
+  int n;
   float cj;  // +1, or -1 for the adjoint
   cudaStream_t stream;
-};
+  const Chain& chain;
+  const LinesShape& shape;
 
-template <int E, int MAXT, int MINB, int SET>
-cudaError_t launch(const LinesArgs& a, const Chain& chain) {
-  const int pitch = a.n + (a.n >> 4);
-  const size_t smem =
-      chain.count > 1 ? static_cast<size_t>(a.per_cta) * pitch * sizeof(float2) : 0;
-  const auto kernel = fused_lines_kernel<E, MAXT, MINB, SET>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
+  template <int E, int MAXT, int MINB, int SET>
+  cudaError_t run() const {
+    // a one-pass chain never touches shared memory
+    const size_t smem =
+        chain.count > 1 ? static_cast<size_t>(shape.per_cta) * shape.pitch * sizeof(float2) : 0;
+    return wgfft::launch_lines(fused_lines_kernel<E, MAXT, MINB, SET>, shape, lines, smem,
+                               stream, x, y, tw, params, lines, n, shape.per_cta, shape.pitch,
+                               chain, cj);
   }
-  const long long blocks = (a.lines + a.per_cta - 1) / a.per_cta;
-  kernel<<<static_cast<unsigned>(blocks), a.threads, smem, a.stream>>>(
-      a.x, a.y, a.tw, a.params, a.lines, a.n, a.per_cta, pitch, chain, a.cj);
-  return cudaGetLastError();
-}
-
-// One kernel per radix set, points per thread and thread limit.  At 8 points
-// a thread the register budget is 64 (four CTAs of 256 threads, or two of
-// 512, on an SM: this kernel measured faster at full occupancy); the wide
-// odd butterflies and the longer lines get 128.
-template <int SET>
-cudaError_t launch_set(int e, const LinesArgs& a, const Chain& chain) {
-  constexpr int kMin256 = SET == wgfft::kSetAll ? 2 : 4;
-  constexpr int kMin512 = SET == wgfft::kSetAll ? 1 : 2;
-  if (a.threads > 512) return launch<32, 1024, 1, SET>(a, chain);
-  if (e == 8 && a.threads <= 256) return launch<8, 256, kMin256, SET>(a, chain);
-  if (e == 8) return launch<8, 512, kMin512, SET>(a, chain);
-  if (e == 16) return launch<16, 512, 1, SET>(a, chain);
-  return launch<32, 512, 1, SET>(a, chain);
-}
+};
 
 }  // namespace
 
+// y may be x (in place) for a chain of two or more passes: a CTA owns whole
+// lines, and the barrier after the first pass separates its last global read
+// from the last pass's first global write.  A one-pass chain has no barrier
+// and is refused in place.
 extern "C" int wgfft_fused_lines(const void* x, void* y, const void* tw, const void* params,
                                  long long lines, int n, const int* radices, int count,
                                  int adjoint, void* stream) {
   Chain chain;
-  if (lines < 1 || lines > 0x7fffffffLL || !wgfft::make_chain(radices, count, n, &chain))
+  LinesShape shape;
+  if (lines < 1 || lines > 0x7fffffffLL || !wgfft::make_chain(radices, count, n, &chain) ||
+      !wgfft::lines_shape(chain, n, lines, &shape) || (x == y && chain.count < 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  // points a thread holds: the least of 8, 16, 32 that fits a line's widest
-  // pass into 512 threads (1024 as the last resort)
-  int e = 8;
-  int t = wgfft::threads_needed(chain, n, e, 1);
-  while (t > 512 && e < 32) {
-    e *= 2;
-    t = wgfft::threads_needed(chain, n, e, 1);
-  }
-  if (t > 1024) return static_cast<int>(cudaErrorInvalidValue);
-  int per_cta = t < 256 ? 256 / t : 1;
-  if (per_cta > lines) per_cta = static_cast<int>(lines);
-  const int threads = (wgfft::threads_needed(chain, n, e, per_cta) + 31) / 32 * 32;
-  const LinesArgs a = {static_cast<const float2*>(x), static_cast<float2*>(y),
-                       static_cast<const float2*>(tw), static_cast<const float*>(params),
-                       lines, n, per_cta, threads, adjoint ? -1.f : 1.f,
-                       static_cast<cudaStream_t>(stream)};
-  cudaError_t r;
-  switch (wgfft::radix_set(chain)) {
-    case wgfft::kSetPow2: r = launch_set<wgfft::kSetPow2>(e, a, chain); break;
-    case wgfft::kSetSmall: r = launch_set<wgfft::kSetSmall>(e, a, chain); break;
-    default: r = launch_set<wgfft::kSetAll>(e, a, chain); break;
-  }
-  return static_cast<int>(r);
+  const LaunchLines f = {static_cast<const float2*>(x), static_cast<float2*>(y),
+                         static_cast<const float2*>(tw), static_cast<const float*>(params),
+                         lines, n, adjoint ? -1.f : 1.f, static_cast<cudaStream_t>(stream),
+                         chain, shape};
+  return static_cast<int>(wgfft::dispatch_lines(chain, shape, f));
 }
 
 // Message for a code returned by either kernel's entry point.

@@ -18,13 +18,15 @@ Two ways to time a call on the card:
   kernel, so the device is still busy while the host enqueues them: device
   time per call, the host's share left out unless it exceeds the device's.
 
-``chip_smoke.py``, ``chip_profile.py`` and the measured planner
-(``runtime/measure.py``) all time through this module.
+``chip_smoke.py``, ``chip_profile.py``, the scripts under ``chip_probes/``
+and the measured planner (``runtime/measure.py``) all time through this
+module.
 """
 
 from __future__ import annotations
 
 import math
+import subprocess
 import time
 from dataclasses import dataclass
 from typing import Callable, List, Optional
@@ -70,6 +72,16 @@ def device_fp32_gflops(device=None) -> float:
         raise ValueError(f"no data-sheet FP32 rate recorded for {name!r}; "
                          f"known: {sorted(FP32_GFLOPS)}")
     return FP32_GFLOPS[name]
+
+
+def card_line() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them: what
+    stands beside every time that is kept (a card set below its full limit
+    runs slower under load)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def fft_flops(n_total: int, batch: int) -> float:
