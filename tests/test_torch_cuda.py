@@ -573,3 +573,92 @@ def test_golden_corpus_selftest_export_and_trace_on_gpu(cuda_device, tmp_path):
     assert len(ms) == 3 and all(0 < t < 50 for t in ms)
     r = profile.bench_transform(lambda v: plan(v), x, 1024, 64, iters=5)
     assert r.avg_ms > 0 and r.eff_gbps > 0
+
+
+# ---- the probe kernels (webgpufft_tpu_torch.probes) -----------------------
+
+@pytest.mark.parametrize("scale", [None, 1.000001])
+@pytest.mark.parametrize("shape", [(4096, 2048), (1000, 36), (1, 4)])
+@pytest.mark.parametrize("kw", [
+    {"mode": "direct"}, {"mode": "direct", "stage_bytes": 4096},
+    {"mode": "cp_async", "stages": 2}, {"mode": "cp_async", "stages": 4, "stage_bytes": 8192},
+    {"mode": "cp_async", "stages": 4, "stage_bytes": 49152},
+    {"mode": "bulk", "stages": 2}, {"mode": "bulk", "stages": 4, "stage_bytes": 8192},
+    {"mode": "bulk", "stages": 2, "stage_bytes": 116160}, {"mode": "bulk", "stages": 4, "ctas_per_sm": 1}])
+def test_stream_copy_kernel_is_bit_equal(kw, shape, scale, cuda_device):
+    """Every mode, ragged last tiles (1000 * 36 * 4 bytes is no multiple of a
+    stage) and an array smaller than one tile."""
+    from webgpufft_tpu_torch import probes
+    gen = torch.Generator(device=cuda_device).manual_seed(shape[0])
+    x = torch.randn(*shape, device=cuda_device, generator=gen)
+    before = probes.stream_copy.launches
+    y = probes.stream_copy(x, scale, **kw)
+    torch.cuda.synchronize()
+    assert probes.stream_copy.launches == before + 1
+    assert torch.equal(y, probes.stream_copy_reference(x, scale))
+
+
+@pytest.mark.parametrize("n,lines", [(1024, 512), (2048, 64), (360, 65), (2310, 16), (16384, 3),
+                                     (16, 1001), (6, 77), (256, 1537), (64, 8192), (1352, 11),
+                                     (8192, 131), (4096, 5)])
+def test_lines_stages_kernel_matches_plain_at_every_stop(n, lines, cuda_device):
+    from webgpufft_tpu_torch import probes
+    from webgpufft_tpu_torch.core import radix
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    t = _dev_tables(fused.lines_consts(n, "forward", 1.0 / math.sqrt(n), "p"), cuda_device)
+    x = torch.randn(lines, n, 2, device=cuda_device, generator=gen)
+    count = len(radix.radix_chain(n))
+    for stop in range(count + 1):
+        before = probes.lines_stages.launches
+        y = probes.lines_stages(x, t, stop)
+        torch.cuda.synchronize()
+        assert probes.lines_stages.launches == before + 1
+        assert_close(y.cpu(), probes.lines_stages_reference(x, t, stop).cpu(),
+                     label=f"P2 n={n} stop={stop}")
+    assert torch.equal(probes.lines_stages(x, t, 0), x)
+    assert_close(y.cpu(), fused.fused_lines(x, t).cpu(), label=f"P2 n={n} vs K1")
+
+
+@pytest.mark.parametrize("n,lines,direction", [
+    (1024, 512, "forward"), (2048, 64, "inverse"), (360, 65, "forward"), (2310, 16, "inverse"),
+    (16384, 3, "forward"), (16, 1001, "inverse"), (6, 77, "forward"), (256, 1537, "forward"),
+    (1352, 11, "inverse"), (8192, 131, "forward")])
+def test_lines_planes_and_in_place_match_k1(n, lines, direction, cuda_device):
+    from webgpufft_tpu_torch import _build, probes
+    from webgpufft_tpu_torch.core import radix
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    t = _dev_tables(fused.lines_consts(n, direction, 1.0 / math.sqrt(n), "p"), cuda_device)
+    x = torch.randn(lines, n, 2, device=cuda_device, generator=gen)
+    xp = torch.stack(x.unbind(-1), dim=1).contiguous()
+    k1 = fused.fused_lines(x, t)
+    before = probes.lines_planes.launches
+    yp = probes.lines_planes(xp, t)
+    torch.cuda.synchronize()
+    assert probes.lines_planes.launches == before + 1
+    assert_close(yp.cpu(), probes.lines_planes_reference(xp, t).cpu(), label=f"P3 n={n}")
+    assert_close(torch.stack(yp.unbind(1), dim=-1).cpu(), k1.cpu(), label=f"P3 n={n} vs K1")
+    chain = radix.radix_chain(n)
+    if len(chain) > 1:
+        work = x.clone()
+        before = fused.fused_lines.launches
+        assert probes.lines_inplace(work, t) is work
+        assert fused.fused_lines.launches == before + 1
+        assert torch.equal(work, k1)
+    else:
+        with pytest.raises(ValueError, match="one-pass"):
+            probes.lines_inplace(x.clone(), t)
+        rc = _build.library().wgfft_fused_lines(
+            x.data_ptr(), x.data_ptr(), t["cw"].data_ptr(), t["cp"].data_ptr(), lines, n,
+            *_build.chain_arg(chain), 0, torch.cuda.current_stream().cuda_stream)
+        assert rc == 1   # cudaErrorInvalidValue
+
+
+def test_probe_wrappers_raise_on_the_card_for_what_the_kernels_refuse(cuda_device):
+    from webgpufft_tpu_torch import probes
+    t = _dev_tables(fused.lines_consts(64, "forward", 1.0, "p"), cuda_device)
+    with pytest.raises(ValueError):
+        probes.lines_stages(torch.zeros(4, 64, 2, device=cuda_device), t, 3)
+    with pytest.raises(ValueError):
+        probes.stream_copy(torch.zeros(4100, device=cuda_device)[1:4097])
+    with pytest.raises(ValueError, match="table"):
+        probes.lines_planes(torch.zeros(4, 2, 128, device=cuda_device), t)

@@ -219,6 +219,7 @@ def test_port_imports_without_jax():
             "from webgpufft_tpu_torch.runtime import cache, policy\n"
             "from webgpufft_tpu_torch.utils import bufferview, factors, mathref\n"
             "from webgpufft_tpu_torch.examples import navier_stokes3d\n"
+            "from webgpufft_tpu_torch.probes import planes, stages, stream\n"
             "bad = [m for m, mod in sys.modules.items() if mod is not None and"
             " (m in ('jax', 'webgpufft_tpu') or m.startswith(('jax.', 'webgpufft_tpu.')))]\n"
             "assert not bad, bad\n"

@@ -165,10 +165,10 @@ class TuningSpec:
     force_rader_axes: Tuple[int, ...] = ()
     max_fused_elements: Optional[int] = None   # VMEM line budget override (complex elems)
     vmem_limit_bytes: Optional[int] = None
-    impl: str = "auto"                         # auto (=xla on this stack) | pallas | pallas-auto | xla
+    impl: str = "auto"                         # auto (the Hopper kernels, as pallas-auto) | pallas | pallas-auto | xla
     large_route: str = "auto"                  # "auto" | "chunk" | "out-of-core"
-    # Smooth axes >= this take the four-step route (not ported yet: such
-    # axes raise PlanError in the port, ROADMAP P3).
+    # Smooth axes >= this take the four-step einsum route
+    # (core/axis.FourStepAxisPlan) unless a kernel serves them.
     four_step_min_n: int = 1 << 16
     # reference knob disableOutOfCoreFourStep — here it actually disables
     # the four-step route (like largeRoute="chunk" but scoped to the knob)
