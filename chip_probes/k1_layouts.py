@@ -2,7 +2,7 @@
 
     python3 chip_probes/k1_layouts.py       (from the repository root)
 
-Times, at the line shapes of the main paths and in one session: K1
+Times, at the line shapes of the main paths and in one process: K1
 (``fused.fused_lines``, interleaved, out of place), K1 in place
 (``probes.lines_inplace``), the same transform on re/im-split planes
 (``probes.lines_planes``, ``csrc/probes/lines_planes.cu``), the direct copy of

@@ -7,7 +7,7 @@ on a 128 MB array (16384, 2048) and on the headline array (4096, 2048) of f32:
 the direct copy at several tile sizes, the ``cp.async`` pipeline and the bulk
 copy at 2 and 4 stages and several stage sizes, plain and times a scalar, each
 checked bit for bit against ``x.clone()`` / ``x * scale`` first.  Beside them,
-in the same session: ``Tensor.copy_``, the elementwise ceiling
+in the same process: ``Tensor.copy_``, the elementwise ceiling
 ``profile.measured_copy_ceiling_gbps`` and the bound at the data sheet's
 3.35 TB/s.  The counterpart of ``benches/r12_pallas_dma.py`` and of the copy
 experiments of ``benches/r2_perf_experiments.py``.  Needs a GPU.

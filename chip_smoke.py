@@ -61,7 +61,7 @@ over the data sheet's 3.35 TB/s, or its flops over 67 TFLOP/s if that is more) a
 ``torch.fft.fft`` call that computes the same function (cuFFT, a yardstick the
 port never calls), and each plan and the solver step beside ``torch.fft``
 (a DCT-II and the convolutions written on ``torch.fft`` in this script), and
-each probe variant beside its bound and the same-session ``Tensor.copy_``,
+each probe variant beside its bound and ``Tensor.copy_`` timed in the same run,
 with the difference between neighbouring stops of ``lines_stages`` (what a
 pass of K1's chain costs).
 Every phase raises on failure, so the script exits non-zero; it never falls
@@ -1230,8 +1230,8 @@ def timed(fn, *args, runs=profile.RUNS):
 
 
 def phase_probe_timing(copies, lines_cases, card):
-    """Every probe variant beside its bound and the same-session
-    ``Tensor.copy_``; for ``lines_stages`` the difference between neighbouring
+    """Every probe variant beside its bound and ``Tensor.copy_`` timed in the
+    same run; for ``lines_stages`` the difference between neighbouring
     stops.  Returns the record of each probe's headline shape."""
     from webgpufft_tpu_torch.core import fused, radix
     from webgpufft_tpu_torch.probes import planes, stages, stream

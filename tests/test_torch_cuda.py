@@ -584,7 +584,7 @@ def test_golden_corpus_selftest_export_and_trace_on_gpu(cuda_device, tmp_path):
     {"mode": "cp_async", "stages": 2}, {"mode": "cp_async", "stages": 4, "stage_bytes": 8192},
     {"mode": "cp_async", "stages": 4, "stage_bytes": 49152},
     {"mode": "bulk", "stages": 2}, {"mode": "bulk", "stages": 4, "stage_bytes": 8192},
-    {"mode": "bulk", "stages": 2, "stage_bytes": 116160}, {"mode": "bulk", "stages": 4, "ctas_per_sm": 1}])
+    {"mode": "bulk", "stages": 2, "stage_bytes": 116160}])
 def test_stream_copy_kernel_is_bit_equal(kw, shape, scale, cuda_device):
     """Every mode, ragged last tiles (1000 * 36 * 4 bytes is no multiple of a
     stage) and an array smaller than one tile."""

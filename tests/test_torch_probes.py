@@ -141,8 +141,7 @@ def test_stream_copy_is_the_copy(kw, scale):
     ({"mode": "direct", "stage_bytes": 24}, "multiple of 16"),
     ({"mode": "cp_async", "stage_bytes": 0}, "multiple of 16"),
     ({"mode": "cp_async", "stages": 4, "stage_bytes": 65536}, "shared"),     # 256 KB
-    ({"mode": "bulk", "stages": 2, "stage_bytes": 116224}, "shared"),        # 227 KB + barriers
-    ({"mode": "bulk", "ctas_per_sm": 0}, "ctas_per_sm")])
+    ({"mode": "bulk", "stages": 2, "stage_bytes": 116224}, "shared")])       # 227 KB + barriers
 def test_stream_copy_refuses_what_the_kernel_cannot_run(kw, match):
     with pytest.raises(ValueError, match=match):
         probes.stream_copy(torch.zeros(64, 64), **kw)

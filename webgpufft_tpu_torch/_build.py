@@ -105,10 +105,6 @@ def headers():
     return sorted(CSRC.glob("*.cuh"))
 
 
-def _flags():
-    return (*NVCC_FLAGS, "-I", str(CSRC))
-
-
 def library_path(which: str = "core") -> Path:
     """Where the library for the current sources, headers and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -130,7 +126,7 @@ def build(which: str = "core") -> Path:
     jobs = []
     for src in sources(which):
         obj = BUILD_DIR / f"{stem}.{src.stem}.o"
-        cmd = [nvcc, *_flags(), "-c", "-o", str(obj), str(src)]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
         jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.STDOUT, text=True)))
     logs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, _, proc in jobs]

@@ -87,7 +87,7 @@ copy_cp_async(const float4* __restrict__ x, float4* __restrict__ y, long long ch
   // Start the copy of this CTA's k-th tile into slot k % STAGES.  A group is
   // committed even when no tile is left, so that wait_group counts the same
   // in every iteration.
-  auto issue = [&](long long k) {
+  auto start = [&](long long k) {
     const long long t = blockIdx.x + k * gridDim.x;
     if (t < tiles) {
       float4* slot = ring + (k % STAGES) * tile_chunks;
@@ -99,10 +99,10 @@ copy_cp_async(const float4* __restrict__ x, float4* __restrict__ y, long long ch
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   };
-  for (int k = 0; k < STAGES - 1; ++k) issue(k);
+  for (int k = 0; k < STAGES - 1; ++k) start(k);
   for (long long k = 0; blockIdx.x + k * gridDim.x < tiles; ++k) {
     // slot (k - 1) % STAGES was read out by this thread in the last iteration
-    issue(k + STAGES - 1);
+    start(k + STAGES - 1);
     asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 1) : "memory");
     const float4* slot = ring + (k % STAGES) * tile_chunks;
     const long long base = (blockIdx.x + k * gridDim.x) * tile_chunks;

@@ -34,6 +34,7 @@ MODES = ("direct", "cp_async", "bulk")
 STAGE_COUNTS = (2, 4)
 MAX_SHARED_BYTES = 232448   # 227 KB: the shared memory a CTA may opt in to
 BARRIER_BYTES = 128         # bulk mode keeps its mbarriers ahead of the ring
+CTAS_PER_SM = 4             # persistent CTAs an SM gets in the staged modes, ring permitting
 
 
 def stream_copy_reference(x: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
@@ -49,8 +50,7 @@ def shared_bytes(mode: str, stages: int, stage_bytes: int) -> int:
     return stages * stage_bytes + (BARRIER_BYTES if mode == "bulk" else 0)
 
 
-def check_args(x: torch.Tensor, mode: str, stages: int, stage_bytes: int,
-               ctas_per_sm: int) -> None:
+def check_args(x: torch.Tensor, mode: str, stages: int, stage_bytes: int) -> None:
     """Raise ``ValueError`` for what the kernel does not take: the checks of
     the C entry point, made before a raw pointer is taken."""
     if mode not in MODES:
@@ -69,8 +69,6 @@ def check_args(x: torch.Tensor, mode: str, stages: int, stage_bytes: int,
         return
     if stages not in STAGE_COUNTS:
         raise ValueError(f"stream_copy: stages {stages} is not one of {STAGE_COUNTS}")
-    if ctas_per_sm < 1:
-        raise ValueError(f"stream_copy: ctas_per_sm {ctas_per_sm} < 1")
     need = shared_bytes(mode, stages, stage_bytes)
     if need > MAX_SHARED_BYTES:
         raise ValueError(
@@ -79,19 +77,19 @@ def check_args(x: torch.Tensor, mode: str, stages: int, stage_bytes: int,
 
 
 def stream_copy(x: torch.Tensor, scale: Optional[float] = None, *, mode: str = "direct",
-                stages: int = 2, stage_bytes: int = 16384, ctas_per_sm: int = 4) -> torch.Tensor:
+                stages: int = 2, stage_bytes: int = 16384) -> torch.Tensor:
     """A copy of ``x`` (times ``scale`` where given) made by the probe kernel
     in ``mode``.  A CUDA tensor launches the kernel (and counts one launch);
     a CPU tensor runs ``stream_copy_reference``.  The staged modes run
-    ``ctas_per_sm`` persistent CTAs on each SM, fewer where the ring leaves
+    ``CTAS_PER_SM`` persistent CTAs on each SM, fewer where the ring leaves
     room for fewer."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"stream_copy: unsupported device {x.device}")
-    check_args(x, mode, stages, stage_bytes, ctas_per_sm)
+    check_args(x, mode, stages, stage_bytes)
     if x.device.type == "cpu":
         return stream_copy_reference(x, scale)
     need = shared_bytes(mode, stages, stage_bytes)
-    resident = max(1, min(ctas_per_sm, MAX_SHARED_BYTES // max(need + 1024, 1)))
+    resident = max(1, min(CTAS_PER_SM, MAX_SHARED_BYTES // (need + 1024)))
     ctas = resident * torch.cuda.get_device_properties(x.device).multi_processor_count
     lib = _build.library("probes")
     y = torch.empty_like(x)
