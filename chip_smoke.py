@@ -8,7 +8,7 @@ it, and at lengths that stress the radix chain: the shared-memory limit, every
 odd radix, one-butterfly lengths, a ragged column count, small digits), and
 holds each kernel's adjoint launch (the backward of autograd) against the
 plain adjoint and the dot test <K x, u> = <x, K^H u>, holds the three probe
-kernels (``webgpufft_tpu_torch.probes``) against theirs, and drives eleven
+kernels (``webgpufft_tpu_torch.probes``) against theirs, and drives twelve
 paths through the port's entry points, each with the kernels' launch counts
 set to 0 just before it and read just after (each must launch the kernels
 named, and no other):
@@ -51,7 +51,21 @@ named, and no other):
   (4096, 2048) and a 128 MB array, ``lines_stages`` at every stop of the
   headline chain with the last stop held against K1, ``lines_planes`` against
   K1 on the interleaved form, and K1 in place (``stream_copy``,
-  ``lines_stages``, ``lines_planes``, K1).
+  ``lines_stages``, ``lines_planes``, K1);
+- facade: the numpy/scipy-style functions of ``webgpufft_tpu_torch.fft`` on
+  tensors on the card, each call's K1/K2 launches counted and each result
+  against the library: ``fft``/``ifft`` on complex64 (4096, 1024) and
+  ``fftn`` 256^3 and ``rfftn``/``irfftn`` 256^3 x 3 against ``torch.fft``,
+  ``dctn`` (8, 512, 512) against float64 trig matrices, ``fftconvolve``
+  (8, 1000, 1000) * (25, 25) and [2^20] * [129] (overlap-save) against
+  ``torch.fft`` convolutions, ``stft``/``istft``/``welch`` on (8, 2^22) at
+  nperseg 1024 (65,544 frames) against ``torch.stft`` and ``scipy.signal``,
+  a ``ShortTimeFFT`` pair, ``hilbert`` ((8, 2^20): the four-step einsum
+  route; (2048, 4096): K1) and ``resample_poly`` (8, 2^20) against
+  ``scipy.signal`` in float64, ``torch_fft.fft2`` on (64, 1024,
+  1024) with its gradient against ``torch.fft.fft2``'s, and the bridges with
+  numpy in and out (``scipy.fft.fft`` under the backend, ``pyfftw.FFTW``,
+  ``fftpack.rfft``) (K1, K2).
 
 Plans and kernels are checked against ``torch.fft`` as an independent
 oracle, as are the Rader, Bluestein and four-step axes and the odd-length
@@ -60,8 +74,9 @@ r2c paths.  Then each kernel shape is timed beside its plain version, its bound
 over the data sheet's 3.35 TB/s, or its flops over 67 TFLOP/s if that is more) and the one
 ``torch.fft.fft`` call that computes the same function (cuFFT, a yardstick the
 port never calls), and each plan and the solver step beside ``torch.fft``
-(a DCT-II and the convolutions written on ``torch.fft`` in this script), and
-each probe variant beside its bound and ``Tensor.copy_`` timed in the same run,
+(a DCT-II and the convolutions written on ``torch.fft`` in this script), four
+facade calls beside ``plan(x)`` for the same plan and the one ``torch.fft`` /
+``torch.stft`` call (idle-device and queued times), and each probe variant beside its bound and ``Tensor.copy_`` timed in the same run,
 with the difference between neighbouring stops of ``lines_stages`` (what a
 pass of K1's chain costs).
 Every phase raises on failure, so the script exits non-zero; it never falls
@@ -99,6 +114,20 @@ OS_N, OS_TAPS, OS_BLOCK, OS_BLOCKS = 1 << 20, 129, 8192, 131   # the overlap-sav
 HEADLINE = {"type": "c2c", "shape": [1024], "batch": 4096,
             "direction": "forward", "normalize": "unitary"}
 RFFT_DIMS = (2, 3, 1)   # torch.fft.rfftn packs the last dim given: logical axis 0
+
+
+def torch_fft_stepper3(ns, n, nu, dt):
+    """The port's NS-3D solver (module ``ns``) with ``torch.fft.rfftn`` /
+    ``irfftn`` (cuFFT) in place of the plans, with the same packed layout:
+    the yardstick and an independent oracle for the step."""
+    def fwd(u):
+        return torch.view_as_real(torch.fft.rfftn(u, dim=RFFT_DIMS))
+
+    def inv(u_hat):
+        z = torch.view_as_complex(u_hat.contiguous())
+        return torch.fft.irfftn(z, s=(n, n, n), dim=RFFT_DIMS)
+
+    return ns.make_stepper3_around(n, nu, dt, "cuda", fwd, inv, inv)
 
 
 def rel_err(actual, expected):
@@ -997,7 +1026,7 @@ def phase_autodiff(gen):
           f"before it)")
     require(bool(torch.isfinite(g).all()) and rel <= JVP_TOL,
             "autodiff NS-3D: reverse and forward mode disagree")
-    fstep, fto_s, fto_p = ns.make_torch_fft_stepper3(NS_N, NS_NU, NS_DT, device="cuda")
+    fstep, fto_s, fto_p = torch_fft_stepper3(ns, NS_N, NS_NU, NS_DT)
     gf = torch.func.grad(lambda u: 0.5 * fto_p(fstep(fto_s(u))).pow(2).sum(0).mean())(u0)
     check_close("autodiff NS-3D step gradient", g, gf, "the torch.fft step's gradient",
                 tol=JVP_TOL)
@@ -1419,7 +1448,7 @@ def phase_solver_timing(gen, x, y, card):
         fm = call_ms(plain, arg)
         print(f"time {label} plan(x): {pm:.4f} ms; torch.fft (cuFFT) {fm:.4f} ms [{card}]")
     step, to_s, _ = ns.make_stepper3(NS_N, NS_NU, NS_DT, device="cuda")
-    fstep, _, _ = ns.make_torch_fft_stepper3(NS_N, NS_NU, NS_DT, device="cuda")
+    fstep, _, _ = torch_fft_stepper3(ns, NS_N, NS_NU, NS_DT)
     u_hat = to_s(0.1 * torch.randn(3, NS_N, NS_N, NS_N, device="cuda", generator=gen))
     err = rel_err(step(u_hat), fstep(u_hat))
     print(f"NS-3D step {NS_N}^3: max rel err {err:.3e} vs the torch.fft step "
@@ -1433,6 +1462,277 @@ def phase_solver_timing(gen, x, y, card):
     print(f"time NS-3D step {NS_N}^3 (RK2: 2 x (c2r b6 + r2c b3) + pointwise): "
           f"port {km:.4f} ms/step, torch.fft step {pm:.4f} ms/step [{card}]")
     return km, pm
+
+
+# ---------------------------------------------------------------------------
+# the functional facade
+# ---------------------------------------------------------------------------
+
+FACADE_STFT = dict(nperseg=1024, noverlap=512)
+
+
+def as_complex(y):
+    """Interleaved (..., 2) facade output as a complex tensor (a copy only
+    where a restored axis order left it non-contiguous)."""
+    return torch.view_as_complex(y.contiguous())
+
+
+def facade_call(label, fn, *args, expect=None, **kw):
+    """One facade call with its own K1/K2 launch count: a facade call on the
+    card launches the kernels or the phase fails.  ``expect`` pins the
+    counts to those the same transform makes through ``create_plan``;
+    ``(0, 0)`` names a call whose plan runs the einsum route on the card."""
+    before = launches()
+    out = fn(*args, **kw)
+    after = launches()
+    made = (after[0] - before[0], after[1] - before[1])
+    print(f"facade {label}: launches fused_lines {made[0]}, fused_cols {made[1]}")
+    require(made[0] + made[1] > 0 or expect == (0, 0), f"facade {label}: no kernel launched")
+    if expect is not None:
+        require(made == expect, f"facade {label}: launches {made}, expected {expect}")
+    return out
+
+
+def host64(t):
+    return t.detach().double().cpu().numpy()
+
+
+def phase_facade(gen):
+    """The numpy/scipy-style facade and its bridges at full size, each result
+    against the library: returns what the timing phase needs."""
+    import scipy.fft
+    import scipy.fftpack
+    import scipy.signal
+    import webgpufft_tpu_torch as T
+    from webgpufft_tpu_torch import fft as wfft
+    from webgpufft_tpu_torch import fftpack, pyfftw, torch_fft
+    from webgpufft_tpu_torch.utils import mathref
+    on_card = torch.device("cuda", torch.cuda.current_device())
+
+    # c2c: the headline as one call on a complex64 tensor, and 256^3
+    z = torch.randn(4096, 1024, dtype=torch.complex64, device="cuda", generator=gen)
+    y = facade_call("fft (4096, 1024) complex64", wfft.fft, z, expect=(1, 0))
+    require(y.device == on_card and y.dtype == torch.float32 and tuple(y.shape) == (4096, 1024, 2),
+            f"facade fft: output {y.dtype} {tuple(y.shape)} on {y.device}")
+    check_oracle("facade fft (4096, 1024)", y, torch.fft.fft(z))
+    back = facade_call("ifft (4096, 1024)", wfft.ifft, y, expect=(1, 0))
+    check_oracle("facade ifft(fft(z))", back, z)
+    v = torch.randn(256, 256, 256, dtype=torch.complex64, device="cuda", generator=gen)
+    y = facade_call("fftn 256^3", wfft.fftn, v, expect=(1, 2))
+    check_oracle("facade fftn 256^3", y, torch.fft.fftn(v))
+    keep = {"fft": z}
+    del y, back, v
+
+    # r2c / c2r over three axes of a batch of three volumes
+    x = torch.randn(3, NS_N, NS_N, NS_N, device="cuda", generator=gen)
+    # numpy packs the LAST axis: a 1-D r2c over it (K1 twice: the half-length
+    # transform and its untangling pass run as lines) and a 2-D c2c over the
+    # other two (K2, K1), not the 3-D r2c plan that packs logical axis 0
+    y = facade_call("rfftn (3, 256, 256, 256)", wfft.rfftn, x, axes=(1, 2, 3), expect=(2, 1))
+    check_oracle("facade rfftn 256^3 x 3", y.contiguous(), torch.fft.rfftn(x, dim=(1, 2, 3)))
+    back = facade_call("irfftn (3, 256, 256, 129)", wfft.irfftn, y, s=(NS_N,) * 3,
+                       axes=(1, 2, 3), expect=(2, 1))
+    check_close("facade irfftn 256^3 x 3", back,
+                torch.fft.irfftn(as_complex(y), s=(NS_N,) * 3, dim=(1, 2, 3)), "torch.fft")
+    check_close("facade irfftn(rfftn(x))", back, x, "the input")
+    keep["rfftn"] = x
+    del y, back
+
+    # dct: scipy's ortho DCT-II from the plan convention's float64 oracle
+    # (no factor 2): per axis sqrt(2/N), and 1/sqrt(2) more on bin 0
+    x = torch.randn(8, 512, 512, device="cuda", generator=gen)
+    y = facade_call("dctn type 2 ortho (8, 512, 512)", wfft.dctn, x, type=2, axes=(1, 2),
+                    norm="ortho", expect=(2, 0))      # scipy's dctn: one 1-D dct per axis
+    want = dct_oracle(x, (512, 512), "dct2", "forward", "none") * (2.0 / 512)
+    want[:, 0, :] *= math.sqrt(0.5)
+    want[:, :, 0] *= math.sqrt(0.5)
+    check_close("facade dctn (8, 512, 512)", y, want, "float64 trig matrices")
+    check_close("facade dctn [0]", y[0],
+                torch.as_tensor(scipy.fft.dctn(host64(x[0]), type=2, norm="ortho"), device="cuda"),
+                "scipy.fft.dctn")
+    del x, y, want
+
+    # convolutions: 2-D same-mode with a broadcast kernel, and the long 1-D
+    # call that the plan layer routes to overlap-save
+    shape, kshape = [1000, 1000], [25, 25]
+    x = torch.randn(8, 1000, 1000, device="cuda", generator=gen)
+    k = torch.randn(1, 25, 25, device="cuda", generator=gen)
+    y = facade_call("fftconvolve same (8, 1000, 1000) * (1, 25, 25)", wfft.fftconvolve, x, k,
+                    mode="same", axes=(1, 2), expect=(3, 3))
+    geo = mathref.fftconv_out_shape(shape, kshape, "linear-same")
+    ref = torch_fft_conv(x.to(torch.complex64), k[0].to(torch.complex64), *geo)
+    check_close("facade fftconvolve (8, 1000, 1000)", y, ref.real, "torch.fft complex128")
+    keep["conv"] = (x, k, geo)
+    del y, ref
+    x1 = 0.05 * torch.randn(OS_N, device="cuda", generator=gen)
+    k1 = 0.05 * torch.randn(OS_TAPS, device="cuda", generator=gen)
+    plan = T.create_plan({"type": "fftconv", "shape": [OS_N], "batch": 1,
+                          "fftConv": {"boundary": "linear-same", "kernelShape": [OS_TAPS]}},
+                         device="cuda")
+    require(plan.route.mode == "overlap-save", f"facade 1-D convolution: route {plan.route.mode}")
+    y = facade_call(f"fftconvolve same [2^20] * [{OS_TAPS}] (overlap-save)", wfft.fftconvolve,
+                    x1, k1, mode="same", expect=(2, 0))
+    geo1 = mathref.fftconv_out_shape([OS_N], [OS_TAPS], "linear-same")
+    ref = torch_fft_conv(x1[None].to(torch.complex64), k1.to(torch.complex64), *geo1)[0]
+    check_close("facade fftconvolve [2^20]", y, ref.real, "torch.fft complex128")
+    del x1, k1, y, ref
+
+    # short-time transforms on 8 signals of 2^22 samples: 65,544 frames of
+    # 1024 through the r2c plan
+    sig = torch.randn(8, 1 << 22, device="cuda", generator=gen)
+    win = torch.as_tensor(wfft.get_window("hann", 1024), device="cuda")
+    f, t, Z = facade_call("stft (8, 2^22) nperseg 1024 noverlap 512", wfft.stft, sig,
+                          expect=(1, 0), **FACADE_STFT)
+    want = torch.stft(sig, n_fft=1024, hop_length=512, window=win, center=True,
+                      pad_mode="constant", onesided=True, return_complex=True) / win.sum()
+    require(tuple(Z.shape) == (8, 513, 8193, 2) and len(f) == 513 and len(t) == 8193,
+            f"facade stft: output {tuple(Z.shape)}")
+    check_oracle("facade stft (8, 2^22)", Z.contiguous(), want)
+    del want
+    _, back = facade_call("istft (8, 513, 8193)", wfft.istft, Z, expect=(1, 0), **FACADE_STFT)
+    check_close("facade istft(stft(x))", back[:, :1 << 22], sig, "the input")
+    del Z, back
+    f, P = facade_call("welch (8, 2^22) nperseg 1024", wfft.welch, sig, expect=(1, 0),
+                       **FACADE_STFT)
+    fs, Ps = scipy.signal.welch(host64(sig), **FACADE_STFT)
+    require(np.allclose(f, fs), "facade welch: frequency grid")
+    check_close("facade welch (8, 2^22)", P, torch.as_tensor(Ps, device="cuda"),
+                "scipy.signal.welch float64")
+    keep["stft"] = (sig, win)
+    short = sig[:, :1 << 20].contiguous()
+    hann = scipy.signal.windows.hann(1024, sym=False)
+    stf = T.ShortTimeFFT(hann, hop=256, fs=1.0)
+    S = facade_call("ShortTimeFFT(hann(1024), hop=256).stft (8, 2^20)", stf.stft, short,
+                    expect=(1, 0))
+    ref = scipy.signal.ShortTimeFFT(hann, hop=256, fs=1.0).stft(host64(short[0]))
+    check_oracle("facade ShortTimeFFT.stft [0]", S[0].contiguous(),
+                 torch.as_tensor(ref, device="cuda"))
+    back = facade_call("ShortTimeFFT.istft", stf.istft, S, k1=1 << 20, interleaved=True,
+                       expect=(1, 0))
+    check_close("facade ShortTimeFFT istft(stft(x))", back, short, "the input")
+    del S, back, ref
+
+    # analytic signal and polyphase resampling against scipy.signal in float64
+    # a [2^20] c2c axis is the plan layer's four-step route, which runs on
+    # einsums on the card (no kernel takes it, as on the axis-kinds check);
+    # the same signals as 2048 rows of 4096 go through K1 both ways
+    plan = T.create_plan(type="c2c", shape=[1 << 20], batch=8, direction="forward",
+                         normalize="none", device="cuda")
+    require(plan.route.mode == "four-step-hbm", f"facade hilbert: route {plan.route.mode}")
+    y = facade_call("hilbert (8, 2^20) (four-step, einsum route)", wfft.hilbert, short,
+                    expect=(0, 0))
+    check_oracle("facade hilbert (8, 2^20)", y,
+                 torch.as_tensor(scipy.signal.hilbert(host64(short)), device="cuda"))
+    rows = short.reshape(2048, 4096)
+    y = facade_call("hilbert (2048, 4096)", wfft.hilbert, rows, expect=(2, 0))
+    check_oracle("facade hilbert (2048, 4096)", y,
+                 torch.as_tensor(scipy.signal.hilbert(host64(rows)), device="cuda"))
+    y = facade_call("resample_poly(x, 3, 2) (8, 2^20)", wfft.resample_poly, short, 3, 2, axis=-1,
+                    expect=(2, 0))      # the zero-stuffed signal through overlap-save
+    check_close("facade resample_poly (8, 2^20)", y,
+                torch.as_tensor(scipy.signal.resample_poly(host64(short), 3, 2, axis=-1),
+                                device="cuda"), "scipy.signal.resample_poly float64")
+    del y, short
+
+    # the native torch namespace: value and gradient of sum |Y|^2
+    zg = torch.randn(64, 1024, 1024, dtype=torch.complex64, device="cuda",
+                     generator=gen).requires_grad_(True)
+    Y = facade_call("torch_fft.fft2 (64, 1024, 1024) complex64", torch_fft.fft2, zg,
+                    expect=(1, 1))
+    require(Y.dtype == torch.complex64 and Y.device == on_card and Y.requires_grad,
+            f"torch_fft.fft2: output {Y.dtype} on {Y.device}")
+    g, = facade_call("torch.autograd.grad through torch_fft.fft2", torch.autograd.grad,
+                     torch.view_as_real(Y).pow(2).sum(), zg, expect=(1, 1))
+    check_close("torch_fft.fft2 (64, 1024, 1024)", Y.detach(), torch.fft.fft2(zg.detach()),
+                "torch.fft.fft2")
+    del Y
+    zr = zg.detach().clone().requires_grad_(True)
+    gr, = torch.autograd.grad(torch.view_as_real(torch.fft.fft2(zr)).pow(2).sum(), zr)
+    check_close("torch_fft.fft2 gradient of sum |Y|^2", g, gr, "torch.fft.fft2's gradient")
+    del zg, zr, g, gr
+
+    # the bridges: numpy in and out, the transform on the card
+    zn = z.cpu().numpy()
+    want = np.fft.fft(zn.astype(np.complex128))
+
+    def host_check(label, got, expected, what):
+        require(isinstance(got, np.ndarray), f"{label}: returned {type(got).__name__}")
+        check_close(label, torch.as_tensor(got), torch.as_tensor(expected), what)
+
+    def via_scipy():
+        with scipy.fft.set_backend(T.scipy_fft_backend()):
+            return scipy.fft.fft(zn)
+    got = facade_call("scipy.fft.fft under scipy_fft_backend()", via_scipy, expect=(1, 0))
+    require(got.dtype == np.complex64, f"scipy backend: dtype {got.dtype}")
+    host_check("scipy.fft.fft (4096, 1024) via the backend", got, want, "numpy.fft float64")
+    out = np.zeros_like(zn)
+    obj = facade_call("pyfftw.FFTW plan + execute", pyfftw.FFTW, zn, out, expect=(1, 0))
+    got = facade_call("pyfftw.FFTW()", obj, expect=(1, 0))
+    require(got is out, "pyfftw.FFTW: output array not written in place")
+    host_check("pyfftw.FFTW (4096, 1024)", got, want, "numpy.fft float64")
+    xr = zn.real.copy()
+    got = facade_call("fftpack.rfft (4096, 1024)", fftpack.rfft, xr, expect=(1, 0))
+    require(got.device == on_card, f"fftpack.rfft: result on {got.device}")
+    check_close("fftpack.rfft (4096, 1024)", got,
+                torch.as_tensor(scipy.fftpack.rfft(xr.astype(np.float64)), device="cuda"),
+                "scipy.fftpack.rfft float64")
+    torch.cuda.empty_cache()
+    return keep
+
+
+def phase_facade_timing(keep, card):
+    """Each of four facade calls from an idle device (``call_ms``: the host's
+    share included) and queued behind device work (``time_queued``: device
+    time) beside ``plan(x)`` for the same plan and the one library call."""
+    import webgpufft_tpu_torch as T
+    from webgpufft_tpu_torch import fft as wfft
+
+    def row(label, facade, plan_call, library, what):
+        fm, pm, lm = call_ms(facade), call_ms(plan_call), call_ms(library)
+        fq = profile.median(profile.time_queued(facade))
+        pq = profile.median(profile.time_queued(plan_call))
+        print(f"time facade {label}: facade {fm:.4f} ms idle / {fq:.4f} ms queued; plan(x) "
+              f"{pm:.4f} ms idle / {pq:.4f} ms queued; facade - plan(x) {fm - pm:.4f} ms; "
+              f"{what} {lm:.4f} ms [{card}]")
+        return fm, pm, lm
+
+    z = keep["fft"]
+    zi = torch.view_as_real(z)
+    plan = T.create_plan(type="c2c", shape=[1024], batch=4096, direction="forward",
+                         normalize="none", device="cuda")
+    row("fft (4096, 1024)", lambda: wfft.fft(z), lambda: plan(zi), lambda: torch.fft.fft(z),
+        "torch.fft.fft")
+
+    x = keep["rfftn"]
+    plan3 = real_plan("r2c", 3, "none")
+    row("rfftn 256^3 x 3", lambda: wfft.rfftn(x, axes=(1, 2, 3)), lambda: plan3(x),
+        lambda: torch.fft.rfftn(x, dim=(1, 2, 3)), "torch.fft.rfftn")
+
+    sig, win = keep["stft"]
+    frames = (torch.nn.functional.pad(sig, (512, 512)).unfold(-1, 1024, 512) * win).reshape(
+        -1, 1024)
+    planf = T.create_plan(type="r2c", shape=[1024], batch=frames.shape[0], direction="forward",
+                          normalize="none", device="cuda")
+    row("stft (8, 2^22) nperseg 1024 noverlap 512", lambda: wfft.stft(sig, **FACADE_STFT),
+        lambda: planf(frames),
+        lambda: torch.stft(sig, n_fft=1024, hop_length=512, window=win, center=True,
+                           pad_mode="constant", onesided=True, return_complex=True),
+        "torch.stft")
+    del frames
+
+    xc, k, geo = keep["conv"]
+    planc = T.create_plan({"type": "fftconv", "shape": [1000, 1000], "batch": 8,
+                           "fftConv": {"kernelShape": [25, 25], "boundary": "linear-same"}},
+                          device="cuda")
+    xi = torch.stack([xc, torch.zeros_like(xc)], -1)
+    ki = torch.stack([k[0], torch.zeros_like(k[0])], -1)
+    xz, kz = xc.to(torch.complex64), k[0].to(torch.complex64)
+    row("fftconvolve same (8, 1000, 1000) * (25, 25)",
+        lambda: wfft.fftconvolve(xc, k, mode="same", axes=(1, 2)),
+        lambda: planc(xi, kernel=ki),
+        lambda: torch_fft_conv(xz, kz, *geo, dtype=torch.complex64),
+        "the same on torch.fft (complex64)")
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -1466,6 +1766,7 @@ def main():
     require(paths["autodiff"][:2] == (72, 100), f"path autodiff: launches {paths['autodiff']}")
     drive("runtime", paths, phase_runtime, gen, smi)
     drive("probes", paths, phase_probes, copies, lines_cases, k2=False, probes=True)
+    facade = drive("facade", paths, phase_facade, gen)
 
     times = phase_timing(k1_cases, k2_cases, headline, volume, smi)
     phase_new_plan_timing(dct, conv, overlap, conv2d, smi)
@@ -1474,6 +1775,8 @@ def main():
     del x, y
     phase_autodiff_timing(grad_timers, smi)
     probe_times = phase_probe_timing(copies, lines_cases, smi)
+    phase_facade_timing(facade, smi)
+    del facade
     # each kernel's record carries the times of its headline shape, and
     # under "shapes" those of every shape timed
     order = list(counters())

@@ -18,7 +18,8 @@ import torch
 
 import webgpufft_tpu_torch as T
 from webgpufft_tpu_torch.core import fused, fused_cols
-from torch_port_support import assert_close, cuda_device  # noqa: F401 (fixture)
+from torch_port_support import (assert_close, cuda_device,  # noqa: F401 (fixture)
+                                torch_fft_stepper3)
 
 pytestmark = pytest.mark.cuda
 
@@ -192,7 +193,7 @@ def test_ns3d_step_on_gpu_matches_torch_fft_step(cuda_device):
     from webgpufft_tpu_torch.examples import navier_stokes3d as ns
     n, nu, dt = 64, 2e-2, 1e-2
     step, to_s, to_p = ns.make_stepper3(n, nu, dt, device=cuda_device)
-    fstep, _, _ = ns.make_torch_fft_stepper3(n, nu, dt, device=cuda_device)
+    fstep, _, _ = torch_fft_stepper3(n, nu, dt, cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(2)
     u_hat = to_s(0.1 * torch.randn(3, n, n, n, device=cuda_device, generator=gen))
     assert_close(step(u_hat).cpu(), fstep(u_hat).cpu(), label="NS-3D step 64^3")
@@ -662,3 +663,113 @@ def test_probe_wrappers_raise_on_the_card_for_what_the_kernels_refuse(cuda_devic
         probes.stream_copy(torch.zeros(4100, device=cuda_device)[1:4097])
     with pytest.raises(ValueError, match="table"):
         probes.lines_planes(torch.zeros(4, 2, 128, device=cuda_device), t)
+
+
+# ---------------------------------------------------------------------------
+# the functional facade and its bridges on the card
+# ---------------------------------------------------------------------------
+
+def _launches():
+    return fused.fused_lines.launches, fused_cols.fused_cols.launches
+
+
+def test_facade_device_rule_on_the_card(cuda_device):
+    """A CUDA tensor runs on its device through the kernels; numpy input goes
+    to the default device, which is the card; a CPU tensor stays on the CPU;
+    tensors on two devices raise."""
+    import numpy as np
+    from webgpufft_tpu_torch import fft as wfft
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    z = torch.randn(512, 1024, dtype=torch.complex64, device=cuda_device, generator=gen)
+    before = _launches()
+    y = wfft.fft(z)
+    assert y.device == cuda_device and y.dtype == torch.float32
+    assert _launches() == (before[0] + 1, before[1])
+    assert_close(y.cpu(), torch.view_as_real(torch.fft.fft(z)).cpu(), label="facade fft")
+    zn = z.cpu().numpy()
+    before = _launches()
+    yn = wfft.fft(zn.astype(np.complex128))              # numpy, float64: card, float32
+    assert yn.device == cuda_device and yn.dtype == torch.float32
+    assert _launches() == (before[0] + 1, before[1])
+    assert_close(yn.cpu(), y.cpu(), label="numpy in")
+    before = _launches()
+    yc = wfft.fft(z.cpu())
+    assert yc.device.type == "cpu" and _launches() == before
+    with pytest.raises(T.PlanError, match="different devices"):
+        wfft.fftconvolve(torch.zeros(4, 64, device=cuda_device), torch.zeros(1, 5), axes=(1,))
+    with wfft.default_device("cpu"):
+        assert wfft.fft(zn).device.type == "cpu"
+        assert wfft.fft(z).device == cuda_device         # tensors are never moved
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("rfftn", {}), ("dctn", {"norm": "ortho"}), ("hilbert", {}),
+    ("resample", {"num": 3000}), ("welch", {"nperseg": 256}),
+])
+def test_facade_functions_on_the_card_match_the_cpu(name, kw, cuda_device):
+    from webgpufft_tpu_torch import fft as wfft
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn(16, 4096, device=cuda_device, generator=gen)
+    before = _launches()
+    got = getattr(wfft, name)(x, **kw)
+    assert sum(_launches()) > sum(before), f"{name}: no kernel launched"
+    want = getattr(wfft, name)(x.cpu(), **kw)
+    got, want = (got[-1], want[-1]) if isinstance(got, tuple) else (got, want)
+    assert got.device == cuda_device
+    assert_close(got.cpu(), want, label=name)
+
+
+def test_facade_stft_istft_on_the_card(cuda_device):
+    from webgpufft_tpu_torch import fft as wfft
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(4, 1 << 16, device=cuda_device, generator=gen)
+    win = torch.as_tensor(wfft.get_window("hann", 512), device=cuda_device)
+    _, _, Z = wfft.stft(x, nperseg=512)
+    want = torch.stft(x, n_fft=512, hop_length=256, window=win, center=True,
+                      pad_mode="constant", return_complex=True) / win.sum()
+    assert_close(Z.cpu(), torch.view_as_real(want).cpu(), label="stft vs torch.stft")
+    _, back = wfft.istft(Z, nperseg=512)
+    assert_close(back[:, :1 << 16].cpu(), x.cpu(), label="istft(stft(x))")
+
+
+def test_native_torch_namespace_gradients_on_the_card(cuda_device):
+    from webgpufft_tpu_torch import torch_fft
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    z = torch.randn(8, 256, 512, dtype=torch.complex64, device=cuda_device, generator=gen)
+    za, zb = z.clone().requires_grad_(True), z.clone().requires_grad_(True)
+    before = _launches()
+    ya, yb = torch_fft.fft2(za), torch.fft.fft2(zb)
+    ga, = torch.autograd.grad(torch.view_as_real(ya).pow(2).sum(), za)
+    gb, = torch.autograd.grad(torch.view_as_real(yb).pow(2).sum(), zb)
+    after = _launches()
+    assert after[0] > before[0] and after[1] > before[1]      # forward and adjoint launches
+    assert ya.device == cuda_device and ga.device == cuda_device
+    assert_close(torch.view_as_real(ya.detach()).cpu(), torch.view_as_real(yb.detach()).cpu(),
+                 label="fft2")
+    assert_close(torch.view_as_real(ga).cpu(), torch.view_as_real(gb).cpu(), label="grad fft2")
+
+
+def test_bridges_run_on_the_card_with_numpy_in_and_out(cuda_device):
+    import numpy as np
+    import scipy.fft
+    from webgpufft_tpu_torch import fftpack, pyfftw
+    rng = np.random.default_rng(5)
+    z = (rng.standard_normal((256, 1024)) + 1j * rng.standard_normal((256, 1024))
+         ).astype(np.complex64)
+    want = np.fft.fft(z.astype(np.complex128))
+    before = _launches()
+    with scipy.fft.set_backend(T.scipy_fft_backend()):
+        got = scipy.fft.fft(z)
+    assert isinstance(got, np.ndarray) and got.dtype == np.complex64
+    assert _launches()[0] == before[0] + 1
+    assert_close(np.stack([got.real, got.imag], -1), np.stack([want.real, want.imag], -1),
+                 label="scipy backend")
+    out = np.zeros_like(z)
+    got = pyfftw.FFTW(z, out)()
+    assert got is out
+    assert_close(np.stack([got.real, got.imag], -1), np.stack([want.real, want.imag], -1),
+                 label="pyfftw")
+    import scipy.fftpack
+    pk = fftpack.rfft(z.real.copy())
+    assert pk.device == cuda_device
+    assert_close(pk.cpu(), scipy.fftpack.rfft(z.real.astype(np.float64)), label="fftpack.rfft")

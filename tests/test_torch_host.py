@@ -220,12 +220,17 @@ def test_port_imports_without_jax():
             "from webgpufft_tpu_torch.utils import bufferview, factors, mathref\n"
             "from webgpufft_tpu_torch.examples import navier_stokes3d\n"
             "from webgpufft_tpu_torch.probes import planes, stages, stream\n"
+            "from webgpufft_tpu_torch import (fft, fftapi, fftpack, fftpack_convolve,"
+            " pyfftw, scipy_backend, shorttime, torch_fft, windows)\n"
+            "import webgpufft_tpu_torch.fftpack.convolve\n"
+            "from webgpufft_tpu_torch.core import cplx\n"
             "bad = [m for m, mod in sys.modules.items() if mod is not None and"
             " (m in ('jax', 'webgpufft_tpu') or m.startswith(('jax.', 'webgpufft_tpu.')))]\n"
             "assert not bad, bad\n"
             "p = webgpufft_tpu_torch.create_plan({'type': 'c2c', 'shape': [64],"
             " 'batch': 8}, device='cpu')\n"
             "import torch; assert p(torch.zeros(8, 64, 2)).shape == (8, 64, 2)\n"
+            "assert fft.rfft(torch.zeros(8, 64)).shape == (8, 33, 2)\n"
             "for t in ('dct2', 'fftconv'):\n"
             "    webgpufft_tpu_torch.create_plan({'type': t, 'shape': [64]}, device='cpu')\n"
             "webgpufft_tpu_torch.create_plan({'type': 'conv2d', 'shape': [8, 8],"

@@ -14,6 +14,7 @@ import torch
 
 import webgpufft_tpu_torch as T
 from webgpufft_tpu_torch.examples import navier_stokes3d as P
+from torch_port_support import torch_fft_stepper3
 
 N, NU, DT = 16, 2e-2, 1e-2
 
@@ -76,7 +77,7 @@ def test_torch_fft_stepper_matches_the_plans(assert_close):
     u0 = torch.from_numpy(
         (np.random.default_rng(4).standard_normal((3, N, N, N)) * 0.1).astype(np.float32))
     step, to_s, to_p = P.make_stepper3(N, NU, DT, device="cpu")
-    fstep, fto_s, fto_p = P.make_torch_fft_stepper3(N, NU, DT, device="cpu")
+    fstep, fto_s, fto_p = torch_fft_stepper3(N, NU, DT, "cpu")
     u_hat = to_s(u0)
     assert_close(fto_s(u0).numpy(), u_hat.numpy(), label="to_spectral")
     assert_close(fstep(u_hat).numpy(), step(u_hat).numpy(), label="step")

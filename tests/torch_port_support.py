@@ -86,3 +86,76 @@ def same_route(jplan, tplan):
     jr, tr = jplan.route, tplan.route
     assert (tr.mode, tr.impl, tr.axis_kinds, tr.reasons) == \
         (jr.mode, jr.impl, jr.axis_kinds, jr.reasons)
+
+
+def to_numpy(y):
+    """A facade result (tensor, jax array, numpy, scalar, or a tuple of
+    them) as float/complex numpy, tuples kept."""
+    if isinstance(y, (tuple, list)):
+        return tuple(to_numpy(p) for p in y)
+    if isinstance(y, torch.Tensor):
+        return y.detach().cpu().numpy()
+    return np.asarray(y)
+
+
+def facade_both(name, *args, tol=1e-5, module="fftapi", **kw):
+    """Call ``name`` of the JAX package's ``module`` and of the port's with
+    the same (numpy) arguments, the port on the CPU device, and hold every
+    output of the port against the JAX package's at ``tol`` of
+    max|expected|.  Returns the port's result as numpy."""
+    import importlib
+    jmod = importlib.import_module(f"webgpufft_tpu.{module}")
+    tmod = importlib.import_module(f"webgpufft_tpu_torch.{module}")
+    from webgpufft_tpu_torch import fftapi as TF
+    want = to_numpy(getattr(jmod, name)(*args, **kw))
+    with TF.default_device("cpu"):
+        got = to_numpy(getattr(tmod, name)(*args, **kw))
+    label = f"{module}.{name}"
+    if isinstance(want, tuple):
+        assert isinstance(got, tuple) and len(got) == len(want), label
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_close_c(g, w, tol, f"{label}[{i}]")
+    else:
+        assert_close_c(got, want, tol, label)
+    return got
+
+
+def assert_close_c(actual, expected, atol_scale=1e-5, label=""):
+    """``assert_close`` that also compares complex arrays in both parts."""
+    actual, expected = np.asarray(actual), np.asarray(expected)
+    if np.iscomplexobj(actual) or np.iscomplexobj(expected):
+        actual = np.stack([actual.real, actual.imag], -1)
+        expected = np.stack([expected.real, expected.imag], -1)
+    assert_close(actual, expected, atol_scale, label)
+
+
+def facade_raises(name, match, *args, module="fftapi", exc=None, **kw):
+    """Both packages raise (``PlanError`` unless ``exc``) matching ``match``
+    for the same arguments."""
+    import importlib
+    import webgpufft_tpu as W
+    import webgpufft_tpu_torch as T
+    from webgpufft_tpu_torch import fftapi as TF
+    jmod = importlib.import_module(f"webgpufft_tpu.{module}")
+    tmod = importlib.import_module(f"webgpufft_tpu_torch.{module}")
+    match = match or None
+    with pytest.raises(exc or W.PlanError, match=match):
+        getattr(jmod, name)(*args, **kw)
+    with TF.default_device("cpu"), pytest.raises(exc or T.PlanError, match=match):
+        getattr(tmod, name)(*args, **kw)
+
+
+def torch_fft_stepper3(n, nu, dt, device):
+    """The port's NS-3D solver with ``torch.fft.rfftn`` / ``irfftn`` in
+    place of the plans, with the same packed layout: an independent oracle
+    for the step."""
+    from webgpufft_tpu_torch.examples import navier_stokes3d as ns
+
+    def fwd(u):
+        return torch.view_as_real(torch.fft.rfftn(u, dim=ns.RFFT_DIMS))
+
+    def inv(u_hat):
+        z = torch.view_as_complex(u_hat.contiguous())
+        return torch.fft.irfftn(z, s=(n, n, n), dim=ns.RFFT_DIMS)
+
+    return ns.make_stepper3_around(n, nu, dt, device, fwd, inv, inv)

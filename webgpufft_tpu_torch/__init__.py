@@ -21,9 +21,20 @@ offsets, ``out=``, ``BufferView``).  Plans are differentiable
 a kernel pass is the adjoint launch of the same kernel.  The runtime
 services are ported too: the plan cache with snapshots, the measured planner
 (``tuning.rigor: "measure"``), golden-artifact replay, profiling and tracing
-helpers, the selftest and single-plan export.  ``mesh=`` and the pipeline
-and distributed exports raise ``PlanError`` naming the ROADMAP item that
-ports them.  The package imports torch and numpy only, never JAX.
+helpers, the selftest and single-plan export.
+
+The functional facade sits on top: ``from webgpufft_tpu_torch import fft as
+wfft`` gives the numpy.fft / scipy.fft / scipy.signal surface on torch
+tensors (``fftapi.py``; a tensor runs on the device it lives on, anything
+else on the facade's default device, ``"cuda"``), with ``windows``,
+``ShortTimeFFT``, the scipy.fft uarray backend, the ``fftpack`` and
+``pyfftw`` namespaces and a native ``torch_fft`` namespace beside it.
+
+``mesh=`` raises ``PlanError`` naming the ROADMAP item that ports it; so do
+``export_pipeline`` / ``load_exported_pipeline`` (the pipeline export
+itself is what waits, the remainder of ROADMAP P10) and
+``export_distributed_plan``.  The package imports torch and numpy (and
+scipy lazily, where the JAX package does), never JAX.
 """
 
 from __future__ import annotations
@@ -44,6 +55,12 @@ from .runtime.aot import (ExportedPlan, export_distributed_plan, export_pipeline
                           export_plan, load_exported_pipeline, load_exported_plan)
 from .core.cplx import interleave, uninterleave
 from .utils.bufferview import BufferView
+from . import fftapi
+from . import fftapi as fft
+from . import fftpack, pyfftw, torch_fft, windows
+from .scipy_backend import (ScipyFftBackend, install_scipy_fft_backend,
+                            scipy_fft_backend, uninstall_scipy_fft_backend)
+from .shorttime import ShortTimeFFT
 
 __version__ = "0.1.0"
 
@@ -59,6 +76,9 @@ __all__ = [
     "create_fftconv_channel_lane_preset",
     "create_fftconv_kernel_major_channel_lane_preset",
     "create_fftconv_batch_major_channel_lane_preset",
+    "fft", "fftapi", "windows", "ShortTimeFFT", "ScipyFftBackend",
+    "scipy_fft_backend", "install_scipy_fft_backend",
+    "uninstall_scipy_fft_backend", "torch_fft", "fftpack", "pyfftw",
 ]
 
 

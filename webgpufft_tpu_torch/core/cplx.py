@@ -5,7 +5,7 @@ A complex tensor is float32 with a trailing component dim of size 2
 ``torch.view_as_real`` on complex64.
 
 The numpy half is copied from ``webgpufft_tpu/core/cplx.py`` (host tables);
-``cmul_const`` is its torch counterpart.
+``cmul_const``, ``cmul_t4`` and ``conj`` are its torch counterparts.
 
 1. ``to_w4``: a complex matrix W (a, c) becomes a real 4-D tensor
    W4[a, i, c, j] such that contracting (a, i) of interleaved data against it
@@ -13,6 +13,8 @@ The numpy half is copied from ``webgpufft_tpu/core/cplx.py`` (host tables);
 2. ``const_pair``: a complex elementwise multiplier z becomes two real
    tensors (ca, cb) with ``out = d*ca + swap(d)*cb`` where swap flips the
    component dim.
+3. ``to_t4``: the same multiplier as a (..., 2, 2) rotation matrix for
+   ``cmul_t4``, which needs no component flip.
 """
 
 from __future__ import annotations
@@ -44,6 +46,29 @@ def cmul_const(d: torch.Tensor, ca: torch.Tensor, cb: torch.Tensor) -> torch.Ten
     """Multiply interleaved data d (..., 2) by a precomputed complex constant
     given as a const_pair.  out_re = dr*re - di*im; out_im = di*re + dr*im."""
     return d * ca + torch.flip(d, dims=(-1,)) * cb
+
+
+def to_t4(z: np.ndarray, dtype=np.float32) -> np.ndarray:
+    """Complex multiplier z (...,) -> (..., 2, 2) tensor for ``cmul_t4``:
+    the per-element [[re, im], [-im, re]] rotation matrix."""
+    out = np.empty(z.shape + (2, 2), dtype=dtype)
+    out[..., 0, 0] = z.real
+    out[..., 0, 1] = z.imag
+    out[..., 1, 0] = -z.imag
+    out[..., 1, 1] = z.real
+    return out
+
+
+def cmul_t4(d: torch.Tensor, t4: torch.Tensor) -> torch.Tensor:
+    """out[..., j] = sum_i d[..., i] * t4[..., i, j]: complex multiply by a
+    precomputed constant without any component shuffle."""
+    return d[..., 0, None] * t4[..., 0, :] + d[..., 1, None] * t4[..., 1, :]
+
+
+def conj(d: torch.Tensor) -> torch.Tensor:
+    """Conjugate interleaved data (..., 2): a multiply by (1, -1), no copy
+    through a complex dtype."""
+    return d * d.new_tensor([1.0, -1.0])
 
 
 def interleave(z: np.ndarray) -> np.ndarray:

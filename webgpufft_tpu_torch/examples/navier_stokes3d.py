@@ -17,8 +17,10 @@ plan (N back), both packing the half-complex axis first (logical axis 0).
     u0 = ns.taylor_green_embedded(256, 0.0, 2e-2, device="cuda")
     u = ns.run3(u0, 256, 2e-2, 1e-2, 10, device="cuda")
 
-``make_torch_fft_stepper3`` builds the same solver on ``torch.fft`` in
-place of the plans: the yardstick and an independent oracle for the step.
+``make_stepper3_around`` builds the same solver around any three
+transforms; the tests and the GPU scripts hand it a library FFT as the
+yardstick and an independent oracle for the step (``RFFT_DIMS`` is the dim
+order that makes such a library pack logical axis 0, as the plans do).
 """
 
 from __future__ import annotations
@@ -30,10 +32,9 @@ import torch
 from .. import create_plan
 from ..spec import PlanError
 
-# torch.fft.rfftn halves the LAST dim it is given: listing logical axis 0
+# a library rfftn halves the LAST dim it is given: listing logical axis 0
 # last packs it, as the plans do
-_RFFT_DIMS = (2, 3, 1)
-
+RFFT_DIMS = (2, 3, 1)
 
 def spectral_grids3(n: int, device):
     """(kx, ky, kz, inv_k2, dealias) as float32 tensors on ``device`` in the
@@ -51,7 +52,7 @@ def spectral_grids3(n: int, device):
     return kx, ky, kz, inv_k2, dealias
 
 
-def _stepper(n: int, nu: float, dt: float, device, fwd3, inv3, inv6):
+def make_stepper3_around(n: int, nu: float, dt: float, device, fwd3, inv3, inv6):
     """(step, to_spectral, to_physical) around three transforms: ``fwd3``
     maps physical (3, n, n, n) to interleaved spectral (3, n//2+1, n, n, 2)
     unnormalized; ``inv3`` and ``inv6`` map back with 1/n^3."""
@@ -111,22 +112,9 @@ def make_stepper3(n: int, nu: float, dt: float, *, device, mesh=None,
             return lambda x: p(x.to(torch.bfloat16)).float()
         return p
 
-    return _stepper(n, nu, dt, device, plan(3, "r2c", "forward", "none"),
+    return make_stepper3_around(n, nu, dt, device, plan(3, "r2c", "forward", "none"),
                     plan(3, "c2r", "inverse", "backward"),
                     plan(6, "c2r", "inverse", "backward"))
-
-
-def make_torch_fft_stepper3(n: int, nu: float, dt: float, *, device):
-    """The same solver with ``torch.fft.rfftn``/``irfftn`` (cuFFT on a GPU)
-    in place of the plans, with the same packed layout."""
-    def fwd(u):
-        return torch.view_as_real(torch.fft.rfftn(u, dim=_RFFT_DIMS))
-
-    def inv(u_hat):
-        z = torch.view_as_complex(u_hat.contiguous())
-        return torch.fft.irfftn(z, s=(n, n, n), dim=_RFFT_DIMS)
-
-    return _stepper(n, nu, dt, device, fwd, inv, inv)
 
 
 def run3(u0, n: int, nu: float, dt: float, steps: int, *, device):

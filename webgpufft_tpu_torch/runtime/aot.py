@@ -122,13 +122,14 @@ def load_exported_plan(data, device="cuda") -> ExportedPlan:
 
 
 def export_pipeline(*_args, **_kw):
-    raise PlanError("export_pipeline needs the functional facade, which is "
-                    "not ported yet (ROADMAP P10)")
+    raise PlanError("export_pipeline is not ported yet: the export of a "
+                    "pipeline of facade calls as one artifact is the "
+                    "remainder of ROADMAP P10")
 
 
 def load_exported_pipeline(*_args, **_kw):
-    raise PlanError("load_exported_pipeline needs the functional facade, which "
-                    "is not ported yet (ROADMAP P10)")
+    raise PlanError("load_exported_pipeline is not ported yet: the pipeline "
+                    "export it would load is the remainder of ROADMAP P10")
 
 
 def export_distributed_plan(*_args, **_kw):

@@ -22,6 +22,7 @@ moves that directory.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
@@ -38,6 +39,15 @@ SNAPSHOT_SCHEMA = "webgpufft-tpu.plan-cache"
 SNAPSHOT_VERSION = 3
 
 
+def _outside_transforms():
+    """A scope in which new tensors are plain tensors.  A plan's first use
+    may happen inside a caller's ``torch.func.grad`` / ``vmap`` / ``jvp``
+    (the facade builds plans lazily); tensors made there would be wrappers
+    of that transform's level, and the cache outlives the transform."""
+    guard = getattr(torch._C, "_DisableFuncTorch", None)
+    return guard() if guard is not None else contextlib.nullcontext()
+
+
 class PlanCache:
     def __init__(self):
         self._plans: Dict[Tuple[PlanSpec, torch.device], Any] = {}
@@ -50,7 +60,8 @@ class PlanCache:
         plan = self._plans.get(key)
         if plan is None:
             from .. import _build_plan
-            plan = _build_plan(spec, device)
+            with _outside_transforms():
+                plan = _build_plan(spec, device)
             self._plans[key] = plan
         plan._plan_cache = self  # for plan.get_pipeline_cache_snapshot()
         return plan
