@@ -108,7 +108,7 @@ def main():
     step, to_s, _ = ns.make_stepper3(NS_N, NS_NU, NS_DT, device="cuda")
     u_hat = to_s(0.1 * torch.randn(3, NS_N, NS_N, NS_N, device="cuda", generator=gen))
     profile_calls("NS-3D step 256^3", step, u_hat)
-    fstep, fto_s, fto_p = torch_fft_stepper3(ns, NS_N, NS_NU, NS_DT)
+    fstep, fto_s, fto_p = torch_fft_stepper3(NS_N, NS_NU, NS_DT)
     profile_calls("NS-3D step 256^3 on torch.fft", fstep, u_hat)
     del u_hat
 

@@ -11,7 +11,9 @@ plain adjoint and the dot test <K x, u> = <x, K^H u>, holds the three probe
 kernels (``webgpufft_tpu_torch.probes``) against theirs, and drives twelve
 paths through the port's entry points, each with the kernels' launch counts
 set to 0 just before it and read just after (each must launch the kernels
-named, and no other):
+named, and no other); while a path runs, K1 and K2 also log the shape and
+tables of every launch, and after the last path each logged combination is
+held against the plain version once more, with the path's own tables:
 
 - c2c: ``create_plan(...)(x)`` on the batched 1-D headline plan and a 256^3
   plan (K1, K2);
@@ -116,10 +118,12 @@ HEADLINE = {"type": "c2c", "shape": [1024], "batch": 4096,
 RFFT_DIMS = (2, 3, 1)   # torch.fft.rfftn packs the last dim given: logical axis 0
 
 
-def torch_fft_stepper3(ns, n, nu, dt):
-    """The port's NS-3D solver (module ``ns``) with ``torch.fft.rfftn`` /
-    ``irfftn`` (cuFFT) in place of the plans, with the same packed layout:
-    the yardstick and an independent oracle for the step."""
+def torch_fft_stepper3(n, nu, dt, device="cuda"):
+    """The port's NS-3D solver with ``torch.fft.rfftn`` / ``irfftn`` (cuFFT
+    on a GPU) in place of the plans, with the same packed layout: the
+    yardstick and an independent oracle for the step."""
+    from webgpufft_tpu_torch.examples import navier_stokes3d as ns
+
     def fwd(u):
         return torch.view_as_real(torch.fft.rfftn(u, dim=RFFT_DIMS))
 
@@ -127,7 +131,7 @@ def torch_fft_stepper3(ns, n, nu, dt):
         z = torch.view_as_complex(u_hat.contiguous())
         return torch.fft.irfftn(z, s=(n, n, n), dim=RFFT_DIMS)
 
-    return ns.make_stepper3_around(n, nu, dt, "cuda", fwd, inv, inv)
+    return ns.make_stepper3_around(n, nu, dt, device, fwd, inv, inv)
 
 
 def rel_err(actual, expected):
@@ -438,15 +442,26 @@ def counters():
 PROBE_KERNELS = ("stream_copy", "lines_stages", "lines_planes")
 
 
+# path -> what it launched: K1 {(N, lines, adjoint, tables' address): tables} and
+# K2 {(pre, H, L, adjoint, tables' address): tables}
+PATH_SHAPES = {}
+
+
 def drive(name, paths, fn, *args, k1=True, k2=True, probes=False):
     """Run one path with every launch count set to 0 just before it and
     read just after; each kernel of the path (``k1``, ``k2``, the three
     ``probes``) must have launched, and a kernel the path has none of must
-    not.  ``paths[name]`` gets the counts in the order of ``counters()``."""
+    not.  ``paths[name]`` gets the counts in the order of ``counters()``,
+    ``PATH_SHAPES[name]`` what K1 and K2 were given."""
     wrappers = counters()
     for wrapper in wrappers.values():
         wrapper.launches = 0
-    out = fn(*args)
+    PATH_SHAPES[name] = ({}, {})
+    wrappers["fused_lines"].seen, wrappers["fused_cols"].seen = PATH_SHAPES[name]
+    try:
+        out = fn(*args)
+    finally:
+        wrappers["fused_lines"].seen = wrappers["fused_cols"].seen = None
     torch.cuda.synchronize()
     counts = {kernel: wrapper.launches for kernel, wrapper in wrappers.items()}
     print(f"path {name} launches: " + ", ".join(f"{k} {n}" for k, n in counts.items()))
@@ -457,12 +472,41 @@ def drive(name, paths, fn, *args, k1=True, k2=True, probes=False):
     return out
 
 
+def phase_path_shapes(gen):
+    """Every (shape, direction of launch, table set) that a path gave K1 or
+    K2, held against the plain version on a random input with the path's own
+    tables: the shapes of the main paths are read from their launches, not
+    from a list kept by hand.  These launches count for no path.  Returns the
+    worst max abs err of each kernel."""
+    from webgpufft_tpu_torch.core import fused, fused_cols
+    worst = {}
+    for kernel, plain, which in [(fused.fused_lines, fused.fused_lines_reference, 0),
+                                 (fused_cols.fused_cols, fused_cols.fused_cols_reference, 1)]:
+        seen = {}
+        for path, logs in PATH_SHAPES.items():
+            for key, tables in logs[which].items():
+                seen.setdefault(key, (tables, []))[1].append(path)
+        err = 0.0
+        for (*shape, adjoint, _), (tables, on_paths) in sorted(seen.items(),
+                                                              key=lambda kv: kv[0]):
+            view = (shape[1], shape[0], 2) if which == 0 else tuple(shape)
+            x = torch.randn(view, device="cuda", generator=gen)
+            what = (f"N={shape[0]} lines={shape[1]}" if which == 0 else f"view={view}")
+            label = (f"{'K1 fused_lines' if which == 0 else 'K2 fused_cols'} {what}"
+                     f"{' adjoint' if adjoint else ''} as on {', '.join(on_paths)}")
+            err = max(err, compare(label, lambda v, t: kernel(v, t, adjoint=adjoint),
+                                   lambda v, t: plain(v, t, adjoint=adjoint), x, tables))
+            del x
+        worst[kernel.__name__] = err
+        print(f"path shapes: {kernel.__name__} held against its plain version at "
+              f"{len(seen)} (shape, adjoint, tables) combinations of the paths' own launches")
+        require(seen, f"no path launched {kernel.__name__}")
+    return worst
+
+
 def run_counted(label, plan, *args, **kw):
     """One ``plan(...)`` call; prints and returns the launches it made."""
-    before = launches()
-    y = plan(*args, **kw)
-    after = launches()
-    made = (after[0] - before[0], after[1] - before[1])
+    y, made = counted(plan, *args, **kw)
     print(f"{label}: route {plan.route.mode}, launches fused_lines {made[0]}, "
           f"fused_cols {made[1]}, passes "
           f"{[r for r in plan.route.reasons if '-axis' in r]}")
@@ -1026,7 +1070,7 @@ def phase_autodiff(gen):
           f"before it)")
     require(bool(torch.isfinite(g).all()) and rel <= JVP_TOL,
             "autodiff NS-3D: reverse and forward mode disagree")
-    fstep, fto_s, fto_p = torch_fft_stepper3(ns, NS_N, NS_NU, NS_DT)
+    fstep, fto_s, fto_p = torch_fft_stepper3(NS_N, NS_NU, NS_DT)
     gf = torch.func.grad(lambda u: 0.5 * fto_p(fstep(fto_s(u))).pow(2).sum(0).mean())(u0)
     check_close("autodiff NS-3D step gradient", g, gf, "the torch.fft step's gradient",
                 tol=JVP_TOL)
@@ -1448,7 +1492,7 @@ def phase_solver_timing(gen, x, y, card):
         fm = call_ms(plain, arg)
         print(f"time {label} plan(x): {pm:.4f} ms; torch.fft (cuFFT) {fm:.4f} ms [{card}]")
     step, to_s, _ = ns.make_stepper3(NS_N, NS_NU, NS_DT, device="cuda")
-    fstep, _, _ = torch_fft_stepper3(ns, NS_N, NS_NU, NS_DT)
+    fstep, _, _ = torch_fft_stepper3(NS_N, NS_NU, NS_DT)
     u_hat = to_s(0.1 * torch.randn(3, NS_N, NS_N, NS_N, device="cuda", generator=gen))
     err = rel_err(step(u_hat), fstep(u_hat))
     print(f"NS-3D step {NS_N}^3: max rel err {err:.3e} vs the torch.fft step "
@@ -1482,10 +1526,7 @@ def facade_call(label, fn, *args, expect=None, **kw):
     card launches the kernels or the phase fails.  ``expect`` pins the
     counts to those the same transform makes through ``create_plan``;
     ``(0, 0)`` names a call whose plan runs the einsum route on the card."""
-    before = launches()
-    out = fn(*args, **kw)
-    after = launches()
-    made = (after[0] - before[0], after[1] - before[1])
+    out, made = counted(fn, *args, **kw)
     print(f"facade {label}: launches fused_lines {made[0]}, fused_cols {made[1]}")
     require(made[0] + made[1] > 0 or expect == (0, 0), f"facade {label}: no kernel launched")
     if expect is not None:
@@ -1687,14 +1728,23 @@ def phase_facade_timing(keep, card):
     import webgpufft_tpu_torch as T
     from webgpufft_tpu_torch import fft as wfft
 
-    def row(label, facade, plan_call, library, what):
+    def row(label, facade, plan_call, library, what, plans="plan(x)", staged=None):
+        """``plan_call`` runs the plans the facade call builds, on inputs
+        already laid out for them; ``staged`` (where given) also does the
+        device work the facade does around them, so that facade - staged is
+        the host's share alone."""
         fm, pm, lm = call_ms(facade), call_ms(plan_call), call_ms(library)
         fq = profile.median(profile.time_queued(facade))
         pq = profile.median(profile.time_queued(plan_call))
-        print(f"time facade {label}: facade {fm:.4f} ms idle / {fq:.4f} ms queued; plan(x) "
-              f"{pm:.4f} ms idle / {pq:.4f} ms queued; facade - plan(x) {fm - pm:.4f} ms; "
-              f"{what} {lm:.4f} ms [{card}]")
-        return fm, pm, lm
+        around = ""
+        if staged is not None:
+            sm = call_ms(staged)
+            sq = profile.median(profile.time_queued(staged))
+            around = (f"; with the facade's device work around the plan {sm:.4f} ms idle / "
+                      f"{sq:.4f} ms queued; facade - that {fm - sm:.4f} ms")
+        print(f"time facade {label}: facade {fm:.4f} ms idle / {fq:.4f} ms queued; {plans} "
+              f"{pm:.4f} ms idle / {pq:.4f} ms queued; facade - {plans} {fm - pm:.4f} ms"
+              f"{around}; {what} {lm:.4f} ms [{card}]")
 
     z = keep["fft"]
     zi = torch.view_as_real(z)
@@ -1703,21 +1753,43 @@ def phase_facade_timing(keep, card):
     row("fft (4096, 1024)", lambda: wfft.fft(z), lambda: plan(zi), lambda: torch.fft.fft(z),
         "torch.fft.fft")
 
+    # numpy's rfftn packs the last axis: the facade builds a 1-D r2c plan over
+    # it and a 2-D c2c plan over the other two, with one transposing copy
+    # between them (the 3-D r2c plan of the r2c path packs axis 0 and is
+    # another decomposition, timed by phase_solver_timing)
     x = keep["rfftn"]
-    plan3 = real_plan("r2c", 3, "none")
-    row("rfftn 256^3 x 3", lambda: wfft.rfftn(x, axes=(1, 2, 3)), lambda: plan3(x),
-        lambda: torch.fft.rfftn(x, dim=(1, 2, 3)), "torch.fft.rfftn")
+    n = NS_N
+    half = n // 2 + 1
+    plan_r = T.create_plan(type="r2c", shape=[n], batch=3 * n * n, direction="forward",
+                           normalize="none", device="cuda")
+    plan_c = T.create_plan(type="c2c", shape=[n, n], batch=3 * half, direction="forward",
+                           normalize="none", device="cuda")
+    lines = x.reshape(-1, n)
+
+    def rfftn_plans():
+        y = plan_r(lines).reshape(3, n, n, half, 2)
+        return plan_c(y.movedim((1, 2), (2, 3)).reshape(3 * half, n, n, 2))
+    check_close("the two plans of rfftn back to back",
+                rfftn_plans().reshape(3, half, n, n, 2).movedim((2, 3), (1, 2)),
+                wfft.rfftn(x, axes=(1, 2, 3)), "the facade call")
+    row("rfftn 256^3 x 3", lambda: wfft.rfftn(x, axes=(1, 2, 3)), rfftn_plans,
+        lambda: torch.fft.rfftn(x, dim=(1, 2, 3)), "torch.fft.rfftn",
+        plans="its r2c [256] and c2c [256, 256] plans back to back")
 
     sig, win = keep["stft"]
-    frames = (torch.nn.functional.pad(sig, (512, 512)).unfold(-1, 1024, 512) * win).reshape(
-        -1, 1024)
+
+    def framed():
+        return (torch.nn.functional.pad(sig, (512, 512)).unfold(-1, 1024, 512) * win).reshape(
+            -1, 1024)
+    frames = framed()
     planf = T.create_plan(type="r2c", shape=[1024], batch=frames.shape[0], direction="forward",
                           normalize="none", device="cuda")
     row("stft (8, 2^22) nperseg 1024 noverlap 512", lambda: wfft.stft(sig, **FACADE_STFT),
         lambda: planf(frames),
         lambda: torch.stft(sig, n_fft=1024, hop_length=512, window=win, center=True,
                            pad_mode="constant", onesided=True, return_complex=True),
-        "torch.stft")
+        "torch.stft", plans="plan(frames) on frames already made",
+        staged=lambda: planf(framed()) / 512.0)
     del frames
 
     xc, k, geo = keep["conv"]
@@ -1767,6 +1839,10 @@ def main():
     drive("runtime", paths, phase_runtime, gen, smi)
     drive("probes", paths, phase_probes, copies, lines_cases, k2=False, probes=True)
     facade = drive("facade", paths, phase_facade, gen)
+    path_err = phase_path_shapes(gen)
+    k1_err = max(k1_err, path_err["fused_lines"])
+    k2_err = max(k2_err, path_err["fused_cols"])
+    PATH_SHAPES.clear()
 
     times = phase_timing(k1_cases, k2_cases, headline, volume, smi)
     phase_new_plan_timing(dct, conv, overlap, conv2d, smi)

@@ -773,3 +773,27 @@ def test_bridges_run_on_the_card_with_numpy_in_and_out(cuda_device):
     pk = fftpack.rfft(z.real.copy())
     assert pk.device == cuda_device
     assert_close(pk.cpu(), scipy.fftpack.rfft(z.real.astype(np.float64)), label="fftpack.rfft")
+
+
+def test_wrappers_log_what_they_launched_while_a_log_is_set(cuda_device):
+    """``fused_lines.seen`` / ``fused_cols.seen``: a caller's dict gets the
+    tables of every launch under its shape, and nothing is kept once it is
+    unset (``chip_smoke.py`` reads the paths' shapes from it)."""
+    import webgpufft_tpu_torch as T
+    from webgpufft_tpu_torch.core import fused, fused_cols
+    plan = T.create_plan(type="c2c", shape=[64, 256], batch=4, device=cuda_device)
+    x = torch.randn(4, 64, 256, 2, device=cuda_device)
+    fused.fused_lines.seen, fused_cols.fused_cols.seen = k1, k2 = {}, {}
+    try:
+        plan(x)
+        plan(x)
+    finally:
+        fused.fused_lines.seen = fused_cols.fused_cols.seen = None
+    plan(x)
+    assert [key[:3] for key in k1] == [(256, 4 * 64, False)]
+    assert [key[:4] for key in k2] == [(4, 64, 512, False)]
+    (tables,) = k1.values()
+    y = fused.fused_lines(x.reshape(256, 256, 2), tables)
+    ref = fused.fused_lines_reference(x.reshape(256, 256, 2), tables)
+    assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+

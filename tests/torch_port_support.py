@@ -6,6 +6,9 @@ time, never at import, whether a card exists and skips otherwise: a CUDA
 kernel has no CPU mode.
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -146,16 +149,13 @@ def facade_raises(name, match, *args, module="fftapi", exc=None, **kw):
 
 
 def torch_fft_stepper3(n, nu, dt, device):
-    """The port's NS-3D solver with ``torch.fft.rfftn`` / ``irfftn`` in
-    place of the plans, with the same packed layout: an independent oracle
-    for the step."""
-    from webgpufft_tpu_torch.examples import navier_stokes3d as ns
-
-    def fwd(u):
-        return torch.view_as_real(torch.fft.rfftn(u, dim=ns.RFFT_DIMS))
-
-    def inv(u_hat):
-        z = torch.view_as_complex(u_hat.contiguous())
-        return torch.fft.irfftn(z, s=(n, n, n), dim=ns.RFFT_DIMS)
-
-    return ns.make_stepper3_around(n, nu, dt, device, fwd, inv, inv)
+    """``chip_smoke.torch_fft_stepper3``: the port's NS-3D solver with
+    ``torch.fft`` in place of the plans, the one copy the GPU script and the
+    tests share."""
+    repo = str(Path(__file__).resolve().parent.parent)
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+    return chip_smoke.torch_fft_stepper3(n, nu, dt, device)

@@ -154,6 +154,8 @@ def _run(x: torch.Tensor, tables: Dict[str, torch.Tensor], adjoint: bool) -> tor
                                    torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "fused_lines")
     fused_lines.launches += 1
+    if fused_lines.seen is not None:
+        fused_lines.seen.setdefault((n, x.shape[0], adjoint, ptrs[0]), tables)
     return y
 
 
@@ -210,3 +212,6 @@ def fused_lines(x: torch.Tensor, tables: Dict[str, torch.Tensor],
 
 
 fused_lines.launches = 0
+# a caller's dict: while it is set, every launch enters its tables under
+# (N, lines, adjoint, address of the first table)
+fused_lines.seen = None

@@ -22,7 +22,6 @@ moves that directory.
 
 from __future__ import annotations
 
-import contextlib
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
@@ -39,13 +38,19 @@ SNAPSHOT_SCHEMA = "webgpufft-tpu.plan-cache"
 SNAPSHOT_VERSION = 3
 
 
-def _outside_transforms():
-    """A scope in which new tensors are plain tensors.  A plan's first use
-    may happen inside a caller's ``torch.func.grad`` / ``vmap`` / ``jvp``
-    (the facade builds plans lazily); tensors made there would be wrappers
-    of that transform's level, and the cache outlives the transform."""
-    guard = getattr(torch._C, "_DisableFuncTorch", None)
-    return guard() if guard is not None else contextlib.nullcontext()
+# A scope in which new tensors are plain tensors.  A plan's first use may
+# happen inside a caller's ``torch.func.grad`` / ``vmap`` / ``jvp`` (the facade
+# builds plans lazily); tensors made there would be wrappers of that
+# transform's level, and the cache outlives the transform.  The name is
+# private in torch: without it the cache would keep such wrappers silently, so
+# the import fails instead.
+try:
+    _outside_transforms = torch._C._DisableFuncTorch
+except AttributeError as e:  # pragma: no cover - depends on the torch build
+    raise ImportError(
+        f"webgpufft_tpu_torch: torch {torch.__version__} has no "
+        "torch._C._DisableFuncTorch; plans built lazily inside torch.func.grad / "
+        "vmap / jvp could not be kept out of the transform") from e
 
 
 class PlanCache:
