@@ -217,7 +217,9 @@ def phase_k1(gen):
     # lines that take the multi-line CTA, and the small digits 8 * 8 and 8 * 16;
     # then what the dct path (512 x 4096), the fftconv path (1024 x 8192 data
     # and product lines, 1024 kernel lines, 8 product lines of the channel-lane
-    # preset) and the overlap-save blocks give it
+    # preset) and the overlap-save blocks give it; then the last axis of the
+    # nufft path's 256^3 fine grid (256 x 65536 lines) and the linalg path's
+    # matmul_toeplitz (8192 x 1024) and solve_toeplitz (8192 x 512) lines
     for n, lines, direction, normalize in [
             (1024, 4096, "forward", "unitary"), (1024, 4096, "inverse", "unitary"),
             (2048, 4096, "forward", "none"), (360, 4096, "inverse", "backward"),
@@ -229,7 +231,9 @@ def phase_k1(gen):
             (512, 4096, "forward", "none"), (1024, 8192, "forward", "none"),
             (1024, 1024, "forward", "none"), (256, 8, "inverse", "none"),
             (OS_BLOCK, OS_BLOCKS, "forward", "none"), (OS_BLOCK, OS_BLOCKS, "inverse", "none"),
-            (4, 1000, "forward", "none"), (8, 1000, "inverse", "none")]:
+            (4, 1000, "forward", "none"), (8, 1000, "inverse", "none"),
+            (256, 65536, "forward", "none"), (8192, 1024, "forward", "none"),
+            (8192, 512, "inverse", "backward")]:
         scale = {"none": 1.0, "unitary": 1.0 / math.sqrt(n),
                  "backward": 1.0 / n if direction == "inverse" else 1.0}[normalize]
         tables = to_dev(fused.lines_consts(n, direction, scale, "p"))
@@ -458,11 +462,13 @@ def drive(name, paths, fn, *args, k1=True, k2=True, probes=False):
         wrapper.launches = 0
     PATH_SHAPES[name] = ({}, {})
     wrappers["fused_lines"].seen, wrappers["fused_cols"].seen = PATH_SHAPES[name]
+    t0 = time.perf_counter()
     try:
         out = fn(*args)
     finally:
         wrappers["fused_lines"].seen = wrappers["fused_cols"].seen = None
     torch.cuda.synchronize()
+    print(f"path {name} seconds: {time.perf_counter() - t0:.2f}")
     counts = {kernel: wrapper.launches for kernel, wrapper in wrappers.items()}
     print(f"path {name} launches: " + ", ".join(f"{k} {n}" for k, n in counts.items()))
     want = {"fused_lines": k1, "fused_cols": k2, **dict.fromkeys(PROBE_KERNELS, probes)}
@@ -1435,10 +1441,14 @@ def phase_timing(k1_cases, k2_cases, headline, volume, card):
     direct = profile.time_calls(fused.fused_lines, x, tables)
     via = profile.time_calls(fused.FusedLines.apply, x, tables, False)
     via += profile.time_calls(fused.FusedLines.apply, x, tables, False)
+    listed = fused.table_list(tables)
+    op = profile.time_calls(fused.fused_lines_op, x, listed, False)
+    op += profile.time_calls(fused.fused_lines_op, x, listed, False)
     direct += profile.time_calls(fused.fused_lines, x, tables)
     print(f"time K1 N=1024 lines=4096 one call from idle: direct launch (untracked input) "
           f"{profile.median(direct):.4f} ms, through FusedLines.apply "
-          f"{profile.median(via):.4f} ms [{card}]")
+          f"{profile.median(via):.4f} ms, through the op torch.ops.wgfft.fused_lines "
+          f"{profile.median(op):.4f} ms [{card}]")
     for label, (plan, x), oracle in [
             ("headline plan(x) c2c [1024] b4096", headline,
              lambda z: torch.fft.fft(z, norm="ortho")),
@@ -1807,6 +1817,371 @@ def phase_facade_timing(keep, card):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# nufft and linalg (with the pipeline export)
+# ---------------------------------------------------------------------------
+
+NU_EPS = 1e-6
+NU_TOL = 2e-5      # tests/test_nufft.py's bar for types 1 and 2 (_rel of max|ref|)
+NU3_TOL = 1e-5     # ... and for type 3
+NU_SUBSET = 512    # modes or targets held against the direct float64 sum
+NU2_MODES, NU2_SPOKES, NU2_SAMPLES, NU2_COILS = (256, 256), 256, 512, 8
+NU3_MODES, NU3_POINTS = (128, 128, 128), 1 << 18
+# targets in [-NU1_BAND, NU1_BAND): a spread grid of 4116 and an inner fine grid of
+# 8232.  The band was chosen so that the call reaches K1: a band of 2048 gives
+# 16464, past K1's 16384, and runs on einsums with no kernel (ROADMAP R6).
+# K1 takes >= 8 lines
+NU1_POINTS, NU1_BAND, NU1_SETS = 1 << 16, 1024.0, 8
+LA_TOL, LA_RES_TOL = 5e-4, 1e-4   # tests/test_linalg.py's bars (_rel; residual)
+LA_CIRC = (16384, 512)            # n, right-hand sides
+LA_MATMUL = (4097, 4096, 1024)    # rows, columns, right-hand sides: p = 8192
+LA_SOLVE = (4096, 256)
+PIPE_SHAPE, PIPE_STFT = (8, 1 << 20), dict(nperseg=1024, noverlap=512)
+HEAVY = dict(runs=3, warmup=1)             # time_calls of a long call
+HEAVY_QUEUED = dict(runs=2, queued=3, warmup=1)
+
+
+class TorchFftFacade:
+    """The port's ``fftapi`` with ``fft``/``ifft``/``fftn``/``ifftn`` on
+    ``torch.fft`` (interleaved in and out, the same arguments): swapped into
+    ``nufft`` and ``linalg`` it gives the yardstick, the same spread,
+    interpolation and tables around cuFFT.  Every other name is the port's."""
+
+    def __getattr__(self, name):
+        from webgpufft_tpu_torch import fftapi
+        return getattr(fftapi, name)
+
+    @staticmethod
+    def _call(fn, x, interleaved, **kw):
+        from webgpufft_tpu_torch import fftapi
+        z = torch.view_as_complex(fftapi.asinterleaved(x, interleaved).contiguous())
+        return torch.view_as_real(fn(z, **kw))
+
+    def fft(self, x, n=None, axis=-1, norm=None, *, interleaved=None):
+        return self._call(torch.fft.fft, x, interleaved, n=n, dim=axis, norm=norm)
+
+    def ifft(self, x, n=None, axis=-1, norm=None, *, interleaved=None):
+        return self._call(torch.fft.ifft, x, interleaved, n=n, dim=axis, norm=norm)
+
+    def fftn(self, x, s=None, axes=None, norm=None, *, interleaved=None):
+        return self._call(torch.fft.fftn, x, interleaved, s=s, dim=axes, norm=norm)
+
+    def ifftn(self, x, s=None, axes=None, norm=None, *, interleaved=None):
+        return self._call(torch.fft.ifftn, x, interleaved, s=s, dim=axes, norm=norm)
+
+
+class on_torch_fft:
+    """Within the block, ``nufft`` and ``linalg`` transform on ``torch.fft``."""
+
+    def __enter__(self):
+        from webgpufft_tpu_torch import linalg, nufft
+        self.saved = [(m, m.fftapi) for m in (nufft, linalg)]
+        for m, _ in self.saved:
+            m.fftapi = TorchFftFacade()
+
+    def __exit__(self, *exc):
+        for m, f in self.saved:
+            m.fftapi = f
+
+
+def radial_points(spokes, samples):
+    """A radial k-space trajectory in radians: ``spokes`` lines through the
+    centre at angles pi * s / spokes, ``samples`` points on each."""
+    theta = np.pi * np.arange(spokes) / spokes
+    r = np.linspace(-np.pi, np.pi, samples, endpoint=False)
+    return ((r[None, :] * np.cos(theta)[:, None]).ravel(),
+            (r[None, :] * np.sin(theta)[:, None]).ravel())
+
+
+def cmcl(n):
+    return torch.arange(-(n // 2), (n + 1) // 2, device="cuda", dtype=torch.float64)
+
+
+def nu_check(label, got, ref, tol):
+    """``got`` (complex) against the direct float64 sum ``ref``: max|got -
+    ref| / max|ref|, as tests/test_nufft.py's ``_rel``."""
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(torch.view_as_real(got)).all()), f"{label}: non-finite output")
+    err = rel_err(got.to(torch.complex128), ref)
+    print(f"{label}: max rel err {err:.3e} vs the direct float64 sum on the card over "
+          f"{ref.numel()} values (limit {tol:.0e} * max|ref|)")
+    require(err < tol, f"{label}: disagrees with the direct sum")
+    return err
+
+
+def phase_nufft(gen):
+    """Types 1 and 2 in 2-D (radial MRI k-space: 256 spokes x 512 samples, 8
+    coils, 256^2 modes) and 3-D (2^18 points, 128^3 modes) and type 3 in 1-D
+    (2^16 sources and targets, 8 strength sets), eps 1e-6, each call's K1/K2 launches
+    asserted, each result against the direct float64 sum over 512 random
+    modes or targets, and the type-1/type-2 dot test."""
+    import webgpufft_tpu_torch as T
+    nu = T.nufft
+    rng = np.random.default_rng(SEED)
+    keep = {}
+
+    x, y = radial_points(NU2_SPOKES, NU2_SAMPLES)
+    m = x.size
+    c = torch.randn(NU2_COILS, m, 2, device="cuda", generator=gen)
+    out = facade_call("nufft2d1 256^2 modes, 2^17 radial points x 8 coils", nu.nufft2d1,
+                      x, y, c, NU2_MODES, eps=NU_EPS, expect=(1, 1))
+    require(tuple(out.shape) == (NU2_COILS, *NU2_MODES, 2), f"nufft2d1: {tuple(out.shape)}")
+    q = torch.as_tensor(rng.integers(0, NU2_MODES[0] * NU2_MODES[1], NU_SUBSET), device="cuda")
+    k1 = cmcl(NU2_MODES[0])[q // NU2_MODES[1]]
+    k2 = cmcl(NU2_MODES[1])[q % NU2_MODES[1]]
+    xd, yd = (torch.as_tensor(v, device="cuda") for v in (x, y))
+    cz = torch.view_as_complex(c).to(torch.complex128)
+    ref = cz @ torch.exp(1j * (k1[:, None] * xd[None, :] + k2[:, None] * yd[None, :])).T
+    got = torch.view_as_complex(out).reshape(NU2_COILS, -1)[:, q]
+    keep["nufft2d1"] = nu_check("nufft2d1 against the direct sum", got, ref, NU_TOL)
+
+    f = torch.randn(NU2_COILS, *NU2_MODES, 2, device="cuda", generator=gen)
+    vals = facade_call("nufft2d2 256^2 modes x 8 coils, 2^17 radial points", nu.nufft2d2,
+                       x, y, f, eps=NU_EPS, expect=(1, 1))
+    require(tuple(vals.shape) == (NU2_COILS, m, 2), f"nufft2d2: {tuple(vals.shape)}")
+    j = torch.as_tensor(rng.integers(0, m, NU_SUBSET), device="cuda")
+    e1 = torch.exp(-1j * xd[j, None] * cmcl(NU2_MODES[0])[None, :])
+    e2 = torch.exp(-1j * yd[j, None] * cmcl(NU2_MODES[1])[None, :])
+    fz = torch.view_as_complex(f).to(torch.complex128)
+    ref = torch.einsum("bkq,qk->bq", torch.einsum("bkl,ql->bkq", fz, e2), e1)
+    keep["nufft2d2"] = nu_check("nufft2d2 against the direct sum",
+                                torch.view_as_complex(vals)[:, j], ref, NU_TOL)
+    # <A c, f> = <c, A^H f>: type 1 (isign +1) and type 2 (isign -1) are adjoint
+    lhs = complex((fz.conj() * torch.view_as_complex(out).to(torch.complex128)).sum())
+    rhs = complex((torch.view_as_complex(vals).to(torch.complex128).conj() * cz).sum())
+    scale = float(fz.abs().pow(2).sum().sqrt() * torch.view_as_complex(out).abs().pow(2)
+                  .sum().sqrt())
+    print(f"nufft dot test: <f, A c> {lhs:.6e}, <A^H f, c> {rhs:.6e}, difference "
+          f"{abs(lhs - rhs) / scale:.3e} of |f||A c| (limit {DOT_TOL:.0e})")
+    require(abs(lhs - rhs) <= DOT_TOL * scale, "nufft: type 1 and type 2 are not adjoint")
+    keep["2d"] = (x, y, c, f)
+    del e1, e2, fz, cz, ref
+
+    x3 = [rng.uniform(0, 2 * np.pi, NU3_POINTS) for _ in range(3)]
+    c3 = torch.randn(NU3_POINTS, 2, device="cuda", generator=gen)
+    out3 = facade_call("nufft3d1 128^3 modes, 2^18 points", nu.nufft3d1, *x3, c3, NU3_MODES,
+                       eps=NU_EPS, expect=(1, 2))
+    require(tuple(out3.shape) == (*NU3_MODES, 2), f"nufft3d1: {tuple(out3.shape)}")
+    n3 = NU3_MODES[0]
+    q = torch.as_tensor(rng.integers(0, n3 ** 3, NU_SUBSET), device="cuda")
+    ks = [cmcl(n3)[q // (n3 * n3)], cmcl(n3)[(q // n3) % n3], cmcl(n3)[q % n3]]
+    xs = [torch.as_tensor(v, device="cuda") for v in x3]
+    phase = sum(k[:, None] * p[None, :] for k, p in zip(ks, xs))
+    ref = torch.exp(1j * phase) @ torch.view_as_complex(c3).to(torch.complex128)
+    del phase
+    keep["nufft3d1"] = nu_check("nufft3d1 against the direct sum",
+                                torch.view_as_complex(out3).reshape(-1)[q], ref, NU_TOL)
+    f3 = torch.randn(*NU3_MODES, 2, device="cuda", generator=gen)
+    vals3 = facade_call("nufft3d2 128^3 modes, 2^18 points", nu.nufft3d2, *x3, f3,
+                        eps=NU_EPS, expect=(1, 2))
+    require(tuple(vals3.shape) == (NU3_POINTS, 2), f"nufft3d2: {tuple(vals3.shape)}")
+    j = torch.as_tensor(rng.integers(0, NU3_POINTS, NU_SUBSET), device="cuda")
+    es = [torch.exp(-1j * p[j, None] * cmcl(n3)[None, :]) for p in xs]
+    f3z = torch.view_as_complex(f3).to(torch.complex128)
+    ref = torch.einsum("kq,qk->q", torch.einsum(
+        "klq,ql->kq", torch.einsum("klm,qm->klq", f3z, es[2]), es[1]), es[0])
+    keep["nufft3d2"] = nu_check("nufft3d2 against the direct sum",
+                                torch.view_as_complex(vals3)[j], ref, NU_TOL)
+    keep["3d"] = (x3, c3, f3)
+    del es, f3z, xs, ref
+
+    xt = rng.uniform(-np.pi, np.pi, NU1_POINTS)
+    st = rng.uniform(-NU1_BAND, NU1_BAND, NU1_POINTS)
+    ct = torch.randn(NU1_SETS, NU1_POINTS, 2, device="cuda", generator=gen)
+    out1 = facade_call("nufft1d3 2^16 sources x 8 strength sets, 2^16 targets", nu.nufft1d3,
+                       xt, ct, st, eps=NU_EPS, expect=(1, 0))
+    q = torch.as_tensor(rng.integers(0, NU1_POINTS, NU_SUBSET), device="cuda")
+    sd, xd1 = (torch.as_tensor(v, device="cuda") for v in (st, xt))
+    ref = torch.view_as_complex(ct).to(torch.complex128) @ torch.exp(
+        1j * sd[q, None] * xd1[None, :]).T
+    keep["nufft1d3"] = nu_check("nufft1d3 against the direct sum",
+                                torch.view_as_complex(out1)[:, q], ref, NU3_TOL)
+    keep["1d3"] = (xt, ct, st)
+    torch.cuda.empty_cache()
+    return keep
+
+
+def pipeline_fn(sig):
+    """The exported pipeline: stft -> spectral mask -> istft."""
+    from webgpufft_tpu_torch import fft as wfft
+    _, _, z = wfft.stft(sig, **PIPE_STFT)
+    z = z * ((z[..., 0] ** 2 + z[..., 1] ** 2) > 1e-3)[..., None]
+    return wfft.istft(z, **PIPE_STFT)[1][..., :sig.shape[-1]]
+
+
+def phase_linalg(gen):
+    """solve_circulant, matmul_toeplitz and solve_toeplitz on the card, each
+    against scipy.linalg in float64 on the host, and the export of
+    stft -> mask -> istft: saved, loaded and called, against the eager
+    call."""
+    import scipy.linalg as sla
+    import webgpufft_tpu_torch as T
+    la = T.linalg
+    keep = {}
+
+    n, rhs = LA_CIRC
+    c = 0.5 ** np.arange(n)
+    b = torch.randn(n, rhs, device="cuda", generator=gen)
+    x = facade_call(f"solve_circulant n={n}, {rhs} right-hand sides", la.solve_circulant, c, b,
+                    expect=(2, 0))
+    want = sla.solve_circulant(c, host64(b))
+    check_close(f"solve_circulant n={n}", x, torch.as_tensor(want, device="cuda"),
+                "scipy.linalg float64", tol=LA_TOL)
+    keep["solve_circulant"] = (c, b)
+
+    rows, cols, rhs = LA_MATMUL
+    cc, rr = (torch.randn(k, device="cuda", generator=gen, dtype=torch.float64).cpu().numpy()
+              for k in (rows, cols))
+    xm = torch.randn(cols, rhs, device="cuda", generator=gen)
+    y = facade_call(f"matmul_toeplitz ({rows} x {cols}) @ ({cols}, {rhs})", la.matmul_toeplitz,
+                    (cc, rr), xm, expect=(2, 0))
+    want = sla.matmul_toeplitz((cc, rr), host64(xm))
+    check_close(f"matmul_toeplitz ({rows} x {cols})", y, torch.as_tensor(want, device="cuda"),
+                "scipy.linalg float64", tol=LA_TOL)
+    keep["matmul_toeplitz"] = ((cc, rr), xm)
+
+    n, rhs = LA_SOLVE
+    ct = 0.5 ** np.arange(n)
+    bt = torch.randn(n, rhs, device="cuda", generator=gen)
+    xt = facade_call(f"solve_toeplitz n={n}, {rhs} right-hand sides", la.solve_toeplitz, ct, bt,
+                     expect=(4, 0))
+    bh = host64(bt)
+    want = sla.solve_toeplitz(ct, bh)
+    check_close(f"solve_toeplitz n={n}", xt, torch.as_tensor(want, device="cuda"),
+                "scipy.linalg float64", tol=LA_TOL)
+    res = sla.matmul_toeplitz(ct, host64(xt)) - bh
+    err = float(np.abs(res).max() / np.abs(bh).max())
+    print(f"solve_toeplitz n={n}: residual |T x - b| {err:.3e} of max|b| "
+          f"(limit {LA_RES_TOL:.0e})")
+    require(err < LA_RES_TOL, "solve_toeplitz: the solution does not solve the system")
+    keep["solve_toeplitz"] = (ct, bt)
+
+    sig = torch.randn(*PIPE_SHAPE, device="cuda", generator=gen)
+    t0 = time.perf_counter()
+    blob = T.export_pipeline(pipeline_fn, sig)
+    secs = time.perf_counter() - t0
+    pipe = T.load_exported_pipeline(blob)
+    code = pipe.program.graph_module.code
+    print(f"pipeline export stft -> mask -> istft (8, 2^20): {len(blob)} bytes in "
+          f"{secs:.2f} s, platforms {pipe.platforms}, shapes {pipe.shapes}; the program calls "
+          f"wgfft::fused_lines {code.count('torch.ops.wgfft.fused_lines')} times, "
+          f"wgfft::fused_cols {code.count('torch.ops.wgfft.fused_cols')} times")
+    require(pipe.platforms == ("cuda",), f"pipeline: platforms {pipe.platforms}")
+    got = facade_call("loaded pipeline call", pipe, sig)
+    want = pipeline_fn(sig)
+    torch.cuda.synchronize()
+    err = abs_err(got, want)
+    print(f"loaded pipeline: max abs err {err:.3e} vs the eager call (limit 1e-06)")
+    require(tuple(got.shape) == tuple(want.shape) and err < 1e-6,
+            "loaded pipeline disagrees with the eager call")
+    keep["pipeline"] = (pipe, sig)
+    torch.cuda.empty_cache()
+    return keep
+
+
+def timed_pair(label, port, yardstick, what, card):
+    """A new call from idle and queued beside its yardstick, both ways;
+    returns the port's idle ms."""
+    pm = profile.median(profile.time_calls(port, **HEAVY))
+    ym = profile.median(profile.time_calls(yardstick, **HEAVY))
+    pq = profile.median(profile.time_queued(port, **HEAVY_QUEUED))
+    yq = profile.median(profile.time_queued(yardstick, **HEAVY_QUEUED))
+    print(f"time {label}: port {pm:.4f} ms idle / {pq:.4f} ms queued; {what} {ym:.4f} ms "
+          f"idle / {yq:.4f} ms queued [{card}]")
+    return pm
+
+
+def nufft_split(label, points, ns, eps, isign, b, card, strengths=None, modes=None):
+    """Device time of each stage of one type-1 (``strengths``) or type-2
+    (``modes``) call: spread, fine-grid FFT, interpolation, and what the
+    mode extraction / placement and deconvolution add."""
+    from webgpufft_tpu_torch import nufft as nu
+    msp, mrs, hs, taus, total = nu._geometry(ns, eps)
+    pts = nu._points_nd(*points)
+    axes = tuple(range(1, len(ns) + 1)) if len(ns) > 1 else None
+    grid = torch.randn(b, *mrs, 2, device="cuda")
+
+    def q(fn):
+        return profile.median(profile.time_queued(fn, **HEAVY_QUEUED))
+    fft_ms = q(lambda: nu._fine_dft(grid, isign, axes))
+    if strengths is not None:
+        ci, _ = nu._as_strengths(strengths, pts[0].shape[0], strengths.device)
+        spread = q(lambda: nu._spread(ci, pts, hs, taus, msp, mrs, total))
+        tail = q(lambda: nu._modes_from_grid(grid.reshape(b, -1, 2), ns, mrs, hs, taus, isign))
+        print(f"time {label} split: spread (index_add) {spread:.4f} ms, fine-grid FFT "
+              f"{fft_ms:.4f} ms, FFT + mode extraction + deconvolution {tail:.4f} ms "
+              f"(queued device time; {mrs} fine grid x {b}, {(2 * msp) ** len(ns)} taps a point, "
+              f"{nu._point_step(b, pts[0].shape[0], (2 * msp) ** len(ns))} points a chunk) [{card}]")
+        return {"spread_ms": spread, "fft_ms": fft_ms, "tail_ms": tail}
+    fb, _, _ = nu._as_modes(modes, len(ns), modes.device)
+    head = q(lambda: nu._grid_from_modes(fb, ns, mrs, hs, taus, isign))
+    interp = q(lambda: nu._interp(grid.reshape(b, -1, 2), pts, hs, taus, msp, mrs))
+    print(f"time {label} split: deconvolution + mode placement + fine-grid FFT {head:.4f} ms, "
+          f"fine-grid FFT {fft_ms:.4f} ms, interpolation (gather) {interp:.4f} ms "
+          f"(queued device time) [{card}]")
+    return {"head_ms": head, "fft_ms": fft_ms, "interp_ms": interp}
+
+
+def phase_nufft_timing(keep, card):
+    import webgpufft_tpu_torch as T
+    nu = T.nufft
+    x, y, c, f = keep["2d"]
+    x3, c3, f3 = keep["3d"]
+    xt, ct, st = keep["1d3"]
+    what = "the same spread/interp around torch.fft"
+    for label, fn in [
+            ("nufft2d1 256^2, 2^17 points x 8", lambda: nu.nufft2d1(x, y, c, NU2_MODES)),
+            ("nufft2d2 256^2 x 8, 2^17 points", lambda: nu.nufft2d2(x, y, f)),
+            ("nufft3d1 128^3, 2^18 points", lambda: nu.nufft3d1(*x3, c3, NU3_MODES)),
+            ("nufft3d2 128^3, 2^18 points", lambda: nu.nufft3d2(*x3, f3)),
+            ("nufft1d3 2^16 -> 2^16 x 8", lambda: nu.nufft1d3(xt, ct, st))]:
+        def yard(fn=fn):
+            with on_torch_fft():
+                return fn()
+        check_close(f"{label}: the yardstick", yard(), fn(), "the port")
+        timed_pair(label, fn, yard, what, card)
+    nufft_split("nufft2d1 256^2, 2^17 points x 8", (x, y), NU2_MODES, NU_EPS, 1, NU2_COILS, card,
+                strengths=c)
+    nufft_split("nufft2d2 256^2 x 8, 2^17 points", (x, y), NU2_MODES, NU_EPS, -1, NU2_COILS, card,
+                modes=f)
+    nufft_split("nufft3d1 128^3, 2^18 points", x3, NU3_MODES, NU_EPS, 1, 1, card, strengths=c3)
+    nufft_split("nufft3d2 128^3, 2^18 points", x3, NU3_MODES, NU_EPS, -1, 1, card, modes=f3)
+    torch.cuda.empty_cache()
+
+
+def phase_linalg_timing(keep, card):
+    import scipy.linalg as sla
+    import webgpufft_tpu_torch as T
+    la = T.linalg
+    what = "the same on torch.fft"
+    c, b = keep["solve_circulant"]
+    timed_pair("solve_circulant n=16384 x 512", lambda: la.solve_circulant(c, b),
+               lambda: yard_call(la.solve_circulant, c, b), what, card)
+    op, xm = keep["matmul_toeplitz"]
+    timed_pair("matmul_toeplitz (4097 x 4096) @ (4096, 1024)", lambda: la.matmul_toeplitz(op, xm),
+               lambda: yard_call(la.matmul_toeplitz, op, xm), what, card)
+    ct, bt = keep["solve_toeplitz"]
+    timed_pair("solve_toeplitz n=4096 x 256", lambda: la.solve_toeplitz(ct, bt),
+               lambda: yard_call(la.solve_toeplitz, ct, bt), what, card)
+    dense = torch.as_tensor(sla.toeplitz(ct), device="cuda", dtype=torch.float32)
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for the dense solve")
+    dm = profile.median(profile.time_calls(torch.linalg.solve, dense, bt, **HEAVY))
+    dq = profile.median(profile.time_queued(torch.linalg.solve, dense, bt, **HEAVY_QUEUED))
+    err = rel_err(torch.linalg.solve(dense, bt), la.solve_toeplitz(ct, bt))
+    print(f"time solve_toeplitz n=4096 x 256: torch.linalg.solve on the dense matrix (f32, TF32 "
+          f"off) {dm:.4f} ms idle / {dq:.4f} ms queued; its max rel err vs the port's "
+          f"{err:.3e} [{card}]")
+    pipe, sig = keep["pipeline"]
+    timed_pair("pipeline stft -> mask -> istft (8, 2^20)", lambda: pipe(sig),
+               lambda: pipeline_fn(sig), "the eager facade calls", card)
+    torch.cuda.empty_cache()
+
+
+def yard_call(fn, *args):
+    with on_torch_fft():
+        return fn(*args)
+
+
 def main():
     card_name, smi = phase_device()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1839,6 +2214,8 @@ def main():
     drive("runtime", paths, phase_runtime, gen, smi)
     drive("probes", paths, phase_probes, copies, lines_cases, k2=False, probes=True)
     facade = drive("facade", paths, phase_facade, gen)
+    nufft = drive("nufft", paths, phase_nufft, gen)
+    linalg = drive("linalg", paths, phase_linalg, gen, k2=False)
     path_err = phase_path_shapes(gen)
     k1_err = max(k1_err, path_err["fused_lines"])
     k2_err = max(k2_err, path_err["fused_cols"])
@@ -1853,6 +2230,9 @@ def main():
     probe_times = phase_probe_timing(copies, lines_cases, smi)
     phase_facade_timing(facade, smi)
     del facade
+    phase_nufft_timing(nufft, smi)
+    phase_linalg_timing(linalg, smi)
+    del nufft, linalg
     # each kernel's record carries the times of its headline shape, and
     # under "shapes" those of every shape timed
     order = list(counters())

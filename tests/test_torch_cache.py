@@ -84,18 +84,60 @@ def test_snapshot_from_port_imports_into_jax_package(opts):
 
 def test_measured_records_cross_packages_without_applying():
     """A measured decision is keyed by device identity: the other package's
-    records ride along in the snapshot and never match this one's devices."""
+    records ride along in the snapshot and never match this one's devices.
+    The snapshot's plans are not built (``build=False``): a built one could
+    be the very spec the port's timing then picks, and ``create_plan`` notes
+    the measurement only on a plan it creates, so the outcome would rest on
+    which candidate wins the clock."""
     own = W.PlanCache()
     W.create_plan({"type": "c2c", "shape": [512], "batch": 4,
                    "tuning": {"rigor": "measure"}}, cache=own)
     snap = json.loads(json.dumps(W.export_plan_cache_snapshot(own)))
     fresh = T.PlanCache()
-    T.import_plan_cache_snapshot(snap, cache=fresh, device="cpu")
+    T.import_plan_cache_snapshot(snap, cache=fresh, build=False, device="cpu")
     assert fresh.measured == snap["measured"]
     p = T.create_plan({"type": "c2c", "shape": [512], "batch": 4,
                        "tuning": {"rigor": "measure"}}, device="cpu", cache=fresh)
     assert any(r.startswith("measured-winner:") for r in p.route.reasons)
     assert len(fresh.measured) == 2
+
+
+@pytest.mark.parametrize("winner", ["imported", "another"])
+def test_measured_create_after_a_built_import(monkeypatch, winner):
+    """The case ``build=False`` above steps around, pinned with both
+    packages' winners forced: after an import that built its plans (the JAX
+    package's winner, maxSubLength=16), a measured create records its
+    decision either way.  A winner the import already built comes
+    back as that very plan with its route untouched (it may be shared); a
+    winner the call builds carries the ``measured-winner:`` note."""
+    import webgpufft_tpu.runtime.measure as JM
+    from webgpufft_tpu_torch.runtime import measure as M
+    from webgpufft_tpu_torch.spec import normalize_spec
+    opts = {"type": "c2c", "shape": [512], "batch": 4, "tuning": {"rigor": "measure"}}
+    monkeypatch.setattr(JM, "_chain_time", lambda plan, x, **kw: (
+        0.5 if plan.spec.tuning.max_sub_length == 16 else 1.0))
+    own = W.PlanCache()
+    W.create_plan(opts, cache=own)
+    snap = json.loads(json.dumps(W.export_plan_cache_snapshot(own)))
+    fresh = T.PlanCache()
+    T.import_plan_cache_snapshot(snap, cache=fresh, device="cpu")
+    (imported,) = fresh.specs()
+    assert imported.tuning.max_sub_length == 16
+    held = fresh.get(imported, CPU)
+    before = held.route.reasons
+    other = 16 if winner == "imported" else 64
+    monkeypatch.setattr(M, "_call_time", lambda plan, x: (
+        0.5 if plan.spec.tuning.max_sub_length == other else 1.0))
+    p = T.create_plan(opts, device="cpu", cache=fresh)
+    assert len(fresh.measured) == 2
+    rec = fresh.measured[M.measure_key(normalize_spec(opts), CPU)]
+    assert rec["trials_ms"][rec["winner"]] == 500.0
+    assert rec["winner"] == f"maxSubLength={other}"
+    if winner == "imported":
+        assert p is held and p.route.reasons == before
+    else:
+        assert p is not held and p.spec.tuning.max_sub_length == other
+        assert "measured-winner:maxSubLength=64@2.00x" in p.route.reasons
 
 
 def test_snapshot_rejects_stale_chunk_bound():

@@ -797,3 +797,75 @@ def test_wrappers_log_what_they_launched_while_a_log_is_set(cuda_device):
     ref = fused.fused_lines_reference(x.reshape(256, 256, 2), tables)
     assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 
+
+
+# ---------------------------------------------------------------------------
+# the dispatcher ops, the exported pipeline, NUFFT and linalg on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kernel,shape,n", [("fused_lines", (64, 1024, 2), 1024),
+                                            ("fused_cols", (4, 256, 512), 256)])
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_kernel_ops_opcheck_on_the_card(kernel, shape, n, adjoint, cuda_device):
+    """``torch.library.opcheck`` of the CUDA implementations (schema, fake
+    implementation, autograd, AOT dispatch), then each against its plain
+    version on the same input, and the op counting its launch."""
+    mod = fused if kernel == "fused_lines" else fused_cols
+    consts = (fused.lines_consts(n, "forward", 1.0, "p") if mod is fused
+              else fused_cols.cols_consts(n, "forward", 1.0, "p"))
+    named = _dev_tables(consts, cuda_device)
+    tables = mod.table_list(named)
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    x = torch.randn(*shape, device=cuda_device, generator=gen)
+    torch.library.opcheck(getattr(mod, f"{kernel}_op"), (x.clone().requires_grad_(), tables,
+                                                         adjoint))
+    before = getattr(mod, kernel).launches
+    y = getattr(torch.ops.wgfft, kernel)(x, tables, adjoint)
+    torch.cuda.synchronize()
+    assert getattr(mod, kernel).launches == before + 1
+    plain = fused.fused_lines_reference if mod is fused else fused_cols.fused_cols_reference
+    assert_close(y.cpu(), plain(x, named, adjoint).cpu())
+
+
+def test_exported_pipeline_counts_its_launches_on_the_card(cuda_device):
+    """A pipeline exported on the card and loaded back launches K1 through
+    the op at every call, counted there, and equals the eager call."""
+    x = torch.randn(8, 1 << 14, device=cuda_device)
+
+    def pipe_fn(sig):
+        _, _, z = T.fft.stft(sig, nperseg=1024, noverlap=512)
+        z = z * ((z[..., 0] ** 2 + z[..., 1] ** 2) > 1e-3)[..., None]
+        return T.fft.istft(z, nperseg=1024, noverlap=512)[1]
+
+    pipe = T.load_exported_pipeline(T.export_pipeline(pipe_fn, x))
+    assert pipe.platforms == ("cuda",)
+    before = fused.fused_lines.launches
+    got = pipe(x)
+    torch.cuda.synchronize()
+    assert fused.fused_lines.launches > before
+    assert_close(got.cpu(), pipe_fn(x).cpu(), 1e-6)
+
+
+def test_nufft2d1_on_the_card_matches_the_cpu(cuda_device):
+    import numpy as np
+    rng = np.random.default_rng(5)
+    m, n = 2000, (24, 32)
+    x, y = rng.uniform(0, 2 * np.pi, m), rng.uniform(0, 2 * np.pi, m)
+    c = rng.standard_normal((3, m, 2)).astype(np.float32)
+    before = (fused.fused_lines.launches, fused_cols.fused_cols.launches)
+    got = T.nufft.nufft2d1(x, y, torch.from_numpy(c).to(cuda_device), n)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda"
+    assert fused.fused_lines.launches > before[0] and fused_cols.fused_cols.launches > before[1]
+    want = T.nufft.nufft2d1(x, y, torch.from_numpy(c), n)
+    assert_close(got.cpu(), want)
+
+
+def test_solve_toeplitz_on_the_card_matches_scipy(cuda_device):
+    import numpy as np
+    import scipy.linalg as sla
+    c = 0.5 ** np.arange(512)
+    b = np.random.default_rng(6).standard_normal((512, 4))
+    got = T.linalg.solve_toeplitz(c, torch.from_numpy(b).to(cuda_device))
+    assert got.device.type == "cuda"
+    assert_close(got.cpu(), sla.solve_toeplitz(c, b), 5e-4)

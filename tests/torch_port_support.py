@@ -159,3 +159,53 @@ def torch_fft_stepper3(n, nu, dt, device):
     finally:
         sys.path.remove(repo)
     return chip_smoke.torch_fft_stepper3(n, nu, dt, device)
+
+
+def same(got, want, label=""):
+    """Equal results, element for element (NaN equal to NaN), through
+    tuples, lists and dicts; tensors are compared as numpy."""
+    if isinstance(got, torch.Tensor):
+        got = to_numpy(got)
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and got.keys() == want.keys(), label
+        for k in want:
+            same(got[k], want[k], f"{label}[{k!r}]")
+    elif isinstance(want, (tuple, list)):
+        assert isinstance(got, (tuple, list)) and len(got) == len(want), label
+        for i, (g, w) in enumerate(zip(got, want)):
+            same(g, w, f"{label}[{i}]")
+    else:
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want), err_msg=label)
+
+
+class BothModules:
+    """Stands for one of the JAX package's host-numpy modules in its own
+    test cases: every function called through it runs the port's copy and
+    the JAX package's on the same arguments, holds the two results equal
+    (``same``: both run the same float64 host code) and returns the port's.
+    When the JAX function raises, the port's must raise an exception of the
+    same class name and message; the JAX package's then propagates, so a
+    case's ``pytest.raises`` names the class it imported."""
+
+    def __init__(self, port, reference):
+        self._port, self._reference = port, reference
+
+    def __getattr__(self, name):
+        import copy
+        port_fn, ref_fn = getattr(self._port, name), getattr(self._reference, name)
+        if not callable(port_fn):
+            return port_fn
+
+        def call(*args, **kw):
+            try:
+                want = ref_fn(*copy.deepcopy(args), **copy.deepcopy(kw))
+            except Exception as ref_err:
+                with pytest.raises(Exception) as port_err:
+                    port_fn(*args, **kw)
+                assert (type(port_err.value).__name__, str(port_err.value)) == (
+                    type(ref_err).__name__, str(ref_err)), name
+                raise
+            got = port_fn(*args, **kw)
+            same(got, want, f"{self._port.__name__}.{name}")
+            return got
+        return call

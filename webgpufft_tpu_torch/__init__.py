@@ -29,10 +29,15 @@ tensors (``fftapi.py``; a tensor runs on the device it lives on, anything
 else on the facade's default device, ``"cuda"``), with ``windows``,
 ``ShortTimeFFT``, the scipy.fft uarray backend, the ``fftpack`` and
 ``pyfftw`` namespaces and a native ``torch_fft`` namespace beside it.
+Above the facade: ``nufft`` (types 1-3 in 1-3 dimensions), ``linalg``
+(circulant and Toeplitz solves and products), and the host DSP modules
+``iirdesign``, ``peaks`` and ``waveforms``.  ``export_pipeline`` /
+``load_exported_pipeline`` carry any chain of facade calls as one
+``torch.export`` program, in which K1 and K2 are the dispatcher ops
+``wgfft::fused_lines`` / ``wgfft::fused_cols`` that importing this package
+registers.
 
-``mesh=`` raises ``PlanError`` naming the ROADMAP item that ports it; so do
-``export_pipeline`` / ``load_exported_pipeline`` (the pipeline export
-itself is what waits, the remainder of ROADMAP P10) and
+``mesh=`` raises ``PlanError`` naming the ROADMAP item that ports it; so does
 ``export_distributed_plan``.  The package imports torch and numpy (and
 scipy lazily, where the JAX package does), never JAX.
 """
@@ -51,13 +56,15 @@ from .runtime.cache import (PlanCache, default_cache,
                             enable_persistent_compilation_cache,
                             export_plan_cache_snapshot,
                             import_plan_cache_snapshot)
-from .runtime.aot import (ExportedPlan, export_distributed_plan, export_pipeline,
-                          export_plan, load_exported_pipeline, load_exported_plan)
+from .runtime.aot import (ExportedPipeline, ExportedPlan, export_distributed_plan,
+                          export_pipeline, export_plan, load_exported_pipeline,
+                          load_exported_plan)
 from .core.cplx import interleave, uninterleave
 from .utils.bufferview import BufferView
 from . import fftapi
 from . import fftapi as fft
 from . import fftpack, pyfftw, torch_fft, windows
+from . import iirdesign, linalg, nufft, peaks, waveforms
 from .scipy_backend import (ScipyFftBackend, install_scipy_fft_backend,
                             scipy_fft_backend, uninstall_scipy_fft_backend)
 from .shorttime import ShortTimeFFT
@@ -70,7 +77,8 @@ __all__ = [
     "export_plan_cache_snapshot", "import_plan_cache_snapshot",
     "enable_persistent_compilation_cache",
     "export_plan", "load_exported_plan", "ExportedPlan",
-    "export_pipeline", "load_exported_pipeline", "export_distributed_plan",
+    "export_pipeline", "load_exported_pipeline", "ExportedPipeline",
+    "export_distributed_plan",
     "interleave", "uninterleave", "BufferView",
     "upload_complex", "download_complex",
     "create_fftconv_channel_lane_preset",
@@ -79,6 +87,7 @@ __all__ = [
     "fft", "fftapi", "windows", "ShortTimeFFT", "ScipyFftBackend",
     "scipy_fft_backend", "install_scipy_fft_backend",
     "uninstall_scipy_fft_backend", "torch_fft", "fftpack", "pyfftw",
+    "nufft", "linalg", "iirdesign", "peaks", "waveforms",
 ]
 
 

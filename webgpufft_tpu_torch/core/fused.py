@@ -30,11 +30,23 @@ set as needed, so the backward of a CUDA tensor is a launch of the same
 kernel (F^H g = conj(F conj g): the adjoint launch conjugates on load and on
 store and reads the same tables), double backward works, and the CPU holds
 the hand-written rules against autograd through the plain version.
+
+Dispatcher op.  The pass is also the ``torch.library`` custom op
+``torch.ops.wgfft.fused_lines(x, tables, adjoint)`` (tables as a list in
+``TABLE_NAMES`` order): its CUDA implementation launches the kernel, its CPU
+implementation is the plain version, its fake implementation gives the
+shape to ``torch.export`` and its autograd is the adjoint launch.  A tensor
+under a tracing mode (``torch.export``'s fake and proxy tensors) reaches the
+kernel only through the op, so an exported program records the op and
+counts a launch each time it runs.  A plain tensor outside any mode
+(``radix.plain``), tracked or not, launches directly: the dispatcher's
+host work is paid by no plan call.  The launch counter and the ``seen`` log
+live in ``_launch`` alone, which both routes reach.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -139,11 +151,18 @@ def fused_lines_chain_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor]
     return radix.radix_chain_reference(x, radix.radix_chain(x.shape[1]), tables, adjoint)
 
 
-def _run(x: torch.Tensor, tables: Dict[str, torch.Tensor], adjoint: bool) -> torch.Tensor:
-    """The pass on contiguous ``x``, outside autograd: the plain version on a
-    CPU tensor, one kernel launch (counted) on a CUDA tensor."""
-    if x.device.type == "cpu":
-        return fused_lines_reference(x, tables, adjoint)
+def _check_cuda(x: torch.Tensor) -> None:
+    """Raise on what the kernel does not take."""
+    if (x.dtype != torch.float32 or x.dim() != 3 or x.shape[2] != 2 or x.shape[0] < 1
+            or not x.is_contiguous()):
+        raise ValueError(
+            f"fused_lines: x must be a contiguous float32 (lines, N, 2) tensor, "
+            f"got {x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
+
+
+def _launch(x: torch.Tensor, tables: Dict[str, torch.Tensor], adjoint: bool) -> torch.Tensor:
+    """One kernel launch on contiguous CUDA ``x``, counted: the only place
+    that launches K1 for a plan, the op and ``FusedLines``."""
     n = x.shape[1]
     ptrs = _build.table_ptrs(x, tables, {"cw": (n, 2), "cp": (2,)}, "fused_lines")
     lib = _build.library()
@@ -159,6 +178,46 @@ def _run(x: torch.Tensor, tables: Dict[str, torch.Tensor], adjoint: bool) -> tor
     return y
 
 
+def _run(x: torch.Tensor, tables: Dict[str, torch.Tensor], adjoint: bool) -> torch.Tensor:
+    """The pass on contiguous ``x``, outside autograd: the plain version on a
+    CPU tensor, one kernel launch (counted) on a CUDA tensor."""
+    if x.device.type == "cpu":
+        return fused_lines_reference(x, tables, adjoint)
+    return _launch(x, tables, adjoint)
+
+
+def table_list(tables: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+    """The op's table argument: ``tables`` in ``TABLE_NAMES`` order."""
+    return radix.table_list(tables, TABLE_NAMES, "fused_lines")
+
+
+@torch.library.custom_op("wgfft::fused_lines", mutates_args=(), device_types="cpu")
+def fused_lines_op(x: torch.Tensor, tables: List[torch.Tensor], adjoint: bool) -> torch.Tensor:
+    """The pass as a dispatcher op; this body is the CPU implementation,
+    the plain version."""
+    return fused_lines_reference(x.contiguous(), dict(zip(TABLE_NAMES, tables)), adjoint)
+
+
+@fused_lines_op.register_kernel("cuda")
+def _fused_lines_cuda(x, tables, adjoint):
+    x = x.contiguous()
+    _check_cuda(x)
+    return _launch(x, dict(zip(TABLE_NAMES, tables)), adjoint)
+
+
+radix.register_pass_op(fused_lines_op)
+
+
+def _pass(x: torch.Tensor, tables: Dict[str, torch.Tensor], adjoint: bool) -> torch.Tensor:
+    """The pass outside autograd: launched directly on a plain tensor that no
+    dispatch mode sees, through the op otherwise (the fake tensors of a
+    ``torch.export`` trace), so that a trace records the op and never calls
+    the launch."""
+    if radix.plain(x):
+        return _run(x, tables, adjoint)
+    return fused_lines_op(x, table_list(tables), adjoint)
+
+
 class FusedLines(torch.autograd.Function):
     """``FusedLines.apply(x, tables, adjoint)``: the pass with its autodiff
     and batching rules (see the module docstring).  ``x`` is contiguous
@@ -166,7 +225,7 @@ class FusedLines(torch.autograd.Function):
 
     @staticmethod
     def forward(x, tables, adjoint):
-        return _run(x.contiguous(), tables, adjoint)
+        return _pass(x.contiguous(), tables, adjoint)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -195,20 +254,17 @@ def fused_lines(x: torch.Tensor, tables: Dict[str, torch.Tensor],
     conjugate transpose of that transform.  A CUDA tensor runs the CUDA
     kernel (and counts one launch); a CPU tensor runs
     ``fused_lines_reference``.  Differentiable: the backward of a CUDA
-    tensor is one more launch of the kernel."""
+    tensor is one more launch of the kernel.  Under ``torch.export`` the
+    call is recorded as the op ``wgfft::fused_lines``."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_lines: unsupported device {x.device}")
-    if x.device.type == "cuda" and (
-            x.dtype != torch.float32 or x.dim() != 3 or x.shape[2] != 2 or x.shape[0] < 1
-            or not x.is_contiguous()):
-        raise ValueError(
-            f"fused_lines: x must be a contiguous float32 (lines, N, 2) tensor, "
-            f"got {x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
-    if not radix.tracked(x):
-        # nothing differentiates or batches through x: skip Function.apply,
-        # whose host work would be paid by every call
-        return _run(x, tables, adjoint)
-    return FusedLines.apply(x, tables, adjoint)
+    if x.device.type == "cuda":
+        _check_cuda(x)
+    if radix.tracked(x):
+        return FusedLines.apply(x, tables, adjoint)
+    # nothing differentiates or batches through x: skip Function.apply, whose
+    # host work would be paid by every call
+    return _pass(x, tables, adjoint)
 
 
 fused_lines.launches = 0

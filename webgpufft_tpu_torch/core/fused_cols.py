@@ -22,12 +22,14 @@ Autodiff: as for K1 (``core/fused.py``).  ``FusedCols`` is the one
 ``torch.autograd.Function`` for both devices; its backward is the adjoint
 launch of the same kernel on the same tables (same H and scale, opposite
 direction), its JVP the pass on the tangent, and an extra batch dim folds
-into ``pre``.
+into ``pre``.  As K1, the pass is also the ``torch.library`` custom op
+``torch.ops.wgfft.fused_cols(x, tables, adjoint)``, the route of a tensor
+under ``torch.export`` and of ``FusedCols``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -132,11 +134,18 @@ def fused_cols_chain_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor],
     return y.reshape(pre, h, lanes)
 
 
-def _run(x: torch.Tensor, tables: Dict[str, torch.Tensor], adjoint: bool) -> torch.Tensor:
-    """The pass on contiguous ``x``, outside autograd: the plain version on a
-    CPU tensor, one kernel launch (counted) on a CUDA tensor."""
-    if x.device.type == "cpu":
-        return fused_cols_reference(x, tables, adjoint)
+def _check_cuda(x: torch.Tensor) -> None:
+    """Raise on what the kernel does not take."""
+    if (x.dtype != torch.float32 or x.dim() != 3 or x.shape[2] % 2 or min(x.shape) < 1
+            or not x.is_contiguous()):
+        raise ValueError(
+            f"fused_cols: x must be a contiguous float32 (pre, H, L) tensor with L even, "
+            f"got {x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
+
+
+def _launch(x: torch.Tensor, tables: Dict[str, torch.Tensor], adjoint: bool) -> torch.Tensor:
+    """One kernel launch on contiguous CUDA ``x``, counted: the only place
+    that launches K2 for a plan, the op and ``FusedCols``."""
     h = x.shape[1]
     ptrs = _build.table_ptrs(x, tables, {"cw": (h, 2), "cp": (2,)}, "fused_cols")
     lib = _build.library()
@@ -152,6 +161,46 @@ def _run(x: torch.Tensor, tables: Dict[str, torch.Tensor], adjoint: bool) -> tor
     return y
 
 
+def _run(x: torch.Tensor, tables: Dict[str, torch.Tensor], adjoint: bool) -> torch.Tensor:
+    """The pass on contiguous ``x``, outside autograd: the plain version on a
+    CPU tensor, one kernel launch (counted) on a CUDA tensor."""
+    if x.device.type == "cpu":
+        return fused_cols_reference(x, tables, adjoint)
+    return _launch(x, tables, adjoint)
+
+
+def table_list(tables: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+    """The op's table argument: ``tables`` in ``TABLE_NAMES`` order."""
+    return radix.table_list(tables, TABLE_NAMES, "fused_cols")
+
+
+@torch.library.custom_op("wgfft::fused_cols", mutates_args=(), device_types="cpu")
+def fused_cols_op(x: torch.Tensor, tables: List[torch.Tensor], adjoint: bool) -> torch.Tensor:
+    """The pass as a dispatcher op; this body is the CPU implementation,
+    the plain version."""
+    return fused_cols_reference(x.contiguous(), dict(zip(TABLE_NAMES, tables)), adjoint)
+
+
+@fused_cols_op.register_kernel("cuda")
+def _fused_cols_cuda(x, tables, adjoint):
+    x = x.contiguous()
+    _check_cuda(x)
+    return _launch(x, dict(zip(TABLE_NAMES, tables)), adjoint)
+
+
+radix.register_pass_op(fused_cols_op)
+
+
+def _pass(x: torch.Tensor, tables: Dict[str, torch.Tensor], adjoint: bool) -> torch.Tensor:
+    """The pass outside autograd: launched directly on a plain tensor that no
+    dispatch mode sees, through the op otherwise (the fake tensors of a
+    ``torch.export`` trace), so that a trace records the op and never calls
+    the launch."""
+    if radix.plain(x):
+        return _run(x, tables, adjoint)
+    return fused_cols_op(x, table_list(tables), adjoint)
+
+
 class FusedCols(torch.autograd.Function):
     """``FusedCols.apply(x, tables, adjoint)``: the pass with its autodiff
     and batching rules.  ``x`` is contiguous (pre, H, L); gradients and
@@ -159,7 +208,7 @@ class FusedCols(torch.autograd.Function):
 
     @staticmethod
     def forward(x, tables, adjoint):
-        return _run(x.contiguous(), tables, adjoint)
+        return _pass(x.contiguous(), tables, adjoint)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -191,15 +240,11 @@ def fused_cols(x: torch.Tensor, tables: Dict[str, torch.Tensor],
     kernel."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_cols: unsupported device {x.device}")
-    if x.device.type == "cuda" and (
-            x.dtype != torch.float32 or x.dim() != 3 or x.shape[2] % 2 or min(x.shape) < 1
-            or not x.is_contiguous()):
-        raise ValueError(
-            f"fused_cols: x must be a contiguous float32 (pre, H, L) tensor with L even, "
-            f"got {x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
-    if not radix.tracked(x):
-        return _run(x, tables, adjoint)
-    return FusedCols.apply(x, tables, adjoint)
+    if x.device.type == "cuda":
+        _check_cuda(x)
+    if radix.tracked(x):
+        return FusedCols.apply(x, tables, adjoint)
+    return _pass(x, tables, adjoint)
 
 
 fused_cols.launches = 0

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import math
 from functools import lru_cache
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -204,6 +204,39 @@ def tracked(x: torch.Tensor) -> bool:
     return ((x.requires_grad and torch.is_grad_enabled())
             or torch._C._are_functorch_transforms_active()
             or torch.autograd.forward_ad._current_level >= 0)
+
+
+def plain(x: torch.Tensor) -> bool:
+    """May a kernel wrapper launch on ``x`` directly, without the dispatcher:
+    is it a plain tensor that no tracing mode sees (no fake or functional
+    tensor, no dispatch mode on the stack, as under ``torch.export``)?"""
+    return type(x) is torch.Tensor and torch._C._len_torch_dispatch_stack() == 0
+
+
+def table_list(tables: Dict[str, torch.Tensor], names: Sequence[str],
+               kernel: str) -> List[torch.Tensor]:
+    """A pass op's table argument: ``tables`` in the order of ``names``."""
+    for name in names:
+        if name not in tables:
+            raise ValueError(f"{kernel}: missing table {name!r}")
+    return [tables[name] for name in names]
+
+
+def register_pass_op(op) -> None:
+    """The fake implementation and the autograd of a pass op (K1, K2): the
+    output is a new contiguous tensor of x's shape, and the backward is the
+    op's adjoint launch on the same tables (the pass is y = s F x, so
+    g_x = s F^H g_y)."""
+    op.register_fake(
+        lambda x, tables, adjoint: torch.empty_like(x, memory_format=torch.contiguous_format))
+
+    def setup_context(ctx, inputs, output):
+        _, ctx.tables, ctx.adjoint = inputs
+
+    def backward(ctx, g):
+        return op(g.contiguous(), ctx.tables, not ctx.adjoint), [None] * len(ctx.tables), None
+
+    op.register_autograd(backward, setup_context=setup_context)
 
 
 def radix_chain_reference(x: torch.Tensor, radices: Sequence[int],

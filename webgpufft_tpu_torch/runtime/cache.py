@@ -22,6 +22,7 @@ moves that directory.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
@@ -40,17 +41,30 @@ SNAPSHOT_VERSION = 3
 
 # A scope in which new tensors are plain tensors.  A plan's first use may
 # happen inside a caller's ``torch.func.grad`` / ``vmap`` / ``jvp`` (the facade
-# builds plans lazily); tensors made there would be wrappers of that
-# transform's level, and the cache outlives the transform.  The name is
-# private in torch: without it the cache would keep such wrappers silently, so
-# the import fails instead.
+# builds plans lazily), or inside ``torch.export`` tracing, where every new
+# tensor is a fake tensor under the trace's fake and proxy modes; tensors made
+# there would be wrappers of that transform's level or fakes of that trace,
+# and the cache outlives both.  ``_DisableFuncTorch`` leaves the transforms,
+# ``_disable_current_modes`` every dispatch mode (the tables then enter a
+# trace as constants).  The names are private in torch: without them the
+# cache would keep such tensors silently, so the import fails instead.
 try:
-    _outside_transforms = torch._C._DisableFuncTorch
-except AttributeError as e:  # pragma: no cover - depends on the torch build
+    from torch.utils._python_dispatch import _disable_current_modes
+    _DisableFuncTorch = torch._C._DisableFuncTorch
+except (AttributeError, ImportError) as e:  # pragma: no cover - depends on the torch build
     raise ImportError(
-        f"webgpufft_tpu_torch: torch {torch.__version__} has no "
-        "torch._C._DisableFuncTorch; plans built lazily inside torch.func.grad / "
-        "vmap / jvp could not be kept out of the transform") from e
+        f"webgpufft_tpu_torch: torch {torch.__version__} lacks "
+        "torch._C._DisableFuncTorch or torch.utils._python_dispatch."
+        "_disable_current_modes; plans built lazily inside torch.func "
+        "transforms or torch.export could not be kept out of them") from e
+
+
+@contextlib.contextmanager
+def _outside_transforms():
+    """Build what outlives the call here: no ``torch.func`` transform and no
+    dispatch mode (fake, proxy) sees the tensors made inside."""
+    with _DisableFuncTorch(), _disable_current_modes():
+        yield
 
 
 class PlanCache:
