@@ -6,9 +6,13 @@ Profiles, with ``torch.profiler`` (CPU and CUDA activities), a few calls of
 the headline c2c plan ([1024] x 4096), the c2c 256^3 plan, the dct2
 [512, 512] x 8 plan, the fftconv [1000, 1000] x 8 plan (25 x 25 taps), the
 overlap-save plan on [2^20], the Navier-Stokes step's r2c (256^3 batch 3) and
-c2r (256^3 batch 6) plans, the solver step itself, and the reverse-mode
+c2r (256^3 batch 6) plans, the solver step itself, the reverse-mode
 gradient of the kinetic energy after one step with respect to the initial
-velocity (forward + backward), and prints for each: device time per call,
+velocity (forward + backward), and the DSP toolboxes' device paths on the
+(8, 2^22) signal of chip_smoke's signal path: one section of the parallel-
+prefix IIR route, sosfilt of butter(8, 0.1) (four sections), FIR lfilter of
+129 taps, and dlsim of an 8-state system over 1000 steps (the host-driven
+loop), and prints for each: device time per call,
 the device's busy share (device time over the host's time for the same
 calls, synchronised at the end, profiler off), and the device time per call
 of every kernel by name (operator rows repeat their kernels' time and are
@@ -123,6 +127,26 @@ def main():
     profile_calls("NS-3D energy gradient (forward + backward) 256^3", torch.func.grad(energy), u0)
     profile_calls("NS-3D energy gradient 256^3 on torch.fft",
                   torch.func.grad(lambda u: energy(u, fstep, fto_s, fto_p)), u0)
+    del u0
+
+    # the DSP toolboxes on chip_smoke's signal
+    import numpy as np
+    from webgpufft_tpu_torch import filtering as F
+    sig = torch.randn(8, 1 << 22, device="cuda", generator=gen)
+    sos = F.butter(8, 0.1, output="sos")
+    z0 = torch.zeros(8, 2, device="cuda")
+    profile_calls("parallel-prefix IIR, one K = 2 section, (8, 2^22)",
+                  lambda v: F._iir_assoc(sos[0, :3], sos[0, 3:], v, z0), sig)
+    profile_calls("sosfilt butter(8, 0.1), (8, 2^22)", lambda v: F.sosfilt(sos, v), sig)
+    fir = F.firwin(129, 0.2)
+    profile_calls("lfilter firwin(129, 0.2), (8, 2^22)", lambda v: F.lfilter(fir, 1.0, v), sig)
+    rng = np.random.default_rng(1234)
+    a = rng.standard_normal((8, 8))
+    a -= (np.linalg.eigvals(a).real.max() + 0.5) * np.eye(8)
+    sysd = T.ltisys.cont2discrete((a, rng.standard_normal((8, 2)), rng.standard_normal((2, 8)),
+                                   np.zeros((2, 2))), 2e-3)
+    u = rng.standard_normal((1000, 2))
+    profile_calls("dlsim 8 states, 2 inputs, 1000 steps", lambda v: T.ltisys.dlsim(sysd, v), u)
 
 
 if __name__ == "__main__":

@@ -8,7 +8,7 @@ it, and at lengths that stress the radix chain: the shared-memory limit, every
 odd radix, one-butterfly lengths, a ragged column count, small digits), and
 holds each kernel's adjoint launch (the backward of autograd) against the
 plain adjoint and the dot test <K x, u> = <x, K^H u>, holds the three probe
-kernels (``webgpufft_tpu_torch.probes``) against theirs, and drives twelve
+kernels (``webgpufft_tpu_torch.probes``) against theirs, and drives fifteen
 paths through the port's entry points, each with the kernels' launch counts
 set to 0 just before it and read just after (each must launch the kernels
 named, and no other); while a path runs, K1 and K2 also log the shape and
@@ -67,7 +67,20 @@ held against the plain version once more, with the path's own tables:
   ``scipy.signal`` in float64, ``torch_fft.fft2`` on (64, 1024,
   1024) with its gradient against ``torch.fft.fft2``'s, and the bridges with
   numpy in and out (``scipy.fft.fft`` under the backend, ``pyfftw.FFTW``,
-  ``fftpack.rfft``) (K1, K2).
+  ``fftpack.rfft``) (K1, K2);
+- nufft and linalg: see ``phase_nufft`` and ``phase_linalg`` (K1, K2; K1);
+- signal: the DSP toolboxes (``filtering``, ``splines``, ``ndimage``,
+  ``ltisys``) at full size with TF32 switched ON around them (the library
+  scopes it off for its products): IIR and SOS filtering, zero-phase
+  filtering, FIR ``lfilter`` and ``savgol_filter`` on (8, 2^22), ``wiener``,
+  ``medfilt2d``, ``cspline2d`` and ``spline_filter`` on (2048, 2048), the
+  Fourier filters on ``fft2`` spectra, the symmetric IIR smoothers and spline
+  evaluation, ``lsim`` / ``dlsim`` / ``step`` / ``impulse``, ``freqz``,
+  ``sosfreqz`` and the control-toolkit example, each call's K1/K2 launches
+  pinned (the recurrences and the other torch-op calls launch none) and each
+  result against scipy in float64 on the host (K1, K2).  After the timing
+  phases, the A/B of the two IIR routes that sets
+  ``filtering.IIR_ASSOC_MIN_N_CUDA``.
 
 Plans and kernels are checked against ``torch.fft`` as an independent
 oracle, as are the Rader, Bluestein and four-step axes and the odd-length
@@ -2182,6 +2195,370 @@ def yard_call(fn, *args):
         return fn(*args)
 
 
+# ---------------------------------------------------------------------------
+# signal: the DSP toolboxes (filtering, splines, ndimage, ltisys)
+# ---------------------------------------------------------------------------
+
+SIG_SHAPE = (8, 1 << 22)          # the facade's stft signal: 8 channels of 2^22 samples
+SIG_SUBSET = [0, 5]               # channels held against scipy in float64 on the host
+SIG_IMAGE = (2048, 2048)
+SIG_SPECTRA = (8, 1024, 1024)
+SIG_SYMIIR = (64, 1 << 16)
+SIG_EVAL_POINTS = 1 << 20
+SIG_SS = (8, 2, 10 ** 4)          # states, inputs, steps of the simulated system
+SIG_FREQZ_N = 1 << 16
+SIG_PRECISION = 1e-6              # the spline boundary sums' truncation, both sides
+# bars, as fractions of max|ref|: the JAX package's tests' (tests/test_filtering.py,
+# test_splines.py, test_ndimage.py, test_ltisys.py, test_iirdesign.py:211)
+SIG_TOL = {"filter": 1e-5, "filtfilt": 5e-4, "sosfiltfilt": 5e-4, "wiener": 1e-4,
+           "spline": 1e-5, "smoothing spline": 1e-4, "ndimage": 3e-5, "freqz": 3e-5,
+           "lsim": 2e-4, "response": 5e-4, "example": 1e-5}
+# the (K1, K2) launches of each call of the signal path that runs the plan
+# layer (the calls that launch none are marked in phase_signal): overlap-save
+# blocks forward and back on K1; fft2 / ifft2 one K2 pass (axis 1) and one K1
+# pass (axis 2) each
+SIGNAL_LAUNCHES = {
+    "lfilter firwin(129, 0.2), (8, 2^22)": (2, 0),
+    "savgol_filter 101, 3, interp, (8, 2^22)": (2, 0),
+    "spline_filter lmbda 5, (2048, 2048)": (3, 0),
+    "fft2 (8, 1024, 1024)": (1, 1),
+    **{f"ifft2 after {name}": (1, 1) for name in ("fourier_gaussian", "fourier_uniform",
+                                                   "fourier_ellipsoid", "fourier_shift")}}
+IIR_AB_N = [1 << k for k in range(3, 15)]   # the gate's A/B: 2^3 .. 2^14 samples
+IIR_AB_LINES = 8
+
+
+def sig_check(label, got, want, tol):
+    """A card result (tensor, or numpy from a host-returning call) against
+    a float64 host reference: max|got - want| / max|want| <= tol."""
+    torch.cuda.synchronize()
+    g = got.detach().double().cpu().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got, dtype=np.float64)
+    want = np.asarray(want)
+    if np.iscomplexobj(want):
+        g = g[..., 0] + 1j * g[..., 1]
+    require(g.shape == want.shape, f"{label}: shape {g.shape}, expected {want.shape}")
+    require(bool(np.isfinite(g).all()), f"{label}: non-finite output")
+    err = float(np.abs(g - want).max() / max(np.abs(want).max(), 1e-30))
+    print(f"signal {label}: max rel err {err:.3e} vs scipy float64 on the host "
+          f"(limit {tol:.0e} * max|ref|)")
+    require(err <= tol, f"signal {label}: disagrees with scipy")
+    return err
+
+
+def sig_call(label, fn, *args, none=False, **kw):
+    """One call of the signal path with its own (K1, K2) count: (0, 0) for
+    a call marked ``none``, else pinned by SIGNAL_LAUNCHES; the TF32 flag the
+    path switched on must be on again after it (the library scopes it off
+    for its products only)."""
+    out = facade_call(label, fn, *args, expect=(0, 0) if none else SIGNAL_LAUNCHES.get(label),
+                      **kw)
+    require(torch.backends.cuda.matmul.allow_tf32, f"{label}: left TF32 switched off")
+    return out
+
+
+def host_ms(fn, *args, **kw):
+    """(result, ms) of one host call (scipy on the host's CPU)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def stable_system(rng, states, inputs, outputs):
+    """A random continuous system whose slowest pole has real part -0.5."""
+    M = rng.standard_normal((states, states))
+    A = M - (np.linalg.eigvals(M).real.max() + 0.5) * np.eye(states)
+    return (A, rng.standard_normal((states, inputs)), rng.standard_normal((outputs, states)),
+            np.zeros((outputs, inputs)))
+
+
+def phase_signal(gen):
+    """The DSP toolboxes at full size on the card, TF32 switched ON around
+    the path (the library scopes it off around its own products), each call's
+    K1/K2 launches counted and each result against scipy in float64 on the
+    host: returns what the timing phase needs."""
+    import scipy.ndimage as ndi
+    import scipy.signal as ss
+    import webgpufft_tpu_torch as T
+    from webgpufft_tpu_torch import fft as wfft
+    from webgpufft_tpu_torch.examples import control_toolkit
+    F, SP, N, L = T.filtering, T.splines, T.ndimage, T.ltisys
+    rng = np.random.default_rng(SEED)
+    keep, scipy_ms = {}, {}
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        # -- the (8, 2^22) signal: IIR on the recurrences, FIR on the plan layer's
+        # convolution.  The IIR calls launch nothing (0, 0): their recurrence is
+        # torch products and adds, the parallel prefix above IIR_ASSOC_MIN_N_CUDA
+        x = torch.randn(*SIG_SHAPE, device="cuda", generator=gen)
+        xh = host64(x[SIG_SUBSET])
+        sos8 = F.butter(8, 0.1, output="sos")
+        ba4 = F.butter(4, 0.2)
+        fir = F.firwin(129, 0.2)
+        calls = [
+            ("sosfilt butter(8, 0.1) sos, (8, 2^22)", "filter", True,
+             lambda: F.sosfilt(sos8, x), lambda: ss.sosfilt(sos8, xh)),
+            ("sosfiltfilt butter(8, 0.1) sos, (8, 2^22)", "sosfiltfilt", True,
+             lambda: F.sosfiltfilt(sos8, x), lambda: ss.sosfiltfilt(sos8, xh)),
+            ("filtfilt butter(4, 0.2) ba, (8, 2^22)", "filtfilt", True,
+             lambda: F.filtfilt(*ba4, x), lambda: ss.filtfilt(*ba4, xh)),
+            ("lfilter firwin(129, 0.2), (8, 2^22)", "filter", False,
+             lambda: F.lfilter(fir, 1.0, x), lambda: ss.lfilter(fir, 1.0, xh)),
+            ("savgol_filter 101, 3, interp, (8, 2^22)", "filter", False,
+             lambda: F.savgol_filter(x, 101, 3), lambda: ss.savgol_filter(xh, 101, 3))]
+        for label, bar, none, port, oracle in calls:
+            y = sig_call(label, port, none=none)
+            want, scipy_ms[label] = host_ms(oracle)
+            sig_check(label, y[SIG_SUBSET], want, SIG_TOL[bar])
+            keep[label] = port
+            del y
+        keep["signal"] = (x, sos8, fir)
+
+        # -- the (2048, 2048) image.  cspline2d's recurrences and medfilt2d's
+        # sort are torch ops (0, 0); the box sums of wiener are a plan-layer
+        # convolution at the exact linear length 2048 + 4 = 2052 = 2^2 * 3^3 *
+        # 19 on both axes, which K1/K2 do not take (smooth lengths only): the
+        # plan runs Bluestein einsums, as the JAX package does, and launches
+        # nothing (ROADMAP R8); spline_filter's separable FIR reaches K1 only
+        # in part of its two convolutions
+        img = torch.randn(*SIG_IMAGE, device="cuda", generator=gen)
+        ih = host64(img)
+        for label, bar, none, port, oracle in [
+                ("wiener 5 x 5, (2048, 2048)", "wiener", True,
+                 lambda: F.wiener(img, (5, 5)), lambda: ss.wiener(ih, (5, 5))),
+                ("cspline2d lamb 0, (2048, 2048)", "spline", True,
+                 lambda: SP.cspline2d(img, 0.0, SIG_PRECISION),
+                 lambda: ss.cspline2d(ih, 0.0, SIG_PRECISION)),
+                ("cspline2d lamb 0.5, (2048, 2048)", "smoothing spline", True,
+                 lambda: SP.cspline2d(img, 0.5, SIG_PRECISION),
+                 lambda: ss.cspline2d(ih, 0.5, SIG_PRECISION)),
+                ("spline_filter lmbda 5, (2048, 2048)", "smoothing spline", False,
+                 lambda: SP.spline_filter(img), lambda: ss.spline_filter(ih))]:
+            y = sig_call(label, port, none=none)
+            want, scipy_ms[label] = host_ms(oracle)
+            sig_check(label, y, want, SIG_TOL[bar])
+            keep[label] = port
+        label = "medfilt2d 5 x 5, (2048, 2048)"
+        y = sig_call(label, F.medfilt2d, img, 5, none=True)
+        want, scipy_ms[label] = host_ms(ss.medfilt2d, ih.astype(np.float32), 5)
+        torch.cuda.synchronize()
+        diff = int((y.cpu().numpy() != want).sum())
+        print(f"signal {label}: {diff} elements differ from scipy.signal.medfilt2d "
+              "(order statistics are exact: limit 0)")
+        require(diff == 0, f"signal {label}: differs from scipy")
+        keep[label] = lambda: F.medfilt2d(img, 5)
+
+        # -- Fourier-domain filters on fft2 spectra: the filters are table
+        # multiplies (0, 0); fft2 and ifft2 launch K1/K2
+        img8 = torch.randn(*SIG_SPECTRA, device="cuda", generator=gen)
+        X = sig_call("fft2 (8, 1024, 1024)", wfft.fft2, img8)
+        Xh = host64(X)
+        Xh = Xh[..., 0] + 1j * Xh[..., 1]
+        for name, arg in [("fourier_gaussian", (0.0, 4.0, 4.0)),
+                          ("fourier_uniform", (1.0, 9.0, 5.0)),
+                          ("fourier_ellipsoid", (1.0, 8.0, 8.0)),
+                          ("fourier_shift", (0.0, 3.5, -2.25))]:
+            label = f"{name} {arg} on fft2 (8, 1024, 1024)"
+            Y = sig_call(label, getattr(N, name), X, arg, none=True)
+            want = getattr(ndi, name)(Xh, arg)
+            sig_check(label, Y, want, SIG_TOL["ndimage"])
+            back = sig_call(f"ifft2 after {name}", wfft.ifft2, Y)
+            sig_check(f"ifft2 after {name}", back, np.fft.ifft2(want), SIG_TOL["ndimage"])
+            keep[label] = (getattr(N, name), X, arg)
+            del Y, back
+        del Xh
+
+        # -- splines: the symmetric IIR smoothers and the prefilter run the
+        # recurrences, the evaluation a gather: none launches a kernel
+        s64 = torch.randn(*SIG_SYMIIR, device="cuda", generator=gen)
+        sh = host64(s64)
+        sig1 = s64[0]
+        for label, port, oracle in [
+                ("symiirorder1 c0 2, z1 0.4, (64, 2^16)",
+                 lambda: SP.symiirorder1(s64, 2.0, 0.4, SIG_PRECISION),
+                 lambda: ss.symiirorder1(sh, 2.0, 0.4, SIG_PRECISION)),
+                ("symiirorder2 r 0.5, omega 0.3, (64, 2^16)",
+                 lambda: SP.symiirorder2(s64, 0.5, 0.3, SIG_PRECISION),
+                 lambda: ss.symiirorder2(sh, 0.5, 0.3, SIG_PRECISION)),
+                ("cspline1d 2^16", lambda: SP.cspline1d(sig1), lambda: ss.cspline1d(sh[0]))]:
+            y = sig_call(label, port, none=True)
+            want, scipy_ms[label] = host_ms(oracle)
+            sig_check(label, y, want, SIG_TOL["spline"])
+            keep[label] = port
+        cj = SP.cspline1d(sig1)
+        # positions drawn as float32 values: the evaluation runs at float32
+        # positions (as the JAX package's), after a float64 mirror fold that is
+        # exact on them, so scipy sees the same points
+        newx = rng.uniform(-10.0, SIG_SYMIIR[1] + 10.0, SIG_EVAL_POINTS).astype(np.float32)
+        newx = newx.astype(np.float64)
+        label = "cspline1d_eval at 2^20 points"
+        y = sig_call(label, SP.cspline1d_eval, cj, newx, none=True)
+        want, scipy_ms[label] = host_ms(ss.cspline1d_eval, host64(cj), newx)
+        sig_check(label, y, want, SIG_TOL["spline"])
+        keep[label] = lambda: SP.cspline1d_eval(cj, newx)
+
+        # -- state space (control simulation): numpy in and out, the recurrence
+        # on the card, two launches of torch ops a step and no kernel of the port
+        states, inputs, steps = SIG_SS
+        sysc = stable_system(rng, states, inputs, inputs)
+        Tt = np.linspace(0.0, 20.0, steps)
+        U = np.stack([np.sin(2 * np.pi * 0.3 * Tt), np.sign(np.sin(Tt))], -1)
+        label = f"lsim {states} states, {inputs} inputs, {steps} steps"
+        _, yl, xl = sig_call(label, L.lsim, sysc, U, Tt, none=True)
+        (_, ye, xe), scipy_ms[label] = host_ms(ss.lsim, sysc, U, Tt)
+        sig_check(label + " y", yl, ye, SIG_TOL["lsim"])
+        sig_check(label + " x", xl, xe, SIG_TOL["lsim"])
+        keep[label] = (lambda: L.lsim(sysc, U, Tt), steps)
+        sysd = L.cont2discrete(sysc, float(Tt[1] - Tt[0]))
+        label = f"dlsim {states} states, {inputs} inputs, {steps} steps"
+        _, yd, xd = sig_call(label, L.dlsim, sysd, U, none=True)
+        (_, ye, xe), scipy_ms[label] = host_ms(ss.dlsim, sysd, U)
+        sig_check(label + " y", yd, ye, SIG_TOL["lsim"])
+        sig_check(label + " x", xd, xe, SIG_TOL["lsim"])
+        keep[label] = (lambda: L.dlsim(sysd, U), steps)
+        siso = (sysc[0], sysc[1][:, :1], sysc[2][:1], sysc[3][:1, :1])
+        for name in ("step", "impulse"):
+            label = f"{name} {states} states, defaults"
+            t_, y_ = sig_call(label, getattr(L, name), siso, none=True)
+            (te, ye), scipy_ms[label] = host_ms(getattr(ss, name), siso)
+            sig_check(label, y_, ye, SIG_TOL["response"])
+            require(np.allclose(t_, te), f"{label}: time grid differs from scipy's")
+
+        # -- analysis: freqz's integer grid is one FFT of 2 * 2^16 points on a
+        # single line, a length K1 does not take (N <= 16384): the plan runs the
+        # four-step einsum route (ROADMAP R6), so these calls launch nothing
+        label = "freqz firwin(129, 0.2), worN 2^16"
+        w, h = sig_call(label, F.freqz, fir, worN=SIG_FREQZ_N, none=True)
+        (we, he), scipy_ms[label] = host_ms(ss.freqz, fir, worN=SIG_FREQZ_N)
+        require(np.allclose(w, we), f"{label}: grid differs")
+        sig_check(label, h, he, SIG_TOL["freqz"])
+        label = "sosfreqz butter(8, 0.1), worN 2^16"
+        w, h = sig_call(label, F.sosfreqz, sos8, worN=SIG_FREQZ_N, none=True)
+        (we, he), scipy_ms[label] = host_ms(ss.sosfreqz, sos8, worN=SIG_FREQZ_N)
+        sig_check(label, h, he, SIG_TOL["freqz"])
+
+        # -- the example, on the card against the same workflow on the CPU.  It
+        # launches nothing: its two FIR convolutions of a 4000-sample signal
+        # have full lengths 4120 and 4092, which the plan layer transforms on
+        # its Bluestein einsum route (as the JAX package does; K1 takes smooth
+        # lengths only), and the rest is recurrences and host design
+        ex = sig_call("examples.control_toolkit", control_toolkit.run, "cuda", False, none=True)
+        ref = control_toolkit.run("cpu", verbose=False)
+        for name in ("y_ellip", "y_remez", "y_kaiser", "y_open", "y_closed", "yd"):
+            got = ex[name].cpu() if isinstance(ex[name], torch.Tensor) else ex[name]
+            want = ref[name].numpy() if isinstance(ref[name], torch.Tensor) else ref[name]
+            sig_check(f"examples.control_toolkit {name} (card against the CPU run)",
+                      got, want, SIG_TOL["example"])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    keep["scipy_ms"] = scipy_ms
+    torch.cuda.empty_cache()
+    return keep
+
+
+def phase_iir_ab(card):
+    """The IIR gate's A/B: the sequential loop and the parallel prefix, K = 2
+    and 4 (butter(K, 0.2) in ba form), on IIR_AB_LINES lines at each length
+    of IIR_AB_N, from an idle device, each against scipy in float64.  The
+    crossover is the shortest length from which the prefix wins at every
+    longer one; the module's IIR_ASSOC_MIN_N_CUDA is set from it."""
+    import scipy.signal as ss
+    from webgpufft_tpu_torch import filtering as F
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    crossovers = {}
+    for K in (2, 4):
+        b, a = ss.butter(K, 0.2)
+        wins = []
+        for n in IIR_AB_N:
+            x = torch.randn(IIR_AB_LINES, n, device="cuda", generator=gen)
+            z0 = torch.zeros(IIR_AB_LINES, K, device="cuda")
+            want = ss.lfilter(b, a, host64(x))
+            runs = dict(runs=3, warmup=1) if n >= 1 << 12 else dict(runs=9, warmup=2)
+            row = {}
+            for route, fn in (("seq", F._iir_seq), ("assoc", F._iir_assoc)):
+                ms = profile.median(profile.time_calls(fn, b, a, x, z0, **runs))
+                y, _ = fn(b, a, x, z0)
+                torch.cuda.synchronize()
+                err = float(np.abs(host64(y) - want).max() / np.abs(want).max())
+                row[route] = (ms, err)
+            wins.append(row["assoc"][0] < row["seq"][0])
+            print(f"iir A/B K={K} n={n} x {IIR_AB_LINES}: sequential {row['seq'][0]:.4f} ms "
+                  f"({row['seq'][0] * 1e3 / n:.2f} us/sample, err {row['seq'][1]:.3e}), "
+                  f"parallel prefix {row['assoc'][0]:.4f} ms (err {row['assoc'][1]:.3e}) [{card}]")
+        cross = next((n for i, n in enumerate(IIR_AB_N) if all(wins[i:])), None)
+        crossovers[K] = cross
+        print(f"iir A/B K={K}: the parallel prefix wins from n = {cross} on [{card}]")
+    print(f"iir gate: IIR_ASSOC_MIN_N_CUDA = {F.IIR_ASSOC_MIN_N_CUDA} in the module; this run's "
+          f"crossovers {crossovers} [{card}]")
+    return crossovers
+
+
+def phase_signal_timing(keep, card):
+    """Each call of the signal path from idle and queued beside scipy's host
+    time on the subset it was checked on; the FIR calls beside a torch.fft
+    convolution; one section of the parallel prefix at full size; lsim's ms a
+    step; K1's share of the FIR call."""
+    from webgpufft_tpu_torch import filtering as F
+    from webgpufft_tpu_torch.core import fused
+    scipy_ms = keep.pop("scipy_ms")
+    x, sos8, fir = keep.pop("signal")
+    for label, item in keep.items():
+        if isinstance(item, tuple) and len(item) == 2:      # a simulation: (call, steps)
+            fn, steps = item
+            ms = profile.median(profile.time_calls(fn, **HEAVY))
+            print(f"time signal {label}: {ms:.4f} ms idle, {ms / steps * 1e3:.3f} us a step; "
+                  f"scipy {scipy_ms[label]:.4f} ms on the host [{card}]")
+            continue
+        if isinstance(item, tuple):                          # a Fourier filter: (fn, X, arg)
+            fn, X, arg = item
+            item = (lambda fn=fn, X=X, arg=arg: fn(X, arg))
+        ms = profile.median(profile.time_calls(item, **HEAVY))
+        q = profile.median(profile.time_queued(item, **HEAVY_QUEUED))
+        extra = (f"; scipy {scipy_ms[label]:.4f} ms on the host"
+                 f"{' for channels ' + str(SIG_SUBSET) if '(8, 2^22)' in label else ''}"
+                 if label in scipy_ms else "")
+        print(f"time signal {label}: {ms:.4f} ms idle / {q:.4f} ms queued{extra} [{card}]")
+    # the FIR call beside one torch.fft convolution of the same signal
+    n = x.shape[-1]
+    nfft = 1 << (n + fir.size - 1).bit_length()
+    h = torch.as_tensor(fir, device="cuda", dtype=torch.float32)
+
+    def torch_fft_fir():
+        return torch.fft.irfft(torch.fft.rfft(x, nfft) * torch.fft.rfft(h, nfft), nfft)[..., :n]
+    check_close("lfilter FIR: the torch.fft yardstick", torch_fft_fir(), F.lfilter(fir, 1.0, x),
+                "the port")
+    timed_pair("lfilter firwin(129, 0.2), (8, 2^22)", lambda: F.lfilter(fir, 1.0, x),
+               torch_fft_fir, "one torch.fft rfft convolution", card)
+    # K1's share of the FIR call: its launches' shapes and tables, each timed alone
+    seen = {}
+    fused.fused_lines.seen = seen
+    try:
+        _, made = counted(F.lfilter, fir, 1.0, x)
+    finally:
+        fused.fused_lines.seen = None
+    k1_ms = 0.0
+    for (nn, lines, adjoint, _), tables in seen.items():
+        xin = torch.randn(lines, nn, 2, device="cuda")
+        k1_ms += profile.median(profile.time_queued(
+            lambda: fused.fused_lines(xin, tables, adjoint=adjoint), **HEAVY_QUEUED))
+        del xin
+    call_q = profile.median(profile.time_queued(F.lfilter, fir, 1.0, x, **HEAVY_QUEUED))
+    print(f"time signal lfilter FIR: K1 {made[0]} launches at {len(seen)} shapes "
+          f"{sorted((k[0], k[1]) for k in seen)}, {k1_ms:.4f} ms of the call's {call_q:.4f} ms "
+          f"queued ({k1_ms / call_q:.3f}) [{card}]")
+    # one section of the parallel prefix and of the sequential loop's first
+    # samples at full size
+    b, a = sos8[0, :3], sos8[0, 3:]
+    z0 = torch.zeros(x.shape[0], 2, device="cuda")
+    ms = profile.median(profile.time_calls(F._iir_assoc, b, a, x, z0, **HEAVY))
+    q = profile.median(profile.time_queued(F._iir_assoc, b, a, x, z0, **HEAVY_QUEUED))
+    print(f"time signal parallel prefix, one section (K = 2) of (8, 2^22): {ms:.4f} ms idle / "
+          f"{q:.4f} ms queued, {(n - 1).bit_length()} levels [{card}]")
+    del seen
+    torch.cuda.empty_cache()
+
+
 def main():
     card_name, smi = phase_device()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2216,6 +2593,7 @@ def main():
     facade = drive("facade", paths, phase_facade, gen)
     nufft = drive("nufft", paths, phase_nufft, gen)
     linalg = drive("linalg", paths, phase_linalg, gen, k2=False)
+    signal = drive("signal", paths, phase_signal, gen)
     path_err = phase_path_shapes(gen)
     k1_err = max(k1_err, path_err["fused_lines"])
     k2_err = max(k2_err, path_err["fused_cols"])
@@ -2233,6 +2611,9 @@ def main():
     phase_nufft_timing(nufft, smi)
     phase_linalg_timing(linalg, smi)
     del nufft, linalg
+    phase_signal_timing(signal, smi)
+    del signal
+    phase_iir_ab(smi)
     # each kernel's record carries the times of its headline shape, and
     # under "shapes" those of every shape timed
     order = list(counters())

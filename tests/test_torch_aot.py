@@ -163,8 +163,7 @@ def test_pipeline_program_calls_the_kernel_ops(rng):
 def test_pipeline_validation():
     """``ValueError`` on another schema (an ``export_plan`` blob), as the
     JAX package; ``PlanError`` on a truncated or corrupt header.  The JAX
-    case's ``sosfilt`` pipeline waits for the port's filtering (ROADMAP
-    P11.3)."""
+    case's ``sosfilt`` pipeline is ``test_sosfilt_pipeline``."""
     plan_blob = T.export_plan(T.create_plan({"type": "c2c", "shape": [16]}, device="cpu",
                                             cache=T.PlanCache()))
     with pytest.raises(ValueError, match="not a pipeline"):
@@ -178,6 +177,31 @@ def test_pipeline_validation():
     head = ('{"schema": "%s", "version": 9}' % aot.PIPELINE_SCHEMA).encode()
     with pytest.raises(T.PlanError, match="version"):
         T.load_exported_pipeline(len(head).to_bytes(8, "big") + head + b"x")
+
+
+def test_sosfilt_pipeline(rng, monkeypatch):
+    """The ``sosfilt`` pipeline of tests/test_aot.py's
+    ``test_filter_pipeline_and_validation``, exported and loaded, against the
+    eager call and the JAX package's.  ``torch.export`` unrolls a Python
+    loop: the sequential recurrence at 500 samples becomes some 5000 ops
+    (export and load took a minute on a CPU), so the case exports the
+    parallel-prefix route, log2(500) rounds of products, by setting the CPU
+    gate as the card's is set."""
+    import scipy.signal as ss
+    from webgpufft_tpu import filtering as JF
+    from webgpufft_tpu_torch import filtering as FL
+    monkeypatch.setattr(FL, "IIR_ASSOC_MIN_N", 64)
+    sos = ss.butter(4, 0.2, output="sos")
+
+    def f(sig):
+        return FL.sosfilt(sos, sig)
+
+    x = torch.from_numpy(rng.standard_normal((3, 500)).astype(np.float32))
+    pipe = T.load_exported_pipeline(T.export_pipeline(f, x))
+    got = pipe(x)
+    assert pipe.shapes == [(3, 500)]
+    assert torch.allclose(got, f(x), atol=1e-6)
+    assert np.allclose(got.numpy(), np.asarray(JF.sosfilt(sos, x.numpy())), atol=1e-5)
 
 
 def test_plan_first_built_inside_export_is_cached_with_real_tables(rng):

@@ -337,3 +337,37 @@ def test_no_library_fft_inside_the_package():
     bad = [f"{p.relative_to(root)}:{i}" for p in root.rglob("*.py")
            for i, line in enumerate(p.read_text().splitlines(), 1) if pat.search(line)]
     assert not bad, bad
+
+
+def test_einsum_route_and_trig_matmuls_run_at_full_float32(rng, monkeypatch):
+    """A caller's TF32 flag does not reach the plan layer's einsum
+    contractions or the DCT trig matmuls: the JAX package runs them at
+    ``Precision.HIGHEST`` (``core/precision.full_f32``); the flag is the
+    caller's again afterwards."""
+    import sys
+    from webgpufft_tpu_torch.core import axis
+    from webgpufft_tpu_torch.plans import transforms
+    seen = []
+    real_einsum, real_matmul = torch.einsum, torch.matmul
+    files = (axis.__file__, transforms.__file__)
+
+    def spy(real):
+        def f(*args, **kw):
+            if sys._getframe(1).f_code.co_filename in files:
+                seen.append(torch.backends.cuda.matmul.fp32_precision)
+            return real(*args, **kw)
+        return f
+    monkeypatch.setattr(torch, "einsum", spy(real_einsum))
+    monkeypatch.setattr(torch, "matmul", spy(real_matmul))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        x = torch.from_numpy(rng.standard_normal((4, 60, 2)).astype(np.float32))
+        T.create_plan({"type": "c2c", "shape": [60], "batch": 4, "tuning": {"impl": "xla"}},
+                      device="cpu", cache=T.PlanCache())(x)
+        T.create_plan({"type": "dct2", "shape": [8, 8], "batch": 4}, device="cpu",
+                      cache=T.PlanCache())(torch.from_numpy(
+                          rng.standard_normal((4, 8, 8)).astype(np.float32)))
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert seen and set(seen) == {"ieee"}, seen

@@ -869,3 +869,92 @@ def test_solve_toeplitz_on_the_card_matches_scipy(cuda_device):
     got = T.linalg.solve_toeplitz(c, torch.from_numpy(b).to(cuda_device))
     assert got.device.type == "cuda"
     assert_close(got.cpu(), sla.solve_toeplitz(c, b), 5e-4)
+
+
+# ---------------------------------------------------------------- DSP toolboxes
+
+def test_toolboxes_take_numpy_to_the_card(cuda_device):
+    """numpy in: the filters, the splines and the Fourier filters run on
+    the card (the facade's default device); lsim's recurrence too, numpy
+    out as from the JAX package."""
+    import numpy as np
+    import scipy.signal as ss
+    x = np.random.default_rng(7).standard_normal((2, 300))
+    b, a = ss.butter(3, 0.2)
+    im = np.random.default_rng(7).standard_normal((32, 40))
+    for y in (T.filtering.lfilter(b, a, x), T.filtering.sosfilt(ss.butter(4, 0.2, output="sos"), x),
+              T.filtering.savgol_filter(x, 11, 3), T.splines.cspline2d(im),
+              T.ndimage.fourier_gaussian(x, 1.5)):
+        assert y.device.type == "cuda" and y.dtype == torch.float32
+    _, yl, xl = T.ltisys.lsim(ss.butter(2, 4, analog=True), np.ones(100), np.linspace(0, 2, 100))
+    assert isinstance(yl, np.ndarray) and isinstance(xl, np.ndarray)
+    _, ye, _ = ss.lsim(ss.butter(2, 4, analog=True), np.ones(100), np.linspace(0, 2, 100))
+    assert_close(yl, ye, 2e-4)
+
+
+@pytest.mark.parametrize("K", [2, 4])
+def test_iir_gate_on_the_card_picks_the_route_and_both_agree(K, cuda_device, monkeypatch):
+    """Above the CUDA threshold the parallel prefix runs, below it the
+    sequential loop; the two give the same result within 1e-5."""
+    import numpy as np
+    import scipy.signal as ss
+    F = T.filtering
+    b, a = ss.butter(K, 0.2)
+    gate = F.IIR_ASSOC_MIN_N_CUDA
+    assert gate is not None
+    n = max(2 * gate, 512)
+    x = torch.from_numpy(np.random.default_rng(K).standard_normal((8, n)).astype(np.float32))
+    x = x.to(cuda_device)
+    routes = []
+    real_assoc, real_seq = F._iir_assoc, F._iir_seq
+    monkeypatch.setattr(F, "_iir_assoc", lambda *v: routes.append("assoc") or real_assoc(*v))
+    monkeypatch.setattr(F, "_iir_seq", lambda *v: routes.append("seq") or real_seq(*v))
+    y_above = F.lfilter(b, a, x)
+    short = F.lfilter(b, a, x[:, :gate - 1]) if gate > 1 else None
+    assert routes[0] == "assoc" and (short is None or routes[1] == "seq"), routes
+    z0 = torch.zeros(8, K, device=cuda_device)
+    bp, ap = b / a[0], a / a[0]
+    y_seq, _ = real_seq(bp, ap, x, z0)
+    assert_close(y_above.cpu(), y_seq.cpu(), 1e-5)
+    assert_close(y_above.cpu(), ss.lfilter(b, a, x.cpu().numpy().astype(np.float64)), 2e-4)
+
+
+def test_tf32_scope_holds_on_the_card(cuda_device):
+    """With TF32 switched on by the caller, the parallel prefix, lsim and
+    savgol (its edge rule, and the plan layer's einsum transform of its
+    taps) stay at full float32 against scipy (the JAX tests' bars), and the
+    caller's setting is back afterwards."""
+    import numpy as np
+    import scipy.signal as ss
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((4, 4096)).astype(np.float32)
+    b, a = ss.butter(4, 0.2)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        xt = torch.from_numpy(x).to(cuda_device)
+        y, _ = T.filtering._iir_assoc(b, a, xt, torch.zeros(4, 4, device=cuda_device))
+        sg = T.filtering.savgol_filter(xt, 101, 3)
+        T_ = np.linspace(0, 5, 2000)
+        _, yl, _ = T.ltisys.lsim(ss.butter(3, 4, analog=True), np.sin(T_), T_)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert_close(y.cpu(), ss.lfilter(b, a, x.astype(np.float64)), 1e-5)
+    assert_close(sg.cpu(), ss.savgol_filter(x.astype(np.float64), 101, 3), 1e-4)
+    _, ye, _ = ss.lsim(ss.butter(3, 4, analog=True), np.sin(T_), T_)
+    assert_close(yl, ye, 2e-4)
+
+
+def test_fir_lfilter_launches_k1(cuda_device):
+    """FIR lfilter is the plan layer's convolution: it launches K1, and
+    agrees with scipy."""
+    import numpy as np
+    import scipy.signal as ss
+    x = np.random.default_rng(9).standard_normal((8, 1 << 16)).astype(np.float32)
+    h = ss.firwin(129, 0.2)
+    before = fused.fused_lines.launches
+    y = T.filtering.lfilter(h, 1.0, torch.from_numpy(x).to(cuda_device))
+    torch.cuda.synchronize()
+    assert fused.fused_lines.launches > before
+    assert_close(y.cpu(), ss.lfilter(h, 1.0, x.astype(np.float64)), 1e-5)

@@ -218,7 +218,8 @@ def test_port_imports_without_jax():
             "from webgpufft_tpu_torch.plans import base, conv2d, fftconv, stages, transforms\n"
             "from webgpufft_tpu_torch.runtime import cache, policy\n"
             "from webgpufft_tpu_torch.utils import bufferview, factors, mathref\n"
-            "from webgpufft_tpu_torch.examples import navier_stokes3d\n"
+            "from webgpufft_tpu_torch.examples import control_toolkit, navier_stokes3d\n"
+            "from webgpufft_tpu_torch import filtering, ltisys, ndimage, splines\n"
             "from webgpufft_tpu_torch.probes import planes, stages, stream\n"
             "from webgpufft_tpu_torch import (fft, fftapi, fftpack, fftpack_convolve,"
             " pyfftw, scipy_backend, shorttime, torch_fft, windows)\n"

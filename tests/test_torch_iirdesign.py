@@ -4,24 +4,32 @@ its module stood in by ``BothModules``, so every call runs the port's copy
 and the JAX package's on the same arguments and holds them equal (the same
 float64 host code), and each case then holds the port's result against
 scipy.signal at that test's own tolerance.  TestEndToEnd applies the design
-through ``filtering``, which the port does not have yet (ROADMAP P11.3)."""
+through ``filtering``: the package's ``filtering`` is stood in by the port's
+for the case (``sosfiltfilt`` held to the JAX package's at 1e-5, the bar
+of tests/test_torch_filtering.py's recurrences)."""
 
 import numpy as np
 import pytest
 import scipy.signal as ss
 
 import test_iirdesign as J
+import webgpufft_tpu as W
 import webgpufft_tpu_torch as T
 from webgpufft_tpu import iirdesign as JD
+from webgpufft_tpu_torch import fftapi as TF
 from webgpufft_tpu_torch import iirdesign as TD
-from test_iirdesign import (TestConversions, TestDesigns, TestIirdesign,  # noqa: F401
-                            TestNotchPeakComb, TestOrd, TestPrototypes)
+from test_iirdesign import (TestConversions, TestDesigns, TestEndToEnd,  # noqa: F401
+                            TestIirdesign, TestNotchPeakComb, TestOrd, TestPrototypes)
 from torch_port_support import BothModules
 
 
 @pytest.fixture(autouse=True)
 def _through_the_port(monkeypatch):
     monkeypatch.setattr(J, "D", BothModules(TD, JD))
+    monkeypatch.setattr(W, "filtering", BothModules(T.filtering, W.filtering,
+                                                    {"*": None, "sosfiltfilt": 1e-5}))
+    with TF.default_device("cpu"):
+        yield
 
 
 def test_the_port_keeps_its_own_copy():

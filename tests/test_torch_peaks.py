@@ -3,8 +3,8 @@ package's own cases: tests/test_peaks.py's classes run here with its module
 stood in by ``BothModules``, so every call runs the port's copy and the JAX
 package's on the same arguments and holds them equal, and each case then
 holds the port's result against scipy.signal exactly, as that file does.
-The re-export through ``filtering`` waits for the port's filtering (ROADMAP
-P11.3); the device chain runs here on the port's welch."""
+The re-export through ``filtering`` is held on the port's own modules; the
+device chain runs here on the port's welch."""
 
 import warnings
 
@@ -24,6 +24,13 @@ from torch_port_support import BothModules
 @pytest.fixture(autouse=True)
 def _through_the_port(monkeypatch):
     monkeypatch.setattr(J, "P", BothModules(TP, JP))
+
+
+class TestNamespace:
+    def test_reexported_in_filtering(self):
+        from webgpufft_tpu_torch import filtering as FL
+        assert FL.find_peaks is TP.find_peaks
+        assert "find_peaks" in FL.__all__
 
 
 def test_device_chain(rng):

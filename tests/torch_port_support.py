@@ -163,49 +163,87 @@ def torch_fft_stepper3(n, nu, dt, device):
 
 def same(got, want, label=""):
     """Equal results, element for element (NaN equal to NaN), through
-    tuples, lists and dicts; tensors are compared as numpy."""
+    tuples, lists, dicts and objects' attributes; tensors are compared as
+    numpy."""
+    close(got, want, None, label)
+
+
+def close(got, want, tol, label=""):
+    """Results held together member by member through tuples, lists, dicts
+    and objects (by their attributes): floating arrays and tensors within
+    ``tol`` of max|want| (both parts of complex ones; equal when ``tol`` is
+    None), integer and boolean arrays, strings and the rest equal."""
     if isinstance(got, torch.Tensor):
         got = to_numpy(got)
     if isinstance(want, dict):
         assert isinstance(got, dict) and got.keys() == want.keys(), label
         for k in want:
-            same(got[k], want[k], f"{label}[{k!r}]")
+            close(got[k], want[k], tol, f"{label}[{k!r}]")
     elif isinstance(want, (tuple, list)):
         assert isinstance(got, (tuple, list)) and len(got) == len(want), label
         for i, (g, w) in enumerate(zip(got, want)):
-            same(g, w, f"{label}[{i}]")
+            close(g, w, tol, f"{label}[{i}]")
+    elif hasattr(want, "__dict__") and not hasattr(want, "__array__"):
+        assert type(got).__name__ == type(want).__name__, label
+        close(vars(got), vars(want), tol, f"{label}.{type(want).__name__}")
     else:
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want), err_msg=label)
+        got, want = np.asarray(got), np.asarray(want)
+        if tol is not None and want.dtype.kind in "fc" and want.size:
+            assert_close_c(got, want, tol, label)
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=label)
+
+
+def _host(a):
+    """A port result handed to the JAX package: tensors as numpy."""
+    if isinstance(a, torch.Tensor):
+        return to_numpy(a)
+    if isinstance(a, (tuple, list)):
+        return type(a)(_host(v) for v in a)
+    return a
 
 
 class BothModules:
-    """Stands for one of the JAX package's host-numpy modules in its own
-    test cases: every function called through it runs the port's copy and
-    the JAX package's on the same arguments, holds the two results equal
-    (``same``: both run the same float64 host code) and returns the port's.
-    When the JAX function raises, the port's must raise an exception of the
-    same class name and message; the JAX package's then propagates, so a
-    case's ``pytest.raises`` names the class it imported."""
+    """Stands for one of the JAX package's modules in its own test cases:
+    every function called through it runs the port's copy (on the CPU
+    device: numpy inputs go to ``fftapi.default_device("cpu")``) and the
+    JAX package's on the same arguments, holds the two results equal and
+    returns the port's.  ``tol`` (a float, or a dict of function name ->
+    float with ``"*"`` for the rest) is the tolerance of a function that
+    computes in float32 on the device, as a fraction of max|JAX result|;
+    a function without one must give equal results (``same``: both run the
+    same float64 host code).  When the JAX function raises, the port's must
+    raise an exception of the same class name and message; the JAX
+    package's then propagates, so a case's ``pytest.raises`` names the
+    class it imported."""
 
-    def __init__(self, port, reference):
+    def __init__(self, port, reference, tol=None):
         self._port, self._reference = port, reference
+        self._tol = tol if isinstance(tol, dict) else {"*": tol}
 
     def __getattr__(self, name):
         import copy
+        from webgpufft_tpu_torch import fftapi as TF
         port_fn, ref_fn = getattr(self._port, name), getattr(self._reference, name)
-        if not callable(port_fn):
+        if not callable(port_fn) or isinstance(port_fn, type):
             return port_fn
+        tol = self._tol.get(name, self._tol.get("*"))
 
         def call(*args, **kw):
             try:
-                want = ref_fn(*copy.deepcopy(args), **copy.deepcopy(kw))
+                want = ref_fn(*_host(copy.deepcopy(args)), **_host(copy.deepcopy(kw)))
             except Exception as ref_err:
-                with pytest.raises(Exception) as port_err:
+                with pytest.raises(Exception) as port_err, TF.default_device("cpu"):
                     port_fn(*args, **kw)
                 assert (type(port_err.value).__name__, str(port_err.value)) == (
                     type(ref_err).__name__, str(ref_err)), name
                 raise
-            got = port_fn(*args, **kw)
-            same(got, want, f"{self._port.__name__}.{name}")
+            with TF.default_device("cpu"):
+                got = port_fn(*args, **kw)
+            label = f"{self._port.__name__}.{name}"
+            if tol is None:
+                same(got, want, label)
+            else:
+                close(got, want, tol, label)
             return got
         return call

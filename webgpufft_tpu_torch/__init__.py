@@ -30,8 +30,13 @@ else on the facade's default device, ``"cuda"``), with ``windows``,
 ``ShortTimeFFT``, the scipy.fft uarray backend, the ``fftpack`` and
 ``pyfftw`` namespaces and a native ``torch_fft`` namespace beside it.
 Above the facade: ``nufft`` (types 1-3 in 1-3 dimensions), ``linalg``
-(circulant and Toeplitz solves and products), and the host DSP modules
-``iirdesign``, ``peaks`` and ``waveforms``.  ``export_pipeline`` /
+(circulant and Toeplitz solves and products), the host DSP modules
+``iirdesign``, ``peaks`` and ``waveforms``, and the DSP toolboxes
+``filtering`` (FIR filters on the plan layer's convolution, the IIR and
+second-order-section recurrences, Savitzky-Golay, Wiener, order
+statistics; the whole scipy.signal call set in one namespace), ``ltisys``
+(LTI conversions and the state-space simulations), ``splines`` and
+``ndimage`` (Fourier-domain filters).  ``export_pipeline`` /
 ``load_exported_pipeline`` carry any chain of facade calls as one
 ``torch.export`` program, in which K1 and K2 are the dispatcher ops
 ``wgfft::fused_lines`` / ``wgfft::fused_cols`` that importing this package
@@ -65,6 +70,7 @@ from . import fftapi
 from . import fftapi as fft
 from . import fftpack, pyfftw, torch_fft, windows
 from . import iirdesign, linalg, nufft, peaks, waveforms
+from . import filtering, ltisys, ndimage, splines
 from .scipy_backend import (ScipyFftBackend, install_scipy_fft_backend,
                             scipy_fft_backend, uninstall_scipy_fft_backend)
 from .shorttime import ShortTimeFFT
@@ -88,6 +94,7 @@ __all__ = [
     "scipy_fft_backend", "install_scipy_fft_backend",
     "uninstall_scipy_fft_backend", "torch_fft", "fftpack", "pyfftw",
     "nufft", "linalg", "iirdesign", "peaks", "waveforms",
+    "filtering", "ltisys", "splines", "ndimage",
 ]
 
 

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from . import dft
 from .cplx import to_w4, const_pair, cmul_const
+from .precision import full_f32
 from ..spec import PlanError
 from ..utils import factors
 
@@ -114,7 +115,8 @@ class MixedAxisPlan(AxisPlan):
         """Transform along axis -3 of (..., n, L, 2): the same W4-form
         contraction chain as ``apply`` with a riding lane dim L carried
         through every einsum untouched (no transposes of the data)."""
-        return self._rec_mid(x, consts, 0)
+        with full_f32():
+            return self._rec_mid(x, consts, 0)
 
     def _rec_mid(self, x, consts, lvl: int):
         subs = self.subs[lvl:]
@@ -142,7 +144,10 @@ class MixedAxisPlan(AxisPlan):
         return z.reshape(*lead, n, L, 2)
 
     def apply(self, x, consts):
-        return self._rec(x, consts, 0)
+        # full float32 whatever the caller's TF32 flag: the JAX package runs
+        # these contractions at Precision.HIGHEST
+        with full_f32():
+            return self._rec(x, consts, 0)
 
     def _rec(self, x, consts, lvl: int):
         subs = self.subs[lvl:]

@@ -36,6 +36,7 @@ from ..core import engine, fused, fused_cols
 from ..core.axis import (AxisPlan, apply_along_axis, build_axis_plan, make_smooth_plan,
                          select_axis_kind)
 from ..core.cplx import cmul_const, const_pair
+from ..core.precision import full_f32
 from ..runtime.policy import FUSED_MIN_BATCH, resolve_route
 from ..spec import PlanError, PlanSpec
 from ..utils.mathref import trig_matrix
@@ -618,11 +619,13 @@ def build_dct(spec: PlanSpec, device: torch.device) -> Plan:
                 def fft(vi, c_, p=p):
                     return p(vi, c_).reshape(vi.shape)
                 v = _apply_dct_fft_axis(v, c, fft, f"dct{d}", eff_kind, n, mid=not last)
-            elif last:
-                v = torch.matmul(v, c[f"trig{d}"])
             else:
-                # mid-axis trig contraction: trailing dims ride as a lane dim
-                v = torch.einsum("...aL,ak->...kL", v, c[f"trig{d}"])
+                # full float32 whatever the caller's TF32 flag (the JAX
+                # package's Precision.HIGHEST); mid-axis: trailing dims ride
+                # as a lane dim
+                with full_f32():
+                    v = (torch.matmul(v, c[f"trig{d}"]) if last
+                         else torch.einsum("...aL,ak->...kL", v, c[f"trig{d}"]))
             y = v.reshape(batch, *shape)
         return y if scale == 1.0 else y * scale
 
