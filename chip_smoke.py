@@ -8,7 +8,7 @@ it, and at lengths that stress the radix chain: the shared-memory limit, every
 odd radix, one-butterfly lengths, a ragged column count, small digits), and
 holds each kernel's adjoint launch (the backward of autograd) against the
 plain adjoint and the dot test <K x, u> = <x, K^H u>, holds the three probe
-kernels (``webgpufft_tpu_torch.probes``) against theirs, and drives fifteen
+kernels (``webgpufft_tpu_torch.probes``) against theirs, and drives sixteen
 paths through the port's entry points, each with the kernels' launch counts
 set to 0 just before it and read just after (each must launch the kernels
 named, and no other); while a path runs, K1 and K2 also log the shape and
@@ -80,7 +80,27 @@ held against the plain version once more, with the path's own tables:
   pinned (the recurrences and the other torch-op calls launch none) and each
   result against scipy in float64 on the host (K1, K2).  After the timing
   phases, the A/B of the two IIR routes that sets
-  ``filtering.IIR_ASSOC_MIN_N_CUDA``.
+  ``filtering.IIR_ASSOC_MIN_N_CUDA``;
+- distributed: the multi-GPU layer (``webgpufft_tpu_torch.parallel``) in a
+  one-rank NCCL world made in this process (the card machine has one GPU,
+  and NCCL takes one rank a device), meshes ``{"dp": 1}``, ``{"sp": 1}``
+  and ``{"sp1": 1, "sp2": 1}``: the headline plan batch-sharded (K1), c2c
+  [2^22] x 8 (four-step 2048 x 2048) and the Bluestein route at the prime
+  1048573, the poisson3d example at 256^3 (slab and pencil) against its
+  manufactured solution, one NS-3D step at 256^3 (slab and pencil), NS-2D at
+  2048^2, dct2 / dst3 [512, 512] x 8 and dct4 [32768] x 32, fftconv
+  [1000, 1000] x 8 * 25^2 ``linear-same`` (the halo route and the pencil)
+  and [2^22] x 8 * 129 taps (the halo route), ``stft`` / ``istft`` /
+  ``welch`` / ``csd`` of (8, 2^22) and the NUFFT types 1-3 of the nufft
+  path, each against the single-device plan or call of the same spec on the
+  same tensor (and ``torch.fft`` for the plain transforms), each call's
+  launches pinned (``DIST_LAUNCHES``: einsum routes launch none); then each
+  case timed beside its single-device call, and the world destroyed
+  (gloo ranks sharing the one card cannot stand in for more cards: gloo's
+  send/recv refuses CUDA tensors, PERF.md section 6).  The NS steps are also
+  held by their right-hand side (``step.rhs``), the part of a step only the
+  transforms make, so that the viscous part of the state cannot hide a
+  wrong transform.
 
 Plans and kernels are checked against ``torch.fft`` as an independent
 oracle, as are the Rader, Bluestein and four-step axes and the odd-length
@@ -2559,6 +2579,274 @@ def phase_signal_timing(keep, card):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# distributed (the multi-GPU layer at world size 1 on NCCL)
+# ---------------------------------------------------------------------------
+
+# the (K1, K2) launches of each distributed call: the dp case and the calls
+# whose local stages are the port's plans or facade (the halo convolutions'
+# local fftconv plan, the STFT family's rfft / irfft, the NUFFT fine grid);
+# (0, 0) where the JAX route is einsums (every four-step digit stage and
+# riding axis)
+DIST_LAUNCHES = {
+    "dp headline [1024] x 4096": (1, 0),
+    "sp c2c [2^22] x 8": (0, 0),
+    "sp c2c Bluestein [1048573] x 2": (0, 0),
+    "poisson3d 256^3 slab": (0, 0),
+    "poisson3d 256^3 pencil": (0, 0),
+    "NS-3D step 256^3 slab": (0, 0),
+    "NS-3D step 256^3 pencil": (0, 0),
+    "NS-2D 2048^2 slab, 4 steps": (0, 0),
+    "dct2 [512, 512] x 8": (0, 0),
+    "dst3 [512, 512] x 8": (0, 0),
+    "dct4 [32768] x 32": (0, 0),
+    "fftconv [1000, 1000] x 8 * 25^2 linear-same, sp (halo)": (3, 3),
+    "fftconv [1000, 1000] x 8 * 25^2 linear-same, pencil": (0, 0),
+    "fftconv [2^22] x 8 * 129 linear-same, halo": (2, 0),
+    "stft (8, 2^22)": (1, 0),
+    "istft (8, 2^22)": (1, 0),
+    "welch (8, 2^22)": (1, 0),
+    "csd (8, 2^22)": (2, 0),
+    "nufft type 1, 256^2 modes, 2^17 radial points x 8 coils": (1, 1),
+    "nufft type 2, 256^2 modes x 8 coils, 2^17 radial points": (1, 1),
+    "nufft type 3, 2^16 sources x 8 sets, 2^16 targets": (1, 0),
+}
+DIST_NS2D = (2048, 1e-3, 1e-3, 4)      # n, nu, dt, steps
+DIST_STFT = dict(nperseg=1024, noverlap=512)
+DIST_NS_TOL = 1e-4                      # the examples' bar for a trajectory
+
+
+def dist_world():
+    """A one-rank NCCL world in this process, on cuda:0; a failed init
+    raises (nothing falls back to gloo or to the CPU)."""
+    import datetime
+    import torch.distributed as dist
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=dev, timeout=datetime.timedelta(seconds=60))
+    require(dist.get_backend() == "nccl", f"distributed: backend {dist.get_backend()}")
+    print(f"distributed: NCCL world of {dist.get_world_size()} rank on {dev}")
+
+
+def dist_case(keep, label, dist_fn, single_fn, what, tol=TOL, oracle=None):
+    """One distributed call (its launches pinned by DIST_LAUNCHES) held
+    against the single-device call of the same spec on the same input, and
+    against ``oracle`` (a torch.fft result or the signal) where given.
+    Keeps both calls, and what they read, for the timing phase."""
+    y, made = counted(dist_fn)
+    want = DIST_LAUNCHES[label]
+    print(f"distributed {label}: launches fused_lines {made[0]}, fused_cols {made[1]} "
+          f"(expected {want[0]}, {want[1]})")
+    require(made == want, f"distributed {label}: launches {made}")
+    ref = single_fn()
+    check_close(f"distributed {label}", y, ref, what, tol=tol)
+    if oracle is not None:
+        check_close(f"distributed {label}", y, oracle[0], oracle[1], tol=tol)
+    keep.append((label, dist_fn, single_fn))
+    return y
+
+
+def ns_rhs(label, step_d, step_s, state):
+    """A distributed NS stepper against the single-device one by its
+    right-hand side (the nonlinear term the transforms make, without the
+    viscous factor that dominates a step), at 1e-5 of its own max."""
+    check_close(f"distributed {label} right-hand side", step_d.rhs(state),
+                step_s.rhs(state), "the single-device right-hand side", tol=1e-5)
+
+
+def phase_distributed(gen):
+    """The sixteenth path: ``parallel/`` at world size 1 on NCCL, each
+    case at full size through ``create_distributed_plan`` or a builder,
+    held against the single-device plan of the same spec on the same
+    tensor (and ``torch.fft`` where the function is a plain transform)."""
+    import webgpufft_tpu_torch as T
+    from webgpufft_tpu_torch import fft as wfft
+    from webgpufft_tpu_torch.examples import navier_stokes2d as ns2
+    from webgpufft_tpu_torch.examples import navier_stokes3d as ns3
+    from webgpufft_tpu_torch.examples import poisson3d
+    from webgpufft_tpu_torch.parallel import (build_distributed_csd, build_distributed_istft,
+                                              build_distributed_stft, build_distributed_welch,
+                                              create_distributed_plan, make_mesh, nufft as pnu,
+                                              sharded)
+    dist_world()
+    sp = make_mesh({"sp": 1})
+    dp = make_mesh({"dp": 1})
+    pen = make_mesh({"sp1": 1, "sp2": 1})
+    require(sp.device_type == "cuda", "distributed: the mesh is not on the card")
+    keep = []
+
+    def plan_pair(opts, mesh, batch_axis=None, seq_axis=None):
+        d = create_distributed_plan(opts, mesh=mesh, batch_axis=batch_axis, seq_axis=seq_axis)
+        print(f"distributed plan {opts['type']} {opts['shape']} x {opts.get('batch', 1)}: "
+              f"{d.route.mode} {d.route.impl} {list(d.route.reasons)}")
+        require(d.route.impl == "torch+nccl", f"distributed: impl {d.route.impl}")
+        return d, T.create_plan(opts, device="cuda")
+
+    # dp: the headline over {"dp": 1}
+    d, s = plan_pair(HEADLINE, dp, batch_axis="dp")
+    x = torch.randn(4096, 1024, 2, device="cuda", generator=gen)
+    dist_case(keep, "dp headline [1024] x 4096", lambda d=d, x=x: d(x).full_tensor(),
+              lambda s=s, x=x: s(x),
+              "the single-device plan",
+              oracle=(torch.view_as_real(torch.fft.fft(torch.view_as_complex(x), norm="ortho")),
+                      "torch.fft"))
+
+    # sp c2c: four-step 2048 x 2048, and the Bluestein route at a prime
+    for label, n, b in [("sp c2c [2^22] x 8", 1 << 22, 8),
+                        ("sp c2c Bluestein [1048573] x 2", 1048573, 2)]:
+        opts = {"type": "c2c", "shape": [n], "batch": b}
+        d, s = plan_pair(opts, sp, seq_axis="sp")
+        xs = torch.randn(b, n, 2, device="cuda", generator=gen)
+        dist_case(keep, label, lambda d=d, xs=xs: d(xs).full_tensor(),
+                  lambda s=s, xs=xs: s(xs), "the single-device plan",
+                  oracle=(torch.view_as_real(torch.fft.fft(torch.view_as_complex(xs))),
+                          "torch.fft"))
+
+    # r2c / c2r: poisson3d at 256^3 against its manufactured solution, slab
+    # and pencil, each solve against the same solve on single-device plans
+    n = NS_N
+    u_star, f = poisson3d.manufactured(n, SEED)
+    inv_sym = torch.from_numpy(poisson3d.inverse_symbol(n)).cuda()
+    ft = torch.from_numpy(f).cuda()
+    s_fwd = T.create_plan({"type": "r2c", "shape": [n] * 3, "batch": 1}, device="cuda")
+    s_inv = T.create_plan({"type": "c2r", "shape": [n] * 3, "batch": 1,
+                           "direction": "inverse", "normalize": "backward"}, device="cuda")
+
+    def single_solve():
+        return s_inv(s_fwd(ft[None]) * inv_sym[None, ..., None])[0]
+
+    for label, mesh, axes in [("poisson3d 256^3 slab", sp, "sp"),
+                              ("poisson3d 256^3 pencil", pen, ("sp1", "sp2"))]:
+        u = dist_case(keep, label,
+                      lambda mesh=mesh, axes=axes: poisson3d.solve(ft, mesh, axes, inv_sym)[0],
+                      single_solve, "the single-device solve")
+        un = u.cpu().numpy()
+        res = float(np.max(np.abs(poisson3d.lap(un) - f)) / np.max(np.abs(f)))
+        err = float(np.max(np.abs(un - u_star)) / np.max(np.abs(u_star)))
+        print(f"distributed {label}: residual {res:.3e}, error vs the manufactured "
+              f"solution {err:.3e} (limit 1e-4)")
+        require(res < 1e-4 and err < 1e-4, f"distributed {label}: Poisson solve is off")
+
+    # NS-3D: one step at 256^3 over the slab and the pencil mesh
+    step_s, to_s, _ = ns3.make_stepper3(NS_N, NS_NU, NS_DT, device="cuda")
+    u_hat = to_s(ns3.abc_flow(NS_N, 0.0, NS_NU, device="cuda")
+                 + 0.1 * torch.randn(3, NS_N, NS_N, NS_N, device="cuda", generator=gen))
+    for label, mesh, axes in [("NS-3D step 256^3 slab", sp, "sp"),
+                              ("NS-3D step 256^3 pencil", pen, ("sp1", "sp2"))]:
+        step_d, _, _ = ns3.make_stepper3(NS_N, NS_NU, NS_DT, mesh=mesh, seq_axis=axes)
+        dist_case(keep, label, lambda step_d=step_d: step_d(u_hat),
+                  lambda: step_s(u_hat), "the single-device step")
+        ns_rhs(label, step_d, step_s, u_hat)
+
+    # NS-2D 2048^2: one right-hand side, then a short trajectory over the
+    # slab mesh
+    n2, nu2, dt2, steps2 = DIST_NS2D
+    w0 = torch.randn(n2, n2, device="cuda", generator=gen)
+    w0 = (w0 - w0.mean()).cpu().numpy()
+    step2_s, to2_s, _ = ns2.make_stepper(n2, nu2, dt2, device="cuda")
+    step2_d, _, _ = ns2.make_stepper(n2, nu2, dt2, mesh=sp)
+    ns_rhs("NS-2D step 2048^2 slab", step2_d, step2_s, to2_s(w0))
+    dist_case(keep, "NS-2D 2048^2 slab, 4 steps",
+              lambda: torch.from_numpy(ns2.run(w0, n2, nu2, dt2, steps2, mesh=sp)),
+              lambda: torch.from_numpy(ns2.run(w0, n2, nu2, dt2, steps2, device="cuda")),
+              "the single-device run", tol=DIST_NS_TOL)
+
+    # trig
+    for label, kind, shape, b, direction in [
+            ("dct2 [512, 512] x 8", "dct2", [512, 512], 8, "forward"),
+            ("dst3 [512, 512] x 8", "dst3", [512, 512], 8, "forward"),
+            ("dct4 [32768] x 32", "dct4", [32768], 32, "forward")]:
+        opts = {"type": kind, "shape": shape, "batch": b, "direction": direction,
+                "normalize": "unitary"}
+        d, s = plan_pair(opts, sp, seq_axis="sp")
+        xr = torch.randn(b, *shape, device="cuda", generator=gen)
+        dist_case(keep, label, lambda d=d, xr=xr: d(xr).full_tensor(),
+                  lambda s=s, xr=xr: s(xr), "the single-device plan")
+
+    # fftconv: the 2-D case on the sp mesh (the halo route) and on the
+    # pencil, and the 1-D halo route with 129 taps
+    opts = {"type": "fftconv", "shape": [1000, 1000], "batch": 8,
+            "fftConv": {"boundary": "linear-same", "kernelShape": [25, 25]}}
+    xc = torch.randn(8, 1000, 1000, 2, device="cuda", generator=gen)
+    kc = torch.randn(25, 25, 2, device="cuda", generator=gen)
+    for label, mesh, axes in [
+            ("fftconv [1000, 1000] x 8 * 25^2 linear-same, sp (halo)", sp, "sp"),
+            ("fftconv [1000, 1000] x 8 * 25^2 linear-same, pencil", pen, ("sp1", "sp2"))]:
+        d, s = plan_pair(opts, mesh, seq_axis=axes)
+        dist_case(keep, label, lambda d=d: d(xc, kernel=kc).full_tensor(),
+                  lambda s=s: s(xc, kernel=kc), "the single-device plan")
+    opts = {"type": "fftconv", "shape": [1 << 22], "batch": 8,
+            "fftConv": {"boundary": "linear-same", "kernelShape": [129]}}
+    d, s = plan_pair(opts, sp, seq_axis="sp")
+    require(any(r.startswith("fftconv-halo") for r in d.route.reasons),
+            f"distributed fftconv [2^22]: not the halo route {d.route.reasons}")
+    x1 = torch.randn(8, 1 << 22, 2, device="cuda", generator=gen)
+    k1 = torch.randn(129, 2, device="cuda", generator=gen)
+    dist_case(keep, "fftconv [2^22] x 8 * 129 linear-same, halo",
+              lambda d=d: d(x1, kernel=k1).full_tensor(), lambda s=s: s(x1, kernel=k1),
+              "the single-device plan")
+
+    # sequence-parallel spectral analysis against the facade on the card
+    sig = torch.randn(8, 1 << 22, device="cuda", generator=gen)
+    sig2 = torch.randn(8, 1 << 22, device="cuda", generator=gen)
+    n_sig = sig.shape[-1]
+    _, _, stft = build_distributed_stft(n_sig, sp, "sp", **DIST_STFT)
+    z = dist_case(keep, "stft (8, 2^22)", lambda: stft(sig).full_tensor(),
+                  lambda: wfft.stft(sig, **DIST_STFT)[2], "the facade's stft")
+    istft = build_distributed_istft(n_sig, sp, "sp", **DIST_STFT)
+    dist_case(keep, "istft (8, 2^22)", lambda: istft(z).full_tensor(),
+              lambda: wfft.istft(z, **DIST_STFT)[1][..., :n_sig], "the facade's istft",
+              tol=2e-5, oracle=(sig, "the signal"))
+    _, welch = build_distributed_welch(n_sig, sp, "sp", **DIST_STFT)
+    dist_case(keep, "welch (8, 2^22)", lambda: welch(sig).full_tensor(),
+              lambda: wfft.welch(sig, **DIST_STFT)[1], "the facade's welch")
+    _, csd = build_distributed_csd(n_sig, sp, "sp", **DIST_STFT)
+    dist_case(keep, "csd (8, 2^22)", lambda: csd(sig, sig2).full_tensor(),
+              lambda: wfft.csd(sig, sig2, **DIST_STFT)[1], "the facade's csd")
+
+    # NUFFT: types 1 and 2 on the radial trajectory of the nufft path, type 3
+    # at its 1-D size
+    nu = T.nufft
+    x, y = radial_points(NU2_SPOKES, NU2_SAMPLES)
+    c = torch.randn(NU2_COILS, x.size, 2, device="cuda", generator=gen)
+    f2 = torch.randn(NU2_COILS, *NU2_MODES, 2, device="cuda", generator=gen)
+    t1 = pnu.build_distributed_nufft_type1((x, y), NU2_MODES, sp, eps=NU_EPS)
+    t2 = pnu.build_distributed_nufft_type2((x, y), NU2_MODES, sp, eps=NU_EPS)
+    dist_case(keep, "nufft type 1, 256^2 modes, 2^17 radial points x 8 coils",
+              lambda: t1(c).full_tensor(), lambda: nu.nufft2d1(x, y, c, NU2_MODES, eps=NU_EPS),
+              "the single-device nufft2d1")
+    dist_case(keep, "nufft type 2, 256^2 modes x 8 coils, 2^17 radial points",
+              lambda: t2(f2).full_tensor(), lambda: nu.nufft2d2(x, y, f2, eps=NU_EPS),
+              "the single-device nufft2d2")
+    rng = np.random.default_rng(SEED)
+    xt = rng.uniform(-np.pi, np.pi, NU1_POINTS)
+    st = rng.uniform(-NU1_BAND, NU1_BAND, NU1_POINTS)
+    ct = torch.randn(NU1_SETS, NU1_POINTS, 2, device="cuda", generator=gen)
+    t3 = pnu.build_distributed_nufft_type3(xt, st, sp, eps=NU_EPS)
+    dist_case(keep, "nufft type 3, 2^16 sources x 8 sets, 2^16 targets",
+              lambda: t3(ct).full_tensor(), lambda: nu.nufft1d3(xt, ct, st, eps=NU_EPS),
+              "the single-device nufft1d3")
+    require(sharded.axis_size(sp, "sp") == 1, "distributed: world size is not 1")
+    return keep
+
+
+def phase_distributed_timing(keep, card):
+    """Each distributed call idle and queued beside the single-device call
+    of the same spec: at world size 1 the difference is what the
+    distributed route's structure costs against the local route.  Then the
+    world is destroyed."""
+    import torch.distributed as dist
+    out = {}
+    for label, dist_fn, single_fn in keep:
+        out[label] = timed_pair(f"distributed {label}", dist_fn, single_fn,
+                                "single-device", card)
+    keep.clear()
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print("distributed: NCCL world destroyed")
+    return out
+
+
 def main():
     card_name, smi = phase_device()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2594,6 +2882,8 @@ def main():
     nufft = drive("nufft", paths, phase_nufft, gen)
     linalg = drive("linalg", paths, phase_linalg, gen, k2=False)
     signal = drive("signal", paths, phase_signal, gen)
+    dist_keep = drive("distributed", paths, phase_distributed, gen)
+    phase_distributed_timing(dist_keep, smi)
     path_err = phase_path_shapes(gen)
     k1_err = max(k1_err, path_err["fused_lines"])
     k2_err = max(k2_err, path_err["fused_cols"])

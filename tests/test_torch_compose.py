@@ -345,11 +345,12 @@ def test_einsum_route_and_trig_matmuls_run_at_full_float32(rng, monkeypatch):
     ``Precision.HIGHEST`` (``core/precision.full_f32``); the flag is the
     caller's again afterwards."""
     import sys
-    from webgpufft_tpu_torch.core import axis
+    from webgpufft_tpu_torch.core import axis, precision
     from webgpufft_tpu_torch.plans import transforms
     seen = []
     real_einsum, real_matmul = torch.einsum, torch.matmul
-    files = (axis.__file__, transforms.__file__)
+    # the contractions of both run in core/precision.einsum
+    files = (axis.__file__, transforms.__file__, precision.__file__)
 
     def spy(real):
         def f(*args, **kw):

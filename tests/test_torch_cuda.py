@@ -958,3 +958,38 @@ def test_fir_lfilter_launches_k1(cuda_device):
     torch.cuda.synchronize()
     assert fused.fused_lines.launches > before
     assert_close(y.cpu(), ss.lfilter(h, 1.0, x.astype(np.float64)), 1e-5)
+
+
+def test_einsum_route_gradient_holds_full_f32_with_tf32_on(cuda_device):
+    """The einsum route's backward products run in full float32 as its
+    forward does: with the caller's TF32 flag on, the gradient of an
+    einsum-route plan equals (to 1e-5) the gradient with it off, on data
+    whose low mantissa bits TF32 would drop."""
+    import numpy as np
+    rng = np.random.default_rng(11)
+    plan = T.create_plan({"type": "c2c", "shape": [1000], "batch": 64,
+                          "tuning": {"impl": "xla"}}, device=cuda_device,
+                         cache=T.PlanCache())
+    x0 = torch.from_numpy((1.0 + rng.standard_normal((64, 1000, 2)) * 1e-3)
+                          .astype(np.float32)).to(cuda_device)
+    w = torch.from_numpy(rng.standard_normal((64, 1000, 2)).astype(np.float32)).to(cuda_device)
+
+    def grad():
+        x = x0.clone().requires_grad_()
+        g, = torch.autograd.grad((plan(x) * w).sum(), x)
+        return g
+
+    m = torch.backends.cuda.matmul
+    saved = m.fp32_precision
+    try:
+        m.allow_tf32 = False
+        g_off = grad()
+        m.allow_tf32 = True
+        g_on = grad()
+        assert m.fp32_precision == "tf32"
+    finally:
+        if saved == "none":
+            m.fp32_precision = "none"
+        else:
+            m.allow_tf32 = saved == "tf32"
+    assert_close(g_on.cpu(), g_off.cpu(), 1e-5)

@@ -92,8 +92,6 @@ def test_energy_decays():
 
 
 def test_options_not_ported_raise():
-    with pytest.raises(T.PlanError, match="ROADMAP P12"):
-        P.make_stepper3(N, NU, DT, device="cpu", mesh=object())
     with pytest.raises(T.PlanError, match="precision"):
         P.make_stepper3(N, NU, DT, device="cpu", precision="f64")
 

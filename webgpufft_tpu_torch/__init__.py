@@ -42,9 +42,13 @@ statistics; the whole scipy.signal call set in one namespace), ``ltisys``
 ``wgfft::fused_lines`` / ``wgfft::fused_cols`` that importing this package
 registers.
 
-``mesh=`` raises ``PlanError`` naming the ROADMAP item that ports it; so does
-``export_distributed_plan``.  The package imports torch and numpy (and
-scipy lazily, where the JAX package does), never JAX.
+The multi-GPU layer is ``parallel`` (``make_mesh``, the distributed
+builders, ``create_distributed_plan``, also exported here) on
+``torch.distributed``: ``DeviceMesh``, ``DTensor`` and differentiable
+collectives; the caller initialises the process group.
+``export_distributed_plan`` raises ``PlanError`` naming the ROADMAP item
+that ports it.  The package imports torch and numpy (and scipy lazily,
+where the JAX package does), never JAX.
 """
 
 from __future__ import annotations
@@ -84,7 +88,7 @@ __all__ = [
     "enable_persistent_compilation_cache",
     "export_plan", "load_exported_plan", "ExportedPlan",
     "export_pipeline", "load_exported_pipeline", "ExportedPipeline",
-    "export_distributed_plan",
+    "export_distributed_plan", "create_distributed_plan",
     "interleave", "uninterleave", "BufferView",
     "upload_complex", "download_complex",
     "create_fftconv_channel_lane_preset",
@@ -96,6 +100,17 @@ __all__ = [
     "nufft", "linalg", "iirdesign", "peaks", "waveforms",
     "filtering", "ltisys", "splines", "ndimage",
 ]
+
+
+def create_distributed_plan(opts=None, *, mesh, batch_axis=None,
+                            seq_axis=None, **kwargs):
+    """Multi-GPU plan from reference-style options (``parallel/plans.py``).
+    ``mesh`` is a ``DeviceMesh`` (``parallel.make_mesh``); ``batch_axis``
+    shards the batch (data parallel), ``seq_axis`` distributes single
+    transforms over ranks (all_to_all digit exchange)."""
+    from .parallel.plans import create_distributed_plan as _impl
+    return _impl(opts, mesh=mesh, batch_axis=batch_axis, seq_axis=seq_axis,
+                 **kwargs)
 
 
 def upload_complex(z, device="cuda") -> torch.Tensor:

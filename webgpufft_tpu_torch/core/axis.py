@@ -10,6 +10,10 @@ The JAX package bounds einsum operand sizes (``OPERAND_CHUNK_ELEMS``, digit
 slabs, ``slabbed_axis_apply``) because of an XLA-TPU miscompile; the port
 runs every axis whole through ``apply_along_axis``.
 
+The contractions run through ``core.precision.einsum``: full float32 in
+the forward, the backward and the JVP whatever the caller's TF32 flag, as
+the JAX package's ``Precision.HIGHEST``.
+
 Every plan exposes:
   - ``consts()``  -> {name: np.ndarray} constant tables
   - ``apply(x, consts)`` -> transform along the last *complex* axis of x
@@ -27,7 +31,7 @@ import torch.nn.functional as F
 
 from . import dft
 from .cplx import to_w4, const_pair, cmul_const
-from .precision import full_f32
+from .precision import einsum
 from ..spec import PlanError
 from ..utils import factors
 
@@ -115,8 +119,7 @@ class MixedAxisPlan(AxisPlan):
         """Transform along axis -3 of (..., n, L, 2): the same W4-form
         contraction chain as ``apply`` with a riding lane dim L carried
         through every einsum untouched (no transposes of the data)."""
-        with full_f32():
-            return self._rec_mid(x, consts, 0)
+        return self._rec_mid(x, consts, 0)
 
     def _rec_mid(self, x, consts, lvl: int):
         subs = self.subs[lvl:]
@@ -124,16 +127,16 @@ class MixedAxisPlan(AxisPlan):
         lead = x.shape[:-3]
         L = x.shape[-2]
         if len(subs) == 1:
-            return torch.einsum("...aLi,aicj->...cLj", x,
-                                consts[f"{self.prefix}/dft{lvl}"])
+            return einsum("...aLi,aicj->...cLj", x,
+                          consts[f"{self.prefix}/dft{lvl}"])
         n1 = subs[0]
         n2 = n // n1
         xm = x.reshape(*lead, n1, n2, L, 2)
-        y = torch.einsum("...abLi,aicj->...cbLj", xm,
-                         consts[f"{self.prefix}/dft{lvl}"])
+        y = einsum("...abLi,aicj->...cbLj", xm,
+                   consts[f"{self.prefix}/dft{lvl}"])
         if len(subs) == 2:
-            z = torch.einsum("...abLi,abicj->...caLj", y,
-                             consts[f"{self.prefix}/dftB{lvl}"])
+            z = einsum("...abLi,abicj->...caLj", y,
+                       consts[f"{self.prefix}/dftB{lvl}"])
         else:
             twa = consts[f"{self.prefix}/twa{lvl}"][:, :, None, :]  # ride L
             twb = consts[f"{self.prefix}/twb{lvl}"][:, :, None, :]
@@ -144,31 +147,28 @@ class MixedAxisPlan(AxisPlan):
         return z.reshape(*lead, n, L, 2)
 
     def apply(self, x, consts):
-        # full float32 whatever the caller's TF32 flag: the JAX package runs
-        # these contractions at Precision.HIGHEST
-        with full_f32():
-            return self._rec(x, consts, 0)
+        return self._rec(x, consts, 0)
 
     def _rec(self, x, consts, lvl: int):
         subs = self.subs[lvl:]
         n = math.prod(subs)
         if len(subs) == 1:
             # out[..., c, j] = sum_{a,i} x[..., a, i] W4[a, i, c, j]
-            return torch.einsum("...ai,aicj->...cj", x,
-                                consts[f"{self.prefix}/dft{lvl}"])
+            return einsum("...ai,aicj->...cj", x,
+                          consts[f"{self.prefix}/dft{lvl}"])
         n1 = subs[0]
         n2 = n // n1
         lead = x.shape[:-2]
         xm = x.reshape(*lead, n1, n2, 2)
         # y[..., k1, m2, j] = sum_{a,i} xm[..., a, m2, i] W4[a, i, k1, j]
-        y = torch.einsum("...abi,aicj->...cbj", xm,
-                         consts[f"{self.prefix}/dft{lvl}"])
+        y = einsum("...abi,aicj->...cbj", xm,
+                   consts[f"{self.prefix}/dft{lvl}"])
         if len(subs) == 2:
             # final level: twiddle is folded into per-k1 stage-B matrices
             # (consts dftB) and the contraction emits the digit-reversed
             # order directly — two contractions total, zero twiddle pass
-            z = torch.einsum("...abi,abicj->...caj", y,
-                             consts[f"{self.prefix}/dftB{lvl}"])
+            z = einsum("...abi,abicj->...caj", y,
+                       consts[f"{self.prefix}/dftB{lvl}"])
         else:
             y = cmul_const(y, consts[f"{self.prefix}/twa{lvl}"],
                            consts[f"{self.prefix}/twb{lvl}"])

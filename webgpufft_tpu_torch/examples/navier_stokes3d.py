@@ -1,6 +1,7 @@
 """3-D incompressible Navier-Stokes, pseudo-spectral, on the PyTorch port.
 
-Port of the single-device part of ``examples/navier_stokes3d.py``.
+Port of ``examples/navier_stokes3d.py``: single device, and distributed
+over a mesh (slab or pencil, ``mesh=``).
 Velocity formulation on the periodic [0, 2pi)^3 torus,
 
     u_t = u x omega - grad(p + |u|^2 / 2) + nu * lap(u),   div(u) = 0,
@@ -30,7 +31,6 @@ import math
 import torch
 
 from .. import create_plan
-from ..spec import PlanError
 
 # a library rfftn halves the LAST dim it is given: listing logical axis 0
 # last packs it, as the plans do
@@ -52,11 +52,16 @@ def spectral_grids3(n: int, device):
     return kx, ky, kz, inv_k2, dealias
 
 
-def make_stepper3_around(n: int, nu: float, dt: float, device, fwd3, inv3, inv6):
+def make_stepper3_around(n: int, nu: float, dt: float, device, fwd3, inv3, inv6,
+                         cut=None):
     """(step, to_spectral, to_physical) around three transforms: ``fwd3``
     maps physical (3, n, n, n) to interleaved spectral (3, n//2+1, n, n, 2)
-    unnormalized; ``inv3`` and ``inv6`` map back with 1/n^3."""
+    unnormalized; ``inv3`` and ``inv6`` map back with 1/n^3.  ``cut``
+    slices each wavenumber grid to the shard the transforms work on (the
+    distributed stepper's)."""
     kx, ky, kz, inv_k2, dealias = spectral_grids3(n, device)
+    if cut is not None:
+        kx, ky, kz, inv_k2, dealias = (cut(t) for t in (kx, ky, kz, inv_k2, dealias))
     kx, ky, kz = kx[..., None], ky[..., None], kz[..., None]    # ride the (re, im) dim
     inv_k2, mask = inv_k2[..., None], dealias[..., None]
     visc = torch.exp(-nu * (kx * kx + ky * ky + kz * kz) * dt)
@@ -89,38 +94,65 @@ def make_stepper3_around(n: int, nu: float, dt: float, device, fwd3, inv3, inv6)
         """Physical (3, n, n, n) -> dealiased, projected spectral state."""
         return project(fwd3(u) * mask)
 
+    step.rhs = rhs                     # the part of a step the transforms make
     return step, to_spectral, inv3
 
 
-def make_stepper3(n: int, nu: float, dt: float, *, device, mesh=None,
-                  precision: str = "f32"):
+def make_stepper3(n: int, nu: float, dt: float, *, device=None, mesh=None,
+                  seq_axis="sp", precision: str = "f32"):
     """Build (step, to_spectral, to_physical) for an n^3 velocity field on
     ``device``.  ``step(u_hat) -> u_hat`` advances the interleaved spectral
     velocity (3, n//2+1, n, n, 2) one RK2 step through the port's r2c/c2r
-    plans.  With ``precision="bf16-storage"`` the plans take and return
+    plans.  With ``mesh`` (a ``DeviceMesh`` of ``parallel.make_mesh``, the
+    device its own) the transforms are the distributed rank-3 plans over
+    ``seq_axis``: one mesh dim shards grid axis 0 (slab), a pair shards
+    axes 0 and 1 (pencil); ``step`` then advances this rank's shard of the
+    spectral state, ``to_spectral`` takes the whole physical field and
+    ``to_physical`` returns it whole (``_world.MeshFields``).  With
+    ``precision="bf16-storage"`` the plans take and return
     bfloat16 while the solver state and the pointwise layer stay float32
     (relative error of the 1e-3 class: the accuracy trade is the caller's)."""
+    fields = None
     if mesh is not None:
-        raise PlanError("navier_stokes3d: distributed plans (mesh=) are not "
-                        "ported yet (ROADMAP P12)")
+        from ..parallel import create_distributed_plan
+        from ..parallel.sharded import mesh_device
+        from ._world import MeshFields
+        device = mesh_device(mesh)
+        fields = MeshFields(mesh, seq_axis, n, 3)
 
     def plan(batch, kind, direction, normalize):
-        p = create_plan({"type": kind, "shape": [n, n, n], "batch": batch,
-                         "direction": direction, "normalize": normalize,
-                         "precision": precision}, device=device)
+        opts = {"type": kind, "shape": [n, n, n], "batch": batch,
+                "direction": direction, "normalize": normalize,
+                "precision": precision}
+        if mesh is not None:
+            p = fields.plan(create_distributed_plan(opts, mesh=mesh,
+                                                    seq_axis=seq_axis), kind)
+        else:
+            p = create_plan(opts, device=device)
         if precision == "bf16-storage":
             return lambda x: p(x.to(torch.bfloat16)).float()
         return p
 
-    return make_stepper3_around(n, nu, dt, device, plan(3, "r2c", "forward", "none"),
-                    plan(3, "c2r", "inverse", "backward"),
-                    plan(6, "c2r", "inverse", "backward"))
+    step, to_spectral, to_physical = make_stepper3_around(
+        n, nu, dt, device, plan(3, "r2c", "forward", "none"),
+        plan(3, "c2r", "inverse", "backward"), plan(6, "c2r", "inverse", "backward"),
+        cut=fields.cut if fields is not None else None)
+    if fields is None:
+        return step, to_spectral, to_physical
+    return (step, lambda u: to_spectral(fields.scatter(u)),
+            lambda u_hat: fields.gather(to_physical(u_hat)))
 
 
-def run3(u0, n: int, nu: float, dt: float, steps: int, *, device):
+def run3(u0, n: int, nu: float, dt: float, steps: int, *, device=None,
+         mesh=None, seq_axis="sp"):
     """Advance physical velocity ``u0`` (3, n, n, n) ``steps`` steps on
-    ``device``; returns the final physical velocity as a tensor there."""
-    step, to_spectral, to_physical = make_stepper3(n, nu, dt, device=device)
+    ``device`` (or over ``mesh``, see ``make_stepper3``); returns the final
+    physical velocity as a tensor there."""
+    if mesh is not None:
+        from ..parallel.sharded import mesh_device
+        device = mesh_device(mesh)
+    step, to_spectral, to_physical = make_stepper3(n, nu, dt, device=device,
+                                                   mesh=mesh, seq_axis=seq_axis)
     u_hat = to_spectral(torch.as_tensor(u0, dtype=torch.float32, device=device))
     for _ in range(steps):
         u_hat = step(u_hat)
