@@ -8,7 +8,7 @@ it, and at lengths that stress the radix chain: the shared-memory limit, every
 odd radix, one-butterfly lengths, a ragged column count, small digits), and
 holds each kernel's adjoint launch (the backward of autograd) against the
 plain adjoint and the dot test <K x, u> = <x, K^H u>, holds the three probe
-kernels (``webgpufft_tpu_torch.probes``) against theirs, and drives sixteen
+kernels (``webgpufft_tpu_torch.probes``) against theirs, and drives seventeen
 paths through the port's entry points, each with the kernels' launch counts
 set to 0 just before it and read just after (each must launch the kernels
 named, and no other); while a path runs, K1 and K2 also log the shape and
@@ -101,6 +101,23 @@ held against the plain version once more, with the path's own tables:
   held by their right-hand side (``step.rhs``), the part of a step only the
   transforms make, so that the viscous part of the state cannot hide a
   wrong transform.
+- examples: in the distributed path's world, ``export_distributed_plan`` ->
+  ``load_exported_plan`` -> ``ep(x, mesh=...)`` of c2c [2^22] x 8, the pencil
+  c2c 256^3 x 3 and the two halo fftconvs ([2^22] x 8 * 129, [1000, 1000] x 8
+  * 25^2), each equal to its live plan and within 1e-5 of the single-device
+  plan, a dp-only plan and a mesh of other axes refused; then the examples of
+  ``webgpufft_tpu_torch/examples`` through their entry points: AOT serving of
+  [1024] x 4096 built here and served by a second process, system
+  identification (400 Adam steps through the fftconv plan: K1 forward and its
+  adjoint launch) at n 512 and 2^20 and over dp 1 x sp 1, MRI gridding at
+  128^2 (with the distributed leg) and at 256^2 with 205,824 samples, the
+  NS-3D ``main`` at n 32, 10 steps of 256^3 turbulence (energy falls,
+  ``max_divergence`` < 1e-4) and a 3-step advance through ``export_pipeline``
+  (bit-equal to the eager run), and the facade demos, ``spectral_filter``
+  also at [1024] x 65,536 beside ``torch.fft``; each case's launches pinned
+  (``EXAMPLE_LAUNCHES``), each held to its JAX script's bars; then timed
+  beside the yardsticks, with ms per training step beside the same loop on
+  ``torch.fft``.
 
 Plans and kernels are checked against ``torch.fft`` as an independent
 oracle, as are the Rader, Bluestein and four-step axes and the odd-length
@@ -2847,6 +2864,330 @@ def phase_distributed_timing(keep, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# examples (the seventeenth path): the distributed export, the examples of
+# webgpufft_tpu_torch/examples at full size
+# ---------------------------------------------------------------------------
+
+# the (K1, K2) launches of each case of the examples path, in this process:
+# the einsum routes launch none (c2c [2^22] on four-step digit stages, the
+# pencil's digit stages, fftconv at 544 = 32 * 17 and 136 = 8 * 17 on
+# Bluestein); a
+# training step at 2^20 launches K1 twice forward (the overlap-save blocks
+# and their inverse) and once adjoint (the inverse's, for the gradient with
+# respect to the kernel); the dp 1 x sp 1 run is the halo route's local plan
+# on K1, plus one forward for the layout of the observations
+EXAMPLE_LAUNCHES = {
+    "export sp c2c [2^22] x 8": (0, 0),
+    "export pencil c2c 256^3 x 3": (0, 0),
+    "export fftconv [2^22] x 8 * 129 linear-same, halo": (2, 0),
+    "export fftconv [1000, 1000] x 8 * 25^2 linear-same, halo": (3, 3),
+    "aot_serving [1024] x 4096 unitary (build)": (0, 0),
+    "system_identification n 512, 400 steps": (0, 0),
+    "system_identification n 2^20, 400 steps": (1200, 0),
+    "system_identification n 512, 400 steps, dp 1 x sp 1": (1202, 0),
+    "mri_gridding 128^2, 200 x 256, sp 1": (37, 37),
+    "mri_gridding 256^2, 402 x 512": (35, 35),
+    "navier_stokes3d main n 32": (1300, 650),
+    "NS-3D 256^3 turbulence, 10 steps": (88, 132),
+    "NS-3D 256^3 export_pipeline, 3 steps": (24, 36),
+    "spectral_filter [1024] x 8": (2, 0),
+    "spectral_filter [1024] x 65536": (2, 0),
+    "image_blur_fftconv 128^2 * 9^2": (0, 0),
+    "scipy_style": (12, 0),
+    "signal_toolkit": (4, 0),
+}
+SYSID = dict(klen=33, batch=8, steps=400, lr=2e-2, noise=1e-3)   # the example's own
+SYSID_BIG_N = 1 << 20
+MRI_BIG = (256, 402, 512)               # n, spokes, reads: 205,824 samples
+SERVE_BATCH = 4096                      # the headline plan's batch
+FILTER_BIG = (1024, 65536)              # the facade's 1-D r2c shape (PERF.md section 5)
+
+
+def example_case(label, fn):
+    """One case of the examples path, its launches pinned by
+    EXAMPLE_LAUNCHES."""
+    out, made = counted(fn)
+    torch.cuda.synchronize()
+    want = EXAMPLE_LAUNCHES[label]
+    print(f"examples {label}: launches fused_lines {made[0]}, fused_cols {made[1]} "
+          f"(expected {want[0]}, {want[1]})")
+    require(made == want, f"examples {label}: launches {made}")
+    return out
+
+
+def equal_or_close(label, got, live):
+    """The served output against the live plan's: bit for bit, or (a route
+    that sums in a varying order) within 1e-6 of max|live|."""
+    if torch.equal(got, live):
+        print(f"examples {label}: served output equals the live plan's bit for bit")
+        return
+    err = rel_err(got, live)
+    print(f"examples {label}: served output within {err:.3e} of max|live| of the live plan's")
+    require(err <= 1e-6, f"examples {label}: served output departs from the live plan's")
+
+
+def export_case(keep, label, opts, mesh, seq_axis, x, k=None):
+    """export_distributed_plan -> load_exported_plan -> ep(x, mesh=) against
+    the live distributed plan and the single-device plan of the spec."""
+    import webgpufft_tpu_torch as T
+    from webgpufft_tpu_torch.parallel import create_distributed_plan
+    live = create_distributed_plan(opts, mesh=mesh, seq_axis=seq_axis)
+    single = T.create_plan(opts, device="cuda")
+    kw = {} if k is None else {"kernel": k}
+    t0 = time.perf_counter()
+    blob = T.export_distributed_plan(live)
+    t1 = time.perf_counter()
+    ep = T.load_exported_plan(blob)
+    t2 = time.perf_counter()
+    ep._plan_on(mesh)
+    t3 = time.perf_counter()
+    print(f"examples {label}: {len(blob)} bytes, export {t1 - t0:.4f} s, load {t2 - t1:.4f} s, "
+          f"rebuild on the serving mesh {t3 - t2:.4f} s, record {ep.distributed}, route "
+          f"{ep.route_mode}")
+    require(ep.distributed["nr_devices"] == 1 and ep.route_mode == live.route.mode,
+            f"examples {label}: record {ep.distributed}")
+    y = example_case(label, lambda: ep(x, k, mesh=mesh).full_tensor())
+    equal_or_close(label, y, live(x, **kw).full_tensor())
+    check_close(f"examples {label}", y, single(x, **kw), "the single-device plan")
+    keep.append((f"export {label[7:]}", lambda: ep(x, k, mesh=mesh),
+                 lambda: live(x, **kw), "the live distributed plan"))
+    return ep
+
+
+def torch_fft_model(n, klen):
+    """The system-identification model on ``torch.fft`` (the yardstick):
+    linear-same convolution of real probes with a real kernel."""
+    m = n + klen - 1
+
+    def model(k, xi):
+        xf = torch.fft.rfft(xi[..., 0], n=m)
+        return torch.fft.irfft(xf * torch.fft.rfft(k, n=m), n=m)[..., klen // 2:klen // 2 + n]
+    return model
+
+
+def sysid_case(label, sysid, n, mesh=None):
+    """One training run of the example, held to its bars; returns k_hat."""
+    k_hat, k_true, losses = example_case(label, lambda: sysid.run(n, mesh=mesh, device="cuda",
+                                                                  **SYSID))
+    err = float(np.max(np.abs(k_hat - k_true)) / np.max(np.abs(k_true)))
+    print(f"examples {label}: loss {losses[0]:.3e} -> {losses[-1]:.3e}, kernel rel err "
+          f"{err:.3e} (limits 1e-5, 2e-2)")
+    require(bool(np.isfinite(losses).all()) and losses[-1] < 1e-5 and err < 2e-2,
+            f"examples {label}: training missed its bars")
+    return k_hat
+
+
+def phase_examples(gen):
+    """The seventeenth path: the distributed export in the NCCL world of the
+    distributed path, then each example of ``webgpufft_tpu_torch/examples``
+    through its own entry points at full size, each held to the JAX
+    script's bars.  Returns what ``phase_examples_timing`` times."""
+    import torch.distributed as dist
+    import webgpufft_tpu_torch as T
+    from webgpufft_tpu_torch.examples import (aot_serving, image_blur_fftconv, mri_gridding,
+                                              navier_stokes3d as ns3, scipy_style,
+                                              signal_toolkit, spectral_filter,
+                                              system_identification as sysid)
+    from webgpufft_tpu_torch.parallel import create_distributed_plan, make_mesh
+    require(dist.is_initialized() and dist.get_backend() == "nccl",
+            "examples: the distributed path's NCCL world is not up")
+    sp, dp = make_mesh({"sp": 1}), make_mesh({"dp": 1})
+    pen = make_mesh({"sp1": 1, "sp2": 1})
+    keep = []
+
+    # --- the distributed export at the distributed path's shapes
+    x22 = torch.randn(8, 1 << 22, 2, device="cuda", generator=gen)
+    ep = export_case(keep, "export sp c2c [2^22] x 8",
+                     {"type": "c2c", "shape": [1 << 22], "batch": 8}, sp, "sp", x22)
+    vol = torch.randn(3, NS_N, NS_N, NS_N, 2, device="cuda", generator=gen)
+    export_case(keep, "export pencil c2c 256^3 x 3",
+                {"type": "c2c", "shape": [NS_N] * 3, "batch": 3}, pen, ("sp1", "sp2"), vol)
+    del vol
+    export_case(keep, "export fftconv [2^22] x 8 * 129 linear-same, halo",
+                {"type": "fftconv", "shape": [1 << 22], "batch": 8,
+                 "fftConv": {"boundary": "linear-same", "kernelShape": [129]}}, sp, "sp",
+                x22, torch.randn(129, 2, device="cuda", generator=gen))
+    export_case(keep, "export fftconv [1000, 1000] x 8 * 25^2 linear-same, halo",
+                {"type": "fftconv", "shape": [1000, 1000], "batch": 8,
+                 "fftConv": {"boundary": "linear-same", "kernelShape": [25, 25]}}, sp, "sp",
+                torch.randn(8, 1000, 1000, 2, device="cuda", generator=gen),
+                torch.randn(25, 25, 2, device="cuda", generator=gen))
+    for what, call, match in [
+            ("a dp-only plan", lambda: T.export_distributed_plan(
+                create_distributed_plan(HEADLINE, mesh=dp, batch_axis="dp")), "export_plan"),
+            ("a mesh of other axes", lambda: ep(x22, mesh=dp), "mesh axes")]:
+        try:
+            call()
+            raised = None
+        except T.PlanError as e:
+            raised = str(e)
+        print(f"examples export: {what} raises PlanError: {raised!r}")
+        require(raised is not None and match in raised, f"examples export: {what} not refused")
+
+    # --- AOT serving: built here, served by a second process on the card
+    served = example_case("aot_serving [1024] x 4096 unitary (build)",
+                          lambda: aot_serving.run("cuda", batch=SERVE_BATCH))
+    print(f"examples aot_serving: the serving process launched fused_lines "
+          f"{served['served_launches'][0]}, fused_cols {served['served_launches'][1]}; "
+          f"route {served['route']}")
+    require(served["served_launches"] == (1, 0), "examples aot_serving: serving launches")
+    xs = torch.from_numpy(aot_serving.request(SERVE_BATCH)).cuda()
+    check_close("examples aot_serving", torch.from_numpy(served["y"]).cuda(),
+                torch.view_as_real(torch.fft.fft(torch.view_as_complex(xs), norm="ortho")),
+                "torch.fft")
+
+    # --- system identification: the example's size, 2^20, dp 1 x sp 1
+    k512 = sysid_case("system_identification n 512, 400 steps", sysid, 512)
+    sysid_case("system_identification n 2^20, 400 steps", sysid, SYSID_BIG_N)
+    kd = sysid_case("system_identification n 512, 400 steps, dp 1 x sp 1", sysid, 512,
+                    mesh=make_mesh({"dp": 1, "sp": 1}))
+    dk = float(np.max(np.abs(kd - k512)) / np.max(np.abs(k512)))
+    print(f"examples system_identification: dp 1 x sp 1 kernel vs one device {dk:.3e} "
+          f"(limit 1e-4)")
+    require(dk < 1e-4, "examples system_identification: distributed kernel departs")
+
+    # --- MRI gridding: the example's size with its distributed leg, then 256^2
+    r = example_case("mri_gridding 128^2, 200 x 256, sp 1",
+                     lambda: mri_gridding.run("cuda", mesh=sp, verbose=False))
+    print(f"examples mri_gridding 128^2: NDFT pin {r['ndft']:.3e}, gridding RMSE "
+          f"{r['rmse_grid']:.4f}, CG RMSE {r['rmse_cg']:.4f}, distributed forward / adjoint "
+          f"{r['dist_fwd']:.3e} / {r['dist_adj']:.3e} (limits 2e-5, 0.12, 0.035, 1e-5, 5e-5)")
+    require(r["rmse_grid"] < 0.12 and r["rmse_cg"] < 0.035, "examples mri_gridding: RMSE")
+    n, spokes, reads = MRI_BIG
+    r = example_case(f"mri_gridding 256^2, 402 x 512",
+                     lambda: mri_gridding.run("cuda", n, spokes, reads, verbose=False))
+    print(f"examples mri_gridding {n}^2, {spokes} x {reads} = {spokes * reads} samples: NDFT pin "
+          f"{r['ndft']:.3e} (limit 2e-5), gridding RMSE {r['rmse_grid']:.4f}, CG RMSE "
+          f"{r['rmse_cg']:.4f}")
+    require(r["rmse_cg"] < r["rmse_grid"], "examples mri_gridding 256^2: CG is not below gridding")
+
+    # --- NS-3D: main at n 32, turbulence at 256^3, the exported 3-step advance
+    out = example_case("navier_stokes3d main n 32",
+                       lambda: ns3.main(["--device", "cuda", "--n", "32"]))
+    print(f"examples navier_stokes3d main: {out}")
+
+    def turbulence():
+        u0 = torch.randn(3, NS_N, NS_N, NS_N, device="cuda", generator=gen)
+        e0 = ns3.kinetic_energy(ns3.run3(u0, NS_N, NS_NU, NS_DT, 0, device="cuda"))
+        u1 = ns3.run3(u0, NS_N, NS_NU, NS_DT, 10, device="cuda")
+        return e0, ns3.kinetic_energy(u1), ns3.max_divergence(u1, NS_N)
+    e0, e1, dv = example_case("NS-3D 256^3 turbulence, 10 steps", turbulence)
+    print(f"examples NS-3D 256^3 turbulence: KE {e0:.6f} -> {e1:.6f}, max spectral divergence "
+          f"{dv:.3e} (limit 1e-4)")
+    require(e1 < e0 and dv < 1e-4, "examples NS-3D turbulence: invariants")
+    step, to_s, _ = ns3.make_stepper3(NS_N, NS_NU, NS_DT, device="cuda")
+    u_hat = to_s(ns3.taylor_green_embedded(NS_N, 0.0, NS_NU, device="cuda"))
+
+    def advance(v):
+        for _ in range(3):
+            v = step(v)
+        return v
+
+    t0 = time.perf_counter()
+    blob = T.export_pipeline(advance, u_hat)
+    program = T.load_exported_pipeline(blob)
+    print(f"examples NS-3D export_pipeline: {len(blob)} bytes, export + load "
+          f"{time.perf_counter() - t0:.2f} s")
+    served = example_case("NS-3D 256^3 export_pipeline, 3 steps", lambda: program(u_hat))
+    require(torch.equal(served, advance(u_hat)),
+            "examples NS-3D export_pipeline: the loaded program departs from the eager run")
+    print("examples NS-3D export_pipeline: the loaded program equals the eager run bit for bit")
+    keep.append(("NS-3D 256^3, 3 steps, loaded program", lambda: program(u_hat),
+                 lambda: advance(u_hat), "the eager run"))
+
+    # --- the facade demos at their own sizes, and the filter at [1024] x 65536
+    example_case("spectral_filter [1024] x 8", lambda: spectral_filter.run("cuda"))
+    example_case("image_blur_fftconv 128^2 * 9^2", lambda: image_blur_fftconv.run("cuda"))
+    for name, mod in [("scipy_style", scipy_style), ("signal_toolkit", signal_toolkit)]:
+        got = example_case(name, lambda mod=mod: mod.run("cuda", verbose=False))
+        want = mod.run("cpu", verbose=False)
+        for key, value in got.items():
+            a, b = (torch.as_tensor(np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v))
+                    for v in (value, want[key]))
+            if a.is_complex():
+                a, b = torch.view_as_real(a), torch.view_as_real(b)
+            require(a.shape == b.shape, f"examples {name} {key}: shape")
+            if a.dtype in (torch.bool, torch.int64, torch.int32):
+                require(torch.equal(a, b), f"examples {name} {key}: differs from the CPU run")
+            elif a.numel():
+                check_close(f"examples {name} {key}", a.double(), b.double(),
+                            "the same script on the CPU")
+    n, b = FILTER_BIG
+    lowpass = spectral_filter.make_filter(n, b, 20, "cuda")
+    sig = torch.randn(b, n, device="cuda", generator=gen)
+    mask = (torch.arange(n // 2 + 1, device="cuda") <= 20).to(torch.complex64)
+
+    def yard():
+        return torch.fft.irfft(torch.fft.rfft(sig) * mask, n=n)
+    y = example_case("spectral_filter [1024] x 65536", lambda: lowpass(sig))
+    check_close("examples spectral_filter [1024] x 65536", y, yard(), "torch.fft")
+    keep.append(("spectral_filter [1024] x 65536", lambda: lowpass(sig), yard, "torch.fft"))
+    return keep
+
+
+def phase_examples_timing(keep, card):
+    """The examples path's calls from idle and queued beside their
+    yardsticks, then ms per training step of system identification at 2^20
+    beside the same loop with the convolution on ``torch.fft``, and K1
+    launches per step, forward and adjoint."""
+    from webgpufft_tpu_torch.examples import mri_gridding, system_identification as sysid
+    for label, port, yardstick, what in keep:
+        timed_pair(f"examples {label}", port, yardstick, what, card)
+    n, spokes, reads = MRI_BIG
+    kx, ky, _ = mri_gridding.radial_trajectory(spokes, reads)
+    fwd, adj = mri_gridding.operators(kx, ky, n)
+    f = torch.from_numpy(np.stack([mri_gridding.shepp_logan_lite(n),
+                                   np.zeros((n, n))], -1).astype(np.float32)).cuda()
+
+    def aha():
+        return adj(fwd(f))
+
+    def aha_yard():
+        with on_torch_fft():
+            return aha()
+    check_close("examples MRI AHA: the yardstick", aha_yard(), aha(), "the port")
+    timed_pair(f"examples mri_gridding AHA {n}^2, {spokes * reads} samples", aha, aha_yard,
+               "the same spread/interp around torch.fft", card)
+    keep.clear()
+
+    x, k_true, eps = sysid.make_problem(SYSID_BIG_N, SYSID["klen"], SYSID["batch"],
+                                        SYSID["noise"])
+    xt = torch.from_numpy(x).cuda()
+    xi = torch.stack([xt, torch.zeros_like(xt)], -1)
+    y = torch.from_numpy(sysid.observations(x, k_true, eps)).cuda()
+    model, _ = sysid.make_model(SYSID_BIG_N, SYSID["klen"], SYSID["batch"], device="cuda")
+    steps = {}
+    for name, mdl in [("port", model), ("torch.fft", torch_fft_model(SYSID_BIG_N,
+                                                                     SYSID["klen"]))]:
+        k = torch.zeros(SYSID["klen"], device="cuda", requires_grad=True)
+        opt = torch.optim.Adam([k], lr=SYSID["lr"])
+
+        def step(mdl=mdl, k=k, opt=opt):
+            opt.zero_grad(set_to_none=True)
+            loss = ((mdl(k, xi) - y) ** 2).mean()
+            loss.backward()
+            opt.step()
+        steps[name] = step
+    with torch.no_grad():
+        check_close("examples system_identification: the yardstick model",
+                    torch_fft_model(SYSID_BIG_N, SYSID["klen"])(torch.from_numpy(k_true).cuda(), xi),
+                    model(torch.from_numpy(k_true).cuda(), xi), "the port's model")
+    _, fwd_made = counted(lambda: model(torch.zeros(SYSID["klen"], device="cuda"), xi))
+    _, step_made = counted(steps["port"])
+    print(f"examples system_identification n 2^20 x 8: launches per training step fused_lines "
+          f"{step_made[0]} (forward {fwd_made[0]}, adjoint {step_made[0] - fwd_made[0]}), "
+          f"fused_cols {step_made[1]}")
+    a = profile.time_calls(steps["torch.fft"], runs=GRAD_RUNS, warmup=2)
+    p = profile.time_calls(steps["port"], runs=GRAD_RUNS, warmup=2)
+    p += profile.time_calls(steps["port"], runs=GRAD_RUNS, warmup=0)
+    a += profile.time_calls(steps["torch.fft"], runs=GRAD_RUNS, warmup=0)
+    print(f"time examples system_identification n 2^20 x 8, klen 33: training step "
+          f"(forward + backward + Adam) port {profile.median(p):.4f} ms, the same loop on "
+          f"torch.fft {profile.median(a):.4f} ms [{card}]")
+    torch.cuda.empty_cache()
+
+
 def main():
     card_name, smi = phase_device()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2883,6 +3224,8 @@ def main():
     linalg = drive("linalg", paths, phase_linalg, gen, k2=False)
     signal = drive("signal", paths, phase_signal, gen)
     dist_keep = drive("distributed", paths, phase_distributed, gen)
+    example_keep = drive("examples", paths, phase_examples, gen)
+    phase_examples_timing(example_keep, smi)
     phase_distributed_timing(dist_keep, smi)
     path_err = phase_path_shapes(gen)
     k1_err = max(k1_err, path_err["fused_lines"])

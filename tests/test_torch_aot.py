@@ -2,6 +2,8 @@
 and tables in one blob; the loaded plan runs the exported tables and is
 bit-equal to the exporting one."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -93,14 +95,106 @@ def test_bad_artifacts_raise():
                                      ("load_exported_pipeline", "P10"),
                                      ("export_distributed_plan", "P12")])
 def test_pipeline_and_distributed_exports_name_their_roadmap_item(fn, item):
-    """The distributed export still waits for ROADMAP P12; the pipeline
-    export (P10) is ported, so its entry points raise only on what they
-    cannot take (here an object that is neither a function nor bytes)."""
+    """``item`` is the ROADMAP item that ported each entry point; all three
+    are ported, so each raises only on what it cannot take (here an object
+    that is neither a function, nor bytes, nor a distributed plan), and no
+    message points at the ROADMAP any more."""
     with pytest.raises(T.PlanError) as err:
         getattr(T, fn)(object())
-    assert ("ROADMAP" in str(err.value)) == (item == "P12")
-    if item == "P12":
-        assert f"ROADMAP {item}" in str(err.value)
+    assert "ROADMAP" not in str(err.value)
+
+
+# ---------------------------------------------------------------------------
+# distributed export in a one-rank gloo world (the 8-rank cases, against the
+# JAX artifact, are in test_torch_distributed_plans.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def one_rank():
+    import datetime
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_distributed_export_header_record(one_rank, rng):
+    """The header carries the JAX artefact's ``distributed`` record; the
+    loaded artifact serves on ``mesh=`` or on a DTensor's own mesh, equal to
+    the live plan, and refuses a call with neither."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from webgpufft_tpu_torch.parallel import make_mesh
+    mesh = make_mesh({"dp": 1, "sp": 1}, device="cpu")
+    plan = T.create_distributed_plan({"type": "fftconv", "shape": [64], "batch": 2,
+                                      "fftConv": {"boundary": "linear-same",
+                                                  "kernelShape": [9]}},
+                                     mesh=mesh, batch_axis="dp", seq_axis="sp")
+    blob = T.export_distributed_plan(plan)
+    meta = json.loads(blob[8:8 + int.from_bytes(blob[:8], "big")])
+    assert meta["distributed"] == {"mesh": {"dp": 1, "sp": 1}, "batch_axis": "dp",
+                                   "seq_axis": "sp", "nr_devices": 1}
+    assert meta["shapes"] == {"input": [2, 64, 2], "kernel": [1, 9, 2]}
+    ep = T.load_exported_plan(blob)
+    assert ep.plan is None and ep.distributed == meta["distributed"]
+    assert ep.route_mode == plan.route.mode == meta["route"]["mode"]
+    x = torch.from_numpy(rng.standard_normal((2, 64, 2)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((9, 2)).astype(np.float32))
+    live = plan(x, kernel=k).full_tensor()
+    y = ep(x, k, mesh=mesh)
+    assert torch.equal(y.full_tensor(), live)
+    xd = DTensor.from_local(x, mesh, [Replicate(), Replicate()], run_check=False)
+    assert torch.equal(ep(xd, k).full_tensor(), live)
+    with pytest.raises(T.PlanError, match="mesh="):
+        ep(x, k)
+
+
+def test_distributed_export_rejects_dp_only_and_other_meshes(one_rank):
+    from webgpufft_tpu_torch.parallel import make_mesh
+    dp = T.create_distributed_plan({"type": "c2c", "shape": [32], "batch": 8},
+                                   mesh=make_mesh({"dp": 1}, device="cpu"), batch_axis="dp")
+    with pytest.raises(T.PlanError, match="export_plan"):
+        T.export_distributed_plan(dp)
+    sp = make_mesh({"sp": 1}, device="cpu")
+    blob = T.export_distributed_plan(T.create_distributed_plan(
+        {"type": "c2c", "shape": [32], "batch": 2}, mesh=sp, seq_axis="sp"))
+    ep = T.load_exported_plan(blob)
+    with pytest.raises(T.PlanError, match="mesh axes"):
+        ep(torch.zeros(2, 32, 2), mesh=make_mesh({"sq": 1}, device="cpu"))
+    # a rebuilt route that differs from the recorded one is refused
+    hlen = int.from_bytes(blob[:8], "big")
+    meta = json.loads(blob[8:8 + hlen])
+    meta["route"]["reasons"].append("digit-split:(4, 8)")
+    head = json.dumps(meta).encode()
+    other = T.load_exported_plan(len(head).to_bytes(8, "big") + head + blob[8 + hlen:])
+    with pytest.raises(T.PlanError, match="routes the plan differently"):
+        other(torch.zeros(2, 32, 2), mesh=sp)
+
+
+def test_distributed_rebuild_under_a_dispatch_mode_caches_real_tables(one_rank, rng):
+    """The plan of a distributed artifact is rebuilt at its first call on a
+    mesh; a first call under a dispatch mode (here a fake-tensor mode, as in
+    an export trace) must still cache real tables and exchange maps."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from webgpufft_tpu_torch.parallel import make_mesh
+    mesh = make_mesh({"sp": 1}, device="cpu")
+    plan = T.create_distributed_plan({"type": "r2c", "shape": [24, 16], "batch": 2},
+                                     mesh=mesh, seq_axis="sp")
+    ep = T.load_exported_plan(T.export_distributed_plan(plan))
+    with FakeTensorMode():
+        ep._plan_on(mesh)
+    x = torch.from_numpy(rng.standard_normal((2, 24, 16)).astype(np.float32))
+    assert torch.equal(ep(x, mesh=mesh).full_tensor(), plan(x).full_tensor())
+
+
+def test_mesh_on_single_device_artifact_raises():
+    plan = T.create_plan({"type": "c2c", "shape": [8]}, device="cpu", cache=T.PlanCache())
+    ep = T.load_exported_plan(T.export_plan(plan), device="cpu")
+    assert ep.distributed is None
+    with pytest.raises(T.PlanError, match="only meaningful for distributed"):
+        ep(torch.zeros(1, 8, 2), mesh=object())
 
 
 # ---------------------------------------------------------------------------

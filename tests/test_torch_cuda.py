@@ -993,3 +993,58 @@ def test_einsum_route_gradient_holds_full_f32_with_tf32_on(cuda_device):
         else:
             m.allow_tf32 = saved == "tf32"
     assert_close(g_on.cpu(), g_off.cpu(), 1e-5)
+
+
+def test_distributed_export_round_trip_on_the_card(cuda_device):
+    """export_distributed_plan -> load_exported_plan -> ep(x, mesh=) in a
+    one-rank NCCL world: the served output equals the live plan's, on the
+    card, for the four-step c2c and the halo fftconv routes."""
+    import datetime
+    import torch.distributed as dist
+    from webgpufft_tpu_torch.parallel import make_mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=cuda_device, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_mesh({"sp": 1}, device="cuda")
+        gen = torch.Generator(device=cuda_device).manual_seed(3)
+        for opts, kshape in [({"type": "c2c", "shape": [1 << 16], "batch": 4}, None),
+                             ({"type": "fftconv", "shape": [1 << 16], "batch": 4,
+                               "fftConv": {"boundary": "linear-same",
+                                           "kernelShape": [33]}}, (33, 2))]:
+            plan = T.create_distributed_plan(opts, mesh=mesh, seq_axis="sp")
+            ep = T.load_exported_plan(T.export_distributed_plan(plan))
+            x = torch.randn(4, 1 << 16, 2, device=cuda_device, generator=gen)
+            args = [x] if kshape is None else [x, torch.randn(kshape, device=cuda_device,
+                                                              generator=gen)]
+            y = ep(*args, mesh=mesh)
+            assert y.device.type == "cuda" and ep.distributed["nr_devices"] == 1
+            live = plan(x, **({} if kshape is None else {"kernel": args[1]}))
+            assert torch.equal(y.full_tensor(), live.full_tensor())
+    finally:
+        dist.destroy_process_group()
+
+
+def test_training_step_kernel_gradient_on_the_card(cuda_device):
+    """One step of the system-identification example: the loss's gradient
+    with respect to the kernel through the fftconv plan on the card (K1
+    forward, then its adjoint launch) against autograd through the plain
+    versions (the same model on the CPU).  n + klen - 1 = 4096 puts the
+    convolution on K1 (the example's own 544 runs Bluestein einsums)."""
+    from webgpufft_tpu_torch.examples import system_identification as ex
+    n, klen, batch = 4064, 33, 8
+    x, k_true, eps = ex.make_problem(n, klen, batch, 1e-3)
+    y = ex.observations(x, k_true, eps)
+    k0 = torch.linspace(-0.1, 0.2, klen)
+    grads = []
+    for dev in (cuda_device, "cpu"):
+        model, _ = ex.make_model(n, klen, batch, device=dev)
+        xt = torch.from_numpy(x).to(dev)
+        k = k0.to(dev).requires_grad_()
+        before = fused.fused_lines.launches
+        loss = ((model(k, torch.stack([xt, torch.zeros_like(xt)], -1))
+                 - torch.from_numpy(y).to(dev)) ** 2).mean()
+        g, = torch.autograd.grad(loss, k)
+        if dev != "cpu":
+            assert fused.fused_lines.launches - before >= 2     # forward and adjoint
+        grads.append(g.cpu())
+    assert_close(grads[0], grads[1], label="d loss / d kernel")

@@ -879,3 +879,117 @@ def test_distributed_records_measure_degradation(world):
                                    tuning={"rigor": "measure"}),
                         {"sp": 4}, None, "sp", call=False)
     assert "measure-unsupported:distributed" in r["route"]["reasons"]
+
+
+
+@pytest.mark.parametrize("route,opts,axes,batch_axis,seq_axis", [
+    ("halo", fftconv([256], 4, boundary="linear-same", kernelShape=[9]),
+     DP2SP4, "dp", "sp"),
+    ("spectrum", fftconv([256], 4, boundary="circular"), DP2SP4, "dp", "sp"),
+    ("spectrum, linear", fftconv([96], 4, boundary="linear-full", kernelShape=[40]),
+     {"dp": 2, "sp": 2}, "dp", "sp"),
+    ("pencil", fftconv([16, 8], 2, boundary="circular"), PENCIL_DP, "dp", PAIR),
+    ("dp", fftconv([64], 8, boundary="linear-same", kernelShape=[9]),
+     {"dp": 8}, "dp", None)], ids=["halo", "spectrum", "spectrum-linear", "pencil", "dp"])
+def test_kernel_gradient_matches_the_local_plan(world, rng, route, opts, axes,
+                                                batch_axis, seq_axis):
+    """d/dk sum(w * plan(x, kernel=k)) through each distributed fftconv
+    route equals the local plan's: every rank convolves its part of the
+    batch and the signal with the kernel every rank holds, so the kernel's
+    gradient sums the parts' (``collectives.psum_grad``)."""
+    fc = opts["fftConv"]
+    kshape = fc.get("kernelShape", opts["shape"])
+    b, shape = opts["batch"], opts["shape"]
+    x = il(cx(rng, b, *shape))
+    k = il(cx(rng, *kshape))
+    jplan = jax_plan(opts, axes, batch_axis, seq_axis)
+    w = rng.standard_normal(np.asarray(jplan(x, kernel=k)).shape).astype(np.float32)
+    g, gl, reasons = world.run("call", "torch_world_cases", "plan_kernel_grad", opts,
+                               axes, batch_axis, seq_axis, x, k, w)
+    assert any(r.startswith("fftconv-halo") for r in reasons) == (route == "halo")
+    assert_close(g, gl, label=f"d/dkernel {route}")
+
+
+# ------------------------------------------------- distributed AOT export
+
+def _jax_served(opts, axes, batch_axis, seq_axis, x, kernel=None):
+    """The JAX artifact of the same plan, loaded and served on the same
+    mesh (8 virtual CPU devices)."""
+    import webgpufft_tpu as W
+    from torch_dist_support import jax_mesh
+    ep = W.load_exported_plan(W.export_distributed_plan(
+        jax_plan(opts, axes, batch_axis, seq_axis)))
+    args = (x,) if kernel is None else (x, kernel)
+    return np.asarray(ep(*args, mesh=jax_mesh(axes))), ep
+
+
+def _both_served(world, opts, axes, batch_axis, seq_axis, x, kernel=None, **kw):
+    """Both packages' artifacts served on the same input: the port's output
+    equals its live plan's, agrees with the JAX artifact's at 1e-5 of
+    max|JAX|, gathered nothing, and records the JAX artifact's mesh."""
+    jy, jep = _jax_served(opts, axes, batch_axis, seq_axis, x, kernel)
+    r = world.run("call", "torch_world_cases", "aot_distributed", opts, axes,
+                  batch_axis, seq_axis, x, kernel, **kw)
+    assert r["same_as_live"]
+    assert_close_c(r["out"], jy, 1e-5, f"aot {opts['type']}")
+    assert r["coll"]["all_gather"] == 0, r["coll"]
+    jd = jep.distributed
+    assert r["distributed"]["mesh"] == {k: int(v) for k, v in jd["mesh"].items()}
+    assert r["distributed"]["nr_devices"] == jd["nr_devices"]
+    assert r["distributed"]["batch_axis"] == jd["batch_axis"]
+    assert r["route_mode"] == jep.route_mode
+    return r
+
+
+def test_aot_distributed_c2c(world, rng):
+    """test_aot.py::test_aot_distributed_c2c: dp 2 x sp 4, served on a
+    fresh mesh of the same axes; a mesh of other axes is refused."""
+    z = cx(rng, 4, 256)
+    opts = c2c([256], 4, normalize="unitary")
+    r = _both_served(world, opts, DP2SP4, "dp", "sp", il(z), wrong_axes=SP8)
+    assert r["distributed"]["nr_devices"] == 8
+    assert r["distributed"]["mesh"] == {"dp": 2, "sp": 4}
+    assert_close_c(unil(r["out"]), R.fft_nd(z, [256], "forward") / np.sqrt(256),
+                   label="aot dist")
+    assert "mesh axes" in r["wrong_mesh"]
+
+
+def test_aot_distributed_pencil(world, rng):
+    """test_aot.py::test_aot_distributed_pencil: the axis pair is recorded."""
+    shape, b = [8, 16, 3], 2
+    z = cx(rng, b, *shape)
+    r = _both_served(world, c2c(shape, b), PENCIL, None, PAIR, il(z))
+    assert r["route_mode"] == "distributed-pencil"
+    assert r["distributed"]["seq_axis"] == ["sp0", "sp1"]
+    assert_close_c(unil(r["out"]), R.fft_nd(z, shape, "forward"), label="aot pencil")
+
+
+def test_aot_distributed_fftconv_kernel(world, rng):
+    """test_aot.py::test_aot_distributed_fftconv_kernel."""
+    z, k = cx(rng, 2, 64), cx(rng, 9)
+    opts = fftconv([64], 2, boundary="linear-same", kernelShape=[9])
+    r = _both_served(world, opts, SP8, None, "sp", il(z), il(k)[None])
+    ref = R.fftconv(z, k, [64], batch=2, boundary="linear-same", kernel_shape=[9])
+    assert_close_c(unil(r["out"]), ref, label="aot dconv")
+
+
+def test_aot_distributed_rejects_dp_only(world):
+    """test_aot.py::test_aot_distributed_rejects_dp_only."""
+    import webgpufft_tpu as W
+    opts = c2c([32], 8)
+    with pytest.raises(W.PlanError, match="export_plan"):
+        W.export_distributed_plan(jax_plan(opts, {"dp": 8}, "dp", None))
+    raises(world, "PlanError", "export_plan", "call", "torch_world_cases",
+           "aot_distributed", opts, {"dp": 8}, "dp", None,
+           np.zeros((8, 32, 2), np.float32))
+
+
+def test_aot_distributed_halo_plan(world, rng):
+    """test_aot.py::test_aot_distributed_halo_plan: the halo route exports
+    and serves like the spectrum routes (a bare kernel gains its count dim)."""
+    z, k = cx(rng, 2, 1024), cx(rng, 17)
+    opts = fftconv([1024], 2, boundary="linear-same", kernelShape=[17])
+    r = _both_served(world, opts, SP8, None, "sp", il(z), il(k))
+    assert any(x.startswith("fftconv-halo") for x in r["reasons"])
+    ref = R.fftconv(z, k, [1024], batch=2, boundary="linear-same", kernel_shape=[17])
+    assert_close_c(unil(r["out"]), ref, label="aot halo")

@@ -113,3 +113,58 @@ def test_bf16_storage_step_tracks_f32_and_jax(ns3):
     assert to_p_b(vb).dtype == torch.float32
     assert np.max(np.abs(to_s_b(torch.from_numpy(u0)).numpy() - u_hat.numpy())) \
         / np.max(np.abs(u_hat.numpy())) < 2e-2
+
+
+def test_max_divergence_matches_jax(ns3):
+    """The numpy oracle, on a tensor and on numpy, equals the JAX
+    example's on a random and on a projected (divergence-free) field."""
+    u0 = np.random.default_rng(5).standard_normal((3, N, N, N)).astype(np.float32)
+    u1 = P.run3(torch.from_numpy(u0), N, NU, DT, 1, device="cpu")
+    for u in (u0, u1.numpy()):
+        want = ns3.max_divergence(u, N)
+        assert P.max_divergence(torch.from_numpy(u), N) == want == P.max_divergence(u, N)
+    assert ns3.max_divergence(u0, N) > 1e-2 and ns3.max_divergence(u1.numpy(), N) < 1e-4
+
+
+def test_turbulence_invariants(ns3):
+    """tests/test_example_ns3d.py::test_turbulence_invariants: energy falls
+    and the field stays divergence-free over 10 steps of random
+    turbulence; the energies equal the JAX run's at 1e-5."""
+    steps = 10
+    u0 = np.random.default_rng(0).standard_normal((3, N, N, N)).astype(np.float32)
+    u1 = P.run3(torch.from_numpy(u0), N, NU, DT, steps, device="cpu")
+    e0 = P.kinetic_energy(P.run3(torch.from_numpy(u0), N, NU, DT, 0, device="cpu"))
+    e1 = P.kinetic_energy(u1)
+    assert e1 < e0
+    assert P.max_divergence(u1, N) < 1e-4
+    je1 = ns3.kinetic_energy(ns3.run3(u0, N, NU, DT, steps))
+    assert abs(e1 - je1) <= 1e-5 * je1
+
+
+def test_solver_exports_as_aot_artifact():
+    """tests/test_example_ns3d.py::test_solver_exports_as_aot_artifact: a
+    3-step advance through ``export_pipeline``; the loaded program
+    reproduces the eager run bit for bit."""
+    steps = 3
+    step, to_s, to_p = P.make_stepper3(N, NU, DT, device="cpu")
+    u_hat = to_s(P.taylor_green_embedded(N, 0.0, NU, device="cpu"))
+
+    def advance(v):
+        for _ in range(steps):
+            v = step(v)
+        return v
+
+    art = T.load_exported_pipeline(T.export_pipeline(advance, u_hat))
+    got = to_p(art(u_hat)).numpy()
+    ref = P.run3(P.taylor_green_embedded(N, 0.0, NU, device="cpu"), N, NU, DT, steps,
+                 device="cpu").numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_main_runs_the_example_checks():
+    """``main`` at n 16 on the CPU (a one-rank world): the analytic flows,
+    the turbulence invariants, slab and pencil against one device."""
+    out = P.main(["--device", "cpu", "--n", "16"])
+    assert out["embedded Taylor-Green"] < 1e-4 and out["ABC flow"] < 1e-4
+    assert out["energy"][1] < out["energy"][0] and out["divergence"] < 1e-4
+    assert out["slab"] < 1e-4 and out["pencil"] < 1e-4

@@ -186,3 +186,77 @@ def ns_step_collectives(dim, n, axes, seq_axis):
     with Collectives() as rec:
         step(u_hat)
     return rec.summary(), tuple(np.shape(u_hat))
+
+
+def aot_distributed(opts, axes, batch_axis, seq_axis, x, kernel=None,
+                    wrong_axes=None):
+    """export_distributed_plan -> load_exported_plan -> ep(x, mesh=) on a
+    fresh mesh of the same axes; returns the served output, the artifact's
+    mesh record and route mode, whether the output equals the live plan's,
+    the collectives of the served call and, with ``wrong_axes``, the message
+    of the call on a mesh of those axes."""
+    import webgpufft_tpu_torch as T
+    from webgpufft_tpu_torch.parallel import create_distributed_plan, make_mesh
+    from webgpufft_tpu_torch.spec import PlanError
+    mesh = _mesh(axes)
+    plan = create_distributed_plan(dict(opts), mesh=mesh, batch_axis=batch_axis,
+                                   seq_axis=seq_axis)
+    ep = T.load_exported_plan(T.export_distributed_plan(plan))
+    serving = make_mesh(dict(axes), device="cpu")
+    args = [torch.from_numpy(x)] + ([] if kernel is None else [torch.from_numpy(kernel)])
+    with Collectives() as rec:
+        y = ep(*args, mesh=serving)
+    live = plan(args[0], **({} if kernel is None else {"kernel": args[1]}))
+    out = {"out": _np(y), "distributed": ep.distributed, "route_mode": ep.route_mode,
+           "reasons": list(plan.route.reasons), "coll": rec.summary(),
+           "same_as_live": bool(torch.equal(y.full_tensor(), live.full_tensor()))}
+    if wrong_axes is not None:
+        try:
+            ep(*args, mesh=_mesh(wrong_axes))
+        except PlanError as e:
+            out["wrong_mesh"] = str(e)
+    return out
+
+
+def sysid_run(axes, **kw):
+    """The system-identification example trained over a mesh (dp x sp)."""
+    from webgpufft_tpu_torch.examples import system_identification as ex
+    mesh = _mesh(axes)
+    if mesh.get_coordinate() is None:
+        return None
+    return ex.run(mesh=mesh, **kw)
+
+
+def mri_run(axes, **kw):
+    """The MRI example with its distributed leg over a mesh; the numbers."""
+    from webgpufft_tpu_torch.examples import mri_gridding as ex
+    mesh = _mesh(axes)
+    if mesh.get_coordinate() is None:
+        return None
+    r = ex.run(mesh=mesh, verbose=False, **kw)
+    return {k: v for k, v in r.items() if isinstance(v, float)}
+
+
+def plan_kernel_grad(opts, axes, batch_axis, seq_axis, x, k, w):
+    """Gradient of sum(w * plan(x, kernel=k)) with respect to the kernel:
+    the distributed plan's (its output a DTensor, the loss taken on it) and
+    the local plan's (same options, CPU), both as numpy, with the route's
+    reasons."""
+    import webgpufft_tpu_torch as T
+    from torch.distributed.tensor import DTensor, Replicate
+    from webgpufft_tpu_torch.parallel import create_distributed_plan
+    mesh = _mesh(axes)
+    if mesh.get_coordinate() is None:
+        return None
+    plan = create_distributed_plan(dict(opts), mesh=mesh, batch_axis=batch_axis,
+                                   seq_axis=seq_axis)
+    kt = torch.from_numpy(k).requires_grad_()
+    y = plan(torch.from_numpy(x), kernel=kt)
+    wt = DTensor.from_local(torch.from_numpy(w), mesh, [Replicate()] * mesh.ndim,
+                            run_check=False).redistribute(mesh, y.placements)
+    g, = torch.autograd.grad((y * wt).sum().full_tensor(), kt)
+    local = T.create_plan(dict(opts), device="cpu", cache=T.PlanCache())
+    kl = torch.from_numpy(k).requires_grad_()
+    gl, = torch.autograd.grad((local(torch.from_numpy(x), kernel=kl)
+                               * torch.from_numpy(w)).sum(), kl)
+    return g.numpy(), gl.numpy(), list(plan.route.reasons)

@@ -46,8 +46,9 @@ The multi-GPU layer is ``parallel`` (``make_mesh``, the distributed
 builders, ``create_distributed_plan``, also exported here) on
 ``torch.distributed``: ``DeviceMesh``, ``DTensor`` and differentiable
 collectives; the caller initialises the process group.
-``export_distributed_plan`` raises ``PlanError`` naming the ROADMAP item
-that ports it.  The package imports torch and numpy (and scipy lazily,
+``export_distributed_plan`` carries a sequence-parallel plan to a serving
+process (``load_exported_plan(blob)(x, mesh=...)`` rebuilds it on the
+serving mesh).  The package imports torch and numpy (and scipy lazily,
 where the JAX package does), never JAX.
 """
 

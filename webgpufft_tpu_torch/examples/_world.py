@@ -8,6 +8,7 @@ job, done here for the examples."""
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 
@@ -37,9 +38,17 @@ def init_world(device: str = "cuda") -> torch.device:
     return dev
 
 
-def close_world():
-    if dist.is_initialized():
-        dist.destroy_process_group()
+@contextlib.contextmanager
+def world(device: str = "cuda"):
+    """``init_world(device)`` for the block (yields the device); a group
+    this block made is destroyed at its end, one the caller made stays."""
+    made = not dist.is_initialized()
+    dev = init_world(device)
+    try:
+        yield dev
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def rank0() -> bool:

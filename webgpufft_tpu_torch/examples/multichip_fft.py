@@ -21,7 +21,7 @@ from .. import interleave, uninterleave
 from ..parallel import (build_distributed_fft_1d, build_distributed_stft,
                         build_distributed_welch, create_distributed_plan,
                         make_mesh)
-from ._world import close_world, init_world, rank0
+from ._world import rank0, world
 
 
 def run(device="cuda", n: int = 2 ** 16, batch: int = 2, verbose: bool = True):
@@ -70,11 +70,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    init_world(args.device)
-    try:
+    with world(args.device):
         run(args.device)
-    finally:
-        close_world()
 
 
 if __name__ == "__main__":

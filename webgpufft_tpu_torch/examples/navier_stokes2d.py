@@ -155,15 +155,14 @@ def main(argv=None):
     import torch.distributed as dist
 
     from ..parallel import make_mesh
-    from ._world import close_world, init_world, rank0
+    from ._world import rank0, world
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--n", type=int, default=128)
     args = ap.parse_args(argv)
-    dev = init_world(args.device)
-    say = print if rank0() else (lambda *a, **k: None)
     n, nu, dt, steps = args.n, 1e-2, 1e-2, 100
-    try:
+    with world(args.device) as dev:
+        say = print if rank0() else (lambda *a, **k: None)
         w_num = run(taylor_green(n, 0.0, nu), n, nu, dt, steps, device=dev)
         w_ref = taylor_green(n, dt * steps, nu)
         err = np.max(np.abs(w_num - w_ref)) / np.max(np.abs(w_ref))
@@ -191,8 +190,6 @@ def main(argv=None):
         say(f"turbulence: energy {e0:.4f} -> {e1:.4f}, enstrophy {z0:.2f} -> {z1:.2f}")
         assert z1 < z0 and e1 < e0 * 1.001
         say("OK")
-    finally:
-        close_world()
 
 
 if __name__ == "__main__":

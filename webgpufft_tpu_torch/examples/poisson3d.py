@@ -22,7 +22,7 @@ from torch.distributed.tensor import DTensor, Replicate
 
 from ..parallel import create_distributed_plan, make_mesh
 from ..parallel.sharded import mesh_device
-from ._world import close_world, init_world, rank0
+from ._world import rank0, world
 
 
 def lap(v):
@@ -115,11 +115,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--n", type=int, default=64)
     args = ap.parse_args(argv)
-    init_world(args.device)
-    try:
+    with world(args.device):
         run(args.device, args.n)
-    finally:
-        close_world()
 
 
 if __name__ == "__main__":

@@ -17,6 +17,9 @@ differentiates.  Here each is a ``torch.autograd.Function`` over the public
   so its gradient arrives replicated and passes back unchanged (JAX's
   transpose of a psum whose output is replicated); an ``all_reduce`` of it
   would count the gradient once per rank.
+- ``psum_grad``: the identity on a value every rank holds whole and uses on
+  its own part of the work (a kernel); its backward all_reduces the
+  gradient, each rank's being its part's contribution.
 - ``axis_index`` (``lax.axis_index``): ``mesh.get_local_rank(dim)``.
 - ``AxisMap`` / ``remap``: a static gather along one tensor dim that is
   sharded over a group (the flips, rolls, pads, crops, permutations and
@@ -136,6 +139,31 @@ class _AllReduce(torch.autograd.Function):
 def psum(x: torch.Tensor, group):
     """``lax.psum(x, axis)``, its result replicated over ``group``."""
     return _AllReduce.apply(x, group)
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        for group in ctx.groups:
+            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+        return g, None
+
+
+def psum_grad(x: torch.Tensor, mesh, dims):
+    """``x``, a value every rank holds whole (a convolution kernel), used on
+    this rank's part of work split over the mesh dims ``dims`` (names; None
+    skipped): the identity, whose backward sums the gradient over those
+    dims, since each rank's is its own part's contribution (what JAX's
+    transpose of a replicated operand does under ``shard_map``)."""
+    groups = tuple(group_of(mesh, d) for d in dict.fromkeys(dims)
+                   if d is not None and mesh.size(mesh.mesh_dim_names.index(d)) > 1)
+    return _SumGrad.apply(x, groups) if groups else x
 
 
 def chunk_range(n: int, ndev: int, r: int) -> Tuple[int, int]:

@@ -45,7 +45,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from ..plans.base import RouteInfo
 from ..spec import PlanError, PlanSpec, normalize_spec
 from . import sharded
-from .collectives import remap
+from .collectives import psum_grad, remap
 from .sharded import (as_global, axis_size, mesh_device, mesh_shape, shard_in,
                       shard_out)
 
@@ -687,7 +687,16 @@ def create_distributed_plan(opts: Optional[Dict[str, Any]] = None, *, mesh,
     given."""
     merged = dict(opts or {})
     merged.update(kwargs)
-    spec = normalize_spec(merged)
+    return plan_from_spec(normalize_spec(merged), mesh=mesh, batch_axis=batch_axis,
+                          seq_axis=seq_axis, opts=merged)
+
+
+def plan_from_spec(spec: PlanSpec, *, mesh, batch_axis: Optional[str] = None,
+                   seq_axis=None, opts: Optional[Dict[str, Any]] = None) -> DistributedPlan:
+    """``create_distributed_plan`` of a normalized spec (a loaded
+    ``export_distributed_plan`` artifact rebuilds through it).  ``opts``, the
+    options the spec came from, builds the local plan of the batch-sharded
+    mode; a sequence-parallel plan needs the spec only."""
     if batch_axis is None and seq_axis is None:
         raise PlanError("give batch_axis and/or seq_axis (a mesh axis name)")
     if isinstance(seq_axis, (tuple, list)) and len(seq_axis) == 1:
@@ -713,7 +722,7 @@ def create_distributed_plan(opts: Optional[Dict[str, Any]] = None, *, mesh,
     needs_kernel = spec.plan_type in ("fftconv", "conv2d")
 
     if seq_axis is None:
-        return _build_dp(spec, merged, mesh, route, batch_axis, needs_kernel)
+        return _build_dp(spec, opts, mesh, route, batch_axis, needs_kernel)
 
     t = spec.plan_type
     if pencil:
@@ -813,7 +822,9 @@ def _build_dp(spec, merged, mesh, route, batch_axis, needs_kernel):
 
     def fn(x, kernel=None):
         # the local plan reads the whole kernel (a weight every rank holds)
-        kw = {"kernel": _whole(kernel)} if needs_kernel else {}
+        # with its batch shard: the kernel's gradient sums the shards'
+        kw = ({"kernel": psum_grad(_whole(kernel), mesh, [batch_axis])}
+              if needs_kernel else {})
         if x.ndim < 2 or x.shape[0] != spec.batch or flat_out:
             # a flat buffer runs whole on every rank (plans.py:88-100)
             return _held(local.exec(_whole(x), **kw), mesh)

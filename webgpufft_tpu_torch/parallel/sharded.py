@@ -59,7 +59,7 @@ from ..core.precision import einsum
 from ..utils import factors
 from ..utils.mathref import normalize_scale
 from .collectives import (AxisMap, all_to_all, axis_index, chunk_range, group_of,
-                          ppermute, psum, remap)
+                          ppermute, psum, psum_grad, remap)
 
 
 class UnsplittableAxisError(ValueError):
@@ -1217,15 +1217,20 @@ def build_distributed_trig_nd(shape, kind: str, mesh, axis_name: str = "sp",
 # Convolution
 # ---------------------------------------------------------------------------
 
-def _kernel_shard(kernel, mesh, shape, spec):
+def _kernel_shard(kernel, mesh, shape, spec, batch_axis_name=None):
     """This rank's shard of a time-domain kernel (*shape, 2) |
-    (kc, *shape, 2) as (kc, *shape, 2) under ``spec`` (its kc dim whole)."""
+    (kc, *shape, 2) as (kc, *shape, 2) under ``spec`` (its kc dim whole).
+    The shard meets this rank's batch shard only, so its gradient is summed
+    over ``batch_axis_name`` (``psum_grad``); over the sharded dims the
+    distributed transforms carry it."""
     kernel = as_global(kernel, mesh)
-    if kernel.ndim == len(shape) + 1:
-        if isinstance(kernel, DTensor):
-            return shard_in(kernel, mesh, spec[1:], (*shape, 2))[None]
-        kernel = kernel[None]
-    return shard_in(kernel, mesh, spec, (kernel.shape[0], *shape, 2))
+    if kernel.ndim == len(shape) + 1 and isinstance(kernel, DTensor):
+        k = shard_in(kernel, mesh, spec[1:], (*shape, 2))[None]
+    else:
+        if kernel.ndim == len(shape) + 1:
+            kernel = kernel[None]
+        k = shard_in(kernel, mesh, spec, (kernel.shape[0], *shape, 2))
+    return psum_grad(k, mesh, [batch_axis_name])
 
 
 def _fold_map(n: int, m: int, mode: str, mesh, axis_name):
@@ -1303,7 +1308,7 @@ def build_distributed_fftconv_nd(shape, mesh, axis_name: str = "sp",
                            fplans, fconsts, 3)
 
     def fn(x, kernel):
-        k_loc = _kernel_shard(kernel, mesh, shape, kspec)
+        k_loc = _kernel_shard(kernel, mesh, shape, kspec, batch_axis_name)
         kc = k_loc.shape[0]
         x = as_global(x, mesh)
         b = x.shape[0]
@@ -1371,7 +1376,7 @@ def build_distributed_fftconv_pencil(shape, mesh,
     out_spec = (None, batch_axis_name, a0, a1, *rest_none, None)
 
     def fn(x, kernel):
-        k_loc = _kernel_shard(kernel, mesh, shape, kspec)
+        k_loc = _kernel_shard(kernel, mesh, shape, kspec, batch_axis_name)
         kc = k_loc.shape[0]
         x = as_global(x, mesh)
         b = x.shape[0]
@@ -1549,6 +1554,9 @@ def build_distributed_fftconv_halo_nd(shape, kshape, batch: int, mesh,
                     f"understood; expected {kshape + (2,)} or a packed "
                     f"({kn}, 2) buffer")
             kernel = kernel.reshape(kshape + (2,))
+        # every rank convolves its own part of (batch, axis 0) with the
+        # whole kernel: its gradient is the sum of the parts'
+        kernel = psum_grad(kernel, mesh, [batch_axis_name, axis_name])
         x = as_global(x, mesh)
         b = x.shape[0]
         # the zero tail to n0_ext: a tensor every rank holds pads in place,

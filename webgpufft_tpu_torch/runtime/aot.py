@@ -27,9 +27,28 @@ the program as the dispatcher ops ``wgfft::fused_lines`` and
 ``wgfft::fused_cols`` (``core/fused.py``, ``core/fused_cols.py``), the plan
 tables as constants; loading it therefore needs ``import webgpufft_tpu_torch``
 (which registers the ops), and every call of the loaded program launches
-(and counts) the kernels on a CUDA tensor.  The distributed export needs
-multi-GPU plans and raises ``PlanError`` naming the ROADMAP item that ports
-them.
+(and counts) the kernels on a CUDA tensor.
+
+The distributed export (``export_distributed_plan``) carries a
+sequence-parallel ``DistributedPlan`` the same way: the header holds the
+spec, the route and, under ``"distributed"``, what the JAX artefact records
+of its mesh (``mesh``: axis name -> size, ``batch_axis``, ``seq_axis``, a list
+for the pencil, ``nr_devices``); it has no tables, since the distributed
+builders derive theirs from the spec.  The collectives are not traced: they
+are eager ``torch.distributed`` calls on the serving process group, so the
+loaded ``ExportedPlan`` rebuilds the plan (``parallel.plans.plan_from_spec``)
+on the first call that names a mesh, ``ep(x, mesh=...)`` or a DTensor input
+(whose ``device_mesh`` serves), on ``parallel.sharded.mesh_device(mesh)``,
+and keeps one plan per mesh.  The build runs outside any ``torch.func``
+transform or dispatch mode (``runtime/cache._outside_transforms``), so a
+first call inside a trace still makes real exchange maps.  A mesh whose axis
+sizes differ from the recorded ones, and a rebuilt route that differs from
+the recorded one, raise ``PlanError``.  Placement mirrors the JAX
+``ExportedPlan._place``: the batch dim is sharded on ``batch_axis`` (sliced
+from the whole input every rank holds, no collective), the rest replicated;
+the kernel is replicated, and a bare ``(*kshape, 2)`` kernel gains the
+leading count dim when the plan takes one kernel.  A batch-sharded (dp-only)
+plan wraps a local plan, which ``export_plan`` exports.
 """
 
 from __future__ import annotations
@@ -54,6 +73,15 @@ def _route_dict(route) -> Dict[str, Any]:
             "reasons": [r for r in route.reasons if not r.startswith("measure")]}
 
 
+def _write(header: Dict[str, Any], payload: bytes, path: Optional[str]) -> bytes:
+    head = json.dumps(header).encode("utf-8")
+    blob = len(head).to_bytes(8, "big") + head + payload
+    if path is not None:
+        with open(path, "wb") as f:
+            f.write(blob)
+    return blob
+
+
 def export_plan(plan, *, path: Optional[str] = None) -> bytes:
     """Serialize ``plan`` (spec, route, tables).  Returns the artifact bytes;
     also writes ``path`` when given.  Exec-time offsets and ``out=`` are
@@ -61,7 +89,7 @@ def export_plan(plan, *, path: Optional[str] = None) -> bytes:
     tables = {k: v.detach().cpu().numpy() for k, v in plan.consts.items()}
     payload = io.BytesIO()
     np.savez(payload, **{f"t{i}": tables[k] for i, k in enumerate(sorted(tables))})
-    header = json.dumps({
+    return _write({
         "schema": AOT_SCHEMA,
         "version": AOT_VERSION,
         "spec": spec_to_dict(plan.spec),
@@ -70,26 +98,138 @@ def export_plan(plan, *, path: Optional[str] = None) -> bytes:
         "shapes": {"input": None if plan.input_shape is None else list(plan.input_shape),
                    "output": None if plan.output_shape is None else list(plan.output_shape)},
         "tables": sorted(tables),
-    }).encode("utf-8")
-    blob = len(header).to_bytes(8, "big") + header + payload.getvalue()
-    if path is not None:
-        with open(path, "wb") as f:
-            f.write(blob)
-    return blob
+    }, payload.getvalue(), path)
+
+
+def _distributed_io(spec) -> Dict[str, List[int]]:
+    """The global input (and kernel) shape of a distributed plan's call, as
+    the JAX export traces it."""
+    t = spec.plan_type
+    if t == "c2r":
+        shape = (spec.batch, spec.shape[0] // 2 + 1, *spec.shape[1:], 2)
+    elif t == "r2c" or t.startswith(("dct", "dst")):
+        shape = (spec.batch, *spec.shape)
+    else:
+        shape = (spec.batch, *spec.shape, 2)
+    shapes = {"input": list(shape)}
+    if t == "fftconv":
+        fc = spec.fft_conv
+        kshape = tuple(fc.kernel_shape) if fc.kernel_shape is not None else spec.shape
+        shapes["kernel"] = [fc.kernel_count, *kshape, 2]
+    return shapes
+
+
+def export_distributed_plan(dplan, *, path: Optional[str] = None) -> bytes:
+    """Serialize a sequence-parallel ``DistributedPlan`` (spec, route and
+    mesh record; see the module docstring).  Returns the artifact bytes;
+    also writes ``path`` when given.  A serving process loads it with
+    :func:`load_exported_plan` and calls ``ep(x, mesh=serving_mesh)`` on a
+    mesh of the same axis sizes."""
+    from ..parallel.plans import DistributedPlan
+    from ..parallel.sharded import mesh_shape
+
+    if not isinstance(dplan, DistributedPlan):
+        raise PlanError("export_distributed_plan: expected a DistributedPlan "
+                        f"(create_distributed_plan), got {type(dplan).__name__}")
+    if dplan.seq_axis is None:
+        raise PlanError(
+            "export_distributed_plan: a batch-sharded (dp-only) plan wraps "
+            "the local single-chip plan; export that plan with export_plan "
+            "and shard its inputs at serving time")
+    seq = dplan.seq_axis
+    payload = io.BytesIO()
+    np.savez(payload)
+    return _write({
+        "schema": AOT_SCHEMA,
+        "version": AOT_VERSION,
+        "spec": spec_to_dict(dplan.spec),
+        "route": _route_dict(dplan.route),
+        "route_mode": dplan.route.mode,
+        "shapes": _distributed_io(dplan.spec),
+        "tables": [],
+        "distributed": {
+            "mesh": mesh_shape(dplan.mesh),
+            "batch_axis": dplan.batch_axis,
+            "seq_axis": list(seq) if isinstance(seq, (tuple, list)) else seq,
+            "nr_devices": dplan.mesh.size(),
+        },
+    }, payload.getvalue(), path)
 
 
 class ExportedPlan:
     """A loaded artifact: ``ep(x[, kernel=...])`` runs the plan with the
-    exported tables.  ``plan`` is the rebuilt ``Plan``."""
+    exported tables; ``plan`` is the rebuilt ``Plan``.  A distributed
+    artifact (``distributed`` is its mesh record, ``plan`` None) runs as
+    ``ep(x[, kernel], mesh=...)`` or on a DTensor ``x``."""
 
-    def __init__(self, meta: Dict[str, Any], plan):
+    def __init__(self, meta: Dict[str, Any], plan=None):
         self.meta = meta
         self.plan = plan
         self.shapes = meta.get("shapes", {})
         self.route_mode = meta.get("route_mode")
+        self.distributed = meta.get("distributed")
+        self._plans = {}
 
-    def __call__(self, x, kernel=None, **kw):
-        return self.plan(x, kernel=kernel, **kw)
+    def __call__(self, x, kernel=None, *, mesh=None, **kw):
+        if self.distributed is None:
+            if mesh is not None:
+                raise PlanError("mesh= is only meaningful for distributed artifacts")
+            return self.plan(x, kernel=kernel, **kw)
+        from torch.distributed.tensor import DTensor
+        if mesh is None:
+            if not isinstance(x, DTensor):
+                raise PlanError("a distributed artifact runs on a mesh: pass mesh= "
+                                "or a DTensor input")
+            mesh = x.device_mesh
+        plan = self._plan_on(mesh)
+        if not isinstance(x, DTensor):
+            x = self._place(x, mesh)
+        if kernel is not None:
+            kernel = self._replicated_kernel(kernel, mesh)
+        return plan(x, kernel=kernel, **kw)
+
+    def _plan_on(self, mesh):
+        """The plan rebuilt on ``mesh`` (once per mesh), its axes and route
+        held to the recorded ones."""
+        from ..parallel.plans import plan_from_spec
+        from ..parallel.sharded import mesh_shape
+        from .cache import _outside_transforms, _rebuild_spec
+
+        d = self.distributed
+        if mesh_shape(mesh) != {k: int(v) for k, v in d["mesh"].items()}:
+            raise PlanError(f"serving mesh axes {mesh_shape(mesh)} do not match the "
+                            f"exported mesh {d['mesh']}")
+        plan = self._plans.get(mesh)
+        if plan is None:
+            seq = d["seq_axis"]
+            with _outside_transforms():
+                plan = plan_from_spec(
+                    _rebuild_spec(self.meta["spec"]), mesh=mesh,
+                    batch_axis=d["batch_axis"],
+                    seq_axis=tuple(seq) if isinstance(seq, list) else seq)
+            _check_route(self.meta["route"], plan.route)
+            self._plans[mesh] = plan
+        return plan
+
+    def _place(self, x, mesh):
+        """The whole input every rank holds -> a DTensor with the batch dim
+        sharded on ``batch_axis`` and the rest replicated."""
+        from ..parallel.sharded import as_global, shard_in, shard_out
+        x = as_global(x, mesh)
+        spec = (self.distributed["batch_axis"],) + (None,) * (x.ndim - 1)
+        return shard_out(shard_in(x, mesh, spec), mesh, spec, tuple(x.shape))
+
+    def _replicated_kernel(self, kernel, mesh):
+        from torch.distributed.tensor import DTensor, Replicate
+        from ..parallel.sharded import as_global
+        if isinstance(kernel, DTensor):
+            return kernel
+        kernel = as_global(kernel, mesh)
+        want = self.shapes.get("kernel")
+        if want and kernel.ndim == len(want) - 1 and int(want[0]) == 1:
+            kernel = kernel[None]
+        return DTensor.from_local(kernel, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
 
     @property
     def spec_dict(self) -> Dict[str, Any]:
@@ -98,7 +238,8 @@ class ExportedPlan:
 
 def load_exported_plan(data, device="cuda") -> ExportedPlan:
     """Load an artifact produced by :func:`export_plan` (bytes or a path)
-    onto ``device``."""
+    onto ``device``, or one of :func:`export_distributed_plan` (whose plan
+    is built on the serving mesh's device at its first call)."""
     from .. import _build_plan, _resolve_device
     from .cache import _rebuild_spec
 
@@ -121,14 +262,20 @@ def load_exported_plan(data, device="cuda") -> ExportedPlan:
     with np.load(io.BytesIO(bytes(data[8 + hlen:])), allow_pickle=False) as npz:
         tables = {name: torch.from_numpy(npz[f"t{i}"])
                   for i, name in enumerate(meta["tables"])}
+    if meta.get("distributed") is not None:
+        return ExportedPlan(meta)
     plan = _build_plan(_rebuild_spec(meta["spec"]), _resolve_device(device))
-    got = _route_dict(plan.route)
-    if got != meta["route"]:
-        raise PlanError(
-            "load_exported_plan: this process routes the plan differently from "
-            "the exporting one", exported=meta["route"], rebuilt=got)
+    _check_route(meta["route"], plan.route)
     plan.load_consts(tables)
     return ExportedPlan(meta, plan)
+
+
+def _check_route(exported: Dict[str, Any], route) -> None:
+    got = _route_dict(route)
+    if got != exported:
+        raise PlanError(
+            "load_exported_plan: this process routes the plan differently from "
+            "the exporting one", exported=exported, rebuilt=got)
 
 
 PIPELINE_SCHEMA = "webgpufft-tpu-aot-pipeline"
@@ -168,18 +315,13 @@ def export_pipeline(fn, *example_args, path: Optional[str] = None) -> bytes:
     program = torch.export.export(_Pipeline(fn), args, strict=False)
     payload = io.BytesIO()
     torch.export.save(program, payload)
-    header = json.dumps({
+    return _write({
         "schema": PIPELINE_SCHEMA,
         "version": AOT_VERSION,
         "platforms": sorted({a.device.type for a in args}),
         "shapes": [{"shape": list(a.shape), "dtype": str(a.dtype).removeprefix("torch.")}
                    for a in args],
-    }).encode("utf-8")
-    blob = len(header).to_bytes(8, "big") + header + payload.getvalue()
-    if path is not None:
-        with open(path, "wb") as f:
-            f.write(blob)
-    return blob
+    }, payload.getvalue(), path)
 
 
 class ExportedPipeline:
@@ -230,7 +372,3 @@ def load_exported_pipeline(data) -> ExportedPipeline:
     program = torch.export.load(io.BytesIO(bytes(data[8 + hlen:])))
     return ExportedPipeline(meta, program)
 
-
-def export_distributed_plan(*_args, **_kw):
-    raise PlanError("export_distributed_plan needs multi-GPU plans, which are "
-                    "not ported yet (ROADMAP P12)")
