@@ -119,6 +119,36 @@ held against the plain version once more, with the path's own tables:
   beside the yardsticks, with ms per training step beside the same loop on
   ``torch.fft``.
 
+Two phases after the listed kernel shapes hold the kernels and the port over
+their whole domain (neither is a path; their launches count for none):
+
+- domain: every length K1 accepts and every height K2 accepts
+  (``domain_lengths()``, read from ``fused.choose_split`` and
+  ``fused_cols.choose_split``: 824 and 830), each launched against its plain
+  version at ``TOL``: K1 forward (scale 1), inverse (unitary scale) and the
+  adjoint launch on 257 lines below N = 2048 (a ragged last CTA whatever the
+  lines per CTA) and 3 lines from there on, and in place wherever the chain
+  has two or more passes (a one-pass chain must be refused by the wrapper
+  and by the C entry point); K2 forward, inverse and adjoint on (2, H, 66),
+  33 columns ragged against the tile.  Every failure is listed before the
+  phase fails; one JSON line ``{"domain": {...}}`` gives the counts, the
+  launches, the worst error and where, and the seconds;
+- fuzz: the seeded random specs of ``tests/test_torch_fuzz.py`` (the JAX
+  file's draws, copied here) through the port's entry points on the card
+  against float64 numpy / scipy oracles at the JAX file's tolerances: c2c
+  (24 seeds), r2c / c2r (12), dct / dst (12) and fftconv (8) plans under
+  ``impl: "auto"`` (K1 and K2 must both launch) and ``"xla"``, the façade
+  N-D ``s=`` / ``axes=`` lane (30; both compute or both raise
+  ``PlanError``), short-time / envelope (6) and the DSP toolkit (8); one JSON
+  line ``{"fuzz": {...}}``.
+
+To run either alone on the card, import ``chip_smoke`` from a script in the
+repo and call ``phase_device()``, ``phase_build()`` and then
+``phase_domain(torch.Generator(device="cuda").manual_seed(SEED))`` or
+``phase_fuzz()``.  On an NVIDIA H100 80GB HBM3 at 700 W the domain phase took
+11.5-16.4 s and the fuzz phase 3.6-4.2 s; the whole script 408 s against a
+900 s limit, the kernels' build (82 s) included.
+
 Plans and kernels are checked against ``torch.fft`` as an independent
 oracle, as are the Rader, Bluestein and four-step axes and the odd-length
 r2c paths.  Then each kernel shape is timed beside its plain version, its bound
@@ -269,7 +299,11 @@ def phase_k1(gen):
     # and product lines, 1024 kernel lines, 8 product lines of the channel-lane
     # preset) and the overlap-save blocks give it; then the last axis of the
     # nufft path's 256^3 fine grid (256 x 65536 lines) and the linalg path's
-    # matmul_toeplitz (8192 x 1024) and solve_toeplitz (8192 x 512) lines
+    # matmul_toeplitz (8192 x 1024) and solve_toeplitz (8192 x 512) lines;
+    # then the two shapes the examples path launches most: the r2c body of
+    # NS-3D ``main`` at n 32 (3 * 16 * 32 lines of 32, 4 a step) and the
+    # overlap-save blocks of system identification at 2^20 x 8 with 33 taps
+    # (8 * 129 blocks of 8192, 3 a step)
     for n, lines, direction, normalize in [
             (1024, 4096, "forward", "unitary"), (1024, 4096, "inverse", "unitary"),
             (2048, 4096, "forward", "none"), (360, 4096, "inverse", "backward"),
@@ -283,7 +317,8 @@ def phase_k1(gen):
             (OS_BLOCK, OS_BLOCKS, "forward", "none"), (OS_BLOCK, OS_BLOCKS, "inverse", "none"),
             (4, 1000, "forward", "none"), (8, 1000, "inverse", "none"),
             (256, 65536, "forward", "none"), (8192, 1024, "forward", "none"),
-            (8192, 512, "inverse", "backward")]:
+            (8192, 512, "inverse", "backward"),
+            (32, 1536, "forward", "none"), (OS_BLOCK, 1032, "forward", "none")]:
         scale = {"none": 1.0, "unitary": 1.0 / math.sqrt(n),
                  "backward": 1.0 / n if direction == "inverse" else 1.0}[normalize]
         tables = to_dev(fused.lines_consts(n, direction, scale, "p"))
@@ -331,6 +366,443 @@ def phase_k2(gen):
                                    fused_cols.fused_cols_reference, x, tables))
         cases[(pre, h, lanes)] = (x, tables, direction)
     return cases, worst
+
+
+def domain_lengths():
+    """Every length K1 accepts and every height K2 accepts, read from the
+    port's own choosers (each splits N <= ``radix.MAX_LENGTH``): the lengths
+    the ``domain`` phase launches.  Imports only the port."""
+    from webgpufft_tpu_torch.core import fused, fused_cols, radix
+    span = range(2, radix.MAX_LENGTH + 1)
+    return ([n for n in span if fused.choose_split(n)],
+            [h for h in span if fused_cols.choose_split(h)])
+
+
+# ---------------------------------------------------------------------------
+# domain: every length K1 and K2 accept
+# ---------------------------------------------------------------------------
+
+# K1 below N = 2048 takes up to 256 lines a CTA: 257 lines (a prime above
+# every per-CTA count) leave its last CTA ragged whatever the count is; from
+# N = 2048 on a CTA takes one line
+DOMAIN_SHORT_LINES, DOMAIN_LONG_LINES, DOMAIN_LONG_N = 257, 3, 2048
+# K2's views (2, H, 2 * 33): 33 complex columns, ragged against the
+# 16-column tile and against the one-pass heights' 32
+DOMAIN_PRE, DOMAIN_COLS = 2, 33
+
+
+def phase_domain(gen):
+    """Launch K1 at every length it accepts and K2 at every height, each
+    against its plain version at ``TOL`` of max|plain|: K1 forward with
+    scale 1, inverse with the unitary scale, the adjoint launch of the
+    forward tables, all on a line count that leaves the last CTA ragged,
+    and K1 in place (``probes.lines_inplace``) wherever the chain has two
+    or more passes; where it has one, the wrapper and the C entry point must
+    both refuse.  K2 forward, inverse and adjoint on (2, H, 66).  Every
+    failure is collected first and all of them are printed before the
+    phase fails.  These launches count for no path."""
+    from webgpufft_tpu_torch import _build, probes
+    from webgpufft_tpu_torch.core import fused, fused_cols, radix
+    t0 = time.perf_counter()
+    k1_lengths, k2_heights = domain_lengths()
+    before = launches()
+    failures = []
+    worst = {"err": 0.0, "at": None}
+
+    def check(label, run, plain):
+        try:
+            y = run()
+            ref = plain()
+            torch.cuda.synchronize()
+            finite = bool(torch.isfinite(y).all())
+            err = rel_err(y, ref)
+        except Exception as e:  # noqa: BLE001 - collected, the phase fails below
+            failures.append(f"{label}: {type(e).__name__}: {e}")
+            return
+        if not finite or not err <= TOL:
+            failures.append(f"{label}: max rel err {err:.3e}{'' if finite else ', non-finite'}")
+        if err > worst["err"]:
+            worst.update(err=err, at=label)
+
+    for n in k1_lengths:
+        lines = DOMAIN_SHORT_LINES if n < DOMAIN_LONG_N else DOMAIN_LONG_LINES
+        chain = radix.radix_chain(n)
+        fwd = to_dev(fused.lines_consts(n, "forward", 1.0, "p"))
+        inv = to_dev(fused.lines_consts(n, "inverse", 1.0 / math.sqrt(n), "p"))
+        x = torch.randn(lines, n, 2, device="cuda", generator=gen)
+        label = f"K1 N={n} chain={chain} lines={lines}"
+        check(f"{label} forward", lambda: fused.fused_lines(x, fwd),
+              lambda: fused.fused_lines_reference(x, fwd))
+        check(f"{label} inverse unitary", lambda: fused.fused_lines(x, inv),
+              lambda: fused.fused_lines_reference(x, inv))
+        check(f"{label} adjoint", lambda: fused.fused_lines(x, fwd, adjoint=True),
+              lambda: fused.fused_lines_reference(x, fwd, adjoint=True))
+        if len(chain) > 1:
+            check(f"{label} in place", lambda: probes.lines_inplace(x.clone(), fwd),
+                  lambda: fused.fused_lines_reference(x, fwd))
+            continue
+        try:
+            probes.lines_inplace(x.clone(), fwd)
+            failures.append(f"{label} in place: the wrapper ran a one-pass chain in place")
+        except ValueError:
+            pass
+        rc = _build.library().wgfft_fused_lines(
+            x.data_ptr(), x.data_ptr(), fwd["cw"].data_ptr(), fwd["cp"].data_ptr(), lines, n,
+            *_build.chain_arg(chain), 0, torch.cuda.current_stream().cuda_stream)
+        if rc != CUDA_ERROR_INVALID_VALUE:
+            failures.append(f"{label} in place: the entry point returned {rc} for a one-pass "
+                            f"chain, not cudaErrorInvalidValue")
+    for h in k2_heights:
+        fwd = to_dev(fused_cols.cols_consts(h, "forward", 1.0, "p"))
+        inv = to_dev(fused_cols.cols_consts(h, "inverse", 1.0 / math.sqrt(h), "p"))
+        x = torch.randn(DOMAIN_PRE, h, 2 * DOMAIN_COLS, device="cuda", generator=gen)
+        label = (f"K2 H={h} split={fused_cols.choose_split(h)} chain={radix.radix_chain(h)} "
+                 f"view={tuple(x.shape)}")
+        check(f"{label} forward", lambda: fused_cols.fused_cols(x, fwd),
+              lambda: fused_cols.fused_cols_reference(x, fwd))
+        check(f"{label} inverse unitary", lambda: fused_cols.fused_cols(x, inv),
+              lambda: fused_cols.fused_cols_reference(x, inv))
+        check(f"{label} adjoint", lambda: fused_cols.fused_cols(x, fwd, adjoint=True),
+              lambda: fused_cols.fused_cols_reference(x, fwd, adjoint=True))
+    after = launches()
+    summary = {"k1_lengths": len(k1_lengths), "k2_heights": len(k2_heights),
+               "launches": after[0] - before[0] + after[1] - before[1],
+               "k1_launches": after[0] - before[0], "k2_launches": after[1] - before[1],
+               "worst_rel_err": worst["err"], "worst_at": worst["at"],
+               "failures": len(failures), "seconds": round(time.perf_counter() - t0, 2)}
+    for line in failures:
+        print(f"domain FAIL {line}")
+    print(json.dumps({"domain": summary}))
+    require(not failures, f"domain: {len(failures)} launches disagree or fail (listed above)")
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# fuzz: the seeded random specs of the CPU files, on the card
+# ---------------------------------------------------------------------------
+
+# the draws of tests/test_torch_fuzz.py (copied: a script on the card
+# imports nothing of tests/), same seeds and the JAX file's tolerances
+FUZZ_AXIS_POOL = [2, 3, 4, 5, 6, 7, 8, 9, 11, 12, 13, 15, 16, 17, 20, 23, 30]
+FUZZ_IMPLS = ("auto", "xla")
+FUZZ_SEEDS = {"c2c": 24, "r2c/c2r": 12, "dct/dst": 12, "fftconv": 8,
+              "facade nd": 30, "shorttime/envelope": 6, "dsp toolkit": 8}
+
+
+def fuzz_spec(rng):
+    rank = int(rng.integers(1, 5))
+    shape = [int(rng.choice(FUZZ_AXIS_POOL)) for _ in range(rank)]
+    while np.prod(shape) > 4096:
+        shape[int(rng.integers(0, rank))] = 2
+    batch = int(rng.choice([1, 2, 3, 5]))
+    direction = str(rng.choice(["forward", "inverse"]))
+    normalize = str(rng.choice(["none", "backward", "unitary"]))
+    return shape, batch, direction, normalize
+
+
+def il_np(z):
+    return np.stack([z.real, z.imag], -1).astype(np.float32)
+
+
+def on_card(a, device="cuda"):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def from_card(y):
+    return y.detach().float().cpu().numpy() if isinstance(y, torch.Tensor) else np.asarray(y)
+
+
+def fuzz_plans(seed, impl):
+    """The four plan lanes' draws of one seed: (label, opts, input,
+    kernel, oracle of the output, tolerance); r2c gives its c2r draw too."""
+    from webgpufft_tpu_torch.utils import mathref as R
+    out = []
+    if seed < FUZZ_SEEDS["c2c"]:
+        rng = np.random.default_rng(1000 + seed)
+        shape, batch, direction, normalize = fuzz_spec(rng)
+        z = rng.standard_normal((batch, *shape)) + 1j * rng.standard_normal((batch, *shape))
+        out.append((f"c2c seed={seed} {shape} b{batch} {direction}/{normalize}",
+                    {"type": "c2c", "shape": shape, "batch": batch, "direction": direction,
+                     "normalize": normalize}, il_np(z), None,
+                    il_np(R.fft_nd(z, shape, direction, normalize)), 1e-5))
+    if seed < FUZZ_SEEDS["r2c/c2r"]:
+        rng = np.random.default_rng(2000 + seed)
+        shape, batch, _, _ = fuzz_spec(rng)
+        shape[0] = int(rng.choice([4, 6, 8, 9, 12, 16, 17, 30]))
+        x = rng.standard_normal((batch, *shape)).astype(np.float32)
+        out.append((f"r2c seed={seed} {shape} b{batch}",
+                    {"type": "r2c", "shape": shape, "direction": "forward", "batch": batch},
+                    x, None, il_np(R.r2c_packed(x.astype(np.float64), shape)), 1e-5))
+        out.append((f"c2r seed={seed} {shape} b{batch} (of the r2c oracle)",
+                    {"type": "c2r", "shape": shape, "direction": "inverse",
+                     "normalize": "backward", "batch": batch},
+                    il_np(R.r2c_packed(x.astype(np.float64), shape)), None, x, 1e-5))
+    if seed < FUZZ_SEEDS["dct/dst"]:
+        rng = np.random.default_rng(3000 + seed)
+        shape, batch, direction, normalize = fuzz_spec(rng)
+        kind = str(rng.choice(["dct1", "dct2", "dct3", "dct4", "dst1", "dst2", "dst3", "dst4"]))
+        if kind == "dst1":
+            shape = [max(s, 2) for s in shape]
+        x = rng.standard_normal((batch, *shape)).astype(np.float32)
+        ref = R.dct_nd(x.astype(np.float64), shape, kind, direction)
+        ref = ref * R.normalize_scale(normalize, direction, int(np.prod(shape)))
+        out.append((f"{kind} seed={seed} {shape} b{batch} {direction}/{normalize}",
+                    {"type": kind, "shape": shape, "batch": batch, "direction": direction,
+                     "normalize": normalize}, x, None, ref, 5e-5))
+    if seed < FUZZ_SEEDS["fftconv"]:
+        rng = np.random.default_rng(4000 + seed)
+        rank = int(rng.integers(1, 4))
+        shape = [int(rng.choice([4, 6, 8, 9, 12, 16])) for _ in range(rank)]
+        kshape = [int(rng.integers(1, s + 1)) for s in shape]
+        boundary = str(rng.choice(["circular", "linear-full", "linear-same", "linear-valid"]))
+        mode = str(rng.choice(["convolution", "correlation"]))
+        batch = int(rng.choice([1, 2, 3]))
+        z = rng.standard_normal((batch, *shape)) + 1j * rng.standard_normal((batch, *shape))
+        k = rng.standard_normal(kshape) + 1j * rng.standard_normal(kshape)
+        ref = R.fftconv(z, k, shape, batch=batch, mode=mode, boundary=boundary,
+                        kernel_shape=kshape)
+        out.append((f"fftconv seed={seed} {shape}*{kshape} b{batch} {boundary}/{mode}",
+                    {"type": "fftconv", "shape": shape, "batch": batch,
+                     "fftConv": {"boundary": boundary, "mode": mode, "kernelShape": kshape}},
+                    il_np(z), il_np(k), il_np(ref), 5e-5))
+    return [(f"{label} {impl}", {**opts, "tuning": {"impl": impl}}, *rest)
+            for label, opts, *rest in out]
+
+
+def rfftn_in_given_order(x, s, axes, norm):
+    """numpy 2.0's ``rfftn``, which the JAX package's façade follows: rfft
+    along the last axis given, then fft along the others in the order
+    given.  numpy 2.3 takes the others last to first; the two differ only
+    where one of those axes repeats (a draw of the façade lane does)."""
+    if axes is None:
+        axes = list(range(x.ndim)) if s is None else list(range(-len(s), 0))
+    if s is None:
+        s = [x.shape[a] for a in axes]
+    if len(s) != len(axes):
+        raise ValueError("s and axes have different lengths")
+    s = [x.shape[a] if m == -1 else m for m, a in zip(s, axes)]
+    y = np.fft.rfft(x, s[-1], axes[-1], norm)
+    for m, a in zip(s[:-1], axes[:-1]):
+        y = np.fft.fft(y, m, a, norm)
+    return y
+
+
+def rfftn_oracle(x, s, axes, norm):
+    """``np.fft.rfftn`` for the outcome kind, ``rfftn_in_given_order`` for
+    the values; the two must agree where no axis but the last repeats."""
+    want = np.fft.rfftn(x, s=s, axes=axes, norm=norm)
+    ours = rfftn_in_given_order(x, s, axes, norm)
+    rest = [a % x.ndim for a in (axes or range(x.ndim))][:-1]
+    if len(set(rest)) == len(rest):
+        require(ours.shape == want.shape and np.allclose(ours, want, rtol=1e-12, atol=1e-12),
+                f"rfftn oracle: s={s} axes={axes} differs from numpy's")
+    return ours
+
+
+def fuzz_facade_nd(seed):
+    """test_fuzz.py::test_fuzz_facade_nd_s_axes's draw: [(name, call,
+    oracle, complex)]; rfftn's oracle is numpy 2.0's order (``rfftn_oracle``),
+    whatever numpy the card has."""
+    import scipy.fft as sf
+    from webgpufft_tpu_torch import fftapi as F
+    rng = np.random.default_rng(777000 + seed)
+    nd = int(rng.integers(1, 4))
+    shape = tuple(int(rng.integers(3, 12)) for _ in range(nd))
+    x = rng.standard_normal(shape)
+    z = x + 1j * rng.standard_normal(shape)
+    if rng.random() < 0.25:
+        axes = None
+    else:
+        k = int(rng.integers(1, nd + 2))
+        axes = tuple(int(rng.integers(-nd, nd)) for _ in range(k))
+    if rng.random() < 0.45:
+        s = None
+    else:
+        base = len(axes) if axes is not None else nd
+        slen = base if rng.random() < 0.8 else base + 1
+        s = tuple(int(rng.choice([-1, 3, 4, 5])) for _ in range(slen))
+    norm = [None, "ortho", "forward"][int(rng.integers(0, 3))]
+    s_dct = None if s is None else tuple(abs(m) + 2 for m in s)
+    tag = f"shape={shape} axes={axes} s={s} norm={norm}"
+    return [
+        (f"fftn {tag}", lambda: F.fftn(z, s=s, axes=axes, norm=norm),
+         lambda: np.fft.fftn(z, s=s, axes=axes, norm=norm), True),
+        (f"rfftn {tag}", lambda: F.rfftn(x, s=s, axes=axes, norm=norm),
+         lambda: rfftn_oracle(x, s, axes, norm), True),
+        (f"ihfftn {tag}", lambda: F.ihfftn(x, s=s, axes=axes, norm=norm),
+         lambda: sf.ihfftn(x, s=s, axes=axes, norm=norm), True),
+        (f"dctn {tag}", lambda: F.dctn(x, s=s_dct, axes=axes, norm=norm),
+         lambda: sf.dctn(x, s=s_dct, axes=axes, norm=norm), False)]
+
+
+def fuzz_shorttime(seed, record):
+    """test_fuzz.py::test_fuzz_shorttime_and_envelope's draw on the card."""
+    import scipy.signal as ss
+    from webgpufft_tpu_torch import ShortTimeFFT
+    from webgpufft_tpu_torch import fftapi as F
+    r = np.random.default_rng(2000 + seed)
+    n = int(r.integers(40, 300))
+    x = r.standard_normal(n)
+    m = int(r.integers(4, 24))
+    hop = int(r.integers(1, m + 1))
+    mfft = m + int(r.integers(0, 9))
+    mode = str(r.choice(["onesided", "twosided", "centered"]))
+    A = ShortTimeFFT(ss.windows.gaussian(m, m / 4), hop=hop, fs=5, fft_mode=mode, mfft=mfft)
+    B = ss.ShortTimeFFT(ss.windows.gaussian(m, m / 4), hop=hop, fs=5, fft_mode=mode, mfft=mfft)
+    tag = f"shorttime seed={seed} n={n} m={m} hop={hop} mfft={mfft} {mode}"
+    S_e = B.stft(x)
+    record(f"{tag} stft", F.ascomplex(from_card(A.stft(x))), S_e, 5e-4)
+    if A.invertible:
+        xr = from_card(A.istft(S_e.astype(np.complex64), k1=n))
+        if mode == "onesided":
+            record(f"{tag} istft", xr, B.istft(S_e, k1=n).real, 5e-4)
+    bp0 = int(r.integers(-(n // 2), (n + 1) // 2 - 1))
+    bp1 = int(r.integers(bp0 + 1, (n + 1) // 2 + 1))
+    res = str(r.choice(["lowpass", "all"]))
+    record(f"envelope seed={seed} n={n} band=({bp0}, {bp1}) {res}",
+           from_card(F.envelope(x, (bp0, bp1), residual=res)),
+           ss.envelope(x, (bp0, bp1), residual=res), 1e-4)
+
+
+def fuzz_dsp(seed, record):
+    """test_fuzz.py::test_fuzz_dsp_toolkit's draw on the card."""
+    import scipy.signal as ss
+    from webgpufft_tpu_torch import filtering as FL
+    from webgpufft_tpu_torch import splines as SP
+    r = np.random.default_rng(1000 + seed)
+    n = int(r.integers(64, 400))
+    x = r.standard_normal(n).astype(np.float32)
+    ftype = str(r.choice(["butter", "cheby1", "cheby2", "ellip"]))
+    order = int(r.integers(2, 7))
+    btype = str(r.choice(["lowpass", "highpass", "bandpass"]))
+    if btype == "bandpass":
+        lo = r.uniform(0.1, 0.4)
+        wn = [lo, lo + r.uniform(0.1, 0.4)]
+    else:
+        wn = r.uniform(0.1, 0.8)
+    kw = {}
+    if ftype in ("cheby1", "ellip"):
+        kw["rp"] = 1.0
+    if ftype in ("cheby2", "ellip"):
+        kw["rs"] = 40.0
+    sos = FL.iirfilter(order, wn, btype=btype, ftype=ftype, output="sos", **kw)
+    sos_ref = ss.iirfilter(order, wn, btype=btype, ftype=ftype, output="sos", **kw)
+    require(np.allclose(sos, sos_ref, atol=1e-9, rtol=1e-7), f"dsp seed={seed}: sos design")
+    tag = f"dsp seed={seed} n={n}"
+    record(f"{tag} sosfilt {ftype} {btype} order {order}", from_card(FL.sosfilt(sos, x)),
+           ss.sosfilt(sos_ref, x), 5e-4)
+    numtaps = int(r.integers(9, 64)) | 1
+    cutoff = r.uniform(0.1, 0.9)
+    taps = FL.firwin(numtaps, cutoff)
+    require(np.allclose(taps, ss.firwin(numtaps, cutoff), atol=1e-13), f"{tag}: firwin")
+    record(f"{tag} lfilter {numtaps} taps", from_card(FL.lfilter(taps, 1.0, x)),
+           ss.lfilter(taps, [1.0], x), 5e-4)
+    z1 = float(r.uniform(-0.7, 0.7))
+    if abs(z1) > 0.05 and n > 60:
+        c0 = float(r.uniform(0.5, 3.0))
+        record(f"{tag} symiirorder1 z1={z1:.3f}",
+               from_card(SP.symiirorder1(x.astype(np.float64), c0, z1)),
+               ss.symiirorder1(x.astype(np.float64), c0, z1), 5e-4)
+
+
+def phase_fuzz(device="cuda"):
+    """The seeded random specs of ``tests/test_torch_fuzz.py`` (the JAX
+    file's draws) through the port's entry points on tensors on the card,
+    each against its float64 numpy / scipy oracle at the JAX file's
+    tolerance (max|got - want| over max|want|; the façade N-D lane over
+    max(1, max|want|)): the four plan lanes under ``impl: "auto"`` (K1/K2)
+    and ``"xla"`` (einsums), the façade N-D ``s=`` / ``axes=`` lane with its
+    outcome-kind rule (both compute or both raise ``PlanError``), the
+    short-time / envelope lane and the DSP toolkit lane (numpy input on the
+    façade's default device, ``device``).  Every failing draw is collected
+    before the phase fails.  These launches count for no path."""
+    import webgpufft_tpu_torch as T
+    from webgpufft_tpu_torch import fftapi
+    from webgpufft_tpu_torch.spec import PlanError
+    t0 = time.perf_counter()
+    failures = []
+    worst = {"err": 0.0, "at": None}
+    made = {}
+    draws = 0
+
+    def record(label, got, want, tol, floor=1e-6):
+        nonlocal draws
+        draws += 1
+        got, want = np.asarray(got), np.asarray(want)
+        if got.shape != want.shape:
+            failures.append(f"{label}: shape {got.shape} != {want.shape}")
+            return
+        err = float(np.max(np.abs(got - want)) / max(float(np.max(np.abs(want))), floor))
+        if not err <= tol:
+            failures.append(f"{label}: err {err:.3e} > {tol:.0e}")
+        if err / tol > worst["err"]:
+            worst.update(err=err / tol, at=f"{label}: err {err:.3e} of limit {tol:.0e}")
+
+    def run(lane, fn, seed, *args):
+        before = launches()
+        try:
+            with fftapi.default_device(device):
+                fn(seed, *args)
+        except Exception as e:  # noqa: BLE001 - collected, the phase fails below
+            failures.append(f"{lane} seed={seed}: {type(e).__name__}: {e}")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        after = launches()
+        k1, k2 = made.get(lane, (0, 0))
+        made[lane] = (k1 + after[0] - before[0], k2 + after[1] - before[1])
+
+    def plans(seed, impl):
+        for label, opts, x, kernel, want, tol in fuzz_plans(seed, impl):
+            plan = T.create_plan(opts, device=device, cache=T.PlanCache())
+            kw = {} if kernel is None else {"kernel": on_card(kernel, device)}
+            record(label, from_card(plan(on_card(x, device), **kw)), want, tol)
+
+    def facade(seed):
+        nonlocal draws
+        for label, ours, ref, cplx in fuzz_facade_nd(seed):
+            try:
+                want = ref()
+            except Exception:  # noqa: BLE001 - the oracle's outcome kind
+                want = None
+            try:
+                got = from_card(ours())
+            except PlanError:
+                got = None
+            if (got is None) != (want is None):
+                failures.append(f"facade nd seed={seed} {label}: outcome kind: port "
+                                f"{'raised' if got is None else 'computed'}, oracle "
+                                f"{'raised' if want is None else 'computed'}")
+                continue
+            if want is None:
+                draws += 1     # both raise: the outcome kinds agree
+                continue
+            if cplx and np.iscomplexobj(want):
+                got = got[..., 0] + 1j * got[..., 1]
+            record(f"facade nd seed={seed} {label}", got, want, 5e-3, floor=1.0)
+
+    for impl in FUZZ_IMPLS:
+        for seed in range(max(FUZZ_SEEDS[k] for k in ("c2c", "r2c/c2r", "dct/dst", "fftconv"))):
+            run(f"plans {impl}", plans, seed, impl)
+    for seed in range(FUZZ_SEEDS["facade nd"]):
+        run("facade nd", facade, seed)
+    for seed in range(FUZZ_SEEDS["shorttime/envelope"]):
+        run("shorttime/envelope", fuzz_shorttime, seed, record)
+    for seed in range(FUZZ_SEEDS["dsp toolkit"]):
+        run("dsp toolkit", fuzz_dsp, seed, record)
+    for lane, (k1, k2) in made.items():
+        print(f"fuzz {lane}: launches fused_lines {k1}, fused_cols {k2}")
+    require(device != "cuda" or all(made["plans auto"]),
+            f"fuzz: the auto plans launched {made['plans auto']}")
+    summary = {"draws": draws, "seeds": FUZZ_SEEDS,
+               "launches": {lane: {"fused_lines": k1, "fused_cols": k2}
+                            for lane, (k1, k2) in made.items()},
+               "worst_share_of_limit": worst["err"], "worst_at": worst["at"],
+               "failures": len(failures), "seconds": round(time.perf_counter() - t0, 2)}
+    for line in failures:
+        print(f"fuzz FAIL {line}")
+    print(json.dumps({"fuzz": summary}))
+    require(not failures, f"fuzz: {len(failures)} draws disagree or fail (listed above)")
+    return summary
 
 
 def check_close(label, y, expected, what, tol=TOL):
@@ -3194,6 +3666,8 @@ def main():
     phase_build()
     k1_cases, k1_err = phase_k1(gen)
     k2_cases, k2_err = phase_k2(gen)
+    phase_domain(gen)
+    phase_fuzz()
     adj_err = phase_adjoint(gen, k1_cases, k2_cases)
     print(f"kernel adjoints: worst max abs err vs the plain adjoint {adj_err:.3e}")
     probe_err, copies, lines_cases = phase_probe_kernels(gen)

@@ -10,7 +10,7 @@ test_autodiff.py, test_fuzz.py and test_measure.py."""
 import numpy as np
 import pytest
 
-from torch_dist_support import both_plan, cx, il, jax_plan, unil
+from torch_dist_support import both_build, both_plan, cx, il, jax_plan, unil
 from torch_port_support import assert_close, assert_close_c
 from torch_world import raises, world_fixture
 from webgpufft_tpu.utils import mathref as R
@@ -871,6 +871,197 @@ def test_fuzz_distributed_c2c(world, seed):
                                    normalize=normalize), axes, dp, "sp", [il(z)])
     assert_close_c(unil(r["out"]), R.fft_nd(z, [n], direction, normalize),
                    label=f"dfuzz seed={seed} n={n} {key}")
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_fuzz_distributed_fftconv(world, seed):
+    """test_fuzz.py::test_fuzz_distributed_fftconv: the same seeded draws
+    (sp8 or dp2sp4; every boundary and mode; one or two kernels)."""
+    rng = np.random.default_rng(6000 + seed)
+    key = str(rng.choice(["sp8", "dp2sp4"]))
+    axes = FUZZ_MESHES[key]
+    dp = "dp" if "dp" in axes else None
+    n = int(rng.choice([64, 100, 128, 160]))
+    kn = int(rng.integers(1, 33))
+    boundary = str(rng.choice(["circular", "linear-full", "linear-same", "linear-valid"]))
+    mode = str(rng.choice(["convolution", "correlation"]))
+    kcount = int(rng.choice([1, 2]))
+    batch = 2 * (axes[dp] if dp else 1)
+    if boundary == "circular":
+        kn = n
+    z = rng.standard_normal((batch, n)) + 1j * rng.standard_normal((batch, n))
+    ks = rng.standard_normal((kcount, kn)) + 1j * rng.standard_normal((kcount, kn))
+    kin = il(ks) if kcount > 1 else il(ks[0])
+    r, _, _ = both_plan(world, fftconv([n], batch, boundary=boundary, mode=mode,
+                                       kernelShape=[kn], kernelCount=kcount),
+                        axes, dp, "sp", [il(z)], kin, tol=5e-5)
+    y = r["out"] if kcount > 1 else r["out"][None]
+    for k in range(kcount):
+        ref = R.fftconv(z, ks[k], [n], batch=batch, mode=mode, boundary=boundary,
+                        kernel_shape=[kn])
+        assert_close_c(unil(y[k]), ref, 5e-5,
+                       label=f"dfuzz conv seed={seed} n={n} k{kn} {key} {boundary}/{mode} #{k}")
+
+
+def _real_and_trig(world, rng, axes, dp, shape, batch, x, label):
+    """The r2c -> c2r or dct/dst draw shared by the 1-D and N-D real lanes."""
+    which = str(rng.choice(["r2c", "trig"]))
+    if which == "r2c":
+        r2c = {"type": "r2c", "shape": list(shape), "batch": batch}
+        r, _, _ = both_plan(world, r2c, axes, dp, "sp", [x.astype(np.float32)])
+        ref = np.fft.fftn(x, axes=tuple(range(1, len(shape) + 1)))[:, : shape[0] // 2 + 1]
+        assert_close_c(unil(r["out"]), ref, label=f"{label} r2c")
+        c2r = {"type": "c2r", "shape": list(shape), "batch": batch,
+               "direction": "inverse", "normalize": "backward"}
+        r2, _, _ = both_plan(world, c2r, axes, dp, "sp", [r["out"]])
+        assert_close(r2["out"], x, label=f"{label} c2r")
+    else:
+        kind = str(rng.choice(["dct2", "dct3", "dst2", "dst3"]))
+        direction = str(rng.choice(["forward", "inverse"]))
+        opts = {"type": kind, "shape": list(shape), "batch": batch,
+                "direction": direction, "normalize": "unitary"}
+        r, _, _ = both_plan(world, opts, axes, dp, "sp", [x.astype(np.float32)], tol=5e-5)
+        assert_close(r["out"], R.dct_nd(x, list(shape), kind, direction, "unitary"), 5e-5,
+                     label=f"{label} {kind} {direction}")
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_fuzz_distributed_real_and_trig(world, seed):
+    """test_fuzz.py::test_fuzz_distributed_real_and_trig: 1-D r2c -> c2r or
+    dct/dst on dp 2 x sp 4, lengths that split and that do not."""
+    rng = np.random.default_rng(7000 + seed)
+    n = int(rng.choice([64, 128, 225, 256, 360, 1000]))
+    x = rng.standard_normal((4, n))
+    _real_and_trig(world, rng, DP2SP4, "dp", [n], 4, x,
+                   f"dfuzz seed={seed} n={n}")
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_fuzz_distributed_real_and_trig_nd(world, seed):
+    """test_fuzz.py::test_fuzz_distributed_real_and_trig_nd: rank-2/3 shapes
+    whose axis 0 is splittable, even and unsplittable, or odd (13, 15: uneven
+    over 8 and 4 ranks), on sp8 or dp2sp4."""
+    rng = np.random.default_rng(7500 + seed)
+    key = str(rng.choice(["sp8", "dp2sp4"]))
+    axes = FUZZ_MESHES[key]
+    dp = "dp" if "dp" in axes else None
+    n0 = int(rng.choice([13, 15, 24, 30, 32, 64, 128]))
+    rest = [int(v) for v in rng.choice([4, 5, 6, 8, 12], size=int(rng.choice([1, 2])))]
+    shape = [n0] + rest
+    batch = 2 * (axes[dp] if dp else 1)
+    x = rng.standard_normal((batch, *shape))
+    _real_and_trig(world, rng, axes, dp, shape, batch, x,
+                   f"dfuzz nd seed={seed} {shape} {key}")
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_fuzz_distributed_fftconv_nd(world, seed):
+    """test_fuzz.py::test_fuzz_distributed_fftconv_nd: N-D convolutions on
+    dp 2 x sp 4 across the halo and spectrum routes (the kernel's size
+    decides), every boundary."""
+    rng = np.random.default_rng(8000 + seed)
+    shape = [int(rng.choice([96, 128, 200])), int(rng.choice([6, 8, 12]))]
+    kshape = [int(rng.integers(2, 12)), int(rng.integers(1, 4))]
+    boundary = str(rng.choice(["linear-full", "linear-same", "circular"]))
+    if boundary == "circular" and shape[0] % 4:
+        boundary = "linear-full"
+    batch = 4
+    z = rng.standard_normal((batch, *shape)) + 1j * rng.standard_normal((batch, *shape))
+    kk = rng.standard_normal(kshape) + 1j * rng.standard_normal(kshape)
+    r, _, _ = both_plan(world, fftconv(shape, batch, boundary=boundary, kernelShape=kshape),
+                        DP2SP4, "dp", "sp", [il(z)], il(kk), tol=5e-5)
+    ref = R.fftconv(z, kk, shape, batch=batch, boundary=boundary, kernel_shape=kshape)
+    assert_close_c(unil(r["out"]).reshape(ref.shape), ref, 5e-5,
+                   label=f"dfuzz ndconv seed={seed} {shape}*{kshape} {boundary} "
+                   f"route={r['route']['reasons'][-1]}")
+
+
+PENCIL_MESHES = {"2x4": PENCIL, "4x2": {"sp0": 4, "sp1": 2}, "dp2x2x2": PENCIL_DP}
+
+
+@pytest.mark.parametrize("seed", range(10))
+def test_fuzz_distributed_pencil(world, seed):
+    """test_fuzz.py::test_fuzz_distributed_pencil: pencil (2-D mesh) c2c or
+    r2c -> c2r with random splittable axes, a riding axis of any length
+    (3, 5, 6, 7), every direction and norm, with and without dp."""
+    rng = np.random.default_rng(7000 + seed)
+    key = str(rng.choice(list(PENCIL_MESHES)))
+    axes = PENCIL_MESHES[key]
+    dp = "dp" if "dp" in axes else None
+    p0, p1 = axes["sp0"], axes["sp1"]
+
+    def pick_len(p):
+        return int(rng.choice([p * p, 4 * p * p, 3 * p * p, 6 * p * p, 2 * p * p]))
+
+    n0, n1 = pick_len(p0), pick_len(p1)
+    rank = int(rng.choice([2, 3]))
+    rest = [int(rng.choice([3, 5, 6, 7]))] if rank == 3 else []
+    shape = [n0, n1, *rest]
+    batch = (axes[dp] if dp else 1) * int(rng.choice([1, 2]))
+    kind = str(rng.choice(["c2c", "r2c_c2r"]))
+    label = f"pfuzz seed={seed} {shape} {key}"
+    if kind == "c2c":
+        direction = str(rng.choice(["forward", "inverse"]))
+        normalize = str(rng.choice(["none", "backward", "unitary"]))
+        z = rng.standard_normal((batch, *shape)) + 1j * rng.standard_normal((batch, *shape))
+        r, _, _ = both_plan(world, c2c(shape, batch, direction=direction, normalize=normalize),
+                            axes, dp, PAIR, [il(z)])
+        assert_close_c(unil(r["out"]).reshape(batch, *shape),
+                       R.fft_nd(z, shape, direction, normalize),
+                       label=f"{label} c2c {direction}/{normalize}")
+    else:
+        x = rng.standard_normal((batch, *shape)).astype(np.float32)
+        r, _, _ = both_plan(world, {"type": "r2c", "shape": shape, "batch": batch},
+                            axes, dp, PAIR, [x])
+        pk = shape[0] // 2 + 1
+        ref = R.fft_nd(x.astype(np.float64), shape, "forward")[:, :pk]
+        assert_close_c(unil(r["out"]).reshape(batch, pk, *shape[1:]), ref,
+                       label=f"{label} r2c")
+        r2, _, _ = both_plan(world, {"type": "c2r", "shape": shape, "batch": batch,
+                                     "direction": "inverse", "normalize": "backward"},
+                             axes, dp, PAIR, [r["out"]])
+        assert_close(r2["out"].reshape(batch, *shape), x, label=f"{label} c2r")
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_fuzz_distributed_spectral(world, seed):
+    """test_fuzz.py::test_fuzz_distributed_spectral: random sequence-parallel
+    STFT / ISTFT / welch geometries on sp 2, 4 or 8, against the façade at
+    the JAX file's bars; the port agrees with the JAX builders at the same."""
+    import scipy.signal as ss
+    from webgpufft_tpu import fft as wfft
+    from webgpufft_tpu.parallel.sharded import distributed_stft_geometry
+    from webgpufft_tpu_torch.parallel import sharded as TS
+    r = np.random.default_rng(3000 + seed)
+    ndev = int(r.choice([2, 4, 8]))
+    axes = {"sp": ndev}
+    W = int(r.choice([32, 64, 96, 128]))
+    H = int(r.integers(max(W // 4, 8), W + 1))
+    n = int(r.integers(1500, 4000))
+    for _ in range(2000):
+        if distributed_stft_geometry(n, W, H, ndev) is not None:
+            break
+        n += 1
+    assert TS.distributed_stft_geometry(n, W, H, ndev) == distributed_stft_geometry(
+        n, W, H, ndev)
+    x = r.standard_normal((2, n)).astype(np.float32)
+    kw = {"nperseg": W, "noverlap": W - H}
+    label = (W, H, n, ndev)
+    Zd, _ = both_build(world, "build_distributed_stft", [n, "MESH", "sp"], kw, axes, [x],
+                       tol=2e-5, attrs=())
+    _, _, Zr = wfft.stft(x, **kw)
+    Zr = np.asarray(Zr)
+    assert np.max(np.abs(Zd - Zr)) / max(np.max(np.abs(Zr)), 1e-6) < 2e-5, label
+    if ss.check_NOLA("hann", W, W - H):
+        xr, _ = both_build(world, "build_distributed_istft", [n, "MESH", "sp"], kw, axes,
+                           [Zr], tol=5e-5, attrs=())
+        assert np.max(np.abs(xr - x)) / max(np.max(np.abs(x)), 1e-6) < 5e-5, label
+    if ((n - W) // H + 1) % ndev == 0:
+        Pd, _ = both_build(world, "build_distributed_welch", [n, "MESH", "sp"], kw, axes,
+                           [x], tol=2e-5, attrs=())
+        _, Pr = wfft.welch(x, **kw)
+        Pr = np.asarray(Pr)
+        assert np.max(np.abs(Pd - Pr)) / np.max(Pr) < 2e-5, label
 
 
 def test_distributed_records_measure_degradation(world):

@@ -148,17 +148,23 @@ def facade_raises(name, match, *args, module="fftapi", exc=None, **kw):
         getattr(tmod, name)(*args, **kw)
 
 
+def chip_smoke():
+    """The repo root's ``chip_smoke`` module (the GPU script; importing it
+    runs nothing)."""
+    repo = str(Path(__file__).resolve().parent.parent)
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke as module
+    finally:
+        sys.path.remove(repo)
+    return module
+
+
 def torch_fft_stepper3(n, nu, dt, device):
     """``chip_smoke.torch_fft_stepper3``: the port's NS-3D solver with
     ``torch.fft`` in place of the plans, the one copy the GPU script and the
     tests share."""
-    repo = str(Path(__file__).resolve().parent.parent)
-    sys.path.insert(0, repo)
-    try:
-        import chip_smoke
-    finally:
-        sys.path.remove(repo)
-    return chip_smoke.torch_fft_stepper3(n, nu, dt, device)
+    return chip_smoke().torch_fft_stepper3(n, nu, dt, device)
 
 
 def same(got, want, label=""):
