@@ -5,7 +5,9 @@
 Builds the hand-written CUDA kernels from the checkout's sources, holds each
 kernel against its plain PyTorch version (at the shapes the paths below give
 it, and at lengths that stress the radix chain: the shared-memory limit, every
-odd radix, one-butterfly lengths, a ragged column count, small digits), and
+odd radix, one-butterfly lengths, a ragged column count, small digits; K2's
+tall tiles run the ring design, the timing lines and the kernel record name
+the design of each shape), and
 holds each kernel's adjoint launch (the backward of autograd) against the
 plain adjoint and the dot test <K x, u> = <x, K^H u>, holds the three probe
 kernels (``webgpufft_tpu_torch.probes``) against theirs, and drives seventeen
@@ -130,9 +132,14 @@ their whole domain (neither is a path; their launches count for none):
   lines per CTA) and 3 lines from there on, and in place wherever the chain
   has two or more passes (a one-pass chain must be refused by the wrapper
   and by the C entry point); K2 forward, inverse and adjoint on (2, H, 66),
-  33 columns ragged against the tile.  Every failure is listed before the
-  phase fails; one JSON line ``{"domain": {...}}`` gives the counts, the
-  launches, the worst error and where, and the seconds;
+  33 columns ragged against the tile.  Wherever the ring design serves the
+  view (K2 tiles of 8192 points or more, as the C entry point reports it:
+  ``fused_cols.launch_shape``), the four launches (in place included) again
+  on ``ring_units(grid)`` tiles: every stage of every persistent CTA used
+  and then reused twice, and a ragged last turn.  Every failure is listed
+  before the phase fails; one JSON line ``{"domain": {...}}`` gives the
+  counts, the launches, the ring's share of them, the worst error and
+  where, and the seconds;
 - fuzz: the seeded random specs of ``tests/test_torch_fuzz.py`` (the JAX
   file's draws, copied here) through the port's entry points on the card
   against float64 numpy / scipy oracles at the JAX file's tolerances: c2c
@@ -145,9 +152,9 @@ their whole domain (neither is a path; their launches count for none):
 To run either alone on the card, import ``chip_smoke`` from a script in the
 repo and call ``phase_device()``, ``phase_build()`` and then
 ``phase_domain(torch.Generator(device="cuda").manual_seed(SEED))`` or
-``phase_fuzz()``.  On an NVIDIA H100 80GB HBM3 at 700 W the domain phase took
-11.5-16.4 s and the fuzz phase 3.6-4.2 s; the whole script 408 s against a
-900 s limit, the kernels' build (82 s) included.
+``phase_fuzz()``.  Each prints its seconds; PERF.md gives them, the build's
+and the whole script's for the newest run, beside the 1200 s the script
+must finish in.
 
 Plans and kernels are checked against ``torch.fft`` as an independent
 oracle, as are the Rader, Bluestein and four-step axes and the odd-length
@@ -303,7 +310,8 @@ def phase_k1(gen):
     # then the two shapes the examples path launches most: the r2c body of
     # NS-3D ``main`` at n 32 (3 * 16 * 32 lines of 32, 4 a step) and the
     # overlap-save blocks of system identification at 2^20 x 8 with 33 taps
-    # (8 * 129 blocks of 8192, 3 a step)
+    # (8 * 129 blocks of 8192, 3 a step); then two more long lengths whose
+    # CTA fills an SM: 2079 = 3^3 * 7 * 11 (odd) and 6144 = 16 * 16 * 8 * 3
     for n, lines, direction, normalize in [
             (1024, 4096, "forward", "unitary"), (1024, 4096, "inverse", "unitary"),
             (2048, 4096, "forward", "none"), (360, 4096, "inverse", "backward"),
@@ -318,7 +326,8 @@ def phase_k1(gen):
             (4, 1000, "forward", "none"), (8, 1000, "inverse", "none"),
             (256, 65536, "forward", "none"), (8192, 1024, "forward", "none"),
             (8192, 512, "inverse", "backward"),
-            (32, 1536, "forward", "none"), (OS_BLOCK, 1032, "forward", "none")]:
+            (32, 1536, "forward", "none"), (OS_BLOCK, 1032, "forward", "none"),
+            (2079, 4096, "forward", "none"), (6144, 1024, "inverse", "unitary")]:
         scale = {"none": 1.0, "unitary": 1.0 / math.sqrt(n),
                  "backward": 1.0 / n if direction == "inverse" else 1.0}[normalize]
         tables = to_dev(fused.lines_consts(n, direction, scale, "p"))
@@ -342,7 +351,9 @@ def phase_k2(gen):
     # 8 * 16 and 8 * 8 of rank > 1 plans; then the views of the dct path
     # (8, 512, 1024), the fftconv path (data and product (8, 1024, 2048), the
     # kernel (1, 1024, 2048)), axis 0 of the 256^3 r2c/c2r plans
-    # ((b, 128, 131072)) and one-butterfly heights a short axis 0 gives (3, 9)
+    # ((b, 128, 131072)) and one-butterfly heights a short axis 0 gives (3, 9);
+    # then two more views of the ring design: a 4-column tile (H = 2048) and
+    # an odd column count (33: 8-byte copies, a ragged last tile)
     for pre, h, lanes, direction in [
             (256, 256, 512, "forward"), (1, 256, 131072, "forward"),
             (64, 360, 512, "forward"), (256, 16, 512, "forward"),
@@ -352,7 +363,8 @@ def phase_k2(gen):
             (3 * 128, 128, 512, "forward"), (64, 64, 128, "inverse"),
             (8, 512, 1024, "forward"), (8, 1024, 2048, "forward"),
             (1, 1024, 2048, "forward"), (3, 128, 131072, "forward"),
-            (6, 128, 131072, "inverse"), (8, 3, 512, "forward"), (8, 9, 512, "inverse")]:
+            (6, 128, 131072, "inverse"), (8, 3, 512, "forward"), (8, 9, 512, "inverse"),
+            (8, 2048, 1024, "forward"), (64, 1024, 66, "inverse")]:
         if (pre, h) == (256, 16):
             tables = cols_tables_h2_is_1(h, direction, 1.0)
             split = (16, 1)
@@ -389,6 +401,17 @@ DOMAIN_SHORT_LINES, DOMAIN_LONG_LINES, DOMAIN_LONG_N = 257, 3, 2048
 # K2's views (2, H, 2 * 33): 33 complex columns, ragged against the
 # 16-column tile and against the one-pass heights' 32
 DOMAIN_PRE, DOMAIN_COLS = 2, 33
+# where the ring design serves a height, one more launch of
+# ring_units(grid) tiles: every one of a CTA's RING_STAGES stages
+# (kRingStages of csrc/stage.cuh) filled RING_TURNS times (used, then
+# reused twice) and a ragged last turn of RING_TAIL tiles
+RING_STAGES, RING_TURNS, RING_TAIL = 2, 3, 7
+
+
+def ring_units(grid):
+    """Tiles of a ring launch on ``grid`` persistent CTAs that fills each
+    CTA's every stage ``RING_TURNS`` times and ends in a ragged turn."""
+    return RING_STAGES * RING_TURNS * grid + RING_TAIL
 
 
 def phase_domain(gen):
@@ -398,9 +421,12 @@ def phase_domain(gen):
     forward tables, all on a line count that leaves the last CTA ragged,
     and K1 in place (``probes.lines_inplace``) wherever the chain has two
     or more passes; where it has one, the wrapper and the C entry point must
-    both refuse.  K2 forward, inverse and adjoint on (2, H, 66).  Every
-    failure is collected first and all of them are printed before the
-    phase fails.  These launches count for no path."""
+    both refuse.  K2 forward, inverse and adjoint on (2, H, 66).  Where the
+    ring design serves the view (``fused_cols.launch_shape``), the same
+    three launches and K2 in place again on ``ring_units(grid)`` tiles: the
+    ring turned three times with a ragged tail.  Every failure is
+    collected first and all of them are printed before the phase fails.
+    These launches count for no path."""
     from webgpufft_tpu_torch import _build, probes
     from webgpufft_tpu_torch.core import fused, fused_cols, radix
     t0 = time.perf_counter()
@@ -408,6 +434,7 @@ def phase_domain(gen):
     before = launches()
     failures = []
     worst = {"err": 0.0, "at": None}
+    ring = {"k2_heights": 0, "k2_tiles": 0}
 
     def check(label, run, plain):
         try:
@@ -464,10 +491,30 @@ def phase_domain(gen):
               lambda: fused_cols.fused_cols_reference(x, inv))
         check(f"{label} adjoint", lambda: fused_cols.fused_cols(x, fwd, adjoint=True),
               lambda: fused_cols.fused_cols_reference(x, fwd, adjoint=True))
+        grid, tile = fused_cols.launch_shape(h, DOMAIN_COLS)
+        if grid > 0:
+            tiles = -(-DOMAIN_COLS // tile)
+            pre = -(-ring_units(grid) // tiles)
+            big = torch.randn(pre, h, 2 * DOMAIN_COLS, device="cuda", generator=gen)
+            ring_label = (f"K2 H={h} chain={radix.radix_chain(h)} ring grid={grid} "
+                          f"tile={tile} view={tuple(big.shape)}")
+            check(f"{ring_label} forward", lambda: fused_cols.fused_cols(big, fwd),
+                  lambda: fused_cols.fused_cols_reference(big, fwd))
+            check(f"{ring_label} inverse unitary", lambda: fused_cols.fused_cols(big, inv),
+                  lambda: fused_cols.fused_cols_reference(big, inv))
+            check(f"{ring_label} adjoint",
+                  lambda: fused_cols.fused_cols(big, fwd, adjoint=True),
+                  lambda: fused_cols.fused_cols_reference(big, fwd, adjoint=True))
+            check(f"{ring_label} in place", lambda: probes.cols_inplace(big.clone(), fwd),
+                  lambda: fused_cols.fused_cols_reference(big, fwd))
+            ring["k2_heights"] += 1
+            ring["k2_tiles"] += pre * tiles
+            del big
     after = launches()
     summary = {"k1_lengths": len(k1_lengths), "k2_heights": len(k2_heights),
                "launches": after[0] - before[0] + after[1] - before[1],
                "k1_launches": after[0] - before[0], "k2_launches": after[1] - before[1],
+               "ring": ring,
                "worst_rel_err": worst["err"], "worst_at": worst["at"],
                "failures": len(failures), "seconds": round(time.perf_counter() - t0, 2)}
     for line in failures:
@@ -1943,19 +1990,24 @@ def phase_timing(k1_cases, k2_cases, headline, volume, card):
         fft = torch.fft.fft if direction == "forward" else torch.fft.ifft
         norm = fft_norm(direction, normalize)
         out[("K1", n, lines)] = time_kernel(
-            f"K1 fused_lines N={n} lines={lines}", fused.fused_lines,
+            f"K1 fused_lines N={n} lines={lines} design=direct", fused.fused_lines,
             fused.fused_lines_reference,
             lambda v, fft=fft, norm=norm: fft(torch.view_as_complex(v), dim=-1, norm=norm),
             (x, t), n, lines, card)
+        out[("K1", n, lines)]["design"] = "direct"
     for (pre, h, lanes), (x, t, direction) in k2_cases.items():
         fft = torch.fft.fft if direction == "forward" else torch.fft.ifft
         norm = fft_norm(direction, "none")
+        grid, tile = fused_cols.launch_shape(h, lanes // 2)
+        design = "ring" if grid > 0 else "direct"
         out[("K2", pre, h, lanes)] = time_kernel(
-            f"K2 fused_cols view=({pre}, {h}, {lanes})", fused_cols.fused_cols,
-            fused_cols.fused_cols_reference,
+            f"K2 fused_cols view=({pre}, {h}, {lanes}) design={design} tile={tile}",
+            fused_cols.fused_cols, fused_cols.fused_cols_reference,
             lambda v, fft=fft, norm=norm: fft(
                 torch.view_as_complex(v.view(v.shape[0], v.shape[1], -1, 2)), dim=1, norm=norm),
             (x, t), h, pre * lanes // 2, card)
+        out[("K2", pre, h, lanes)]["design"] = design
+        out[("K2", pre, h, lanes)]["tile"] = tile
     # what Function.apply costs a caller who never differentiates: the
     # headline plan's one kernel pass from an idle device, launched directly
     # (what an untracked call does) and through the Function

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import webgpufft_tpu_torch as T
+from webgpufft_tpu_torch import probes
 from webgpufft_tpu_torch.core import fused, fused_cols
 from torch_port_support import (assert_close, cuda_device,  # noqa: F401 (fixture)
                                 torch_fft_stepper3)
@@ -76,6 +77,91 @@ def test_fused_cols_kernel_matches_plain(pre, h, lanes, cuda_device):
     assert fused_cols.fused_cols.launches == before + 1
     assert_close(y.cpu(), fused_cols.fused_cols_reference(x, t).cpu(),
                  label=f"K2 ({pre}, {h}, {lanes})")
+
+
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+LINE_COUNTS = {"one": lambda g: 1, "sms-1": lambda g: g - 1, "sms+1": lambda g: g + 1,
+               "2sms+7": lambda g: 2 * g + 7}
+
+
+@pytest.mark.parametrize("count", sorted(LINE_COUNTS))
+@pytest.mark.parametrize("n", [2048, 2079, 4096, 8192, 16384])
+def test_long_lines_forward_adjoint_in_place(n, count, cuda_device):
+    """K1 from N = 2048 on (2079 = 3^3 * 7 * 11 is odd: its odd lines are not
+    16-byte aligned; from 6144 on one CTA fills an SM), at line counts
+    around the SM count: one line, an SM count but one, an SM count and
+    one, two and a ragged seven."""
+    lines = LINE_COUNTS[count](_sms())
+    gen = torch.Generator(device=cuda_device).manual_seed(n + lines)
+    t = _dev_tables(fused.lines_consts(n, "forward", 1.0 / math.sqrt(n), "p"), cuda_device)
+    x = torch.randn(lines, n, 2, device=cuda_device, generator=gen)
+    before = fused.fused_lines.launches
+    y = fused.fused_lines(x, t)
+    ya = fused.fused_lines(x, t, adjoint=True)
+    z = probes.lines_inplace(x.clone(), t)
+    torch.cuda.synchronize()
+    assert fused.fused_lines.launches == before + 3
+    want = fused.fused_lines_reference(x, t).cpu()
+    assert_close(y.cpu(), want, label=f"K1 n={n} lines={lines}")
+    assert_close(ya.cpu(), fused.fused_lines_reference(x, t, adjoint=True).cpu(),
+                 label=f"K1 n={n} lines={lines} adjoint")
+    assert_close(z.cpu(), want, label=f"K1 n={n} lines={lines} in place")
+
+
+@pytest.mark.parametrize("view", ["odd columns", "narrow", "one pre"])
+@pytest.mark.parametrize("h", [512, 1024, 2048])
+def test_tall_tiles_forward_adjoint_in_place(h, view, cuda_device):
+    """K2 at heights whose tiles reach 8192 points, in the design its entry
+    point takes: 33 columns (a 264-byte row pitch, not 16-byte aligned: the
+    8-byte copies, and a ragged last tile) over two grids and a ragged seven
+    of tiles, 5 columns (a tile narrower than 16), and one pre index."""
+    cols = {"odd columns": 33, "narrow": 5, "one pre": 1024}[view]
+    grid, tile = fused_cols.launch_shape(h, cols)
+    assert grid > 0 or view == "narrow", (h, cols)   # 5 columns: the direct tile
+    tiles = -(-cols // tile)
+    pre = 1 if view == "one pre" else -(-(2 * (grid or _sms()) + 7) // tiles)
+    gen = torch.Generator(device=cuda_device).manual_seed(h + cols)
+    t = _dev_tables(fused_cols.cols_consts(h, "inverse", 1.0 / h, "p"), cuda_device)
+    x = torch.randn(pre, h, 2 * cols, device=cuda_device, generator=gen)
+    before = fused_cols.fused_cols.launches
+    y = fused_cols.fused_cols(x, t)
+    ya = fused_cols.fused_cols(x, t, adjoint=True)
+    z = probes.cols_inplace(x.clone(), t)
+    torch.cuda.synchronize()
+    assert fused_cols.fused_cols.launches == before + 3
+    want = fused_cols.fused_cols_reference(x, t).cpu()
+    assert_close(y.cpu(), want, label=f"K2 ({pre}, {h}, {2 * cols})")
+    assert_close(ya.cpu(), fused_cols.fused_cols_reference(x, t, adjoint=True).cpu(),
+                 label=f"K2 ({pre}, {h}, {2 * cols}) adjoint")
+    assert_close(z.cpu(), want, label=f"K2 ({pre}, {h}, {2 * cols}) in place")
+
+
+def test_ring_launches_after_a_smaller_stage_of_the_same_kernel(cuda_device):
+    """H = 768 and 640 (16 * 16 * 3, 16 * 8 * 5) run the same ring kernel
+    with stages of 12,288 and 10,240 points: the launch after the smaller
+    one still has the shared memory its larger stages need."""
+    for h in (768, 640, 768):
+        gen = torch.Generator(device=cuda_device).manual_seed(h)
+        t = _dev_tables(fused_cols.cols_consts(h, "forward", 1.0, "p"), cuda_device)
+        x = torch.randn(3, h, 66, device=cuda_device, generator=gen)
+        assert fused_cols.launch_shape(h, 33)[0] > 0, h
+        assert_close(fused_cols.fused_cols(x, t).cpu(),
+                     fused_cols.fused_cols_reference(x, t).cpu(), label=f"K2 ring H={h}")
+
+
+@pytest.mark.parametrize("design", ["direct", "ring", "ring-async"])
+@pytest.mark.parametrize("pre,h,lanes", [(8, 1024, 2048), (3, 2048, 64), (5, 512, 1024)])
+def test_every_cols_design_matches_plain(pre, h, lanes, design, cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(h)
+    t = _dev_tables(fused_cols.cols_consts(h, "forward", 1.0, "p"), cuda_device)
+    x = torch.randn(pre, h, lanes, device=cuda_device, generator=gen)
+    for adjoint in (False, True):
+        y = probes.cols_variant(x, t, design, adjoint=adjoint)
+        assert_close(y.cpu(), fused_cols.fused_cols_reference(x, t, adjoint).cpu(),
+                     label=f"K2 {design} ({pre}, {h}, {lanes}) adjoint={adjoint}")
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):

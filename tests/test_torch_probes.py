@@ -197,7 +197,8 @@ def test_launch_counters_count_kernel_launches_only():
 
 C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
            "long long": ctypes.c_longlong, "int": ctypes.c_int, "float": ctypes.c_float,
-           "const int*": ctypes.POINTER(ctypes.c_int)}
+           "const int*": ctypes.POINTER(ctypes.c_int),
+           "int*": ctypes.POINTER(ctypes.c_int)}
 ENTRY = re.compile(r'extern "C" int (\w+)\(([^)]*)\)', re.S)
 
 
@@ -224,7 +225,8 @@ def test_ctypes_signatures_match_the_c_sources(which):
 
 def test_probe_library_is_a_second_library():
     assert {s.name for s in _build.sources("probes")} == {
-        "stream_copy.cu", "lines_stages.cu", "lines_planes.cu", "tile_copy.cu"}
+        "stream_copy.cu", "lines_stages.cu", "lines_planes.cu", "tile_copy.cu",
+        "cols_variants.cu"}
     assert {s.name for s in _build.sources("core")} == {"fused_lines.cu", "fused_cols.cu"}
     core, probe = _build.library_path("core"), _build.library_path("probes")
     assert core != probe and core.parent == probe.parent == _build.BUILD_DIR
@@ -244,6 +246,27 @@ def test_probe_sources_stage_through_shared_memory_with_the_async_copies():
         assert "cudaMemcpy" not in body and "cufft" not in body.lower(), src.name
 
 
+def test_ring_stages_land_by_the_async_copies():
+    """K2's ring design (``csrc/stage.cuh``) lands tiles by a tensor map
+    where the view allows (``csrc/cols.cuh``) and by cp.async otherwise, on
+    mbarriers; no source of the plans' library copies or transforms by a
+    library call."""
+    text = (_build.CSRC / "stage.cuh").read_text()
+    code = "\n".join(line for line in text.splitlines() if not line.lstrip().startswith("//"))
+    for needle in ("cp.async.ca.shared.global", "cp.async.cg.shared.global",
+                   "cp.async.mbarrier.arrive.noinc", "mbarrier.arrive.expect_tx",
+                   "mbarrier.try_wait.parity", "fence.mbarrier_init", "fence.proxy.async"):
+        assert needle in code, needle
+    tma = (_build.CSRC / "cols.cuh").read_text()
+    assert "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes" in tma
+    assert "cuTensorMapEncodeTiled" in tma
+    for src in _build.sources("core") + _build.headers():
+        body = "\n".join(line for line in src.read_text().splitlines()
+                         if not line.lstrip().startswith("//"))
+        assert "cudaMemcpy" not in body and "cufft" not in body.lower(), src.name
+    assert '#include "stage.cuh"' in (_build.CSRC / "cols.cuh").read_text()
+
+
 # ---- the scripts ----------------------------------------------------------
 
 SCRIPTS = sorted(p.stem for p in (REPO / "chip_probes").glob("*.py"))
@@ -251,7 +274,7 @@ SCRIPTS = sorted(p.stem for p in (REPO / "chip_probes").glob("*.py"))
 
 def test_the_probe_scripts_are_all_here():
     assert set(SCRIPTS) >= {"tile_copy", "chain_ab", "stream_copy", "k1_stages", "k1_layouts",
-                            "ptxas_report"}
+                            "ptxas_report", "k1_k2_ring"}
 
 
 @pytest.mark.parametrize("module", [f"chip_probes.{s}" for s in SCRIPTS]

@@ -46,8 +46,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _INTS = ctypes.POINTER(ctypes.c_int)
-# library -> entry point -> argument types (every entry point returns an int,
-# the cudaError_t of its launch)
+# library -> entry point -> argument types (every entry point returns an int:
+# the cudaError_t of its launch, or for ``wgfft_fused_cols_ring`` the grid)
 _SIGNATURES = {
     "core": {
         # x, y, cw, cp, lines, n, radices, count, adjoint, stream
@@ -56,6 +56,9 @@ _SIGNATURES = {
         # x, y, cw, cp, pre, h, cols, radices, count, adjoint, stream
         "wgfft_fused_cols": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                              ctypes.c_longlong, _INTS, ctypes.c_int, ctypes.c_int, _P),
+        # h, cols, radices, count, tile -> the ring's grid, 0 for the direct
+        # design, -1 (no launch); the tile's columns into tile
+        "wgfft_fused_cols_ring": (ctypes.c_int, ctypes.c_longlong, _INTS, ctypes.c_int, _INTS),
     },
     "probes": {
         # x, y, count, scale, use_scale, mode, stages, stage_bytes, ctas, stream
@@ -70,6 +73,10 @@ _SIGNATURES = {
         # x, y, pre, h, lanes, tile_floats, width, threads, stream
         "probe_tile_copy": (_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                             ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
+        # x, y, cw, cp, pre, h, cols, radices, count, adjoint, design, stream
+        "wgfft_cols_variant": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                               ctypes.c_longlong, _INTS, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, _P),
     },
 }
 _SOURCE_DIRS = {"core": CSRC, "probes": CSRC / "probes"}

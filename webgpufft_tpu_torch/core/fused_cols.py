@@ -29,6 +29,7 @@ under ``torch.export`` and of ``FusedCols``.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -132,6 +133,19 @@ def fused_cols_chain_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor],
     y = radix.radix_chain_reference(x.reshape(pre, h, lanes // 2, 2),
                                     radix.radix_chain(h), tables, adjoint)
     return y.reshape(pre, h, lanes)
+
+
+def launch_shape(h: int, cols: int) -> Tuple[int, int]:
+    """``(grid, tile)``: how K2's entry point runs height ``h`` over ``cols``
+    complex columns on the current CUDA device.  ``grid`` is the persistent
+    grid (CTAs) of the ring design, 0 where the direct design serves the
+    view; ``tile`` the columns of the design's tile.  Needs the card."""
+    tile = ctypes.c_int(0)
+    grid = _build.library().wgfft_fused_cols_ring(
+        h, cols, *_build.chain_arg(radix.radix_chain(h)), ctypes.byref(tile))
+    if grid < 0:
+        raise ValueError(f"fused_cols: no design runs H = {h} over {cols} columns")
+    return grid, tile.value
 
 
 def _check_cuda(x: torch.Tensor) -> None:

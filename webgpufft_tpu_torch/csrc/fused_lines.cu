@@ -13,6 +13,18 @@
 // once, 16 * N * lines bytes (67 MB for N = 1024 x 4096 lines: 20 us at the
 // data sheet's 3.35 TB/s); the butterflies need about 50 flops per point at
 // N = 1024 against the roughly 320 the card affords per 16-byte point.
+// What holds it from that bound is the time an SM spends on the passes,
+// each inner pass a trip through shared memory between two barriers: from
+// N = 2048 on one line fills a CTA, and from 6144 (and 8192 = 16 * 8 * 8 *
+// 8) the CTA an SM (512 threads of up to 128 registers), so the SM moves no
+// bytes while its line runs its passes (0.37-0.39 of the bound at 8192 on
+// the H100, half cuFFT's speed).  K2's ring of stages (stage.cuh:
+// persistent CTAs landing the next line by one bulk copy while the current
+// one runs its passes) was measured for these lengths and not kept: the
+// load it hides is a fifth of a line's time, and the stage it lands in
+// costs a barrier, shared memory the L1 cache held the twiddle table in,
+// and spills, so it ran 4-15 % slower at every length a plan launches
+// (PERF.md).  Fewer passes, not an overlapped load, is what would move it.
 //
 // Design: a CTA takes as many whole lines as keep about 256 threads busy
 // with one butterfly group each in every pass (16 lines at N = 256 = 16 * 16,

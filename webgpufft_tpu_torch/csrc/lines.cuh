@@ -13,6 +13,8 @@
 namespace wgfft {
 
 struct LinesLayout {
+  static constexpr bool kStaged = false;  // the first pass reads x (radix.cuh)
+
   long long line0;  // first line of this CTA
   long long lines;  // lines in the array
   int n;

@@ -18,7 +18,9 @@
 // passes between exchange through shared memory in place: a thread holds
 // all its butterflies' points in registers across the barrier that
 // separates a pass's reads from its writes.  A one-pass chain never touches
-// shared memory.
+// shared memory.  Where a ring of stages (stage.cuh) has landed the units
+// in shared memory already, the first pass reads them from their stage
+// instead.
 //
 // tw is the host's table of n-th roots of unity (float64 on the host,
 // rounded once to f32) gathered into the order the passes read it, n - 1
@@ -225,6 +227,9 @@ __host__ __device__ constexpr int per_thread(int e, int radix) {
 //                      zeros and store nothing)
 //   global(u, pos)     offset of point pos of unit u in x and y
 //   shared(u, pos)     offset of point pos of unit u in shared memory
+//   kStaged            false: the first pass reads x; true: the units have
+//                      landed in shared memory already (stage.cuh), and the
+//                      first pass reads them at sm[landed(u, pos)]
 //
 // FIRST and LAST say at compile time whether this is the chain's first and
 // last pass (0 or 1), or leave it to the arguments of the same name (-1).
@@ -239,6 +244,9 @@ __device__ __forceinline__ void radix_pass(const Layout& lay, const float2* __re
   constexpr int PER = per_thread(E, R);
   const int m = n / R;
   const int total = m * lay.units();
+  // k = j mod ns: a mask where ns is a power of two (the staged layouts
+  // only; the direct design's kernels keep the division as they were measured)
+  const bool mask = Layout::kStaged && (ns & (ns - 1)) == 0;
   float2 v[PER][R];
 #pragma unroll
   for (int q = 0; q < PER; ++q) {
@@ -247,30 +255,40 @@ __device__ __forceinline__ void radix_pass(const Layout& lay, const float2* __re
       int u, j;
       lay.split(b, m, u, j);
       if (first) {
-        const bool live = lay.live(u);
+        if constexpr (Layout::kStaged) {
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          v[q][r] = live ? x[lay.global(u, j + r * m)] : make_float2(0.f, 0.f);
-          v[q][r].y *= cj;
+          for (int r = 0; r < R; ++r) {
+            v[q][r] = sm[lay.landed(u, j + r * m)];
+            v[q][r].y *= cj;
+          }
+        } else {
+          const bool live = lay.live(u);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            v[q][r] = live ? x[lay.global(u, j + r * m)] : make_float2(0.f, 0.f);
+            v[q][r].y *= cj;
+          }
         }
       } else {
 #pragma unroll
         for (int r = 0; r < R; ++r) v[q][r] = sm[lay.shared(u, j + r * m)];
-        const float2* t = tw + (ns - 1) + j % ns;
+        const float2* t = tw + (ns - 1) + (mask ? j & (ns - 1) : j % ns);
 #pragma unroll
         for (int r = 1; r < R; ++r) v[q][r] = cmul(v[q][r], __ldg(t + (r - 1) * ns));
       }
       Butterfly<R>::run(v[q], s);
     }
   }
-  if (!first) __syncthreads();  // every read of this pass is done: overwrite
+  // every read of this pass is done: overwrite (a staged first pass reads
+  // the stage it writes)
+  if (!first || Layout::kStaged) __syncthreads();
 #pragma unroll
   for (int q = 0; q < PER; ++q) {
     const int b = threadIdx.x + q * blockDim.x;
     if (b < total) {
       int u, j;
       lay.split(b, m, u, j);  // again, rather than hold it across the barrier
-      const int k = j % ns;
+      const int k = mask ? j & (ns - 1) : j % ns;
       const int j0 = (j - k) * R + k;
       if (last) {
         if (lay.live(u)) {

@@ -11,8 +11,10 @@ module's docstring):
   stages its data on chip;
 - ``stages``: K1's radix chain stopped after each pass, same bytes in and
   out: what one pass costs;
-- ``planes``: K1 on re/im-split planes, and K1 in place: what the layout and
-  a separate output cost.
+- ``planes``: K1 on re/im-split planes, and K1 (and K2) in place: what the
+  layout and a separate output cost;
+- ``variants``: K2 in a design named by the caller, the direct one or the
+  ring of stages: the one-run comparison of the two.
 
 Every wrapper follows K1's: a CUDA tensor launches the kernel or raises, a
 CPU tensor runs the plain PyTorch version, a ``launches`` counter counts
@@ -21,9 +23,11 @@ the first launch into a library of their own (``_build.library("probes")``).
 The scripts under ``chip_probes/`` print their times.
 """
 
-from .planes import lines_inplace, lines_planes, lines_planes_reference
+from .planes import cols_inplace, lines_inplace, lines_planes, lines_planes_reference
 from .stages import lines_stages, lines_stages_reference
 from .stream import stream_copy, stream_copy_reference
+from .variants import cols_variant
 
 __all__ = ["stream_copy", "stream_copy_reference", "lines_stages", "lines_stages_reference",
-           "lines_planes", "lines_planes_reference", "lines_inplace"]
+           "lines_planes", "lines_planes_reference", "lines_inplace", "cols_inplace",
+           "cols_variant"]

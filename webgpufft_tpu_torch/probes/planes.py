@@ -17,6 +17,9 @@ inside the kernel (``split_il``), and the rebuild of the fused kernel with
   of two or more passes only: a one-pass chain is refused.  It counts as a
   launch of K1 (``fused.fused_lines.launches``).  The plans' wrapper
   (``core/fused.py``) stays out of place.
+- ``cols_inplace``: the same for K2 (``core/fused_cols.py``): a CTA owns
+  every tile it transforms, whichever design serves the view, and reads a
+  tile before it writes any of it.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from typing import Dict
 import torch
 
 from .. import _build
-from ..core import fused, radix
+from ..core import fused, fused_cols, radix
 
 
 def lines_planes_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -94,4 +97,27 @@ def lines_inplace(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> torch.Ten
                                    torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "lines_inplace")
     fused.fused_lines.launches += 1
+    return x
+
+
+def cols_inplace(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """K2 along axis 1 of interleaved float32 ``x`` (pre, H, L), written
+    over ``x``; returns ``x``.  A CUDA tensor launches K2 with y = x (one K2
+    launch); a CPU tensor gets K2's plain version copied into it.  Any
+    height: in a one-pass chain each thread reads and writes whole columns
+    of its own."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"cols_inplace: unsupported device {x.device}")
+    fused_cols._check_cuda(x)
+    h = x.shape[1]
+    if x.device.type == "cpu":
+        return x.copy_(fused_cols.fused_cols_reference(x, tables))
+    ptrs = _build.table_ptrs(x, tables, {"cw": (h, 2), "cp": (2,)}, "cols_inplace")
+    lib = _build.library()
+    with _build.on_device(x.device):
+        rc = lib.wgfft_fused_cols(x.data_ptr(), x.data_ptr(), *ptrs, x.shape[0], h,
+                                  x.shape[2] // 2, *_build.chain_arg(radix.radix_chain(h)), 0,
+                                  torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "cols_inplace")
+    fused_cols.fused_cols.launches += 1
     return x
