@@ -17,11 +17,21 @@ and adjoint), then timed in turns, in order and in reverse, each time the
 median of both turns, with its host time per call.  K1 has one design (the
 ring was measured for its long lines and not kept: PERF.md).
 
+``--e2e`` then times, from idle and queued, the calls whose K1 launches
+are its long lines, each beside the same call on ``torch.fft`` (in turns:
+yardstick, port, port, yardstick) and with its K1 launches: the
+system-identification training step at 2^20 x 8 (forward + backward +
+Adam, from idle only), ``matmul_toeplitz`` (4097 x 4096) @ (4096, 1024),
+``solve_toeplitz`` 4096 x 256 and the overlap-save plan [2^20] * 129, set up
+from ``chip_smoke.py``'s constants and helpers and checked as it checks
+them.
+
 ``--repo DIR`` imports ``webgpufft_tpu_torch`` from DIR (default: this
 repository), so that a parent commit unpacked with ``git archive`` and this
 one are timed in one call on one card (parent, change, change, parent); a
 checkout without ``probes.variants`` gets the plans' launches only.  With
-``--out PATH`` one JSON line a shape is also written to PATH.  Needs a GPU.
+``--out PATH`` one JSON line a shape or call is also written to PATH.
+Needs a GPU.
 """
 
 import argparse
@@ -30,12 +40,14 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
-# (N, lines): the long K1 rows of PERF.md's table, two more lengths whose
-# CTA fills an SM (odd 2079 = 3^3 * 7 * 11; 6144), and 4096 and 2048
+# (N, lines): the long K1 rows of PERF.md's table, more lengths whose CTA
+# fills an SM (odd 2079 = 3^3 * 7 * 11; 6144, 5120, 9216, 12288), and 4096
+# and 2048
 K1_CASES = [(8192, 1024), (8192, 1032), (8192, 131), (8192, 512), (16384, 512), (4096, 4096),
-            (2048, 4096), (2079, 4096), (6144, 1024)]
+            (2048, 4096), (2079, 4096), (6144, 1024), (5120, 1024), (9216, 1024), (12288, 512)]
 # (pre, H, 2 * cols)
 K2_CASES = [(8, 1024, 2048), (1, 1024, 2048), (8, 512, 1024), (8, 2048, 1024),
             (64, 1024, 66), (16, 4096, 64), (256, 256, 512)]
@@ -99,6 +111,104 @@ def measure(label, plain, library, plan, designs, run, nbytes, card, profile):
     return rec
 
 
+def in_turns(port, yardstick, timer, median, **kw):
+    """Median ms of ``port`` and of ``yardstick`` under ``timer``, timed
+    yardstick, port, port, yardstick."""
+    y = timer(yardstick, **kw)
+    p = timer(port, **kw)
+    p += timer(port, **kw)
+    y += timer(yardstick, **kw)
+    return median(p), median(y)
+
+
+def end_to_end(card, profile):
+    """The calls of ``--e2e`` (module docstring); one record each."""
+    sys.path.append(str(Path(__file__).resolve().parent.parent))
+    import chip_smoke as S
+    import webgpufft_tpu_torch as T
+    from webgpufft_tpu_torch.examples import system_identification as sysid
+    la = T.linalg
+    gen = torch.Generator(device="cuda").manual_seed(S.SEED)
+    calls = []
+
+    n, klen, batch = S.SYSID_BIG_N, S.SYSID["klen"], S.SYSID["batch"]
+    xs, k_true, eps = sysid.make_problem(n, klen, batch, S.SYSID["noise"])
+    xt = torch.from_numpy(xs).cuda()
+    xi = torch.stack([xt, torch.zeros_like(xt)], -1)
+    obs = torch.from_numpy(sysid.observations(xs, k_true, eps)).cuda()
+    model, _ = sysid.make_model(n, klen, batch, device="cuda")
+    yard_model = S.torch_fft_model(n, klen)
+    with torch.no_grad():
+        kt = torch.from_numpy(k_true).cuda()
+        S.check_close("system identification: the model", model(kt, xi), yard_model(kt, xi),
+                      "the same model on torch.fft")
+
+    def trainer(mdl):
+        k = torch.zeros(klen, device="cuda", requires_grad=True)
+        opt = torch.optim.Adam([k], lr=S.SYSID["lr"])
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            ((mdl(k, xi) - obs) ** 2).mean().backward()
+            opt.step()
+        return step
+    calls.append(("system identification step 2^20 x 8, klen 33", trainer(model),
+                  trainer(yard_model), False))
+
+    rows, cols, rhs = S.LA_MATMUL
+    cc, rr = (torch.randn(k, device="cuda", generator=gen, dtype=torch.float64).cpu().numpy()
+              for k in (rows, cols))
+    xm = torch.randn(cols, rhs, device="cuda", generator=gen)
+    S.check_close("matmul_toeplitz", la.matmul_toeplitz((cc, rr), xm),
+                  S.yard_call(la.matmul_toeplitz, (cc, rr), xm), "the same on torch.fft",
+                  tol=S.LA_TOL)
+    calls.append((f"matmul_toeplitz ({rows} x {cols}) @ ({cols}, {rhs})",
+                  lambda: la.matmul_toeplitz((cc, rr), xm),
+                  lambda: S.yard_call(la.matmul_toeplitz, (cc, rr), xm), True))
+
+    m, rhs = S.LA_SOLVE
+    ct = 0.5 ** np.arange(m)
+    bt = torch.randn(m, rhs, device="cuda", generator=gen)
+    S.check_close("solve_toeplitz", la.solve_toeplitz(ct, bt),
+                  S.yard_call(la.solve_toeplitz, ct, bt), "the same on torch.fft", tol=S.LA_TOL)
+    calls.append((f"solve_toeplitz {m} x {rhs}", lambda: la.solve_toeplitz(ct, bt),
+                  lambda: S.yard_call(la.solve_toeplitz, ct, bt), True))
+
+    plan = T.create_plan({"type": "fftconv", "shape": [S.OS_N], "batch": 1,
+                          "fftConv": {"boundary": "circular", "kernelShape": [S.OS_TAPS]}},
+                         device="cuda")
+    xo = 0.05 * torch.randn(1, S.OS_N, 2, device="cuda", generator=gen)
+    ko = 0.05 * torch.randn(S.OS_TAPS, 2, device="cuda", generator=gen)
+    xc, kc = torch.view_as_complex(xo), torch.view_as_complex(ko)
+
+    def os_yard():
+        return S.torch_fft_conv(xc, kc, (S.OS_N,), (S.OS_N,), (0,), dtype=torch.complex64)
+    S.check_close("overlap-save", torch.view_as_complex(plan(xo, kernel=ko)),
+                  S.torch_fft_conv(xc, kc, (S.OS_N,), (S.OS_N,), (0,)), "torch.fft complex128")
+    calls.append((f"overlap-save plan [2^20] * {S.OS_TAPS}", lambda: plan(xo, kernel=ko),
+                  os_yard, True))
+
+    records = []
+    for label, port, yardstick, queued in calls:
+        _, made = S.counted(port)
+        rec = {"call": label, "k1_launches": made[0], "card": card}
+        runs = dict(runs=S.GRAD_RUNS) if not queued else S.HEAVY
+        rec["idle_ms"], rec["torch_fft_idle_ms"] = in_turns(port, yardstick, profile.time_calls,
+                                                            profile.median, **runs)
+        text = f"{rec['idle_ms']:.4f} ms idle"
+        yard = f"{rec['torch_fft_idle_ms']:.4f} ms idle"
+        if queued:
+            rec["queued_ms"], rec["torch_fft_queued_ms"] = in_turns(
+                port, yardstick, profile.time_queued, profile.median, **S.HEAVY_QUEUED)
+            text += f" / {rec['queued_ms']:.4f} ms queued"
+            yard += f" / {rec['torch_fft_queued_ms']:.4f} ms queued"
+        print(f"{label}: port {text} (K1 launches {made[0]}); the same on torch.fft {yard} "
+              f"[{card}]", flush=True)
+        records.append(rec)
+        torch.cuda.empty_cache()
+    return records
+
+
 def tables_on_card(consts):
     return {k.rsplit("/", 1)[1]: torch.as_tensor(v, device="cuda") for k, v in consts.items()}
 
@@ -106,7 +216,9 @@ def tables_on_card(consts):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repo", default=str(Path(__file__).resolve().parent.parent))
-    ap.add_argument("--out", type=Path, help="also write one JSON line a shape here")
+    ap.add_argument("--out", type=Path, help="also write one JSON line a shape or call here")
+    ap.add_argument("--e2e", action="store_true",
+                    help="also time the calls whose K1 launches are long lines")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("k1_k2_ring: needs an NVIDIA GPU")
@@ -144,6 +256,8 @@ def main():
             lambda d, adj: variants.cols_variant(x, t, d, adjoint=adj), 8 * pre * h * lanes,
             card, profile))
         del x
+    if args.e2e:
+        records += end_to_end(card, profile)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text("".join(json.dumps(rec) + "\n" for rec in records))

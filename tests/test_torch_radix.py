@@ -156,6 +156,40 @@ def test_chain_twiddles_are_the_roots_in_pass_order(n, direction):
     assert seen == n - 1 and np.array_equal(tw[n - 1], [1.0, 0.0])
 
 
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+def test_sub_line_table_is_the_head_of_the_line_table(direction):
+    """For every length K1 accepts whose chain has two passes or more, with
+    C its last radix and M = N / C: the table of the chain without its last
+    radix, at M points, equals the first M - 1 entries of the N-point table
+    (so a line split at its last radix runs its sub-lines on the tables the
+    kernels read already) bit for bit, except at entries whose exact value
+    is 0: ``roots_table`` rounds 2 * pi * j in float64 before it divides by
+    N, so cos and sin of a multiple of pi / 2 come out as a residue below
+    2e-15 that differs between N and M.  The next (C - 1) * M entries are
+    W_N^(q * j), q in [1, C), j in [0, M), as the N-point roots table holds
+    them, bit for bit."""
+    checked = residues = 0
+    for n in range(4, radix.MAX_LENGTH + 1):
+        if not fused.choose_split(n):
+            continue
+        chain = radix.radix_chain(n)
+        if len(chain) < 2:
+            continue
+        c = chain[-1]
+        m = n // c
+        full = radix.chain_twiddles(n, direction, chain)
+        head = radix.chain_twiddles(m, direction, chain[:-1])[:m - 1]
+        zero = np.abs(head) < 1e-14
+        assert np.array_equal(head[~zero], full[:m - 1][~zero]), n
+        assert np.abs(head[zero] - full[:m - 1][zero]).max(initial=0.0) < 2e-15, n
+        residues += int((head[zero] != full[:m - 1][zero]).sum())
+        q, j = np.meshgrid(np.arange(1, c), np.arange(m), indexing="ij")
+        roots = radix.roots_table(n, direction)
+        assert np.array_equal(full[m - 1:n - 1], roots[(q * j).reshape(-1)]), n
+        checked += 1
+    assert checked == 821 and 0 < residues < 1000
+
+
 @pytest.mark.parametrize("direction,sign", [("forward", -1.0), ("inverse", 1.0)])
 def test_chain_consts_hold_scale_and_sign(direction, sign):
     c = radix.chain_consts(360, direction, 1.0 / 360, "ax")

@@ -24,7 +24,16 @@
 // load it hides is a fifth of a line's time, and the stage it lands in
 // costs a barrier, shared memory the L1 cache held the twiddle table in,
 // and spills, so it ran 4-15 % slower at every length a plan launches
-// (PERF.md).  Fewer passes, not an overlapped load, is what would move it.
+// (PERF.md).  A split of each line over a thread-block cluster of C CTAs (C
+// the chain's last radix; a radix-C step exchanged through distributed
+// shared memory, the other passes on sub-lines of N / C points, several
+// CTAs an SM) was measured too and not kept: it does the same passes plus
+// an exchange, so it ran within 2 % of this design at 512-1032 lines of
+// 8192 and 8-9 % slower at 131 lines of 8192 and at 16384; it won (13-39 %)
+// only at lengths no plan launches, where this design's CTA runs many
+// passes of odd radices or 16-32 points a thread with spills (9216, 6144,
+// 12288, 5120; PERF.md).  Fewer passes, not an overlapped load or a smaller
+// unit of work, is what would move it.
 //
 // Design: a CTA takes as many whole lines as keep about 256 threads busy
 // with one butterfly group each in every pass (16 lines at N = 256 = 16 * 16,
