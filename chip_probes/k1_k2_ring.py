@@ -14,8 +14,12 @@ TB/s).  For K2, each design of ``webgpufft_tpu_torch.probes.variants``
 tiles whole, cp.async otherwise; ``ring-async``, cp.async for every tile)
 is first checked against the plain version (1e-5 of max|plain|, forward
 and adjoint), then timed in turns, in order and in reverse, each time the
-median of both turns, with its host time per call.  K1 has one design (the
-ring was measured for its long lines and not kept: PERF.md).
+median of both turns, with its host time per call.  K1's plans' launch
+takes the design K1's rule gives the length (``radix.lines_design``: the
+power-of-two design at 2048, 4096, 8192 and 16384, the direct one
+elsewhere; a checkout without the rule has the direct design only), named
+in the label, and is timed with its adjoint launch;
+its variants are timed by ``chip_probes/k1_pow2_variants.py``.
 
 ``--e2e`` then times, from idle and queued, the calls whose K1 launches
 are its long lines, each beside the same call on ``torch.fft`` (in turns:
@@ -45,9 +49,11 @@ import torch
 
 # (N, lines): the long K1 rows of PERF.md's table, more lengths whose CTA
 # fills an SM (odd 2079 = 3^3 * 7 * 11; 6144, 5120, 9216, 12288), and 4096
-# and 2048
+# and 2048; then the powers of two 2^11 .. 2^14 at 131, 512 and 1024 lines
 K1_CASES = [(8192, 1024), (8192, 1032), (8192, 131), (8192, 512), (16384, 512), (4096, 4096),
             (2048, 4096), (2079, 4096), (6144, 1024), (5120, 1024), (9216, 1024), (12288, 512)]
+K1_CASES += [(n, lines) for n in (2048, 4096, 8192, 16384) for lines in (131, 512, 1024)
+             if (n, lines) not in K1_CASES]
 # (pre, H, 2 * cols)
 K2_CASES = [(8, 1024, 2048), (1, 1024, 2048), (8, 512, 1024), (8, 2048, 1024),
             (64, 1024, 66), (16, 4096, 64), (256, 256, 512)]
@@ -78,9 +84,11 @@ def host_us(fn):
     return rounds[len(rounds) // 2]
 
 
-def measure(label, plain, library, plan, designs, run, nbytes, card, profile):
+def measure(label, plain, library, plan, designs, run, nbytes, card, profile,
+            plan_adjoint=None):
     """Check each design, time the designs in turns, then the plans' launch
-    and the library call; returns the record."""
+    (and its adjoint launch, where given) and the library call; returns the
+    record."""
     bound = profile.bound_ms(nbytes, 0.0)[0]
     rec = {"shape": label, "bound_ms": bound, "card": card}
     want = {adj: plain(adj) for adj in (False, True)}
@@ -101,11 +109,17 @@ def measure(label, plain, library, plan, designs, run, nbytes, card, profile):
         raise AssertionError(f"{label} the plans' launch: rel err {err}")
     rec["plans_ms"] = profile.median(profile.time_queued(plan))
     rec["plans_host_us"] = host_us(plan)
+    if plan_adjoint is not None:
+        err = rel(plan_adjoint(), want[True])
+        if err > TOL:
+            raise AssertionError(f"{label} the plans' adjoint launch: rel err {err}")
+        rec["plans_adjoint_ms"] = profile.median(profile.time_queued(plan_adjoint))
     rec["library_ms"] = profile.median(profile.time_queued(library))
     parts = "".join(f"{d} {rec[d]:.4f} ms (share {bound / rec[d]:.2f}, host "
                     f"{rec[f'{d}_host_us']:.2f} us); " for d in designs)
+    adj = (f", adjoint {rec['plans_adjoint_ms']:.4f} ms" if plan_adjoint is not None else "")
     print(f"{label}: {parts}the plans' launch {rec['plans_ms']:.4f} ms (share "
-          f"{bound / rec['plans_ms']:.2f}, host {rec['plans_host_us']:.2f} us a call); "
+          f"{bound / rec['plans_ms']:.2f}, host {rec['plans_host_us']:.2f} us a call{adj}); "
           f"torch.fft (cuFFT) {rec['library_ms']:.4f} ms; bound {bound:.4f} ms [{card}]",
           flush=True)
     return rec
@@ -225,7 +239,7 @@ def main():
     sys.path.insert(0, str(Path(args.repo).resolve()))
     import webgpufft_tpu_torch as T
     from webgpufft_tpu_torch import probes
-    from webgpufft_tpu_torch.core import fused, fused_cols
+    from webgpufft_tpu_torch.core import fused, fused_cols, radix
     from webgpufft_tpu_torch.runtime import profile
     variants = getattr(probes, "variants", None)
     card = profile.card_line()
@@ -235,10 +249,13 @@ def main():
     for n, lines in K1_CASES:
         t = tables_on_card(fused.lines_consts(n, "forward", 1.0, "p"))
         x = torch.randn(lines, n, 2, device="cuda", generator=gen)
+        design = getattr(radix, "lines_design", lambda n: "direct")(n)
         records.append(measure(
-            f"K1 N={n} x {lines} lines", lambda adj: fused.fused_lines_reference(x, t, adj),
+            f"K1 N={n} x {lines} lines (plans: {design})",
+            lambda adj: fused.fused_lines_reference(x, t, adj),
             lambda: torch.fft.fft(torch.view_as_complex(x)), lambda: fused.fused_lines(x, t),
-            [], None, 16 * n * lines, card, profile))
+            [], None, 16 * n * lines, card, profile,
+            plan_adjoint=lambda: fused.fused_lines(x, t, adjoint=True)))
         del x
     for pre, h, lanes in K2_CASES:
         t = tables_on_card(fused_cols.cols_consts(h, "forward", 1.0, "p"))

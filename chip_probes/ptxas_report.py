@@ -7,9 +7,11 @@ Compiles every source of ``webgpufft_tpu_torch/csrc`` (K1, K2) and
 once, objects thrown away) and prints one line per kernel: registers, spill
 stores and loads, stack frame.  With ``--against DIR``, a second ``csrc``
 directory (another commit's, unpacked anywhere) is compiled the same way and
-every kernel of K1 and K2 is printed side by side, ending in a count of the
-kernels whose registers or spills differ: the check that a change to the
-shared headers left the plans' kernels as they were.  Needs nvcc, no GPU.
+every kernel of the plans' library (K1 and K2: ``csrc/*.cu``) is printed
+side by side, a kernel the other directory lacks as new, ending in a count
+of the kernels whose registers or spills differ: the check that a change to
+the shared headers left the plans' kernels as they were.  Needs nvcc, no
+GPU.
 """
 
 import argparse
@@ -83,16 +85,20 @@ def main():
     if args.against is None:
         return
     theirs = compile_all(args.against)
-    differ = total = 0
-    for src in ("fused_lines.cu", "fused_cols.cu"):
+    differ = total = new = 0
+    for src in (s for s in ours if "/" not in s):   # the plans' library: K1, K2
         for kernel, row in ours[src].items():
-            other = theirs[src].get(kernel)
+            other = theirs.get(src, {}).get(kernel)
+            if other is None:
+                new += 1
+                print(f"{src} {kernel}: here {row}, new")
+                continue
             total += 1
             differ += other != row
             print(f"{src} {kernel}: here {row}, there {other}"
                   f"{'' if other == row else '   <-- differs'}")
-    print(f"K1/K2: {total} kernels, {differ} differ in (registers, spill stores, spill loads, "
-          f"stack) from {args.against}")
+    print(f"K1/K2: {total} kernels in both, {differ} differ in (registers, spill stores, "
+          f"spill loads, stack) from {args.against}; {new} new here")
 
 
 if __name__ == "__main__":

@@ -6,8 +6,10 @@ Builds the hand-written CUDA kernels from the checkout's sources, holds each
 kernel against its plain PyTorch version (at the shapes the paths below give
 it, and at lengths that stress the radix chain: the shared-memory limit, every
 odd radix, one-butterfly lengths, a ragged column count, small digits; K2's
-tall tiles run the ring design, the timing lines and the kernel record name
-the design of each shape), and
+tall tiles run the ring design, K1's powers of two 2048 .. 16384 its
+power-of-two design, the timing lines and the kernel record name the design
+of each shape, with K1's CTAs an SM and cuFFT's time without its norm pass
+beside the normed one), and
 holds each kernel's adjoint launch (the backward of autograd) against the
 plain adjoint and the dot test <K x, u> = <x, K^H u>, holds the three probe
 kernels (``webgpufft_tpu_torch.probes``) against theirs, and drives seventeen
@@ -332,8 +334,8 @@ def phase_k1(gen):
                  "backward": 1.0 / n if direction == "inverse" else 1.0}[normalize]
         tables = to_dev(fused.lines_consts(n, direction, scale, "p"))
         x = torch.randn(lines, n, 2, device="cuda", generator=gen)
-        label = (f"K1 fused_lines N={n} chain={radix.radix_chain(n)} lines={lines} "
-                 f"{direction} {normalize}")
+        label = (f"K1 fused_lines N={n} design={radix.lines_design(n)} "
+                 f"chain={radix.lines_chain(n)} lines={lines} {direction} {normalize}")
         worst = max(worst, compare(label, fused.fused_lines, fused.fused_lines_reference,
                                    x, tables))
         cases[(n, lines, direction)] = (x, tables, normalize)
@@ -416,11 +418,13 @@ def ring_units(grid):
 
 def phase_domain(gen):
     """Launch K1 at every length it accepts and K2 at every height, each
-    against its plain version at ``TOL`` of max|plain|: K1 forward with
-    scale 1, inverse with the unitary scale, the adjoint launch of the
-    forward tables, all on a line count that leaves the last CTA ragged,
-    and K1 in place (``probes.lines_inplace``) wherever the chain has two
-    or more passes; where it has one, the wrapper and the C entry point must
+    against its plain version at ``TOL`` of max|plain|: K1 in the design its
+    rule gives the length (``radix.lines_design``; the summary counts the
+    lengths of each), forward with scale 1, inverse with the unitary scale,
+    the adjoint launch of the forward tables, all on a line count that
+    leaves the last CTA ragged (the power-of-two design takes one line a
+    CTA), and K1 in place (``probes.lines_inplace``) wherever the chain has
+    two or more passes; where it has one, the wrapper and the C entry point must
     both refuse.  K2 forward, inverse and adjoint on (2, H, 66).  Where the
     ring design serves the view (``fused_cols.launch_shape``), the same
     three launches and K2 in place again on ``ring_units(grid)`` tiles: the
@@ -435,6 +439,7 @@ def phase_domain(gen):
     failures = []
     worst = {"err": 0.0, "at": None}
     ring = {"k2_heights": 0, "k2_tiles": 0}
+    designs = {}   # K1 lengths by the design its rule gives them
 
     def check(label, run, plain):
         try:
@@ -453,11 +458,12 @@ def phase_domain(gen):
 
     for n in k1_lengths:
         lines = DOMAIN_SHORT_LINES if n < DOMAIN_LONG_N else DOMAIN_LONG_LINES
-        chain = radix.radix_chain(n)
+        chain = radix.lines_chain(n)
+        designs[radix.lines_design(n)] = designs.get(radix.lines_design(n), 0) + 1
         fwd = to_dev(fused.lines_consts(n, "forward", 1.0, "p"))
         inv = to_dev(fused.lines_consts(n, "inverse", 1.0 / math.sqrt(n), "p"))
         x = torch.randn(lines, n, 2, device="cuda", generator=gen)
-        label = f"K1 N={n} chain={chain} lines={lines}"
+        label = f"K1 N={n} design={radix.lines_design(n)} chain={chain} lines={lines}"
         check(f"{label} forward", lambda: fused.fused_lines(x, fwd),
               lambda: fused.fused_lines_reference(x, fwd))
         check(f"{label} inverse unitary", lambda: fused.fused_lines(x, inv),
@@ -511,7 +517,8 @@ def phase_domain(gen):
             ring["k2_tiles"] += pre * tiles
             del big
     after = launches()
-    summary = {"k1_lengths": len(k1_lengths), "k2_heights": len(k2_heights),
+    summary = {"k1_lengths": len(k1_lengths), "k1_designs": designs,
+               "k2_heights": len(k2_heights),
                "launches": after[0] - before[0] + after[1] - before[1],
                "k1_launches": after[0] - before[0], "k2_launches": after[1] - before[1],
                "ring": ring,
@@ -1982,19 +1989,26 @@ def time_kernel(label, kernel, plain, library, args, n, transforms, card):
 
 
 def phase_timing(k1_cases, k2_cases, headline, volume, card):
-    from webgpufft_tpu_torch.core import fused, fused_cols
+    from webgpufft_tpu_torch.core import fused, fused_cols, radix
     out = {}
     for (n, lines, direction), (x, t, normalize) in k1_cases.items():
         if ("K1", n, lines) in out:
             continue  # same work as the other direction, timed already
         fft = torch.fft.fft if direction == "forward" else torch.fft.ifft
         norm = fft_norm(direction, normalize)
+        design, resident = radix.lines_design(n), fused.resident(n, lines)
         out[("K1", n, lines)] = time_kernel(
-            f"K1 fused_lines N={n} lines={lines} design=direct", fused.fused_lines,
-            fused.fused_lines_reference,
+            f"K1 fused_lines N={n} lines={lines} design={design} ({resident} CTAs an SM)",
+            fused.fused_lines, fused.fused_lines_reference,
             lambda v, fft=fft, norm=norm: fft(torch.view_as_complex(v), dim=-1, norm=norm),
             (x, t), n, lines, card)
-        out[("K1", n, lines)]["design"] = "direct"
+        # cuFFT without the norm's scaling pass: the unscaled call
+        unscaled = profile.median(profile.time_queued(
+            lambda v: torch.fft.fft(torch.view_as_complex(v), dim=-1), x))
+        print(f"time K1 fused_lines N={n} lines={lines}: torch.fft.fft unscaled (cuFFT, no "
+              f"norm pass) {unscaled:.4f} ms [{card}]")
+        out[("K1", n, lines)].update(design=design, resident=resident,
+                                     unscaled_library_ms=unscaled)
     for (pre, h, lanes), (x, t, direction) in k2_cases.items():
         fft = torch.fft.fft if direction == "forward" else torch.fft.ifft
         norm = fft_norm(direction, "none")
@@ -3779,15 +3793,18 @@ def main():
     by_path = {name: {p: c[order.index(name)] for p, c in paths.items()} for name in order}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": f"webgpufft_tpu_torch/csrc/{src}",
+         "sources": [f"webgpufft_tpu_torch/csrc/{f}" for f in files],
          "replaces": replaces, "launches": sum(by_path[name].values()),
          "launches_by_path": by_path[name],
          "max_abs_err": err, "shape": shape, **times[key],
          "shapes": [{"shape": list(k[1:]), **v} for k, v in times.items() if k[0] == key[0]]}
-        for name, src, replaces, err, shape, key in [
-            ("fused_lines", "fused_lines.cu", "webgpufft_tpu/core/fused.py:223",
-             k1_err, "N=1024 x 4096 lines", ("K1", 1024, 4096)),
-            ("fused_cols", "fused_cols.cu", "webgpufft_tpu/core/fused_cols.py:161",
-             k2_err, "view (256, 256, 512)", ("K2", 256, 256, 512))]] + [
+        for name, src, files, replaces, err, shape, key in [
+            ("fused_lines", "fused_lines.cu", ("fused_lines.cu", "lines_pow2.cu"),
+             "webgpufft_tpu/core/fused.py:223", k1_err, "N=1024 x 4096 lines",
+             ("K1", 1024, 4096)),
+            ("fused_cols", "fused_cols.cu", ("fused_cols.cu",),
+             "webgpufft_tpu/core/fused_cols.py:161", k2_err, "view (256, 256, 512)",
+             ("K2", 256, 256, 512))]] + [
         {"name": name, "route": "cuda", "source": f"webgpufft_tpu_torch/csrc/probes/{src}",
          "replaces": replaces, "launches": sum(by_path[name].values()),
          "launches_by_path": by_path[name], "max_abs_err": probe_err[name], "shape": shape,

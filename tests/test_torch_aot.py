@@ -3,6 +3,7 @@ and tables in one blob; the loaded plan runs the exported tables and is
 bit-equal to the exporting one."""
 
 import json
+import re
 
 import numpy as np
 import pytest
@@ -89,6 +90,64 @@ def test_bad_artifacts_raise():
     with pytest.raises(T.PlanError, match="version"):
         T.load_exported_plan(len(head).to_bytes(8, "big") + head + b"x")
     assert T.load_exported_plan(bytearray(blob), device="cpu").plan.spec == plan.spec
+
+
+def _without_k1_chains(blob, edit=None):
+    """``blob`` with its header's ``k1_chains`` dropped (an artifact written
+    before K1 recorded its chains), or replaced by ``edit(chains)``."""
+    hlen = int.from_bytes(blob[:8], "big")
+    meta = json.loads(blob[8:8 + hlen])
+    chains = meta.pop("k1_chains")
+    if edit is not None:
+        meta["k1_chains"] = edit(chains)
+    head = json.dumps(meta).encode()
+    return len(head).to_bytes(8, "big") + head + blob[8 + hlen:]
+
+
+@pytest.mark.parametrize("n", [8192, 16384])
+def test_artifact_laid_out_for_another_k1_chain_is_refused(n, rng):
+    """K1 reads ``cw`` in the order of ``radix.lines_chain(N)`` (the
+    power-of-two design's at 8192 and 16384): an export records that chain
+    for every K1 table and loads; an artifact without the record (written
+    when every length ran ``radix.radix_chain``) or with another chain is
+    refused with a PlanError that names the table and both chains, for a
+    plan and for a pipeline."""
+    from webgpufft_tpu_torch.core import radix
+    assert radix.lines_chain(n) != radix.radix_chain(n)
+    plan = T.create_plan({"type": "c2c", "shape": [n], "batch": 8}, device="cpu",
+                         cache=T.PlanCache())
+    blob = T.export_plan(plan)
+    hlen = int.from_bytes(blob[:8], "big")
+    assert json.loads(blob[8:8 + hlen])["k1_chains"] == {"fl0/cw": list(radix.lines_chain(n))}
+    x = torch.from_numpy(rng.standard_normal((8, n, 2)).astype(np.float32))
+    assert torch.equal(T.load_exported_plan(blob, device="cpu")(x), plan(x))
+    old = "laid out for the chain %s" % (radix.radix_chain(n),)
+    with pytest.raises(T.PlanError, match=re.escape(old)):
+        T.load_exported_plan(_without_k1_chains(blob), device="cpu")
+    with pytest.raises(T.PlanError, match="'fl0/cw'"):
+        T.load_exported_plan(_without_k1_chains(blob, lambda c: {"fl0/cw": [2] * 13}),
+                             device="cpu")
+    with pytest.raises(T.PlanError, match="chain None"):
+        T.load_exported_plan(_without_k1_chains(blob, lambda c: {}), device="cpu")
+
+    with T.fft.default_device("cpu"):
+        pipe = T.export_pipeline(lambda v: T.fft.fft(v), x[..., 0].contiguous())
+    hlen = int.from_bytes(pipe[:8], "big")
+    assert json.loads(pipe[8:8 + hlen])["k1_chains"] == {f"N={n}": list(radix.lines_chain(n))}
+    T.load_exported_pipeline(pipe)
+    with pytest.raises(T.PlanError, match=re.escape(old)):
+        T.load_exported_pipeline(_without_k1_chains(pipe))
+
+
+def test_artifact_of_an_unmoved_k1_length_loads_without_the_record(rng):
+    """Where K1's chain is the one it always had (every length but the
+    power-of-two design's), an artifact without ``k1_chains`` loads and
+    runs its tables bit for bit."""
+    plan = T.create_plan({"type": "c2c", "shape": [1024], "batch": 8}, device="cpu",
+                         cache=T.PlanCache())
+    old = _without_k1_chains(T.export_plan(plan))
+    x = torch.from_numpy(rng.standard_normal((8, 1024, 2)).astype(np.float32))
+    assert torch.equal(T.load_exported_plan(old, device="cpu")(x), plan(x))
 
 
 @pytest.mark.parametrize("fn,item", [("export_pipeline", "P10"),

@@ -111,6 +111,58 @@ def test_long_lines_forward_adjoint_in_place(n, count, cuda_device):
     assert_close(z.cpu(), want, label=f"K1 n={n} lines={lines} in place")
 
 
+@pytest.mark.parametrize("lines", [1, 131, 1032])
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+@pytest.mark.parametrize("n", [2048, 4096, 8192, 16384])
+def test_pow2_design_at_each_length_of_the_rule(n, direction, lines, cuda_device):
+    """K1's rule sends 2^11 .. 2^14 to the power-of-two design: forward,
+    adjoint and in place against the plain version at line counts that are
+    no multiple of anything (a CTA takes one line), each launch counted;
+    two CTAs an SM at 8192; and the entry point refuses any chain but the
+    rule's at these lengths (no fallback to the direct design)."""
+    from webgpufft_tpu_torch import _build
+    from webgpufft_tpu_torch.core import radix
+    assert radix.lines_design(n) == "pow2"
+    gen = torch.Generator(device=cuda_device).manual_seed(n + lines)
+    t = _dev_tables(fused.lines_consts(n, direction, 1.0 / math.sqrt(n), "p"), cuda_device)
+    x = torch.randn(lines, n, 2, device=cuda_device, generator=gen)
+    before = fused.fused_lines.launches
+    y = fused.fused_lines(x, t)
+    ya = fused.fused_lines(x, t, adjoint=True)
+    z = probes.lines_inplace(x.clone(), t)
+    torch.cuda.synchronize()
+    assert fused.fused_lines.launches == before + 3
+    want = fused.fused_lines_reference(x, t).cpu()
+    assert_close(y.cpu(), want, label=f"K1 pow2 n={n} lines={lines}")
+    assert_close(ya.cpu(), fused.fused_lines_reference(x, t, adjoint=True).cpu(),
+                 label=f"K1 pow2 n={n} lines={lines} adjoint")
+    assert torch.equal(z, y)
+    assert fused.resident(n, lines) >= (2 if n == 8192 else 1)
+    for other in {radix.radix_chain(n), (2,) * (n.bit_length() - 1)} - {radix.lines_chain(n)}:
+        rc = _build.library().wgfft_fused_lines(
+            x.data_ptr(), y.data_ptr(), t["cw"].data_ptr(), t["cp"].data_ptr(), lines, n,
+            *_build.chain_arg(other), 0, torch.cuda.current_stream().cuda_stream)
+        assert rc == 1, other   # cudaErrorInvalidValue
+
+
+def test_every_pow2_variant_matches_plain(cuda_device):
+    """Each variant of the power-of-two design (``probes.lines_variant``)
+    against K1's plain version, forward, adjoint and in place."""
+    from webgpufft_tpu_torch.probes import variants
+    gen = torch.Generator(device=cuda_device).manual_seed(15)
+    for name, (n, _, _, _) in variants.LINES_VARIANTS.items():
+        t = _dev_tables(fused.lines_consts(n, "inverse", 1.0 / n, "p"), cuda_device)
+        vt = variants.lines_variant_tables(name, "inverse", 1.0 / n, cuda_device)
+        x = torch.randn(7, n, 2, device=cuda_device, generator=gen)
+        assert variants.lines_variant_resident(name) >= 1
+        for adj in (False, True):
+            assert_close(variants.lines_variant(x, vt, name, adj).cpu(),
+                         fused.fused_lines_reference(x, t, adj).cpu(),
+                         label=f"{name} adjoint={adj}")
+        assert_close(variants.lines_variant(x.clone(), vt, name, inplace=True).cpu(),
+                     fused.fused_lines_reference(x, t).cpu(), label=f"{name} in place")
+
+
 @pytest.mark.parametrize("view", ["odd columns", "narrow", "one pre"])
 @pytest.mark.parametrize("h", [512, 1024, 2048])
 def test_tall_tiles_forward_adjoint_in_place(h, view, cuda_device):

@@ -15,6 +15,7 @@ helper or a changed signature shows here.  Tolerance 1e-5 * max|expected|.
 
 import ctypes
 import importlib
+import math
 import pathlib
 import re
 import subprocess
@@ -104,6 +105,55 @@ def test_planes_equal_interleaved(n, assert_close):
     assert torch.equal(torch.stack(yp.unbind(1), dim=-1), want)
     assert_close(yp[:, 0].numpy() + 1j * yp[:, 1].numpy(),
                  np.fft.ifft(as_complex(x), axis=-1) * np.sqrt(n), label=f"planes n={n}")
+
+
+@pytest.mark.parametrize("n", [8192, 16384])
+def test_stages_and_planes_run_the_direct_chain_where_k1_runs_another(n, assert_close):
+    """At a length where K1's rule gives the power-of-two design a chain of
+    its own (its ``cw`` in that order), P2 and P3 still run the direct
+    design's chain: they read ``cw`` rebuilt for ``radix_chain(n)``
+    (``radix.direct_tables``), and every stop of P2 is the model of that
+    chain; the whole chain and P3 equal K1's plain version."""
+    x, t = lines(n, count=2), tables(n, "inverse")
+    chain = radix.radix_chain(n)
+    assert radix.lines_chain(n) != chain
+    direct = radix.direct_tables(t, n)
+    assert not torch.equal(direct["cw"], t["cw"]) and direct["cp"] is t["cp"]
+    assert torch.equal(direct["cw"], torch.from_numpy(
+        radix.chain_twiddles(n, "inverse", chain)))
+    for stop in range(len(chain) + 1):
+        assert torch.equal(probes.lines_stages(x, t, stop),
+                           radix.radix_chain_reference(x, chain, direct, stop=stop))
+    want = fused.fused_lines_reference(x, t)
+    assert_close(probes.lines_stages(x, t, len(chain)).numpy(), want.numpy(), label=f"P2 n={n}")
+    xp = torch.stack(x.unbind(-1), dim=1).contiguous()
+    assert torch.equal(torch.stack(probes.lines_planes(xp, t).unbind(1), dim=-1), want)
+    same = tables(2048)
+    assert radix.direct_tables(same, 2048) is same
+
+
+@pytest.mark.parametrize("name", sorted(probes.variants.LINES_VARIANTS))
+def test_every_pow2_variant_is_its_chain(name, assert_close):
+    """Each variant of K1's power-of-two design on the CPU: its chain's
+    model on its own table, equal to K1's plain version forward, adjoint and
+    in place; a length other than the variant's is refused."""
+    from webgpufft_tpu_torch.probes import variants
+    n, threads, minb, chain = variants.LINES_VARIANTS[name]
+    assert math.prod(chain) == n and n % threads == 0 and minb >= 1
+    x = lines(n, count=2)
+    vt = variants.lines_variant_tables(name, "forward", 0.5)
+    t = tables(n, "forward", 0.5)
+    for adjoint in (False, True):
+        assert_close(variants.lines_variant(x, vt, name, adjoint).numpy(),
+                     fused.fused_lines_reference(x, t, adjoint).numpy(),
+                     label=f"{name} adjoint={adjoint}")
+    work = x.clone()
+    assert variants.lines_variant(work, vt, name, inplace=True) is work
+    assert torch.equal(work, variants.lines_variant(x, vt, name))
+    with pytest.raises(ValueError, match="runs N"):
+        variants.lines_variant(lines(64), vt, name)
+    with pytest.raises(ValueError, match="variant must be"):
+        variants.lines_variant(x, vt, "no such variant")
 
 
 @pytest.mark.parametrize("n", [n for n in LENGTHS if len(radix.radix_chain(n)) > 1])
@@ -226,8 +276,9 @@ def test_ctypes_signatures_match_the_c_sources(which):
 def test_probe_library_is_a_second_library():
     assert {s.name for s in _build.sources("probes")} == {
         "stream_copy.cu", "lines_stages.cu", "lines_planes.cu", "tile_copy.cu",
-        "cols_variants.cu"}
-    assert {s.name for s in _build.sources("core")} == {"fused_lines.cu", "fused_cols.cu"}
+        "cols_variants.cu", "lines_variants.cu"}
+    assert {s.name for s in _build.sources("core")} == {"fused_lines.cu", "fused_cols.cu",
+                                                        "lines_pow2.cu"}
     core, probe = _build.library_path("core"), _build.library_path("probes")
     assert core != probe and core.parent == probe.parent == _build.BUILD_DIR
     assert probe.name.startswith("libwgfft_probes_")

@@ -56,6 +56,95 @@ def test_lines_chain_model_matches_plain_and_numpy(n, direction, normalize, rng,
                  label=f"K1 model vs numpy n={n} {direction} {normalize}")
 
 
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("normalize", ["none", "backward", "unitary"])
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+@pytest.mark.parametrize("n", [2048, 4096, 8192, 16384])
+def test_lines_model_of_each_design_matches_plain_and_numpy(n, direction, normalize, adjoint,
+                                                            rng, assert_close):
+    """K1's pass schedule in the design its rule gives the length (the
+    power-of-two design's three passes at 8192 and 16384, the direct
+    design's chain at 2048 and 4096), forward, inverse and adjoint, against
+    the plain version and numpy in float64."""
+    scale = normalize_scale(normalize, direction, n)
+    x = rng.standard_normal((2, n, 2)).astype(np.float32)
+    tables = _tables(fused.lines_consts(n, direction, scale, "p"))
+    got = fused.fused_lines_chain_reference(torch.from_numpy(x), tables, adjoint)
+    assert got.shape == (2, n, 2) and got.dtype == torch.float32
+    assert_close(got.numpy(), fused.fused_lines_reference(torch.from_numpy(x), tables,
+                                                          adjoint).numpy(),
+                 label=f"K1 model vs plain n={n} adjoint={adjoint}")
+    z = x[..., 0].astype(np.float64) + 1j * x[..., 1]
+    if adjoint:   # the conjugate transpose: conj(F conj z)
+        want = np.conj(_numpy_fft(np.conj(z), direction, scale, 1))
+    else:
+        want = _numpy_fft(z, direction, scale, 1)
+    assert_close(got.numpy(), np.stack([want.real, want.imag], -1),
+                 label=f"K1 model vs numpy n={n} {direction} {normalize} adjoint={adjoint}")
+
+
+@pytest.mark.parametrize("n", [n for n in ELIGIBLE if fused.choose_split(n)])
+def test_k1_rule_for_every_eligible_length(n):
+    """K1's rule: the powers of two 2^11 .. 2^14 run the power-of-two
+    design on three passes, 2048 and 4096 on ``radix_chain``'s own chain
+    (their ``cw`` unchanged), 8192 and 16384 on a chain that starts with a
+    radix-32 pass where ``radix_chain`` takes four; every other length runs
+    the direct design on ``radix_chain``.  K2 keeps ``radix_chain``."""
+    chain = radix.lines_chain(n)
+    assert set(radix.POW2_LINES) == {2048, 4096, 8192, 16384}
+    if n in radix.POW2_LINES:
+        assert radix.lines_design(n) == "pow2" and chain == radix.POW2_LINES[n]
+        assert len(chain) == 3 and math.prod(chain) == n
+        if n < 8192:
+            assert chain == radix.radix_chain(n)
+        else:
+            assert len(radix.radix_chain(n)) == 4 and chain[0] == 32
+            assert all(r in (16, 32) for r in chain)
+    else:
+        assert radix.lines_design(n) == "direct" and chain == radix.radix_chain(n)
+
+
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+@pytest.mark.parametrize("n", sorted(radix.POW2_LINES))
+def test_moved_lengths_table_is_float64_roots_in_pass_order(n, direction):
+    """The ``cw`` table K1 reads at a length of the power-of-two design:
+    laid out for ``lines_chain(n)`` (entry ns - 1 + (r - 1) * ns + k is
+    W^(r * k * n / (ns * R))), each root within 1 ulp of f32 of float64;
+    the direct design's table where the chains agree (2048, 4096), another
+    table where they do not (8192, 16384)."""
+    chain = radix.lines_chain(n)
+    tw = fused.lines_consts(n, direction, 1.0, "p")["p/cw"]
+    assert tw.shape == (n, 2) and tw.dtype == np.float32
+    sign = -1.0 if direction == "forward" else 1.0
+    index = np.zeros(n, dtype=np.int64)
+    ns = 1
+    for r_p in chain:
+        r, k = np.meshgrid(np.arange(1, r_p), np.arange(ns), indexing="ij")
+        index[ns - 1:ns * r_p - 1] = (r * k * (n // (ns * r_p))).reshape(-1)
+        ns *= r_p
+    ang = sign * 2.0 * np.pi * index / n
+    want = np.stack([np.cos(ang), np.sin(ang)], -1)
+    ulp = np.spacing(np.abs(want).astype(np.float32)).astype(np.float64)
+    assert np.all(np.abs(tw.astype(np.float64) - want) <= ulp)
+    assert np.array_equal(tw[n - 1], [1.0, 0.0])
+    direct = radix.chain_twiddles(n, direction, radix.radix_chain(n))
+    assert np.array_equal(tw, direct) == (chain == radix.radix_chain(n))
+
+
+@pytest.mark.parametrize("s", [-1.0, 1.0])
+def test_butterfly32_is_the_32_point_dft(s, rng):
+    """The model of ``Butterfly<32>`` (2 x 16, rotations by float32
+    constants) against the 32-point DFT with sign s in float64."""
+    z = rng.standard_normal((3, 32)) + 1j * rng.standard_normal((3, 32))
+    v = [torch.from_numpy(np.stack([z[:, r].real, z[:, r].imag], -1).astype(np.float32))
+         for r in range(32)]
+    got = torch.stack(radix._butterfly32(v, s), dim=1).numpy()
+    w = np.exp(s * 2j * np.pi * np.outer(np.arange(32), np.arange(32)) / 32)
+    want = z @ w
+    err = np.abs(got[..., 0] + 1j * got[..., 1] - want).max()
+    assert err <= 1e-5 * np.abs(want).max()
+
+
 @pytest.mark.parametrize("normalize", ["none", "backward", "unitary"])
 @pytest.mark.parametrize("direction", ["forward", "inverse"])
 @pytest.mark.parametrize("h", LENGTHS)

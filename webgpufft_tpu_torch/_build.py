@@ -53,6 +53,9 @@ _SIGNATURES = {
         # x, y, cw, cp, lines, n, radices, count, adjoint, stream
         "wgfft_fused_lines": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                               _INTS, ctypes.c_int, ctypes.c_int, _P),
+        # lines, n, radices, count -> the CTAs an SM holds of the kernel
+        # wgfft_fused_lines would launch (negative: refused)
+        "wgfft_fused_lines_resident": (ctypes.c_longlong, ctypes.c_int, _INTS, ctypes.c_int),
         # x, y, cw, cp, pre, h, cols, radices, count, adjoint, stream
         "wgfft_fused_cols": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                              ctypes.c_longlong, _INTS, ctypes.c_int, ctypes.c_int, _P),
@@ -73,6 +76,9 @@ _SIGNATURES = {
         # x, y, pre, h, lanes, tile_floats, width, threads, stream
         "probe_tile_copy": (_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                             ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
+        # x, y, cw, cp, lines, n, variant, adjoint, resident (int* or null), stream
+        "wgfft_lines_variant": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_int, _INTS, _P),
         # x, y, cw, cp, pre, h, cols, radices, count, adjoint, design, stream
         "wgfft_cols_variant": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                                ctypes.c_longlong, _INTS, ctypes.c_int, ctypes.c_int,

@@ -18,8 +18,12 @@ two-digit staging as torch einsums (input index n = a + n1 * b):
 (``csrc/fused_lines.cu``) for a CUDA tensor and runs the plain version for a
 CPU tensor; there is no fallback between the two.  The CUDA kernel reaches
 the same result by a chain of in-register radix butterflies
-(``core/radix.py``) and reads only the ``cw`` and ``cp`` tables;
-``fused_lines_chain_reference`` is its pass schedule on the CPU, a test aid.
+(``core/radix.py``) and reads only the ``cw`` and ``cp`` tables; its entry
+point launches the design that K1's rule gives the length
+(``radix.lines_design``: the power-of-two design at 2048, 4096, 8192 and
+16384, the direct design elsewhere) on the chain ``radix.lines_chain``, for which
+``cw`` is laid out.  ``fused_lines_chain_reference`` is its pass schedule on
+the CPU, a test aid.
 
 Autodiff.  The pass is the real-linear map y = s * F x, so its VJP is
 g_x = s * F^H g_y (same length and scale, opposite direction), its JVP is
@@ -85,7 +89,7 @@ def lines_consts(n: int, direction: str, scale: float, prefix: str) -> Dict[str,
         f"{prefix}/twim": tw.imag.astype(np.float32),
         f"{prefix}/f1re": (w1.real * scale).astype(np.float32),
         f"{prefix}/f1im": (w1.imag * scale).astype(np.float32),
-        **radix.chain_consts(n, direction, scale, prefix),
+        **radix.chain_consts(n, direction, scale, prefix, radix.lines_chain(n)),
     }
 
 
@@ -114,7 +118,8 @@ def tables_from_reference(np_consts: Dict[str, np.ndarray], prefix: str) -> Dict
         f"{prefix}/twim": twim,
         f"{prefix}/f1re": g1[:, 0, 0, :],
         f"{prefix}/f1im": g1[:, 0, 1, :],
-        **radix.chain_consts(n1 * n2, direction, g1[0, 0, 0, 0], prefix),
+        **radix.chain_consts(n1 * n2, direction, g1[0, 0, 0, 0], prefix,
+                             radix.lines_chain(n1 * n2)),
     }
 
 
@@ -147,8 +152,9 @@ def fused_lines_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor],
 def fused_lines_chain_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor],
                                 adjoint: bool = False) -> torch.Tensor:
     """The CUDA kernel's pass schedule on the CPU (``radix.radix_chain_reference``
-    with the chain and tables the kernel gets): a test aid, on no plan path."""
-    return radix.radix_chain_reference(x, radix.radix_chain(x.shape[1]), tables, adjoint)
+    with the chain and tables the kernel gets, ``radix.lines_chain``, in
+    either design): a test aid, on no plan path."""
+    return radix.radix_chain_reference(x, radix.lines_chain(x.shape[1]), tables, adjoint)
 
 
 def _check_cuda(x: torch.Tensor) -> None:
@@ -169,13 +175,24 @@ def _launch(x: torch.Tensor, tables: Dict[str, torch.Tensor], adjoint: bool) -> 
     y = torch.empty_like(x)
     with _build.on_device(x.device):
         rc = lib.wgfft_fused_lines(x.data_ptr(), y.data_ptr(), *ptrs, x.shape[0], n,
-                                   *_build.chain_arg(radix.radix_chain(n)), int(adjoint),
+                                   *_build.chain_arg(radix.lines_chain(n)), int(adjoint),
                                    torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "fused_lines")
     fused_lines.launches += 1
     if fused_lines.seen is not None:
         fused_lines.seen.setdefault((n, x.shape[0], adjoint, ptrs[0]), tables)
     return y
+
+
+def resident(n: int, lines: int) -> int:
+    """CTAs an SM of the current CUDA device holds of the kernel that a
+    launch over ``lines`` lines of ``n`` points takes (the CUDA occupancy
+    calculator, for the design K1's rule gives ``n``); needs the card."""
+    ctas = _build.library().wgfft_fused_lines_resident(
+        lines, n, *_build.chain_arg(radix.lines_chain(n)))
+    if ctas < 0:
+        _build.check(-ctas, "fused_lines")
+    return ctas
 
 
 def _run(x: torch.Tensor, tables: Dict[str, torch.Tensor], adjoint: bool) -> torch.Tensor:

@@ -20,9 +20,19 @@ table of N - 1 roots of unity laid out in the order the passes read them
 This module builds what the kernels need beyond the plain versions' tables
 (``chain_consts``: the twiddle table and a two-float parameter table
 holding the scale and the direction's sign), chooses the chain
-(``radix_chain``), and models the pass schedule on the CPU with the same
-index maps, tables and butterfly algebra as the CUDA code
-(``radix_chain_reference``): a test aid that no plan path calls.
+(``radix_chain``; K1's own rule ``lines_chain``), and models the pass
+schedule on the CPU with the same index maps, tables and butterfly algebra
+as the CUDA code (``radix_chain_reference``): a test aid that no plan path
+calls.
+
+K1 has two designs (``csrc/fused_lines.cu``).  The lengths of
+``POW2_LINES`` (2048, 4096, 8192, 16384) run the power-of-two design
+(``csrc/lines_pow2.cu``, a kernel per length) on three passes, the first of
+radix 32 at 8192 and 16384; every other length runs the direct design on
+``radix_chain(n)``.  The C entry point holds the same table
+(``kPow2Lines``, ``csrc/lines.cuh``) and refuses any other chain at those
+lengths, so K1's ``cw`` table is laid out for ``lines_chain(n)``.  K2 runs
+``radix_chain`` at every height.
 """
 
 from __future__ import annotations
@@ -41,6 +51,12 @@ MAX_PASSES = 16      # room in the kernels' chain argument
 TABLE_NAMES = ("cw", "cp")
 # what the kernels have a butterfly for: the supported set and 16 = 4 * 4
 KERNEL_RADICES = factors.SUPPORTED_RADICES + (16,)
+# K1's rule: N -> the chain of the power-of-two design (csrc/lines_pow2.cu);
+# the lengths where it ran faster than the direct design on the H100
+# (PERF.md): 2048 and 4096 on radix_chain's own chain (the same cw table),
+# 8192 and 16384 in three passes where radix_chain takes four
+POW2_LINES = {2048: (16, 16, 8), 4096: (16, 16, 16), 8192: (32, 16, 16),
+              16384: (32, 32, 16)}
 
 
 @lru_cache(maxsize=None)
@@ -65,6 +81,19 @@ def radix_chain(n: int) -> Tuple[int, ...]:
     if len(chain) > MAX_PASSES:
         raise ValueError(f"radix_chain: {n} needs {len(chain)} passes, over {MAX_PASSES}")
     return tuple(chain)
+
+
+def lines_chain(n: int) -> Tuple[int, ...]:
+    """K1's chain for length ``n``: the power-of-two design's where
+    ``POW2_LINES`` names ``n``, ``radix_chain(n)`` (the direct design's)
+    everywhere else.  K1's ``cw`` table is laid out for this chain."""
+    return POW2_LINES.get(n) or radix_chain(n)
+
+
+def lines_design(n: int) -> str:
+    """The design K1's entry point launches for length ``n``: ``"pow2"`` or
+    ``"direct"``."""
+    return "pow2" if n in POW2_LINES else "direct"
 
 
 def roots_table(n: int, direction: str) -> np.ndarray:
@@ -95,15 +124,35 @@ def chain_twiddles(n: int, direction: str, radices: Sequence[int]) -> np.ndarray
     return np.ascontiguousarray(roots[index])
 
 
-def chain_consts(n: int, direction: str, scale: float, prefix: str) -> Dict[str, np.ndarray]:
+def chain_consts(n: int, direction: str, scale: float, prefix: str,
+                 chain: Optional[Sequence[int]] = None) -> Dict[str, np.ndarray]:
     """What the CUDA kernels read, from n, direction and scale alone:
-    ``cw`` the pass-ordered twiddles (n, 2), and ``cp`` = [scale, sign]
-    with sign -1 for forward and +1 for inverse."""
+    ``cw`` the twiddles (n, 2) in the order of ``chain`` (default
+    ``radix_chain(n)``, K2's and K1's direct design's), and ``cp`` =
+    [scale, sign] with sign -1 for forward and +1 for inverse."""
     sign = -1.0 if direction == "forward" else 1.0
     return {
-        f"{prefix}/cw": chain_twiddles(n, direction, radix_chain(n)),
+        f"{prefix}/cw": chain_twiddles(n, direction, chain or radix_chain(n)),
         f"{prefix}/cp": np.array([scale, sign], dtype=np.float32),
     }
+
+
+@lru_cache(maxsize=None)
+def _direct_twiddles(n: int, direction: str, device: str) -> torch.Tensor:
+    return torch.as_tensor(chain_twiddles(n, direction, radix_chain(n)), device=device)
+
+
+def direct_tables(tables: Dict[str, torch.Tensor], n: int) -> Dict[str, torch.Tensor]:
+    """K1's tables for length ``n`` (``fused.lines_consts``, laid out for
+    ``lines_chain(n)``) with ``cw`` laid out for the direct design's chain
+    ``radix_chain(n)`` instead, for the probes that run that design at any
+    length: ``tables`` itself where the two chains agree, else a copy whose
+    ``cw`` is built for the direction that ``cp``'s sign gives, on ``cw``'s
+    device."""
+    if lines_chain(n) == radix_chain(n):
+        return tables
+    direction = "forward" if float(tables["cp"][1]) < 0 else "inverse"
+    return {**tables, "cw": _direct_twiddles(n, direction, str(tables["cw"].device))}
 
 
 # ---------------------------------------------------------------------------
@@ -167,6 +216,25 @@ def _butterfly16(v, s):
     return out
 
 
+def _f32(a: float) -> float:
+    """``a`` rounded to float32, as a Python float (the CUDA literals)."""
+    return float(np.float32(a))
+
+
+def _butterfly32(v, s):
+    """32 = 2 x 16: radix-16 on the even and odd points, the odd half
+    rotated by w32^q, one radix-2 layer; X[q], X[q + 16] = E[q] +- w32^q O[q]."""
+    e = _butterfly16(v[0::2], s)
+    o = _butterfly16(v[1::2], s)
+    for q in range(1, 16):
+        if q == 8:
+            o[q] = _muli(o[q], s)
+        else:
+            ang = math.pi * q / 16
+            o[q] = _rot(o[q], _f32(math.cos(ang)), s * _f32(math.sin(ang)))
+    return [e[q] + o[q] for q in range(16)] + [e[q] - o[q] for q in range(16)]
+
+
 def _butterfly_odd(v, s):
     """Odd prime R: pairs a_k = v[k] + v[R-k], b_k = v[k] - v[R-k];
     X[q], X[R-q] = m_q +- i*s*n_q with m_q = v[0] + sum cos(2 pi q k / R) a_k
@@ -188,7 +256,8 @@ def _butterfly_odd(v, s):
     return out
 
 
-_BUTTERFLIES = {2: _butterfly2, 4: _butterfly4, 8: _butterfly8, 16: _butterfly16}
+_BUTTERFLIES = {2: _butterfly2, 4: _butterfly4, 8: _butterfly8, 16: _butterfly16,
+                32: _butterfly32}
 
 
 def conj_pairs(x: torch.Tensor) -> torch.Tensor:

@@ -13,33 +13,33 @@
 // once, 16 * N * lines bytes (67 MB for N = 1024 x 4096 lines: 20 us at the
 // data sheet's 3.35 TB/s); the butterflies need about 50 flops per point at
 // N = 1024 against the roughly 320 the card affords per 16-byte point.
-// What holds it from that bound is the time an SM spends on the passes,
-// each inner pass a trip through shared memory between two barriers: from
-// N = 2048 on one line fills a CTA, and from 6144 (and 8192 = 16 * 8 * 8 *
-// 8) the CTA an SM (512 threads of up to 128 registers), so the SM moves no
-// bytes while its line runs its passes (0.37-0.39 of the bound at 8192 on
-// the H100, half cuFFT's speed).  K2's ring of stages (stage.cuh:
-// persistent CTAs landing the next line by one bulk copy while the current
-// one runs its passes) was measured for these lengths and not kept: the
-// load it hides is a fifth of a line's time, and the stage it lands in
-// costs a barrier, shared memory the L1 cache held the twiddle table in,
-// and spills, so it ran 4-15 % slower at every length a plan launches
-// (PERF.md).  A split of each line over a thread-block cluster of C CTAs (C
-// the chain's last radix; a radix-C step exchanged through distributed
-// shared memory, the other passes on sub-lines of N / C points, several
-// CTAs an SM) was measured too and not kept: it does the same passes plus
-// an exchange, so it ran within 2 % of this design at 512-1032 lines of
-// 8192 and 8-9 % slower at 131 lines of 8192 and at 16384; it won (13-39 %)
-// only at lengths no plan launches, where this design's CTA runs many
-// passes of odd radices or 16-32 points a thread with spills (9216, 6144,
-// 12288, 5120; PERF.md).  Fewer passes, not an overlapped load or a smaller
-// unit of work, is what would move it.
+// What holds a CTA from that bound is the time its line spends in the
+// passes, each inner pass a trip through shared memory between two
+// barriers, with nothing to cover it when an SM holds one CTA.
 //
-// Design: a CTA takes as many whole lines as keep about 256 threads busy
-// with one butterfly group each in every pass (16 lines at N = 256 = 16 * 16,
-// 2 at N = 1024 = 16 * 8 * 8, 1 from N = 2048 on), so short lines leave no
-// thread idle.  The
-// first pass loads global memory straight into registers (neighbouring
+// Two designs, and a rule (kPow2Lines, lines.cuh; core/radix.py
+// POW2_LINES) that gives each length one of them:
+// - the power-of-two design (lines_pow2.cu, lines_pow2.cuh) for 2048, 4096,
+//   8192 and 16384: a kernel per length whose chain, strides and twiddle
+//   offsets are template constants, one line a CTA, three passes (8192 =
+//   32 * 16 * 16 and 16384 = 32 * 32 * 16, where the direct design took
+//   four) and CTAs small enough that two (8192) or four (4096, 2048) share
+//   an SM.  On the H100 it ran 1.7-1.9x faster than the direct design at
+//   8192 and 16384 and 5-36 % faster at 2048 and 4096 (PERF.md): of that,
+//   the constants (no run-time chain loop, no division per butterfly) did
+//   most at 8192, where the same kernel on the direct design's four passes
+//   ran within 1 %; the radix-32 pass did it at 16384 (four passes 9-16 %
+//   slower).  A ring of stages
+//   that lands the next line while the current one runs its passes, and a
+//   split of a line over a thread-block cluster, were measured at these
+//   lengths before and lost to the direct design: the load they hide is
+//   small beside the passes;
+// - the direct design below for every other length.
+//
+// Direct design: a CTA takes as many whole lines as keep about 256 threads
+// busy with one butterfly group each in every pass (16 lines at N = 256 =
+// 16 * 16, 2 at N = 1024 = 16 * 8 * 8, 1 from N = 2048 on), so short lines
+// leave no thread idle.  The first pass loads global memory straight into registers (neighbouring
 // threads on neighbouring points of a line), the last stores registers
 // straight to global memory in natural order, and the passes between
 // exchange through shared memory, padded by one point in every 16 so the
@@ -91,17 +91,71 @@ struct LaunchLines {
   cudaStream_t stream;
   const Chain& chain;
   const LinesShape& shape;
+  size_t smem;
 
   template <int E, int MAXT, int MINB, int SET>
   cudaError_t run() const {
-    // a one-pass chain never touches shared memory
-    const size_t smem =
-        chain.count > 1 ? static_cast<size_t>(shape.per_cta) * shape.pitch * sizeof(float2) : 0;
     return wgfft::launch_lines(fused_lines_kernel<E, MAXT, MINB, SET>, shape, lines, smem,
                                stream, x, y, tw, params, lines, n, shape.per_cta, shape.pitch,
                                chain, cj);
   }
 };
+
+// CTAs of the direct design's instantiation for a shape that an SM holds.
+struct ResidentLines {
+  const LinesShape& shape;
+  size_t smem;
+  int* out;
+
+  template <int E, int MAXT, int MINB, int SET>
+  cudaError_t run() const {
+    auto* const kernel = &fused_lines_kernel<E, MAXT, MINB, SET>;
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+    }
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, shape.threads, smem);
+  }
+};
+
+// K1's rule: a length that kPow2Lines (lines.cuh) names runs the
+// power-of-two design (lines_pow2.cu) and must be handed that design's
+// chain; every other length runs the direct design on the chain it is
+// handed.  Either design launches or the call fails: there is no fallback
+// from one to the other.  With `resident` the launch is not made, and the
+// CTAs an SM holds of the kernel it would make are written there.
+int lines_entry(const void* x, void* y, const void* tw, const void* params, long long lines,
+                int n, const int* radices, int count, int adjoint, void* stream,
+                int* resident) {
+  if (lines < 1 || lines > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const float cj = adjoint ? -1.f : 1.f;
+  if (const int* pow2 = wgfft::pow2_lines_chain(n)) {
+    if (count != 3 || radices[0] != pow2[0] || radices[1] != pow2[1] || radices[2] != pow2[2])
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(wgfft::launch_pow2_lines(
+        static_cast<const float2*>(x), static_cast<float2*>(y), static_cast<const float2*>(tw),
+        static_cast<const float*>(params), lines, n, cj, static_cast<cudaStream_t>(stream),
+        resident));
+  }
+  Chain chain;
+  LinesShape shape;
+  if (!wgfft::make_chain(radices, count, n, &chain) ||
+      !wgfft::lines_shape(chain, n, lines, &shape) ||
+      (resident == nullptr && x == y && chain.count < 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // a one-pass chain never touches shared memory
+  const size_t smem =
+      chain.count > 1 ? static_cast<size_t>(shape.per_cta) * shape.pitch * sizeof(float2) : 0;
+  if (resident != nullptr) {
+    const ResidentLines f = {shape, smem, resident};
+    return static_cast<int>(wgfft::dispatch_lines(chain, shape, f));
+  }
+  const LaunchLines f = {static_cast<const float2*>(x), static_cast<float2*>(y),
+                         static_cast<const float2*>(tw), static_cast<const float*>(params),
+                         lines, n, cj, static_cast<cudaStream_t>(stream), chain, shape, smem};
+  return static_cast<int>(wgfft::dispatch_lines(chain, shape, f));
+}
 
 }  // namespace
 
@@ -112,16 +166,18 @@ struct LaunchLines {
 extern "C" int wgfft_fused_lines(const void* x, void* y, const void* tw, const void* params,
                                  long long lines, int n, const int* radices, int count,
                                  int adjoint, void* stream) {
-  Chain chain;
-  LinesShape shape;
-  if (lines < 1 || lines > 0x7fffffffLL || !wgfft::make_chain(radices, count, n, &chain) ||
-      !wgfft::lines_shape(chain, n, lines, &shape) || (x == y && chain.count < 2))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const LaunchLines f = {static_cast<const float2*>(x), static_cast<float2*>(y),
-                         static_cast<const float2*>(tw), static_cast<const float*>(params),
-                         lines, n, adjoint ? -1.f : 1.f, static_cast<cudaStream_t>(stream),
-                         chain, shape};
-  return static_cast<int>(wgfft::dispatch_lines(chain, shape, f));
+  return lines_entry(x, y, tw, params, lines, n, radices, count, adjoint, stream, nullptr);
+}
+
+// The CTAs an SM holds of the kernel that wgfft_fused_lines would launch for
+// `lines` lines of n points (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
+// negative: the launch would be refused (minus the error code).
+extern "C" int wgfft_fused_lines_resident(long long lines, int n, const int* radices,
+                                          int count) {
+  int ctas = 0;
+  const int rc = lines_entry(nullptr, nullptr, nullptr, nullptr, lines, n, radices, count, 0,
+                             nullptr, &ctas);
+  return rc == 0 ? ctas : -rc;
 }
 
 // Message for a code returned by either kernel's entry point.

@@ -86,6 +86,32 @@ cudaError_t dispatch_lines(const Chain& chain, const LinesShape& shape, const F&
   }
 }
 
+// K1's rule (core/radix.py POW2_LINES holds the same table): the lengths
+// that run the power-of-two design of lines_pow2.cu, each in one chain of
+// three passes; every other length runs the direct design above on the
+// chain it is handed.
+struct Pow2Rule {
+  int n;
+  int radix[3];
+};
+constexpr Pow2Rule kPow2Lines[] = {
+    {2048, {16, 16, 8}}, {4096, {16, 16, 16}}, {8192, {32, 16, 16}}, {16384, {32, 32, 16}}};
+
+// The power-of-two design's chain for length n, or nullptr where n takes the
+// direct design.
+inline const int* pow2_lines_chain(int n) {
+  for (const Pow2Rule& rule : kPow2Lines)
+    if (rule.n == n) return rule.radix;
+  return nullptr;
+}
+
+// lines_pow2.cu: launch the power-of-two design at length n (one that
+// pow2_lines_chain names) over `lines` lines; y may be x.  `resident`, where
+// not null, receives the CTAs an SM holds instead, and nothing launches.
+cudaError_t launch_pow2_lines(const float2* x, float2* y, const float2* tw, const float* params,
+                              long long lines, int n, float cj, cudaStream_t stream,
+                              int* resident);
+
 // Launch `kernel` on a grid of one CTA per `shape.per_cta` lines with `smem`
 // bytes of dynamic shared memory (opting in above 48 KB).
 template <class Kernel, class... Args>

@@ -215,6 +215,49 @@ struct Butterfly<16> {
   }
 };
 
+// 32 = 2 x 16 (the power-of-two design of K1 only, lines_pow2.cu): radix-16
+// butterflies on the even and odd points, the odd half rotated by w32^q
+// (w32 = exp(s 2 pi i / 32)), then one radix-2 layer:
+// X[q] = E[q] + w32^q O[q], X[q + 16] = E[q] - w32^q O[q].
+template <>
+struct Butterfly<32> {
+  static __device__ __forceinline__ void run(float2 (&v)[32], float s) {
+    constexpr float c1 = 0.980785280f, s1 = 0.195090322f;   // 2 pi / 32
+    constexpr float c2 = 0.923879533f, s2 = 0.382683432f;   // 2 pi 2 / 32
+    constexpr float c3 = 0.831469612f, s3 = 0.555570233f;   // 2 pi 3 / 32
+    constexpr float h = 0.707106781f;
+    float2 e[16], o[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      e[i] = v[2 * i];
+      o[i] = v[2 * i + 1];
+    }
+    Butterfly<16>::run(e, s);
+    Butterfly<16>::run(o, s);
+    using B = Butterfly<16>;
+    o[1] = B::rot(o[1], c1, s * s1);
+    o[2] = B::rot(o[2], c2, s * s2);
+    o[3] = B::rot(o[3], c3, s * s3);
+    o[4] = B::rot(o[4], h, s * h);
+    o[5] = B::rot(o[5], s3, s * c3);
+    o[6] = B::rot(o[6], s2, s * c2);
+    o[7] = B::rot(o[7], s1, s * c1);
+    o[8] = muli(o[8], s);
+    o[9] = B::rot(o[9], -s1, s * c1);
+    o[10] = B::rot(o[10], -s2, s * c2);
+    o[11] = B::rot(o[11], -s3, s * c3);
+    o[12] = B::rot(o[12], -h, s * h);
+    o[13] = B::rot(o[13], -c3, s * s3);
+    o[14] = B::rot(o[14], -c2, s * s2);
+    o[15] = B::rot(o[15], -c1, s * s1);
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      v[q] = cadd(e[q], o[q]);
+      v[q + 16] = csub(e[q], o[q]);
+    }
+  }
+};
+
 // Butterflies one thread runs in a pass of radix R when it may hold E points.
 __host__ __device__ constexpr int per_thread(int e, int radix) {
   return e / radix > 0 ? e / radix : 1;

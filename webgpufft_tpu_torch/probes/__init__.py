@@ -14,7 +14,8 @@ module's docstring):
 - ``planes``: K1 on re/im-split planes, and K1 (and K2) in place: what the
   layout and a separate output cost;
 - ``variants``: K2 in a design named by the caller, the direct one or the
-  ring of stages: the one-run comparison of the two.
+  ring of stages: the one-run comparison of the two; K1's power-of-two
+  design in a variant named by the caller (``lines_variant``).
 
 Every wrapper follows K1's: a CUDA tensor launches the kernel or raises, a
 CPU tensor runs the plain PyTorch version, a ``launches`` counter counts
@@ -26,8 +27,8 @@ The scripts under ``chip_probes/`` print their times.
 from .planes import cols_inplace, lines_inplace, lines_planes, lines_planes_reference
 from .stages import lines_stages, lines_stages_reference
 from .stream import stream_copy, stream_copy_reference
-from .variants import cols_variant
+from .variants import cols_variant, lines_variant
 
 __all__ = ["stream_copy", "stream_copy_reference", "lines_stages", "lines_stages_reference",
            "lines_planes", "lines_planes_reference", "lines_inplace", "cols_inplace",
-           "cols_variant"]
+           "cols_variant", "lines_variant"]

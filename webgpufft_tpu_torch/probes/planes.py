@@ -54,7 +54,9 @@ def lines_planes(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> torch.Tens
     if x.device.type == "cpu":
         return lines_planes_reference(x, tables)
     n = x.shape[2]
-    ptrs = _build.table_ptrs(x, tables, {"cw": (n, 2), "cp": (2,)}, "lines_planes")
+    # the probe runs the direct design at every length (radix.direct_tables)
+    ptrs = _build.table_ptrs(x, radix.direct_tables(tables, n), {"cw": (n, 2), "cp": (2,)},
+                             "lines_planes")
     lib = _build.library("probes")
     y = torch.empty_like(x)
     with _build.on_device(x.device):
@@ -82,7 +84,7 @@ def lines_inplace(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> torch.Ten
             f"lines_inplace: x must be a contiguous float32 (lines, N, 2) tensor, "
             f"got {x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
     n = x.shape[1]
-    chain = radix.radix_chain(n)
+    chain = radix.lines_chain(n)
     if len(chain) < 2:
         raise ValueError(
             f"lines_inplace: N = {n} is a one-pass chain {chain}: no barrier separates its "

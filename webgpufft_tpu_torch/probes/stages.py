@@ -10,6 +10,11 @@ passes in K1's CTA shape and writes the shared-memory lines out in position
 order: ``stop = 0`` is the copy every other stop contains, ``stop = count``
 is K1's output (scale included).
 
+The probe runs K1's direct design on ``radix.radix_chain(N)`` at every
+length, also where K1 itself runs its power-of-two design
+(``radix.POW2_LINES``): it takes K1's tables and reads ``cw`` in the direct
+design's order (``radix.direct_tables``).
+
 The plain version is ``radix.radix_chain_reference`` cut at ``stop``.
 """
 
@@ -28,7 +33,9 @@ def lines_stages_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor],
     """Plain torch version: the pass schedule of the kernels on interleaved
     ``x`` (lines, N, 2) cut after ``stop`` passes; the scale only when every
     pass ran."""
-    return radix.radix_chain_reference(x, radix.radix_chain(x.shape[1]), tables, stop=stop)
+    n = x.shape[1]
+    return radix.radix_chain_reference(x, radix.radix_chain(n), radix.direct_tables(tables, n),
+                                       stop=stop)
 
 
 def lines_stages(x: torch.Tensor, tables: Dict[str, torch.Tensor], stop: int) -> torch.Tensor:
@@ -50,7 +57,8 @@ def lines_stages(x: torch.Tensor, tables: Dict[str, torch.Tensor], stop: int) ->
         raise ValueError(f"lines_stages: stop {stop} outside [0, {len(chain)}] for chain {chain}")
     if x.device.type == "cpu":
         return lines_stages_reference(x, tables, stop)
-    ptrs = _build.table_ptrs(x, tables, {"cw": (n, 2), "cp": (2,)}, "lines_stages")
+    ptrs = _build.table_ptrs(x, radix.direct_tables(tables, n), {"cw": (n, 2), "cp": (2,)},
+                             "lines_stages")
     lib = _build.library("probes")
     y = torch.empty_like(x)
     with _build.on_device(x.device):

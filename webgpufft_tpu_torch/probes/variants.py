@@ -1,4 +1,5 @@
-"""K2 in a design the caller names: the direct one, or the ring.
+"""K2 in a design the caller names, the direct one or the ring; K1's
+power-of-two design in a variant the caller names.
 
 No Pallas probe stands behind this module: it launches the counterpart of
 K2 (``webgpufft_tpu/core/fused_cols.py:161``) in one of its designs by name,
@@ -14,21 +15,107 @@ ring of two stages, a tile landing by a 3-D tensor map where its rows are
 ``"ring-async"``, every tile landing row by row by ``cp.async``.
 
 The ring designs take any chain of two or more passes whose tile fits two
-stages, smaller tiles too.  The wrapper runs the kernel's plain version on a
-CPU tensor and launches or raises on a CUDA tensor; ``launches`` counts
-kernel launches only.
+stages, smaller tiles too.
+
+``lines_variant(x, tables, variant)`` (``csrc/probes/lines_variants.cu``)
+launches K1 (``webgpufft_tpu/core/fused.py:223``) in one instantiation of
+its power-of-two design (``csrc/lines_pow2.cuh``) named in
+``LINES_VARIANTS``: the length, the threads a CTA, the CTAs an SM asked
+for and the chain, with the twiddle table of that chain
+(``lines_variant_tables``), for the comparison of
+``chip_probes/k1_pow2_variants.py``.  The plans' entry point launches the
+variant K1's rule names (``radix.POW2_LINES``) and the direct design
+elsewhere.
+
+Each wrapper runs the kernel's plain version on a CPU tensor and launches or
+raises on a CUDA tensor; ``launches`` counts kernel launches only.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import ctypes
+from typing import Dict, Tuple
 
 import torch
 
 from .. import _build
-from ..core import fused_cols, radix
+from ..core import fused, fused_cols, radix
 
 COLS_DESIGNS = {"direct": 0, "ring": 1, "ring-async": 2}
+# name -> (N, threads a CTA, CTAs an SM asked for, chain), in the order of
+# the switch of csrc/probes/lines_variants.cu
+LINES_VARIANTS: Dict[str, Tuple[int, int, int, Tuple[int, ...]]] = {
+    "8192 rule": (8192, 256, 2, (32, 16, 16)),
+    "8192 one CTA": (8192, 256, 1, (32, 16, 16)),
+    "8192 three CTAs": (8192, 256, 3, (32, 16, 16)),
+    "8192 four passes": (8192, 512, 2, (16, 8, 8, 8)),
+    "8192 radix 32 last": (8192, 256, 2, (16, 16, 32)),
+    "16384 rule": (16384, 512, 1, (32, 32, 16)),
+    "16384 four passes": (16384, 512, 1, (16, 16, 8, 8)),
+    "16384 four passes 1024 threads": (16384, 1024, 1, (16, 16, 8, 8)),
+    "4096 rule": (4096, 256, 4, (16, 16, 16)),
+    "4096 32 points": (4096, 128, 4, (32, 16, 8)),
+    "2048 rule": (2048, 128, 4, (16, 16, 8)),
+    "2048 32 points": (2048, 64, 8, (32, 8, 8)),
+    "2048 six CTAs": (2048, 128, 6, (16, 16, 8)),
+    "2048 eight CTAs": (2048, 128, 8, (16, 16, 8)),
+}
+
+
+def lines_variant_tables(variant: str, direction: str, scale: float,
+                         device="cpu") -> Dict[str, torch.Tensor]:
+    """The ``cw`` and ``cp`` tables ``variant`` reads: ``cw`` laid out for
+    its chain, ``cp`` K1's."""
+    n, _, _, chain = LINES_VARIANTS[variant]
+    return {k.rsplit("/", 1)[1]: torch.as_tensor(v, device=device)
+            for k, v in radix.chain_consts(n, direction, scale, "p", chain).items()}
+
+
+def lines_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor], variant: str,
+                  adjoint: bool = False, inplace: bool = False) -> torch.Tensor:
+    """K1's transform (its adjoint with ``adjoint``) of interleaved float32
+    ``x`` (lines, N, 2) in the power-of-two ``variant`` of
+    ``LINES_VARIANTS``, whose N must be x's, with the variant's tables
+    (``lines_variant_tables``); with ``inplace`` written over ``x``.  A CUDA
+    tensor launches the probe kernel (and counts one launch); a CPU tensor
+    runs the variant's chain through ``radix.radix_chain_reference``."""
+    if variant not in LINES_VARIANTS:
+        raise ValueError(f"lines_variant: variant must be one of {sorted(LINES_VARIANTS)}, "
+                         f"got {variant!r}")
+    n, _, _, chain = LINES_VARIANTS[variant]
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lines_variant: unsupported device {x.device}")
+    fused._check_cuda(x)
+    if x.shape[1] != n:
+        raise ValueError(f"lines_variant: {variant!r} runs N = {n}, x has N = {x.shape[1]}")
+    if x.device.type == "cpu":
+        y = radix.radix_chain_reference(x, chain, tables, adjoint)
+        return x.copy_(y) if inplace else y
+    ptrs = _build.table_ptrs(x, tables, {"cw": (n, 2), "cp": (2,)}, "lines_variant")
+    lib = _build.library("probes")
+    y = x if inplace else torch.empty_like(x)
+    with _build.on_device(x.device):
+        rc = lib.wgfft_lines_variant(x.data_ptr(), y.data_ptr(), *ptrs, x.shape[0], n,
+                                     list(LINES_VARIANTS).index(variant), int(adjoint), None,
+                                     torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, f"lines_variant {variant}", "probes")
+    lines_variant.launches += 1
+    return y
+
+
+def lines_variant_resident(variant: str) -> int:
+    """CTAs an SM of the current CUDA device holds of ``variant``'s kernel
+    (the CUDA occupancy calculator); needs the card."""
+    n = LINES_VARIANTS[variant][0]
+    ctas = ctypes.c_int(0)
+    rc = _build.library("probes").wgfft_lines_variant(
+        None, None, None, None, 1, n, list(LINES_VARIANTS).index(variant), 0,
+        ctypes.cast(ctypes.pointer(ctas), ctypes.POINTER(ctypes.c_int)), None)
+    _build.check(rc, f"lines_variant {variant}", "probes")
+    return ctas.value
+
+
+lines_variant.launches = 0
 
 
 def cols_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor], design: str,

@@ -6,8 +6,13 @@ torch code around two nvcc-built kernels, so what there is to carry is the
 normalized spec, the route the exporting process chose, and the constant
 tables (``Plan.consts``).  Artifact layout: 8-byte big-endian header length,
 JSON header (schema, version, spec descriptor, route, i/o shapes, table
-names), then the tables as plain ``numpy.savez`` bytes (loaded with
-``allow_pickle=False``).
+names, and ``k1_chains``: the radix chain each K1 twiddle table ``cw`` is
+laid out for), then the tables as plain ``numpy.savez`` bytes (loaded with
+``allow_pickle=False``).  K1 reads ``cw`` in the order of the chain its rule
+gives the length (``core/radix.lines_chain``), which a later build may
+change: an artifact whose recorded chain (``radix.radix_chain`` for one
+written before the record, when K1 had no other) is not this build's is
+refused with ``PlanError``, never run on a table in another order.
 
 ``load_exported_plan(data, device=)`` rebuilds the plan's structure from the
 spec, checks that its route equals the recorded one (a serving process whose
@@ -25,7 +30,8 @@ JAX package's (8-byte big-endian length, JSON with ``schema``, ``version``,
 ``platforms`` and ``shapes``), then the saved program.  The kernels are in
 the program as the dispatcher ops ``wgfft::fused_lines`` and
 ``wgfft::fused_cols`` (``core/fused.py``, ``core/fused_cols.py``), the plan
-tables as constants; loading it therefore needs ``import webgpufft_tpu_torch``
+tables as constants (the header's ``k1_chains`` records, by length, the
+chain of every K1 launch's ``cw``, checked on load as for a plan); loading it therefore needs ``import webgpufft_tpu_torch``
 (which registers the ops), and every call of the loaded program launches
 (and counts) the kernels on a CUDA tensor.
 
@@ -61,6 +67,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core import radix
 from ..spec import PlanError, spec_to_dict
 
 AOT_SCHEMA = "webgpufft-tpu-torch.aot-plan"
@@ -71,6 +78,50 @@ def _route_dict(route) -> Dict[str, Any]:
     return {"mode": route.mode, "impl": route.impl,
             "axis_kinds": list(route.axis_kinds),
             "reasons": [r for r in route.reasons if not r.startswith("measure")]}
+
+
+def _plan_k1_lengths(tables: Dict[str, Any]) -> Dict[str, int]:
+    """Each K1 twiddle table among a plan's ``tables`` (``<prefix>/cw`` beside
+    ``<prefix>/f1re``; K2's prefixes have no ``f1re``) -> its length."""
+    return {name: int(t.shape[0]) for name, t in tables.items()
+            if name.endswith("/cw") and f"{name[:-3]}/f1re" in tables}
+
+
+def _pipeline_k1_lengths(program) -> Dict[str, int]:
+    """The length of every K1 launch (the op ``wgfft::fused_lines``) in an
+    exported program, keyed ``"N=<length>"``."""
+    op = torch.ops.wgfft.fused_lines.default
+    ns = {int(node.args[0].meta["val"].shape[1]) for node in program.graph.nodes
+          if node.op == "call_function" and node.target is op}
+    return {f"N={n}": n for n in sorted(ns)}
+
+
+def _k1_chains(lengths: Dict[str, int]) -> Dict[str, List[int]]:
+    """What an artifact records of its K1 tables: the chain each is laid out
+    for (``radix.lines_chain``), by the keys of ``lengths``."""
+    return {key: list(radix.lines_chain(n)) for key, n in lengths.items()}
+
+
+def _check_k1_chains(recorded: Optional[Dict[str, List[int]]], lengths: Dict[str, int],
+                     what: str) -> None:
+    """Refuse an artifact whose K1 twiddle tables are laid out for another
+    chain than this build's K1 reads at their length (``radix.lines_chain``):
+    the kernel would run them silently in the wrong order.  ``recorded`` is
+    the artifact's ``k1_chains``; an artifact written before it was recorded
+    has none, and its tables are laid out for ``radix.radix_chain``, the
+    only chain K1 had then."""
+    for key, n in lengths.items():
+        if recorded is None:
+            have = radix.radix_chain(n)
+        else:
+            have = tuple(recorded[key]) if key in recorded else None
+        want = radix.lines_chain(n)
+        if have != want:
+            raise PlanError(
+                f"{what}: the K1 twiddle table {key!r} (N = {n}) is laid out for the chain "
+                f"{have}, and this build's K1 reads N = {n} in the chain {want} "
+                f"({radix.lines_design(n)} design): export it again with this build",
+                table=key, recorded=None if have is None else list(have), kernel=list(want))
 
 
 def _write(header: Dict[str, Any], payload: bytes, path: Optional[str]) -> bytes:
@@ -98,6 +149,7 @@ def export_plan(plan, *, path: Optional[str] = None) -> bytes:
         "shapes": {"input": None if plan.input_shape is None else list(plan.input_shape),
                    "output": None if plan.output_shape is None else list(plan.output_shape)},
         "tables": sorted(tables),
+        "k1_chains": _k1_chains(_plan_k1_lengths(tables)),
     }, payload.getvalue(), path)
 
 
@@ -264,6 +316,7 @@ def load_exported_plan(data, device="cuda") -> ExportedPlan:
                   for i, name in enumerate(meta["tables"])}
     if meta.get("distributed") is not None:
         return ExportedPlan(meta)
+    _check_k1_chains(meta.get("k1_chains"), _plan_k1_lengths(tables), "load_exported_plan")
     plan = _build_plan(_rebuild_spec(meta["spec"]), _resolve_device(device))
     _check_route(meta["route"], plan.route)
     plan.load_consts(tables)
@@ -321,6 +374,7 @@ def export_pipeline(fn, *example_args, path: Optional[str] = None) -> bytes:
         "platforms": sorted({a.device.type for a in args}),
         "shapes": [{"shape": list(a.shape), "dtype": str(a.dtype).removeprefix("torch.")}
                    for a in args],
+        "k1_chains": _k1_chains(_pipeline_k1_lengths(program)),
     }, payload.getvalue(), path)
 
 
@@ -370,5 +424,7 @@ def load_exported_pipeline(data) -> ExportedPipeline:
             f"pipeline artifact version {meta.get('version')} != "
             f"supported {AOT_VERSION}")
     program = torch.export.load(io.BytesIO(bytes(data[8 + hlen:])))
+    _check_k1_chains(meta.get("k1_chains"), _pipeline_k1_lengths(program),
+                     "load_exported_pipeline")
     return ExportedPipeline(meta, program)
 
