@@ -2,10 +2,13 @@
 
     python3 chip_probes/chain_ab.py         (from the repository root)
 
-K1's and K2's C entry points run whatever chain they are handed, so this
-times the chain ``radix.radix_chain`` chooses beside alternatives (radix 8
-and 4 only, another order) on the shapes of the main paths, each checked
-against ``torch.fft`` first.  Needs a GPU.
+K2's C entry point runs whatever chain it is handed, and so does K1's at a
+length of its direct design, so this times the chain ``radix.radix_chain``
+chooses beside alternatives (radix 8 and 4 only, another order) on the
+shapes of the main paths, each checked against ``torch.fft`` first.  A K1
+length that K1's rule gives another design (``radix.lines_design``) takes
+that design's chain only and is skipped here: its chains are the variants
+of ``chip_probes/k1_pow2_variants.py``.  Needs a GPU.
 """
 
 import sys
@@ -63,6 +66,10 @@ def main():
     lib = _build.library()
     gen = torch.Generator(device="cuda").manual_seed(1)
     for n, lines, others in K1_CASES:
+        if radix.lines_design(n) != "direct":
+            print(f"K1 N={n}: the {radix.lines_design(n)} design takes its rule's chain only, "
+                  f"skipped (chip_probes/k1_pow2_variants.py times its variants)")
+            continue
         x = torch.randn(lines, n, 2, device="cuda", generator=gen)
         z = torch.view_as_complex(x)
         lib_ms = device_ms(lambda: torch.fft.fft(z))

@@ -1,9 +1,11 @@
-"""Probe: K2's direct design and its ring design, and K1's long lines, in one run.
+"""Probe: K2's direct design and its ring design, and K1's lines, in one run.
 
-    python3 chip_probes/k1_k2_ring.py [--repo DIR] [--out PATH]   (from the repository root)
+    python3 chip_probes/k1_k2_ring.py [--repo DIR] [--out PATH] [--e2e] [--e2e-short]
+                                      [--k1-only]   (from the repository root)
 
 For every long shape of the kernel table in PERF.md (K1 from N = 2048 on,
-K2 tiles of 8192 points or more) and a few beside them: the plans' own
+K2 tiles of 8192 points or more), K1's short powers of two at the line
+counts the paths launch, and a few beside them: the plans' own
 launch (``fused.fused_lines`` / ``fused_cols.fused_cols``, whichever design
 the entry point takes) in device time (``runtime/profile.time_queued``) and
 in host time per call (``host_us``: the microseconds a call takes to return
@@ -16,10 +18,11 @@ is first checked against the plain version (1e-5 of max|plain|, forward
 and adjoint), then timed in turns, in order and in reverse, each time the
 median of both turns, with its host time per call.  K1's plans' launch
 takes the design K1's rule gives the length (``radix.lines_design``: the
-power-of-two design at 2048, 4096, 8192 and 16384, the direct one
-elsewhere; a checkout without the rule has the direct design only), named
-in the label, and is timed with its adjoint launch;
-its variants are timed by ``chip_probes/k1_pow2_variants.py``.
+power-of-two design at 256 and 1024 to 16384, the warp design at 32 and
+512, the direct one elsewhere; a checkout without a rule has the direct
+design there), named in the label, and is timed with its
+adjoint launch; its variants are timed by
+``chip_probes/k1_pow2_variants.py``.  ``--k1-only`` leaves K2 out.
 
 ``--e2e`` then times, from idle and queued, the calls whose K1 launches
 are its long lines, each beside the same call on ``torch.fft`` (in turns:
@@ -29,6 +32,12 @@ Adam, from idle only), ``matmul_toeplitz`` (4097 x 4096) @ (4096, 1024),
 ``solve_toeplitz`` 4096 x 256 and the overlap-save plan [2^20] * 129, set up
 from ``chip_smoke.py``'s constants and helpers and checked as it checks
 them.
+
+``--e2e-short`` does the same for the calls whose K1 launches are short
+lines: the headline plan [1024] x 4096, dct2 [512, 512] x 8 and fftconv
+[1000, 1000] x 8 with 25 x 25 taps (from idle and queued), and one NS-3D
+step at 256^3 (from idle), each beside the same call or step on
+``torch.fft``.
 
 ``--repo DIR`` imports ``webgpufft_tpu_torch`` from DIR (default: this
 repository), so that a parent commit unpacked with ``git archive`` and this
@@ -54,6 +63,11 @@ K1_CASES = [(8192, 1024), (8192, 1032), (8192, 131), (8192, 512), (16384, 512), 
             (2048, 4096), (2079, 4096), (6144, 1024), (5120, 1024), (9216, 1024), (12288, 512)]
 K1_CASES += [(n, lines) for n in (2048, 4096, 8192, 16384) for lines in (131, 512, 1024)
              if (n, lines) not in K1_CASES]
+# the short powers of two the paths launch (PERF.md's rows): the headline
+# 1024 x 4096, the fftconv path's 1024 x 8192, the dct path's 512 x 4096,
+# NS-3D main's r2c body 32 x 1536, the 256^3 bodies 256 x 65,536 and
+# 256 x 98,304
+K1_CASES += [(1024, 4096), (1024, 8192), (512, 4096), (32, 1536), (256, 65536), (256, 98304)]
 # (pre, H, 2 * cols)
 K2_CASES = [(8, 1024, 2048), (1, 1024, 2048), (8, 512, 1024), (8, 2048, 1024),
             (64, 1024, 66), (16, 4096, 64), (256, 256, 512)]
@@ -135,14 +149,21 @@ def in_turns(port, yardstick, timer, median, **kw):
     return median(p), median(y)
 
 
-def end_to_end(card, profile):
-    """The calls of ``--e2e`` (module docstring); one record each."""
+def smoke():
+    """``chip_smoke.py`` of this script's own checkout, for its constants and
+    yardsticks."""
     sys.path.append(str(Path(__file__).resolve().parent.parent))
-    import chip_smoke as S
+    import chip_smoke
+    return chip_smoke
+
+
+def long_calls(gen):
+    """The calls of ``--e2e`` (module docstring): (label, port, yardstick,
+    timed queued too)."""
+    S = smoke()
     import webgpufft_tpu_torch as T
     from webgpufft_tpu_torch.examples import system_identification as sysid
     la = T.linalg
-    gen = torch.Generator(device="cuda").manual_seed(S.SEED)
     calls = []
 
     n, klen, batch = S.SYSID_BIG_N, S.SYSID["klen"], S.SYSID["batch"]
@@ -201,7 +222,57 @@ def end_to_end(card, profile):
                   S.torch_fft_conv(xc, kc, (S.OS_N,), (S.OS_N,), (0,)), "torch.fft complex128")
     calls.append((f"overlap-save plan [2^20] * {S.OS_TAPS}", lambda: plan(xo, kernel=ko),
                   os_yard, True))
+    return calls
 
+
+def short_calls(gen):
+    """The calls of ``--e2e-short`` (module docstring), as ``long_calls``."""
+    S = smoke()
+    import webgpufft_tpu_torch as T
+    from webgpufft_tpu_torch.examples import navier_stokes3d as ns
+    from webgpufft_tpu_torch.utils import mathref
+    calls = []
+
+    plan = T.create_plan(S.HEADLINE, device="cuda")
+    xh = torch.randn(4096, 1024, 2, device="cuda", generator=gen)
+    zh = torch.view_as_complex(xh)
+    S.check_oracle("headline plan", plan(xh), torch.fft.fft(zh, norm="ortho"))
+    calls.append(("headline plan(x) c2c [1024] b4096", lambda: plan(xh),
+                  lambda: torch.fft.fft(zh, norm="ortho"), True))
+
+    dct = T.create_plan({"type": "dct2", "shape": [512, 512], "batch": 8,
+                         "normalize": "unitary"}, device="cuda")
+    xd = torch.randn(8, 512, 512, device="cuda", generator=gen)
+    S.check_close("dct2 [512, 512] b8", dct(xd), S.torch_fft_dct2(xd, 1.0 / 512),
+                  "the DCT-II on torch.fft")
+    calls.append(("dct2 [512, 512] b8 plan(x)", lambda: dct(xd),
+                  lambda: S.torch_fft_dct2(xd, 1.0 / 512), True))
+
+    shape, kshape = [1000, 1000], [25, 25]
+    conv = T.create_plan({"type": "fftconv", "shape": shape, "batch": 8,
+                          "fftConv": {"kernelShape": kshape, "boundary": "linear-same"}},
+                         device="cuda")
+    geo = mathref.fftconv_out_shape(shape, kshape, "linear-same")
+    xc = torch.randn(8, 1000, 1000, 2, device="cuda", generator=gen)
+    kc = torch.randn(25, 25, 2, device="cuda", generator=gen)
+    zc, zk = torch.view_as_complex(xc), torch.view_as_complex(kc)
+    S.check_close("fftconv [1000, 1000] b8", torch.view_as_complex(conv(xc, kernel=kc)),
+                  S.torch_fft_conv(zc, zk, *geo), "torch.fft complex128")
+    calls.append(("fftconv [1000, 1000] b8 k25x25 plan(x, kernel)", lambda: conv(xc, kernel=kc),
+                  lambda: S.torch_fft_conv(zc, zk, *geo, dtype=torch.complex64), True))
+
+    step, to_s, _ = ns.make_stepper3(S.NS_N, S.NS_NU, S.NS_DT, device="cuda")
+    fstep, _, _ = S.torch_fft_stepper3(S.NS_N, S.NS_NU, S.NS_DT)
+    u_hat = to_s(0.1 * torch.randn(3, S.NS_N, S.NS_N, S.NS_N, device="cuda", generator=gen))
+    S.check_close("NS-3D step", step(u_hat), fstep(u_hat), "the torch.fft step")
+    calls.append((f"NS-3D step {S.NS_N}^3", lambda: step(u_hat), lambda: fstep(u_hat), False))
+    return calls
+
+
+def end_to_end(calls, card, profile):
+    """Each call from idle (and queued where asked) in turns beside its
+    yardstick on ``torch.fft``, with its K1 launches; one record each."""
+    S = smoke()
     records = []
     for label, port, yardstick, queued in calls:
         _, made = S.counted(port)
@@ -233,6 +304,9 @@ def main():
     ap.add_argument("--out", type=Path, help="also write one JSON line a shape or call here")
     ap.add_argument("--e2e", action="store_true",
                     help="also time the calls whose K1 launches are long lines")
+    ap.add_argument("--e2e-short", action="store_true",
+                    help="also time the calls whose K1 launches are short lines")
+    ap.add_argument("--k1-only", action="store_true", help="leave K2's shapes out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("k1_k2_ring: needs an NVIDIA GPU")
@@ -257,7 +331,7 @@ def main():
             [], None, 16 * n * lines, card, profile,
             plan_adjoint=lambda: fused.fused_lines(x, t, adjoint=True)))
         del x
-    for pre, h, lanes in K2_CASES:
+    for pre, h, lanes in [] if args.k1_only else K2_CASES:
         t = tables_on_card(fused_cols.cols_consts(h, "forward", 1.0, "p"))
         x = torch.randn(pre, h, lanes, device="cuda", generator=gen)
         cols = lanes // 2
@@ -274,7 +348,9 @@ def main():
             card, profile))
         del x
     if args.e2e:
-        records += end_to_end(card, profile)
+        records += end_to_end(long_calls(gen), card, profile)
+    if args.e2e_short:
+        records += end_to_end(short_calls(gen), card, profile)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text("".join(json.dumps(rec) + "\n" for rec in records))

@@ -1,11 +1,15 @@
-"""Probe: K1's power-of-two design in each variant, beside the plans' launch.
+"""Probe: K1's power-of-two and warp designs in each variant, beside the plans' launch.
 
-    python3 chip_probes/k1_pow2_variants.py [--lines 131 512 1024] [--out PATH]
-                                            (from the repository root)
+    python3 chip_probes/k1_pow2_variants.py [--n 1024 512 ...] [--lines 131 512 1024]
+                                            [--out PATH]   (from the repository root)
 
 For every variant of ``probes.variants.LINES_VARIANTS`` (one instantiation
-of ``csrc/lines_pow2.cuh``: length, threads a CTA, CTAs an SM asked for,
-chain) and every line count: the CTAs an SM holds (the CUDA occupancy
+of ``csrc/lines_pow2.cuh``, one line a CTA, or of ``csrc/lines_warp.cuh``,
+a line in the lanes of a warp: length, threads a CTA, lanes a line, CTAs an
+SM asked for, chain) whose length ``--n`` names (default: every length) and
+every line count (``--lines``; default, the counts the paths launch at a
+short length, ``PATH_LINES``, and 131, 512 and 1024 at a long one): the
+CTAs an SM holds (the CUDA occupancy
 calculator), a check against K1's plain version (1e-5 of max|plain|,
 forward, adjoint and in place), then device time (``runtime/profile.
 time_queued``) in turns, the variants of one length in order and in
@@ -28,6 +32,9 @@ from webgpufft_tpu_torch.probes import variants  # noqa: E402
 from webgpufft_tpu_torch.runtime import profile  # noqa: E402
 
 TOL = 1e-5
+# the line counts the paths launch at the short lengths (PERF.md's rows)
+PATH_LINES = {1024: [4096, 8192], 512: [4096], 256: [65536, 98304], 32: [1536],
+              64: [65536], 128: [196608, 1024]}
 
 
 def rel(a, b):
@@ -36,7 +43,9 @@ def rel(a, b):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--lines", type=int, nargs="+", default=[131, 512, 1024])
+    ap.add_argument("--n", type=int, nargs="+", help="only the variants of these lengths")
+    ap.add_argument("--lines", type=int, nargs="+",
+                    help="line counts (default: PATH_LINES, or 131 512 1024)")
     ap.add_argument("--out", type=Path, help="also write one JSON line a shape here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -44,8 +53,9 @@ def main():
     card = profile.card_line()
     print(f"k1_pow2_variants [{card}]", flush=True)
     by_n = {}
-    for name, (n, *_) in variants.LINES_VARIANTS.items():
-        by_n.setdefault(n, []).append(name)
+    for name, v in variants.LINES_VARIANTS.items():
+        if args.n is None or v.n in args.n:
+            by_n.setdefault(v.n, []).append(name)
     gen = torch.Generator(device="cuda").manual_seed(15)
     records = []
     for n, names in by_n.items():
@@ -53,8 +63,7 @@ def main():
              for k, v in fused.lines_consts(n, "forward", 1.0, "p").items()}
         vt = {v: variants.lines_variant_tables(v, "forward", 1.0, "cuda") for v in names}
         resident = {v: variants.lines_variant_resident(v) for v in names}
-        plans_resident = fused.resident(n, 1)
-        for lines in args.lines:
+        for lines in args.lines or PATH_LINES.get(n, [131, 512, 1024]):
             x = torch.randn(lines, n, 2, device="cuda", generator=gen)
             want = {adj: fused.fused_lines_reference(x, t, adj) for adj in (False, True)}
             errs = {}
@@ -79,19 +88,22 @@ def main():
             library = profile.median(profile.time_queued(
                 lambda: torch.fft.fft(torch.view_as_complex(x))))
             bound = profile.bound_ms(16 * n * lines, 0.0)[0]
+            launch = fused.launch_report(n, lines)
+            plans_resident = launch.resident
             rec = {"n": n, "lines": lines, "bound_ms": bound, "library_ms": library,
                    "card": card, "plans_design": radix.lines_design(n),
                    "plans_chain": list(radix.lines_chain(n)), "plans_resident": plans_resident,
+                   "plans_grid": launch.grid, "plans_waves": launch.waves,
                    "plans_ms": profile.median(times["plans"]), "plans_err": plans_err,
                    "variants": {v: {"ms": profile.median(times[v]), "err": errs[v],
                                     "resident": resident[v],
-                                    "threads": variants.LINES_VARIANTS[v][1],
-                                    "chain": list(variants.LINES_VARIANTS[v][3])}
+                                    **variants.LINES_VARIANTS[v]._asdict()}
                                 for v in names}}
             parts = "; ".join(f"{v} {r['ms']:.4f} ms ({r['resident']} CTAs an SM)"
                               for v, r in rec["variants"].items())
             print(f"K1 N={n} x {lines}: {parts}; the plans' launch ({rec['plans_design']} "
-                  f"{tuple(rec['plans_chain'])}, {plans_resident} CTAs an SM) "
+                  f"{tuple(rec['plans_chain'])}, {plans_resident} CTAs an SM, grid {launch.grid}, "
+                  f"{launch.waves:.2f} waves) "
                   f"{rec['plans_ms']:.4f} ms; torch.fft.fft {library:.4f} ms; bound "
                   f"{bound:.4f} ms [{card}]", flush=True)
             records.append(rec)

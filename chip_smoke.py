@@ -6,10 +6,11 @@ Builds the hand-written CUDA kernels from the checkout's sources, holds each
 kernel against its plain PyTorch version (at the shapes the paths below give
 it, and at lengths that stress the radix chain: the shared-memory limit, every
 odd radix, one-butterfly lengths, a ragged column count, small digits; K2's
-tall tiles run the ring design, K1's powers of two 2048 .. 16384 its
-power-of-two design, the timing lines and the kernel record name the design
-of each shape, with K1's CTAs an SM and cuFFT's time without its norm pass
-beside the normed one), and
+tall tiles run the ring design, K1's powers of two 256 and 1024 .. 16384 its
+power-of-two design and 32 and 512 its warp design, the timing lines
+and the kernel record name the design of each shape, with K1's CTAs an SM,
+grid and waves and cuFFT's time without its norm pass beside the normed
+one), and
 holds each kernel's adjoint launch (the backward of autograd) against the
 plain adjoint and the dot test <K x, u> = <x, K^H u>, holds the three probe
 kernels (``webgpufft_tpu_torch.probes``) against theirs, and drives seventeen
@@ -396,9 +397,10 @@ def domain_lengths():
 # domain: every length K1 and K2 accept
 # ---------------------------------------------------------------------------
 
-# K1 below N = 2048 takes up to 256 lines a CTA: 257 lines (a prime above
-# every per-CTA count) leave its last CTA ragged whatever the count is; from
-# N = 2048 on a CTA takes one line
+# K1's direct design below N = 2048 takes up to 256 lines a CTA and its warp
+# design 1 to 8 lines a warp: 257 lines (a prime above every such count)
+# leave the last CTA or warp ragged whatever the count is; from N = 2048 on
+# a CTA takes one line
 DOMAIN_SHORT_LINES, DOMAIN_LONG_LINES, DOMAIN_LONG_N = 257, 3, 2048
 # K2's views (2, H, 2 * 33): 33 complex columns, ragged against the
 # 16-column tile and against the one-pass heights' 32
@@ -1678,6 +1680,7 @@ MEASURED = [HEADLINE,
 def phase_runtime(gen, card):
     import webgpufft_tpu_torch as T
     from webgpufft_tpu_torch import selftest
+    from webgpufft_tpu_torch.core import fused
     from webgpufft_tpu_torch.runtime import golden, measure, trace
 
     # the measured planner on four plans, in a cache of its own
@@ -1752,10 +1755,11 @@ def phase_runtime(gen, card):
         with trace.trace(os.path.join(tmp, "trace")) as prof:
             plan(x)
         text = open(prof.trace_path).read()
-        require("wgfft:c2c" in text and "fused_lines_kernel" in text,
+        k1_name = fused.kernel_name(HEADLINE["shape"][0])
+        require("wgfft:c2c" in text and k1_name in text,
                 "runtime trace: the plan's span or the kernel's name is missing")
         print(f"runtime trace: {os.path.basename(prof.trace_path)} ({len(text)} bytes) names "
-              f"wgfft:c2c and fused_lines_kernel")
+              f"wgfft:c2c and {k1_name}")
     stats = trace.plan_stats(plan, x)
     print(f"runtime plan_stats headline: {json.dumps(stats)}")
     require(stats["fused_lines_launches"] == 1 and stats["fused_cols_launches"] == 0,
@@ -1996,9 +2000,11 @@ def phase_timing(k1_cases, k2_cases, headline, volume, card):
             continue  # same work as the other direction, timed already
         fft = torch.fft.fft if direction == "forward" else torch.fft.ifft
         norm = fft_norm(direction, normalize)
-        design, resident = radix.lines_design(n), fused.resident(n, lines)
+        launch = fused.launch_report(n, lines)
+        design, resident = launch.design, launch.resident
         out[("K1", n, lines)] = time_kernel(
-            f"K1 fused_lines N={n} lines={lines} design={design} ({resident} CTAs an SM)",
+            f"K1 fused_lines N={n} lines={lines} design={design} ({resident} CTAs an SM, "
+            f"grid {launch.grid}, {launch.waves:.2f} waves)",
             fused.fused_lines, fused.fused_lines_reference,
             lambda v, fft=fft, norm=norm: fft(torch.view_as_complex(v), dim=-1, norm=norm),
             (x, t), n, lines, card)
@@ -2007,7 +2013,8 @@ def phase_timing(k1_cases, k2_cases, headline, volume, card):
             lambda v: torch.fft.fft(torch.view_as_complex(v), dim=-1), x))
         print(f"time K1 fused_lines N={n} lines={lines}: torch.fft.fft unscaled (cuFFT, no "
               f"norm pass) {unscaled:.4f} ms [{card}]")
-        out[("K1", n, lines)].update(design=design, resident=resident,
+        out[("K1", n, lines)].update(design=design, resident=resident, grid=launch.grid,
+                                     waves=launch.waves,
                                      unscaled_library_ms=unscaled)
     for (pre, h, lanes), (x, t, direction) in k2_cases.items():
         fft = torch.fft.fft if direction == "forward" else torch.fft.ifft
@@ -3799,7 +3806,7 @@ def main():
          "max_abs_err": err, "shape": shape, **times[key],
          "shapes": [{"shape": list(k[1:]), **v} for k, v in times.items() if k[0] == key[0]]}
         for name, src, files, replaces, err, shape, key in [
-            ("fused_lines", "fused_lines.cu", ("fused_lines.cu", "lines_pow2.cu"),
+            ("fused_lines", "fused_lines.cu", ("fused_lines.cu", "lines_pow2.cu", "lines_warp.cu"),
              "webgpufft_tpu/core/fused.py:223", k1_err, "N=1024 x 4096 lines",
              ("K1", 1024, 4096)),
             ("fused_cols", "fused_cols.cu", ("fused_cols.cu",),

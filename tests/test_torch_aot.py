@@ -104,10 +104,10 @@ def _without_k1_chains(blob, edit=None):
     return len(head).to_bytes(8, "big") + head + blob[8 + hlen:]
 
 
-@pytest.mark.parametrize("n", [8192, 16384])
+@pytest.mark.parametrize("n", [8192, 16384, 256])
 def test_artifact_laid_out_for_another_k1_chain_is_refused(n, rng):
     """K1 reads ``cw`` in the order of ``radix.lines_chain(N)`` (the
-    power-of-two design's at 8192 and 16384): an export records that chain
+    power-of-two design's at 256, 8192 and 16384): an export records that chain
     for every K1 table and loads; an artifact without the record (written
     when every length ran ``radix.radix_chain``) or with another chain is
     refused with a PlanError that names the table and both chains, for a
@@ -141,8 +141,8 @@ def test_artifact_laid_out_for_another_k1_chain_is_refused(n, rng):
 
 def test_artifact_of_an_unmoved_k1_length_loads_without_the_record(rng):
     """Where K1's chain is the one it always had (every length but the
-    power-of-two design's), an artifact without ``k1_chains`` loads and
-    runs its tables bit for bit."""
+    power-of-two design's 256, 8192 and 16384), an artifact without
+    ``k1_chains`` loads and runs its tables bit for bit."""
     plan = T.create_plan({"type": "c2c", "shape": [1024], "batch": 8}, device="cpu",
                          cache=T.PlanCache())
     old = _without_k1_chains(T.export_plan(plan))

@@ -137,7 +137,55 @@ def test_pow2_design_at_each_length_of_the_rule(n, direction, lines, cuda_device
     assert_close(ya.cpu(), fused.fused_lines_reference(x, t, adjoint=True).cpu(),
                  label=f"K1 pow2 n={n} lines={lines} adjoint")
     assert torch.equal(z, y)
-    assert fused.resident(n, lines) >= (2 if n == 8192 else 1)
+    assert fused.launch_report(n, lines).resident >= (2 if n == 8192 else 1)
+    for other in {radix.radix_chain(n), (2,) * (n.bit_length() - 1)} - {radix.lines_chain(n)}:
+        rc = _build.library().wgfft_fused_lines(
+            x.data_ptr(), y.data_ptr(), t["cw"].data_ptr(), t["cp"].data_ptr(), lines, n,
+            *_build.chain_arg(other), 0, torch.cuda.current_stream().cuda_stream)
+        assert rc == 1, other   # cudaErrorInvalidValue
+
+
+@pytest.mark.parametrize("lines", [1, 7, 131, 1536, 4096])
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+@pytest.mark.parametrize("n", [32, 256, 512, 1024])
+def test_short_design_at_each_length_of_the_rule(n, direction, lines, cuda_device):
+    """K1's rule sends the short powers of two the paths launch to a
+    compile-time design (the warp design at 32 and 512, the power-of-two
+    design's one line a CTA at 256 and 1024): forward, adjoint and in place
+    against the plain version at line counts that leave a warp's last group
+    ragged (a warp of the warp design holds 8 lines at 32) and that run one
+    round or several, each launch counted; the launch fills the card (CTAs
+    an SM >= 1, a grid of more than 24 CTAs at 32 x 1536, the warp design
+    never more than one wave); and the entry point refuses any chain but
+    the rule's (no fallback to the direct design)."""
+    from webgpufft_tpu_torch import _build
+    from webgpufft_tpu_torch.core import radix
+    design = "warp" if n in (32, 512) else "pow2"
+    assert radix.lines_design(n) == design
+    gen = torch.Generator(device=cuda_device).manual_seed(n + lines)
+    t = _dev_tables(fused.lines_consts(n, direction, 1.0 / math.sqrt(n), "p"), cuda_device)
+    x = torch.randn(lines, n, 2, device=cuda_device, generator=gen)
+    before = fused.fused_lines.launches
+    y = fused.fused_lines(x, t)
+    ya = fused.fused_lines(x, t, adjoint=True)
+    z = probes.lines_inplace(x.clone(), t)
+    torch.cuda.synchronize()
+    assert fused.fused_lines.launches == before + 3
+    want = fused.fused_lines_reference(x, t).cpu()
+    assert_close(y.cpu(), want, label=f"K1 {design} n={n} lines={lines}")
+    assert_close(ya.cpu(), fused.fused_lines_reference(x, t, adjoint=True).cpu(),
+                 label=f"K1 {design} n={n} lines={lines} adjoint")
+    assert torch.equal(z, y)
+    launch = fused.launch_report(n, lines)
+    print(f"K1 {design} n={n} lines={lines}: {launch}, {launch.waves:.3f} waves")
+    assert launch.design == design and launch.resident >= 1
+    assert launch.sms == torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    if design == "warp":
+        assert 1 <= launch.grid <= min(launch.work, launch.resident * launch.sms)
+    else:
+        assert launch.grid == launch.work == lines
+    if (n, lines) == (32, 1536):
+        assert launch.grid > 24
     for other in {radix.radix_chain(n), (2,) * (n.bit_length() - 1)} - {radix.lines_chain(n)}:
         rc = _build.library().wgfft_fused_lines(
             x.data_ptr(), y.data_ptr(), t["cw"].data_ptr(), t["cp"].data_ptr(), lines, n,
@@ -146,11 +194,13 @@ def test_pow2_design_at_each_length_of_the_rule(n, direction, lines, cuda_device
 
 
 def test_every_pow2_variant_matches_plain(cuda_device):
-    """Each variant of the power-of-two design (``probes.lines_variant``)
-    against K1's plain version, forward, adjoint and in place."""
+    """Each variant of the power-of-two and warp designs
+    (``probes.lines_variant``) against K1's plain version, forward, adjoint
+    and in place, at a line count that leaves a warp's last group ragged."""
     from webgpufft_tpu_torch.probes import variants
     gen = torch.Generator(device=cuda_device).manual_seed(15)
-    for name, (n, _, _, _) in variants.LINES_VARIANTS.items():
+    for name, variant in variants.LINES_VARIANTS.items():
+        n = variant.n
         t = _dev_tables(fused.lines_consts(n, "inverse", 1.0 / n, "p"), cuda_device)
         vt = variants.lines_variant_tables(name, "inverse", 1.0 / n, cuda_device)
         x = torch.randn(7, n, 2, device=cuda_device, generator=gen)
@@ -704,7 +754,7 @@ def test_golden_corpus_selftest_export_and_trace_on_gpu(cuda_device, tmp_path):
     with trace.trace(str(tmp_path)) as prof:
         plan(x)
     text = open(prof.trace_path).read()
-    assert "wgfft:c2c" in text and "fused_lines_kernel" in text
+    assert "wgfft:c2c" in text and fused.kernel_name(1024) in text
     stats = trace.plan_stats(plan, x)
     assert stats["fused_lines_launches"] == 1 and stats["device_kernels"] >= 1
     assert profile.device_hbm_gbps(cuda_device) > 0

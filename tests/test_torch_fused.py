@@ -35,7 +35,7 @@ def _tables(n, direction, scale, device="cpu"):
 
 @pytest.mark.parametrize("normalize", ["none", "backward", "unitary"])
 @pytest.mark.parametrize("direction", ["forward", "inverse"])
-@pytest.mark.parametrize("n", [1024, 2048, 360, 1000, 2310, 8192, 16384])
+@pytest.mark.parametrize("n", [1024, 2048, 360, 1000, 2310, 8192, 16384, 512, 256])
 def test_lines_match_jax(n, direction, normalize, rng, assert_close):
     scale = normalize_scale(normalize, direction, n)
     x = _input(rng, n)

@@ -82,8 +82,9 @@ def test_a_cut_chain_is_the_model_cut(n, assert_close):
         got = probes.lines_stages(x, t, p)
         want = cur * (0.25 if p == len(chain) else 1.0)
         assert_close(as_complex(got), want, label=f"n={n} stop={p}")
-        assert torch.equal(got, radix.radix_chain_reference(x, chain, t, stop=p))
-    assert torch.equal(got, radix.radix_chain_reference(x, chain, t))
+        assert torch.equal(got, radix.radix_chain_reference(x, chain, radix.direct_tables(t, n),
+                                                            stop=p))
+    assert torch.equal(got, radix.radix_chain_reference(x, chain, radix.direct_tables(t, n)))
 
 
 def test_stop_outside_the_chain_is_refused():
@@ -107,7 +108,7 @@ def test_planes_equal_interleaved(n, assert_close):
                  np.fft.ifft(as_complex(x), axis=-1) * np.sqrt(n), label=f"planes n={n}")
 
 
-@pytest.mark.parametrize("n", [8192, 16384])
+@pytest.mark.parametrize("n", [8192, 16384, 256])
 def test_stages_and_planes_run_the_direct_chain_where_k1_runs_another(n, assert_close):
     """At a length where K1's rule gives the power-of-two design a chain of
     its own (its ``cw`` in that order), P2 and P3 still run the direct
@@ -134,12 +135,18 @@ def test_stages_and_planes_run_the_direct_chain_where_k1_runs_another(n, assert_
 
 @pytest.mark.parametrize("name", sorted(probes.variants.LINES_VARIANTS))
 def test_every_pow2_variant_is_its_chain(name, assert_close):
-    """Each variant of K1's power-of-two design on the CPU: its chain's
-    model on its own table, equal to K1's plain version forward, adjoint and
-    in place; a length other than the variant's is refused."""
+    """Each variant of K1's power-of-two and warp designs on the CPU: its
+    chain's model on its own table, equal to K1's plain version forward,
+    adjoint and in place; a length other than the variant's is refused.
+    Its shape is one the kernel template takes: a power of two of lanes a
+    line (the CTA's threads in the power-of-two design, at most a warp in
+    the warp design) that splits every pass's butterflies evenly."""
     from webgpufft_tpu_torch.probes import variants
-    n, threads, minb, chain = variants.LINES_VARIANTS[name]
-    assert math.prod(chain) == n and n % threads == 0 and minb >= 1
+    n, design, threads, lanes, minb, chain = variants.LINES_VARIANTS[name]
+    assert math.prod(chain) == n and minb >= 1 and lanes & (lanes - 1) == 0
+    assert all((n // r) % lanes == 0 for r in chain)
+    assert (design, lanes) in {("pow2", threads), ("warp", min(lanes, 32))}
+    assert design == "pow2" or threads % 32 == 0
     x = lines(n, count=2)
     vt = variants.lines_variant_tables(name, "forward", 0.5)
     t = tables(n, "forward", 0.5)
@@ -151,7 +158,7 @@ def test_every_pow2_variant_is_its_chain(name, assert_close):
     assert variants.lines_variant(work, vt, name, inplace=True) is work
     assert torch.equal(work, variants.lines_variant(x, vt, name))
     with pytest.raises(ValueError, match="runs N"):
-        variants.lines_variant(lines(64), vt, name)
+        variants.lines_variant(lines(128 if n == 64 else 64), vt, name)
     with pytest.raises(ValueError, match="variant must be"):
         variants.lines_variant(x, vt, "no such variant")
 
@@ -248,7 +255,8 @@ def test_launch_counters_count_kernel_launches_only():
 C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
            "long long": ctypes.c_longlong, "int": ctypes.c_int, "float": ctypes.c_float,
            "const int*": ctypes.POINTER(ctypes.c_int),
-           "int*": ctypes.POINTER(ctypes.c_int)}
+           "int*": ctypes.POINTER(ctypes.c_int),
+           "long long*": ctypes.POINTER(ctypes.c_longlong)}
 ENTRY = re.compile(r'extern "C" int (\w+)\(([^)]*)\)', re.S)
 
 
@@ -278,7 +286,7 @@ def test_probe_library_is_a_second_library():
         "stream_copy.cu", "lines_stages.cu", "lines_planes.cu", "tile_copy.cu",
         "cols_variants.cu", "lines_variants.cu"}
     assert {s.name for s in _build.sources("core")} == {"fused_lines.cu", "fused_cols.cu",
-                                                        "lines_pow2.cu"}
+                                                        "lines_pow2.cu", "lines_warp.cu"}
     core, probe = _build.library_path("core"), _build.library_path("probes")
     assert core != probe and core.parent == probe.parent == _build.BUILD_DIR
     assert probe.name.startswith("libwgfft_probes_")

@@ -22,8 +22,9 @@ from webgpufft_tpu_torch.core import fused, fused_cols, radix
 from webgpufft_tpu_torch.utils import factors
 from webgpufft_tpu_torch.utils.mathref import normalize_scale
 
-# squares, non-squares, every radix, both shared-memory extremes
-LENGTHS = [1024, 2048, 360, 1000, 2310, 1352, 4096, 16384, 16, 6, 121, 32, 8192]
+# squares, non-squares, every radix, both shared-memory extremes, and the
+# warp design's lengths
+LENGTHS = [1024, 2048, 360, 1000, 2310, 1352, 4096, 16384, 16, 6, 121, 32, 8192, 256, 512]
 ELIGIBLE = [n for n in range(2, radix.MAX_LENGTH + 1)
             if fused.choose_split(n) or fused_cols.choose_split(n)]
 
@@ -59,13 +60,13 @@ def test_lines_chain_model_matches_plain_and_numpy(n, direction, normalize, rng,
 @pytest.mark.parametrize("adjoint", [False, True])
 @pytest.mark.parametrize("normalize", ["none", "backward", "unitary"])
 @pytest.mark.parametrize("direction", ["forward", "inverse"])
-@pytest.mark.parametrize("n", [2048, 4096, 8192, 16384])
+@pytest.mark.parametrize("n", [32, 256, 512, 1024, 2048, 4096, 8192, 16384])
 def test_lines_model_of_each_design_matches_plain_and_numpy(n, direction, normalize, adjoint,
                                                             rng, assert_close):
-    """K1's pass schedule in the design its rule gives the length (the
-    power-of-two design's three passes at 8192 and 16384, the direct
-    design's chain at 2048 and 4096), forward, inverse and adjoint, against
-    the plain version and numpy in float64."""
+    """K1's pass schedule in the chain its rule gives the length (the
+    power-of-two design's own at 256, 8192 and 16384, the direct design's
+    chain at 32, 512, 1024, 2048 and 4096), forward, inverse and adjoint,
+    against the plain version and numpy in float64."""
     scale = normalize_scale(normalize, direction, n)
     x = rng.standard_normal((2, n, 2)).astype(np.float32)
     tables = _tables(fused.lines_consts(n, direction, scale, "p"))
@@ -85,33 +86,43 @@ def test_lines_model_of_each_design_matches_plain_and_numpy(n, direction, normal
 
 @pytest.mark.parametrize("n", [n for n in ELIGIBLE if fused.choose_split(n)])
 def test_k1_rule_for_every_eligible_length(n):
-    """K1's rule: the powers of two 2^11 .. 2^14 run the power-of-two
-    design on three passes, 2048 and 4096 on ``radix_chain``'s own chain
-    (their ``cw`` unchanged), 8192 and 16384 on a chain that starts with a
-    radix-32 pass where ``radix_chain`` takes four; every other length runs
-    the direct design on ``radix_chain``.  K2 keeps ``radix_chain``."""
+    """K1's rule: the powers of two 256 and 2^10 .. 2^14 run the
+    power-of-two design on three passes, 1024, 2048 and 4096 on
+    ``radix_chain``'s own chain (their ``cw`` unchanged), 8192 and 16384 on a
+    chain that starts with a radix-32 pass where ``radix_chain`` takes four,
+    256 on 8 * 8 * 4 where ``radix_chain`` takes 16 * 16; 32 and 512 run the
+    warp design on ``radix_chain``'s own chain; every other length runs the
+    direct design on ``radix_chain``.  No length is in both tables.  K2
+    keeps ``radix_chain``."""
     chain = radix.lines_chain(n)
-    assert set(radix.POW2_LINES) == {2048, 4096, 8192, 16384}
+    assert set(radix.POW2_LINES) == {256, 1024, 2048, 4096, 8192, 16384}
+    assert set(radix.WARP_LINES) == {32, 512}
     if n in radix.POW2_LINES:
         assert radix.lines_design(n) == "pow2" and chain == radix.POW2_LINES[n]
         assert len(chain) == 3 and math.prod(chain) == n
-        if n < 8192:
+        if n == 256:
+            assert chain == (8, 8, 4) and radix.radix_chain(n) == (16, 16)
+        elif n < 8192:
             assert chain == radix.radix_chain(n)
         else:
             assert len(radix.radix_chain(n)) == 4 and chain[0] == 32
             assert all(r in (16, 32) for r in chain)
+    elif n in radix.WARP_LINES:
+        assert radix.lines_design(n) == "warp" and chain == radix.WARP_LINES[n]
+        assert chain == radix.radix_chain(n)
     else:
         assert radix.lines_design(n) == "direct" and chain == radix.radix_chain(n)
 
 
 @pytest.mark.parametrize("direction", ["forward", "inverse"])
-@pytest.mark.parametrize("n", sorted(radix.POW2_LINES))
+@pytest.mark.parametrize("n", sorted(radix.POW2_LINES) + sorted(radix.WARP_LINES))
 def test_moved_lengths_table_is_float64_roots_in_pass_order(n, direction):
-    """The ``cw`` table K1 reads at a length of the power-of-two design:
-    laid out for ``lines_chain(n)`` (entry ns - 1 + (r - 1) * ns + k is
-    W^(r * k * n / (ns * R))), each root within 1 ulp of f32 of float64;
-    the direct design's table where the chains agree (2048, 4096), another
-    table where they do not (8192, 16384)."""
+    """The ``cw`` table K1 reads at a length of the power-of-two or the
+    warp design: laid out for ``lines_chain(n)`` (entry
+    ns - 1 + (r - 1) * ns + k is W^(r * k * n / (ns * R))), each root within
+    1 ulp of f32 of float64; the direct design's table where the chains
+    agree (32, 512, 1024, 2048, 4096), another table where they do not (256,
+    8192, 16384)."""
     chain = radix.lines_chain(n)
     tw = fused.lines_consts(n, direction, 1.0, "p")["p/cw"]
     assert tw.shape == (n, 2) and tw.dtype == np.float32

@@ -53,9 +53,10 @@ _SIGNATURES = {
         # x, y, cw, cp, lines, n, radices, count, adjoint, stream
         "wgfft_fused_lines": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                               _INTS, ctypes.c_int, ctypes.c_int, _P),
-        # lines, n, radices, count -> the CTAs an SM holds of the kernel
-        # wgfft_fused_lines would launch (negative: refused)
-        "wgfft_fused_lines_resident": (ctypes.c_longlong, ctypes.c_int, _INTS, ctypes.c_int),
+        # lines, n, radices, count, report (4 long longs: CTAs an SM, SMs,
+        # grid, work) -> what wgfft_fused_lines would launch
+        "wgfft_fused_lines_resident": (ctypes.c_longlong, ctypes.c_int, _INTS, ctypes.c_int,
+                                       ctypes.POINTER(ctypes.c_longlong)),
         # x, y, cw, cp, pre, h, cols, radices, count, adjoint, stream
         "wgfft_fused_cols": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                              ctypes.c_longlong, _INTS, ctypes.c_int, ctypes.c_int, _P),

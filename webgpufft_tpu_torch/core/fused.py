@@ -20,10 +20,12 @@ CPU tensor; there is no fallback between the two.  The CUDA kernel reaches
 the same result by a chain of in-register radix butterflies
 (``core/radix.py``) and reads only the ``cw`` and ``cp`` tables; its entry
 point launches the design that K1's rule gives the length
-(``radix.lines_design``: the power-of-two design at 2048, 4096, 8192 and
-16384, the direct design elsewhere) on the chain ``radix.lines_chain``, for which
-``cw`` is laid out.  ``fused_lines_chain_reference`` is its pass schedule on
-the CPU, a test aid.
+(``radix.lines_design``: the power-of-two design at 256 and 1024 to
+16384, the warp design at 32 and 512, the direct design elsewhere) on the
+chain ``radix.lines_chain``, for which ``cw`` is laid out;
+``launch_report`` says what a launch would be (CTAs an SM, SMs, grid,
+waves).  ``fused_lines_chain_reference`` is its pass schedule on the CPU, a
+test aid.
 
 Autodiff.  The pass is the real-linear map y = s * F x, so its VJP is
 g_x = s * F^H g_y (same length and scale, opposite direction), its JVP is
@@ -50,7 +52,8 @@ live in ``_launch`` alone, which both routes reach.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import ctypes
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -184,15 +187,40 @@ def _launch(x: torch.Tensor, tables: Dict[str, torch.Tensor], adjoint: bool) -> 
     return y
 
 
-def resident(n: int, lines: int) -> int:
-    """CTAs an SM of the current CUDA device holds of the kernel that a
-    launch over ``lines`` lines of ``n`` points takes (the CUDA occupancy
-    calculator, for the design K1's rule gives ``n``); needs the card."""
-    ctas = _build.library().wgfft_fused_lines_resident(
-        lines, n, *_build.chain_arg(radix.lines_chain(n)))
-    if ctas < 0:
-        _build.check(-ctas, "fused_lines")
-    return ctas
+class LinesLaunch(NamedTuple):
+    """What K1's entry point would launch for a shape (``launch_report``)."""
+    design: str      # radix.lines_design(n)
+    resident: int    # CTAs an SM holds of the kernel (the occupancy calculator)
+    sms: int         # SMs of the device
+    grid: int        # CTAs of the grid
+    work: int        # CTAs' worth of work: the grid, unless the design loops over its lines
+
+    @property
+    def waves(self) -> float:
+        """How many times the launch fills every SM with the CTAs it holds."""
+        return self.work / (self.resident * self.sms)
+
+
+# the name each design's kernel carries in a profiler trace
+KERNEL_NAMES = {"direct": "fused_lines_kernel", "pow2": "pow2_lines_kernel",
+                "warp": "warp_lines_kernel"}
+
+
+def kernel_name(n: int) -> str:
+    """The name of the kernel K1 launches for length ``n`` in a profiler
+    trace (the design K1's rule gives ``n``)."""
+    return KERNEL_NAMES[radix.lines_design(n)]
+
+
+def launch_report(n: int, lines: int) -> LinesLaunch:
+    """What a launch of K1 over ``lines`` lines of ``n`` points would be on
+    the current CUDA device, in the design K1's rule gives ``n``; needs the
+    card."""
+    out = (ctypes.c_longlong * 4)()
+    rc = _build.library().wgfft_fused_lines_resident(
+        lines, n, *_build.chain_arg(radix.lines_chain(n)), out)
+    _build.check(rc, "fused_lines")
+    return LinesLaunch(radix.lines_design(n), *out)
 
 
 def _run(x: torch.Tensor, tables: Dict[str, torch.Tensor], adjoint: bool) -> torch.Tensor:

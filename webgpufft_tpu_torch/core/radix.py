@@ -25,14 +25,17 @@ schedule on the CPU with the same index maps, tables and butterfly algebra
 as the CUDA code (``radix_chain_reference``): a test aid that no plan path
 calls.
 
-K1 has two designs (``csrc/fused_lines.cu``).  The lengths of
-``POW2_LINES`` (2048, 4096, 8192, 16384) run the power-of-two design
-(``csrc/lines_pow2.cu``, a kernel per length) on three passes, the first of
-radix 32 at 8192 and 16384; every other length runs the direct design on
-``radix_chain(n)``.  The C entry point holds the same table
-(``kPow2Lines``, ``csrc/lines.cuh``) and refuses any other chain at those
-lengths, so K1's ``cw`` table is laid out for ``lines_chain(n)``.  K2 runs
-``radix_chain`` at every height.
+K1 has three designs (``csrc/fused_lines.cu``).  The lengths of
+``POW2_LINES`` (256, 1024, 2048, 4096, 8192, 16384) run the power-of-two
+design (``csrc/lines_pow2.cu``, a kernel per length, one line a CTA) on
+three passes, the first of radix 32 at 8192 and 16384, 8 * 8 * 4 at 256;
+the lengths of ``WARP_LINES`` (32, 512) run the warp design
+(``csrc/lines_warp.cu``, a kernel per length, a line in the lanes of one
+warp); every other length runs the direct design on ``radix_chain(n)``.
+The C entry point holds the same tables (``kPow2Lines``, ``kWarpLines``,
+``csrc/lines.cuh``) and refuses any other chain at those lengths, so K1's
+``cw`` table is laid out for ``lines_chain(n)``.  K2 runs ``radix_chain``
+at every height.
 """
 
 from __future__ import annotations
@@ -52,11 +55,15 @@ TABLE_NAMES = ("cw", "cp")
 # what the kernels have a butterfly for: the supported set and 16 = 4 * 4
 KERNEL_RADICES = factors.SUPPORTED_RADICES + (16,)
 # K1's rule: N -> the chain of the power-of-two design (csrc/lines_pow2.cu);
-# the lengths where it ran faster than the direct design on the H100
-# (PERF.md): 2048 and 4096 on radix_chain's own chain (the same cw table),
-# 8192 and 16384 in three passes where radix_chain takes four
-POW2_LINES = {2048: (16, 16, 8), 4096: (16, 16, 16), 8192: (32, 16, 16),
-              16384: (32, 32, 16)}
+# the lengths where it ran fastest on the H100 (PERF.md): 1024, 2048 and
+# 4096 on radix_chain's own chain (the same cw table), 8192 and 16384 in
+# three passes where radix_chain takes four, 256 in three (8 * 8 * 4, 8
+# points a thread) where radix_chain takes two
+POW2_LINES = {256: (8, 8, 4), 1024: (16, 8, 8), 2048: (16, 16, 8), 4096: (16, 16, 16),
+              8192: (32, 16, 16), 16384: (32, 32, 16)}
+# and N -> the chain of the warp design (csrc/lines_warp.cu), where it ran
+# fastest: 32 and 512, both on radix_chain's own chain
+WARP_LINES = {32: (8, 4), 512: (8, 8, 8)}
 
 
 @lru_cache(maxsize=None)
@@ -84,16 +91,17 @@ def radix_chain(n: int) -> Tuple[int, ...]:
 
 
 def lines_chain(n: int) -> Tuple[int, ...]:
-    """K1's chain for length ``n``: the power-of-two design's where
-    ``POW2_LINES`` names ``n``, ``radix_chain(n)`` (the direct design's)
-    everywhere else.  K1's ``cw`` table is laid out for this chain."""
-    return POW2_LINES.get(n) or radix_chain(n)
+    """K1's chain for length ``n``: the power-of-two or the warp design's
+    where ``POW2_LINES`` or ``WARP_LINES`` names ``n``, ``radix_chain(n)``
+    (the direct design's) everywhere else.  K1's ``cw`` table is laid out
+    for this chain."""
+    return POW2_LINES.get(n) or WARP_LINES.get(n) or radix_chain(n)
 
 
 def lines_design(n: int) -> str:
-    """The design K1's entry point launches for length ``n``: ``"pow2"`` or
-    ``"direct"``."""
-    return "pow2" if n in POW2_LINES else "direct"
+    """The design K1's entry point launches for length ``n``: ``"pow2"``,
+    ``"warp"`` or ``"direct"``."""
+    return "pow2" if n in POW2_LINES else "warp" if n in WARP_LINES else "direct"
 
 
 def roots_table(n: int, direction: str) -> np.ndarray:

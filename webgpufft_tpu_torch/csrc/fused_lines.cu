@@ -17,36 +17,40 @@
 // passes, each inner pass a trip through shared memory between two
 // barriers, with nothing to cover it when an SM holds one CTA.
 //
-// Two designs, and a rule (kPow2Lines, lines.cuh; core/radix.py
-// POW2_LINES) that gives each length one of them:
-// - the power-of-two design (lines_pow2.cu, lines_pow2.cuh) for 2048, 4096,
-//   8192 and 16384: a kernel per length whose chain, strides and twiddle
-//   offsets are template constants, one line a CTA, three passes (8192 =
-//   32 * 16 * 16 and 16384 = 32 * 32 * 16, where the direct design took
-//   four) and CTAs small enough that two (8192) or four (4096, 2048) share
-//   an SM.  On the H100 it ran 1.7-1.9x faster than the direct design at
-//   8192 and 16384 and 5-36 % faster at 2048 and 4096 (PERF.md): of that,
-//   the constants (no run-time chain loop, no division per butterfly) did
-//   most at 8192, where the same kernel on the direct design's four passes
-//   ran within 1 %; the radix-32 pass did it at 16384 (four passes 9-16 %
-//   slower).  A ring of stages
-//   that lands the next line while the current one runs its passes, and a
-//   split of a line over a thread-block cluster, were measured at these
-//   lengths before and lost to the direct design: the load they hide is
-//   small beside the passes;
+// Three designs, and a rule (kPow2Lines and kWarpLines, lines.cuh;
+// core/radix.py POW2_LINES and WARP_LINES) that gives each length one of
+// them:
+// - the power-of-two design (lines_pow2.cu, lines_pow2.cuh) for 256, 1024,
+//   2048, 4096, 8192 and 16384: a kernel per length whose chain, strides
+//   and twiddle offsets are template constants, one line a CTA, three
+//   passes (8192 = 32 * 16 * 16 and 16384 = 32 * 32 * 16, where the direct
+//   design took four; 256 = 8 * 8 * 4 in one warp) and CTAs small enough
+//   that 2 (8192) to 32 (256) share an SM.  On the H100 it ran 1.7-1.9x
+//   faster than the direct design at 8192 and 16384, 5-36 % faster at 2048
+//   and 4096, 1.22-1.29x at 1024 and 3-4 % at 256 (PERF.md): of that, the
+//   constants (no run-time chain loop, no division per butterfly) and the
+//   smaller CTAs did most; the radix-32 pass did it at 16384 (four passes
+//   9-16 % slower).  A ring of stages that lands the next line while the
+//   current one runs its passes, and a split of a line over a thread-block
+//   cluster, were measured at the long lengths before and lost to the
+//   direct design: the load they hide is small beside the passes;
+// - the warp design (lines_warp.cu, lines_warp.cuh) for 32 and 512: a line
+//   in the lanes of one warp, its exchanges under __syncwarp, and a grid
+//   sized from the lines and the SMs (1.6-1.65x faster than the direct
+//   design at 32 x 1536 and 512 x 4096);
 // - the direct design below for every other length.
 //
 // Direct design: a CTA takes as many whole lines as keep about 256 threads
-// busy with one butterfly group each in every pass (16 lines at N = 256 =
-// 16 * 16, 2 at N = 1024 = 16 * 8 * 8, 1 from N = 2048 on), so short lines
-// leave no thread idle.  The first pass loads global memory straight into registers (neighbouring
-// threads on neighbouring points of a line), the last stores registers
-// straight to global memory in natural order, and the passes between
-// exchange through shared memory, padded by one point in every 16 so the
-// strided autosort writes spread over the banks.  Shared memory is
-// (N + N / 16) * 8 bytes a line: 8.5 KB at N = 1024, so several CTAs share an
-// SM and one CTA's loads overlap another's butterflies; 136 KB at
-// N = 16384, which needs the opt-in above 48 KB.  Strides are per-pass
+// busy with one butterfly group each in every pass (16 lines at N = 128 =
+// 16 * 8, 3 at N = 360 = 8 * 5 * 3 * 3, 1 from N = 2048 on), so short lines
+// leave no thread idle.  The first pass loads global memory straight into
+// registers (neighbouring threads on neighbouring points of a line), the
+// last stores registers straight to global memory in natural order, and the
+// passes between exchange through shared memory, padded by one point in
+// every 16 so the strided autosort writes spread over the banks.  Shared
+// memory is (N + N / 16) * 8 bytes a line: 8.3 KB at N = 1000, so several
+// CTAs share an SM and one CTA's loads overlap another's butterflies;
+// 127.5 KB at N = 15360, which needs the opt-in above 48 KB.  Strides are per-pass
 // values, so no thread divides by a digit per output.
 //
 // C interface: wgfft_fused_lines returns the cudaError_t of the launch;
@@ -101,11 +105,12 @@ struct LaunchLines {
   }
 };
 
-// CTAs of the direct design's instantiation for a shape that an SM holds.
-struct ResidentLines {
+// The direct design's launch for a shape, described instead of made.
+struct DescribeLines {
   const LinesShape& shape;
+  long long lines;
   size_t smem;
-  int* out;
+  wgfft::LinesReport* out;
 
   template <int E, int MAXT, int MINB, int SET>
   cudaError_t run() const {
@@ -115,45 +120,52 @@ struct ResidentLines {
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
       if (e != cudaSuccess) return e;
     }
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, shape.threads, smem);
+    const long long blocks = (lines + shape.per_cta - 1) / shape.per_cta;
+    return wgfft::describe_launch(reinterpret_cast<const void*>(kernel), shape.threads, smem,
+                                  blocks, blocks, out);
   }
 };
 
-// K1's rule: a length that kPow2Lines (lines.cuh) names runs the
-// power-of-two design (lines_pow2.cu) and must be handed that design's
-// chain; every other length runs the direct design on the chain it is
-// handed.  Either design launches or the call fails: there is no fallback
-// from one to the other.  With `resident` the launch is not made, and the
-// CTAs an SM holds of the kernel it would make are written there.
+// K1's rule: a length that kPow2Lines or kWarpLines (lines.cuh) names runs
+// the power-of-two design (lines_pow2.cu) or the warp design
+// (lines_warp.cu) and must be handed that design's chain; every other
+// length runs the direct design on the chain it is handed.  Each design
+// launches or the call fails: there is no fallback from one to another.
+// With `report` the launch is not made, and it is described there instead.
 int lines_entry(const void* x, void* y, const void* tw, const void* params, long long lines,
                 int n, const int* radices, int count, int adjoint, void* stream,
-                int* resident) {
+                wgfft::LinesReport* report) {
   if (lines < 1 || lines > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const float cj = adjoint ? -1.f : 1.f;
-  if (const int* pow2 = wgfft::pow2_lines_chain(n)) {
-    if (count != 3 || radices[0] != pow2[0] || radices[1] != pow2[1] || radices[2] != pow2[2])
+  const auto* const xs = static_cast<const float2*>(x);
+  auto* const ys = static_cast<float2*>(y);
+  const auto* const tws = static_cast<const float2*>(tw);
+  const auto* const ps = static_cast<const float*>(params);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (const wgfft::LinesRule* rule = wgfft::lines_rule(wgfft::kPow2Lines, n)) {
+    if (!wgfft::rule_chain(*rule, radices, count)) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(wgfft::launch_pow2_lines(xs, ys, tws, ps, lines, n, cj, st, report));
+  }
+  if (const wgfft::LinesRule* rule = wgfft::lines_rule(wgfft::kWarpLines, n)) {
+    if (!wgfft::rule_chain(*rule, radices, count) ||
+        (report == nullptr && x == y && count < 2))
       return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(wgfft::launch_pow2_lines(
-        static_cast<const float2*>(x), static_cast<float2*>(y), static_cast<const float2*>(tw),
-        static_cast<const float*>(params), lines, n, cj, static_cast<cudaStream_t>(stream),
-        resident));
+    return static_cast<int>(wgfft::launch_warp_lines(xs, ys, tws, ps, lines, n, cj, st, report));
   }
   Chain chain;
   LinesShape shape;
   if (!wgfft::make_chain(radices, count, n, &chain) ||
       !wgfft::lines_shape(chain, n, lines, &shape) ||
-      (resident == nullptr && x == y && chain.count < 2))
+      (report == nullptr && x == y && chain.count < 2))
     return static_cast<int>(cudaErrorInvalidValue);
   // a one-pass chain never touches shared memory
   const size_t smem =
       chain.count > 1 ? static_cast<size_t>(shape.per_cta) * shape.pitch * sizeof(float2) : 0;
-  if (resident != nullptr) {
-    const ResidentLines f = {shape, smem, resident};
+  if (report != nullptr) {
+    const DescribeLines f = {shape, lines, smem, report};
     return static_cast<int>(wgfft::dispatch_lines(chain, shape, f));
   }
-  const LaunchLines f = {static_cast<const float2*>(x), static_cast<float2*>(y),
-                         static_cast<const float2*>(tw), static_cast<const float*>(params),
-                         lines, n, cj, static_cast<cudaStream_t>(stream), chain, shape, smem};
+  const LaunchLines f = {xs, ys, tws, ps, lines, n, cj, st, chain, shape, smem};
   return static_cast<int>(wgfft::dispatch_lines(chain, shape, f));
 }
 
@@ -169,15 +181,22 @@ extern "C" int wgfft_fused_lines(const void* x, void* y, const void* tw, const v
   return lines_entry(x, y, tw, params, lines, n, radices, count, adjoint, stream, nullptr);
 }
 
-// The CTAs an SM holds of the kernel that wgfft_fused_lines would launch for
-// `lines` lines of n points (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
-// negative: the launch would be refused (minus the error code).
-extern "C" int wgfft_fused_lines_resident(long long lines, int n, const int* radices,
-                                          int count) {
-  int ctas = 0;
+// What wgfft_fused_lines would launch for `lines` lines of n points, into
+// report[0..3]: the CTAs an SM holds of its kernel
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the SMs of the current
+// device, the CTAs of its grid, and the CTAs' worth of work (work over
+// CTAs an SM times SMs is the waves it makes).  Returns the cudaError_t:
+// nonzero where the launch would be refused.
+extern "C" int wgfft_fused_lines_resident(long long lines, int n, const int* radices, int count,
+                                          long long* report) {
+  wgfft::LinesReport r = {};
   const int rc = lines_entry(nullptr, nullptr, nullptr, nullptr, lines, n, radices, count, 0,
-                             nullptr, &ctas);
-  return rc == 0 ? ctas : -rc;
+                             nullptr, &r);
+  report[0] = r.resident;
+  report[1] = r.sms;
+  report[2] = r.grid;
+  report[3] = r.work;
+  return rc;
 }
 
 // Message for a code returned by either kernel's entry point.

@@ -2,7 +2,9 @@
 // with the probe kernels that must run in K1's CTA shape
 // (probes/lines_stages.cu, probes/lines_planes.cu): where a point of a line
 // lives, how many points a thread holds, how many lines a CTA takes, and
-// which kernel instantiation serves a chain.
+// which kernel instantiation serves a chain; and K1's rule, which sends a
+// length to one of its three designs, with what a launch would be
+// (LinesReport).
 
 #pragma once
 
@@ -86,31 +88,71 @@ cudaError_t dispatch_lines(const Chain& chain, const LinesShape& shape, const F&
   }
 }
 
-// K1's rule (core/radix.py POW2_LINES holds the same table): the lengths
-// that run the power-of-two design of lines_pow2.cu, each in one chain of
-// three passes; every other length runs the direct design above on the
-// chain it is handed.
-struct Pow2Rule {
+// What a K1 launch would be, written by the launch functions instead of
+// launching when a caller asks (wgfft_fused_lines_resident): the CTAs an SM
+// holds of its kernel, the SMs of the device, the CTAs of its grid and the
+// CTAs' worth of work (equal to the grid, except where a design loops over
+// its lines: work / (resident * sms) is the waves the launch makes).
+struct LinesReport {
+  long long resident;
+  long long sms;
+  long long grid;
+  long long work;
+};
+
+inline cudaError_t describe_launch(const void* kernel, int threads, size_t smem, long long grid,
+                                   long long work, LinesReport* out) {
+  int dev = 0, sms = 0, resident = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, threads, smem);
+  *out = {resident, sms, grid, work};
+  return e;
+}
+
+// K1's rule, one table a design (core/radix.py holds the same two tables,
+// POW2_LINES and WARP_LINES): the lengths that run the power-of-two design
+// of lines_pow2.cu and the warp design of lines_warp.cu, each on one chain;
+// every other length runs the direct design above on the chain it is
+// handed.
+struct LinesRule {
   int n;
+  int count;
   int radix[3];
 };
-constexpr Pow2Rule kPow2Lines[] = {
-    {2048, {16, 16, 8}}, {4096, {16, 16, 16}}, {8192, {32, 16, 16}}, {16384, {32, 32, 16}}};
+constexpr LinesRule kPow2Lines[] = {{256, 3, {8, 8, 4}},      {1024, 3, {16, 8, 8}},
+                                    {2048, 3, {16, 16, 8}},    {4096, 3, {16, 16, 16}},
+                                    {8192, 3, {32, 16, 16}},   {16384, 3, {32, 32, 16}}};
+constexpr LinesRule kWarpLines[] = {{32, 2, {8, 4}}, {512, 3, {8, 8, 8}}};
 
-// The power-of-two design's chain for length n, or nullptr where n takes the
-// direct design.
-inline const int* pow2_lines_chain(int n) {
-  for (const Pow2Rule& rule : kPow2Lines)
-    if (rule.n == n) return rule.radix;
+// The rule of `table` for length n, or nullptr where the table does not
+// name n.
+template <size_t K>
+inline const LinesRule* lines_rule(const LinesRule (&table)[K], int n) {
+  for (const LinesRule& rule : table)
+    if (rule.n == n) return &rule;
   return nullptr;
 }
 
-// lines_pow2.cu: launch the power-of-two design at length n (one that
-// pow2_lines_chain names) over `lines` lines; y may be x.  `resident`, where
-// not null, receives the CTAs an SM holds instead, and nothing launches.
+// Whether radices[0, count) is the rule's chain.
+inline bool rule_chain(const LinesRule& rule, const int* radices, int count) {
+  if (count != rule.count) return false;
+  for (int p = 0; p < count; ++p)
+    if (radices[p] != rule.radix[p]) return false;
+  return true;
+}
+
+// lines_pow2.cu, lines_warp.cu: launch the power-of-two or the warp design
+// at a length its table names over `lines` lines; y may be x where the
+// chain has two passes or more.  With `report` not null nothing launches
+// and the launch is described there instead.
 cudaError_t launch_pow2_lines(const float2* x, float2* y, const float2* tw, const float* params,
                               long long lines, int n, float cj, cudaStream_t stream,
-                              int* resident);
+                              LinesReport* report);
+cudaError_t launch_warp_lines(const float2* x, float2* y, const float2* tw, const float* params,
+                              long long lines, int n, float cj, cudaStream_t stream,
+                              LinesReport* report);
 
 // Launch `kernel` on a grid of one CTA per `shape.per_cta` lines with `smem`
 // bytes of dynamic shared memory (opting in above 48 KB).

@@ -19,6 +19,7 @@
 
 #include <cuda_runtime.h>
 
+#include "lines.cuh"
 #include "radix.cuh"
 
 namespace wgfft {
@@ -104,10 +105,10 @@ pow2_lines_kernel(const float2* __restrict__ x, float2* __restrict__ y,
 }
 
 // Launch pow2_lines_kernel<N, T, MINB, Rs...> over `lines` lines, one a CTA;
-// with `resident` not null, write the CTAs an SM holds there instead.
+// with `report` not null, describe the launch there instead.
 template <int N, int T, int MINB, int R0, int... Rs>
 cudaError_t launch(const float2* x, float2* y, const float2* tw, const float* params,
-                   long long lines, float cj, cudaStream_t stream, int* resident) {
+                   long long lines, float cj, cudaStream_t stream, LinesReport* report) {
   auto* const kernel = &pow2_lines_kernel<N, T, MINB, R0, Rs...>;
   static_assert((R0 * ... * Rs) == N, "the chain multiplies to N");
   constexpr int smem = (N + N / R0) * static_cast<int>(sizeof(float2));
@@ -121,8 +122,8 @@ cudaError_t launch(const float2* x, float2* y, const float2* tw, const float* pa
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, carveout);
   if (e != cudaSuccess) return e;
-  if (resident != nullptr)
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, kernel, T, smem);
+  if (report != nullptr)
+    return describe_launch(reinterpret_cast<const void*>(kernel), T, smem, lines, lines, report);
   kernel<<<static_cast<unsigned>(lines), T, smem, stream>>>(x, y, tw, params, cj);
   return cudaGetLastError();
 }

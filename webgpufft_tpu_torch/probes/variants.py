@@ -1,5 +1,5 @@
 """K2 in a design the caller names, the direct one or the ring; K1's
-power-of-two design in a variant the caller names.
+power-of-two and warp designs in a variant the caller names.
 
 No Pallas probe stands behind this module: it launches the counterpart of
 K2 (``webgpufft_tpu/core/fused_cols.py:161``) in one of its designs by name,
@@ -19,13 +19,13 @@ stages, smaller tiles too.
 
 ``lines_variant(x, tables, variant)`` (``csrc/probes/lines_variants.cu``)
 launches K1 (``webgpufft_tpu/core/fused.py:223``) in one instantiation of
-its power-of-two design (``csrc/lines_pow2.cuh``) named in
-``LINES_VARIANTS``: the length, the threads a CTA, the CTAs an SM asked
-for and the chain, with the twiddle table of that chain
+its power-of-two design (``csrc/lines_pow2.cuh``: one line a CTA) or its
+warp design (``csrc/lines_warp.cuh``: a line in the lanes of one warp)
+named in ``LINES_VARIANTS``, with the twiddle table of its chain
 (``lines_variant_tables``), for the comparison of
 ``chip_probes/k1_pow2_variants.py``.  The plans' entry point launches the
-variant K1's rule names (``radix.POW2_LINES``) and the direct design
-elsewhere.
+variant K1's rule names (``radix.POW2_LINES``, ``radix.WARP_LINES``) and
+the direct design elsewhere.
 
 Each wrapper runs the kernel's plain version on a CPU tensor and launches or
 raises on a CUDA tensor; ``launches`` counts kernel launches only.
@@ -34,7 +34,7 @@ raises on a CUDA tensor; ``launches`` counts kernel launches only.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -42,23 +42,70 @@ from .. import _build
 from ..core import fused, fused_cols, radix
 
 COLS_DESIGNS = {"direct": 0, "ring": 1, "ring-async": 2}
-# name -> (N, threads a CTA, CTAs an SM asked for, chain), in the order of
-# the switch of csrc/probes/lines_variants.cu
-LINES_VARIANTS: Dict[str, Tuple[int, int, int, Tuple[int, ...]]] = {
-    "8192 rule": (8192, 256, 2, (32, 16, 16)),
-    "8192 one CTA": (8192, 256, 1, (32, 16, 16)),
-    "8192 three CTAs": (8192, 256, 3, (32, 16, 16)),
-    "8192 four passes": (8192, 512, 2, (16, 8, 8, 8)),
-    "8192 radix 32 last": (8192, 256, 2, (16, 16, 32)),
-    "16384 rule": (16384, 512, 1, (32, 32, 16)),
-    "16384 four passes": (16384, 512, 1, (16, 16, 8, 8)),
-    "16384 four passes 1024 threads": (16384, 1024, 1, (16, 16, 8, 8)),
-    "4096 rule": (4096, 256, 4, (16, 16, 16)),
-    "4096 32 points": (4096, 128, 4, (32, 16, 8)),
-    "2048 rule": (2048, 128, 4, (16, 16, 8)),
-    "2048 32 points": (2048, 64, 8, (32, 8, 8)),
-    "2048 six CTAs": (2048, 128, 6, (16, 16, 8)),
-    "2048 eight CTAs": (2048, 128, 8, (16, 16, 8)),
+
+
+class LinesVariant(NamedTuple):
+    n: int
+    design: str               # "pow2" (lines_pow2.cuh) or "warp" (lines_warp.cuh)
+    threads: int              # a CTA
+    lanes: int                # a line: the CTA's threads in the power-of-two design
+    minb: int                 # CTAs an SM asked for
+    chain: Tuple[int, ...]
+
+
+def _pow2(n, threads, minb, *chain):
+    return LinesVariant(n, "pow2", threads, threads, minb, chain)
+
+
+def _warp(n, lanes, threads, minb, *chain):
+    return LinesVariant(n, "warp", threads, lanes, minb, chain)
+
+
+# in the order of the switch of csrc/probes/lines_variants.cu
+LINES_VARIANTS: Dict[str, LinesVariant] = {
+    "8192 rule": _pow2(8192, 256, 2, 32, 16, 16),
+    "8192 one CTA": _pow2(8192, 256, 1, 32, 16, 16),
+    "8192 three CTAs": _pow2(8192, 256, 3, 32, 16, 16),
+    "8192 four passes": _pow2(8192, 512, 2, 16, 8, 8, 8),
+    "8192 radix 32 last": _pow2(8192, 256, 2, 16, 16, 32),
+    "16384 rule": _pow2(16384, 512, 1, 32, 32, 16),
+    "16384 four passes": _pow2(16384, 512, 1, 16, 16, 8, 8),
+    "16384 four passes 1024 threads": _pow2(16384, 1024, 1, 16, 16, 8, 8),
+    "4096 rule": _pow2(4096, 256, 4, 16, 16, 16),
+    "4096 32 points": _pow2(4096, 128, 4, 32, 16, 8),
+    "2048 rule": _pow2(2048, 128, 4, 16, 16, 8),
+    "2048 32 points": _pow2(2048, 64, 8, 32, 8, 8),
+    "2048 six CTAs": _pow2(2048, 128, 6, 16, 16, 8),
+    "2048 eight CTAs": _pow2(2048, 128, 8, 16, 16, 8),
+    "1024 warp, two passes": _warp(1024, 32, 64, 8, 32, 32),
+    "1024 warp, one warp a CTA": _warp(1024, 32, 32, 16, 32, 32),
+    "1024 warp, four warps a CTA": _warp(1024, 32, 128, 4, 32, 32),
+    "1024 warp, three passes": _warp(1024, 32, 64, 8, 16, 8, 8),
+    "1024 twelve CTAs": _pow2(1024, 64, 12, 16, 8, 8),
+    "512 warp, two passes": _warp(512, 16, 64, 8, 32, 16),
+    "512 warp, radix 32 last": _warp(512, 16, 64, 8, 16, 32),
+    "512 warp, eight CTAs": _warp(512, 32, 64, 8, 8, 8, 8),
+    "512 a line a CTA": _pow2(512, 64, 16, 8, 8, 8),
+    "256 warp, two passes": _warp(256, 16, 64, 8, 16, 16),
+    "256 warp, 32 points": _warp(256, 8, 64, 8, 32, 8),
+    "256 warp, four warps a CTA": _warp(256, 16, 128, 4, 16, 16),
+    "32 rule": _warp(32, 4, 64, 16, 8, 4),
+    "32 one pass": _warp(32, 1, 64, 8, 32),
+    "32 one warp a CTA": _warp(32, 4, 32, 32, 8, 4),
+    "64 warp": _warp(64, 8, 64, 16, 8, 8),
+    "128 warp": _warp(128, 8, 64, 8, 16, 8),
+    "1024 rule": _pow2(1024, 64, 16, 16, 8, 8),
+    "1024 16 16 4": _pow2(1024, 64, 12, 16, 16, 4),
+    "1024 128 threads": _pow2(1024, 128, 8, 8, 8, 4, 4),
+    "512 one warp a CTA": _pow2(512, 32, 24, 8, 8, 8),
+    "512 rule": _warp(512, 32, 64, 6, 8, 8, 8),
+    "256 warp, sixteen CTAs": _warp(256, 16, 64, 16, 16, 16),
+    "256 warp, three passes": _warp(256, 32, 64, 16, 8, 8, 4),
+    "256 rule": _pow2(256, 32, 32, 8, 8, 4),
+    "256 warp, twelve CTAs": _warp(256, 16, 64, 12, 16, 16),
+    "128 warp, twelve CTAs": _warp(128, 8, 64, 12, 16, 8),
+    "128 warp, 8 points a lane": _warp(128, 16, 64, 16, 8, 4, 4),
+    "128 warp, one warp a CTA": _warp(128, 8, 32, 16, 16, 8),
 }
 
 
@@ -66,23 +113,23 @@ def lines_variant_tables(variant: str, direction: str, scale: float,
                          device="cpu") -> Dict[str, torch.Tensor]:
     """The ``cw`` and ``cp`` tables ``variant`` reads: ``cw`` laid out for
     its chain, ``cp`` K1's."""
-    n, _, _, chain = LINES_VARIANTS[variant]
-    return {k.rsplit("/", 1)[1]: torch.as_tensor(v, device=device)
-            for k, v in radix.chain_consts(n, direction, scale, "p", chain).items()}
+    v = LINES_VARIANTS[variant]
+    return {k.rsplit("/", 1)[1]: torch.as_tensor(t, device=device)
+            for k, t in radix.chain_consts(v.n, direction, scale, "p", v.chain).items()}
 
 
 def lines_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor], variant: str,
                   adjoint: bool = False, inplace: bool = False) -> torch.Tensor:
     """K1's transform (its adjoint with ``adjoint``) of interleaved float32
-    ``x`` (lines, N, 2) in the power-of-two ``variant`` of
-    ``LINES_VARIANTS``, whose N must be x's, with the variant's tables
+    ``x`` (lines, N, 2) in the ``variant`` of ``LINES_VARIANTS``, whose N
+    must be x's, with the variant's tables
     (``lines_variant_tables``); with ``inplace`` written over ``x``.  A CUDA
     tensor launches the probe kernel (and counts one launch); a CPU tensor
     runs the variant's chain through ``radix.radix_chain_reference``."""
     if variant not in LINES_VARIANTS:
         raise ValueError(f"lines_variant: variant must be one of {sorted(LINES_VARIANTS)}, "
                          f"got {variant!r}")
-    n, _, _, chain = LINES_VARIANTS[variant]
+    n, chain = LINES_VARIANTS[variant].n, LINES_VARIANTS[variant].chain
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lines_variant: unsupported device {x.device}")
     fused._check_cuda(x)
@@ -106,7 +153,7 @@ def lines_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor], variant: str
 def lines_variant_resident(variant: str) -> int:
     """CTAs an SM of the current CUDA device holds of ``variant``'s kernel
     (the CUDA occupancy calculator); needs the card."""
-    n = LINES_VARIANTS[variant][0]
+    n = LINES_VARIANTS[variant].n
     ctas = ctypes.c_int(0)
     rc = _build.library("probes").wgfft_lines_variant(
         None, None, None, None, 1, n, list(LINES_VARIANTS).index(variant), 0,

@@ -6,7 +6,9 @@ Port of ``webgpufft_tpu/runtime/trace.py`` on ``torch.profiler``:
   inside (CPU ops and, on a GPU, the CUDA kernels) and writes a Chrome trace
   (``chrome://tracing``, Perfetto, TensorBoard's trace viewer) into
   ``log_dir``.  The port's kernels appear under their own names
-  (``fused_lines_kernel``, ``fused_cols_kernel``); every plan call is
+  (K1 by design: ``fused_lines_kernel``, ``pow2_lines_kernel``,
+  ``warp_lines_kernel``, ``core/fused.kernel_name``; K2
+  ``fused_cols_kernel``); every plan call is
   wrapped in a ``wgfft:<plan type>`` span while a trace is being taken.
 - ``annotate(name)``: ``torch.profiler.record_function`` (an NVTX-style named
   span in the trace), usable as a context manager.
