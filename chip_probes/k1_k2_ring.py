@@ -5,7 +5,8 @@
 
 For every long shape of the kernel table in PERF.md (K1 from N = 2048 on,
 K2 tiles of 8192 points or more), K1's short powers of two at the line
-counts the paths launch, and a few beside them: the plans' own
+counts the paths launch, K1's lengths that are not powers of two (the
+mixed-radix design's), and a few beside them: the plans' own
 launch (``fused.fused_lines`` / ``fused_cols.fused_cols``, whichever design
 the entry point takes) in device time (``runtime/profile.time_queued``) and
 in host time per call (``host_us``: the microseconds a call takes to return
@@ -19,8 +20,9 @@ and adjoint), then timed in turns, in order and in reverse, each time the
 median of both turns, with its host time per call.  K1's plans' launch
 takes the design K1's rule gives the length (``radix.lines_design``: the
 power-of-two design at 256 and 1024 to 16384, the warp design at 32 and
-512, the direct one elsewhere; a checkout without a rule has the direct
-design there), named in the label, and is timed with its
+512, the mixed-radix design at the lengths of ``radix.MIXED_LINES``, the
+direct one elsewhere; a checkout without a rule has the direct design
+there), named in the label, and is timed with its
 adjoint launch; its variants are timed by
 ``chip_probes/k1_pow2_variants.py``.  ``--k1-only`` leaves K2 out.
 
@@ -68,6 +70,12 @@ K1_CASES += [(n, lines) for n in (2048, 4096, 8192, 16384) for lines in (131, 51
 # NS-3D main's r2c body 32 x 1536, the 256^3 bodies 256 x 65,536 and
 # 256 x 98,304
 K1_CASES += [(1024, 4096), (1024, 8192), (512, 4096), (32, 1536), (256, 65536), (256, 98304)]
+# the lengths that are not powers of two at the line counts of
+# chip_probes/k1_mixed_variants.py (2079, 6144, 5120, 9216 and 12288 above),
+# and the facade path's traces of 3000 samples
+K1_CASES += [(360, 4096), (360, 11651), (1000, 4195), (1352, 1025), (1352, 3103), (1536, 2731),
+             (2310, 2048), (3000, 1399), (3000, 4096), (3072, 1366), (6000, 700), (8232, 510),
+             (15360, 274)]
 # (pre, H, 2 * cols)
 K2_CASES = [(8, 1024, 2048), (1, 1024, 2048), (8, 512, 1024), (8, 2048, 1024),
             (64, 1024, 66), (16, 4096, 64), (256, 256, 512)]
@@ -324,12 +332,16 @@ def main():
         t = tables_on_card(fused.lines_consts(n, "forward", 1.0, "p"))
         x = torch.randn(lines, n, 2, device="cuda", generator=gen)
         design = getattr(radix, "lines_design", lambda n: "direct")(n)
-        records.append(measure(
+        rec = measure(
             f"K1 N={n} x {lines} lines (plans: {design})",
             lambda adj: fused.fused_lines_reference(x, t, adj),
             lambda: torch.fft.fft(torch.view_as_complex(x)), lambda: fused.fused_lines(x, t),
             [], None, 16 * n * lines, card, profile,
-            plan_adjoint=lambda: fused.fused_lines(x, t, adjoint=True)))
+            plan_adjoint=lambda: fused.fused_lines(x, t, adjoint=True))
+        if hasattr(fused, "launch_report"):
+            launch = fused.launch_report(n, lines)
+            rec.update(design=launch.design, resident=launch.resident, waves=launch.waves)
+        records.append(rec)
         del x
     for pre, h, lanes in [] if args.k1_only else K2_CASES:
         t = tables_on_card(fused_cols.cols_consts(h, "forward", 1.0, "p"))

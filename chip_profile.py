@@ -17,8 +17,8 @@ the device's busy share (device time over the host's time for the same
 calls, synchronised at the end, profiler off), and the device time per call
 of every kernel by name (operator rows repeat their kernels' time and are
 left out).  The port's own kernels show as ``fused_lines_kernel``,
-``pow2_lines_kernel`` and ``warp_lines_kernel`` (K1, by the design its rule
-gives a length) and ``fused_cols_kernel`` (K2).  It needs a GPU and builds the kernels on first use.
+``pow2_lines_kernel``, ``warp_lines_kernel`` and ``mixed_lines_kernel`` (K1,
+by the design its rule gives a length) and ``fused_cols_kernel`` (K2).  It needs a GPU and builds the kernels on first use.
 """
 
 import time

@@ -314,7 +314,9 @@ def phase_k1(gen):
     # NS-3D ``main`` at n 32 (3 * 16 * 32 lines of 32, 4 a step) and the
     # overlap-save blocks of system identification at 2^20 x 8 with 33 taps
     # (8 * 129 blocks of 8192, 3 a step); then two more long lengths whose
-    # CTA fills an SM: 2079 = 3^3 * 7 * 11 (odd) and 6144 = 16 * 16 * 8 * 3
+    # CTA filled an SM in the direct design: 2079 = 3^3 * 7 * 11 (odd) and
+    # 6144 = 16 * 16 * 8 * 3; then the facade path's traces of 3000 samples
+    # (the mixed-radix design, as 360, 1352, 2310, 2079 and 6144 are)
     for n, lines, direction, normalize in [
             (1024, 4096, "forward", "unitary"), (1024, 4096, "inverse", "unitary"),
             (2048, 4096, "forward", "none"), (360, 4096, "inverse", "backward"),
@@ -330,7 +332,8 @@ def phase_k1(gen):
             (256, 65536, "forward", "none"), (8192, 1024, "forward", "none"),
             (8192, 512, "inverse", "backward"),
             (32, 1536, "forward", "none"), (OS_BLOCK, 1032, "forward", "none"),
-            (2079, 4096, "forward", "none"), (6144, 1024, "inverse", "unitary")]:
+            (2079, 4096, "forward", "none"), (6144, 1024, "inverse", "unitary"),
+            (3000, 4096, "forward", "none")]:
         scale = {"none": 1.0, "unitary": 1.0 / math.sqrt(n),
                  "backward": 1.0 / n if direction == "inverse" else 1.0}[normalize]
         tables = to_dev(fused.lines_consts(n, direction, scale, "p"))
@@ -2169,6 +2172,21 @@ def phase_facade(gen):
     keep = {"fft": z}
     del y, back, v
 
+    # traces of 3000 samples forward and frames of 6144 samples inverse: one
+    # K1 launch each, at a length K1's rule gives the mixed-radix design
+    from webgpufft_tpu_torch.core import radix
+    for name, fn, oracle, shape in [("fft", wfft.fft, torch.fft.fft, (4096, 3000)),
+                                    ("ifft", wfft.ifft, torch.fft.ifft, (1024, 6144))]:
+        zm = torch.randn(*shape, dtype=torch.complex64, device="cuda", generator=gen)
+        y = facade_call(f"{name} {shape} complex64", fn, zm, expect=(1, 0))
+        n = shape[1]
+        require(radix.lines_design(n) == "mixed"
+                and any(key[:2] == (n, shape[0]) for key in PATH_SHAPES["facade"][0]),
+                f"facade {name} {shape}: K1 did not launch {shape[0]} lines of {n} in the "
+                f"mixed-radix design")
+        check_oracle(f"facade {name} {shape}", y, oracle(zm))
+        del zm, y
+
     # r2c / c2r over three axes of a batch of three volumes
     x = torch.randn(3, NS_N, NS_N, NS_N, device="cuda", generator=gen)
     # numpy packs the LAST axis: a 1-D r2c over it (K1 twice: the half-length
@@ -3806,7 +3824,8 @@ def main():
          "max_abs_err": err, "shape": shape, **times[key],
          "shapes": [{"shape": list(k[1:]), **v} for k, v in times.items() if k[0] == key[0]]}
         for name, src, files, replaces, err, shape, key in [
-            ("fused_lines", "fused_lines.cu", ("fused_lines.cu", "lines_pow2.cu", "lines_warp.cu"),
+            ("fused_lines", "fused_lines.cu",
+             ("fused_lines.cu", "lines_pow2.cu", "lines_warp.cu", "lines_mixed.cu"),
              "webgpufft_tpu/core/fused.py:223", k1_err, "N=1024 x 4096 lines",
              ("K1", 1024, 4096)),
             ("fused_cols", "fused_cols.cu", ("fused_cols.cu",),

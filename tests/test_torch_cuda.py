@@ -18,11 +18,13 @@ import torch
 
 import webgpufft_tpu_torch as T
 from webgpufft_tpu_torch import probes
-from webgpufft_tpu_torch.core import fused, fused_cols
+from webgpufft_tpu_torch.core import fused, fused_cols, radix
 from torch_port_support import (assert_close, cuda_device,  # noqa: F401 (fixture)
                                 torch_fft_stepper3)
 
 pytestmark = pytest.mark.cuda
+# up to this length K1's mixed-radix kernels hold two CTAs an SM or more
+MIXED_TWO_CTAS = 9216
 
 
 def _dev_tables(consts, device):
@@ -191,6 +193,66 @@ def test_short_design_at_each_length_of_the_rule(n, direction, lines, cuda_devic
             x.data_ptr(), y.data_ptr(), t["cw"].data_ptr(), t["cp"].data_ptr(), lines, n,
             *_build.chain_arg(other), 0, torch.cuda.current_stream().cuda_stream)
         assert rc == 1, other   # cudaErrorInvalidValue
+
+
+@pytest.mark.parametrize("lines", [1, 7, 131])
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+@pytest.mark.parametrize("n", sorted(radix.MIXED_LINES))
+def test_mixed_design_at_each_length_of_the_rule(n, direction, lines, cuda_device):
+    """K1's rule sends the lengths of ``radix.MIXED_LINES`` to the
+    mixed-radix design: forward, adjoint and in place (every chain of the
+    rule has two passes or more) against the plain version at line counts
+    that leave the last CTA ragged where a CTA takes several lines, each
+    launch counted; the launch report names the design, a grid of whole
+    CTAs and at least one CTA an SM (two from 2048 points on, where the
+    line's shared memory leaves room for them); and the entry point refuses
+    the direct design's chain and the rule's chain reversed (no fallback)."""
+    from webgpufft_tpu_torch import _build
+    assert radix.lines_design(n) == "mixed"
+    gen = torch.Generator(device=cuda_device).manual_seed(n + lines)
+    t = _dev_tables(fused.lines_consts(n, direction, 1.0 / math.sqrt(n), "p"), cuda_device)
+    x = torch.randn(lines, n, 2, device=cuda_device, generator=gen)
+    before = fused.fused_lines.launches
+    y = fused.fused_lines(x, t)
+    ya = fused.fused_lines(x, t, adjoint=True)
+    z = probes.lines_inplace(x.clone(), t)
+    torch.cuda.synchronize()
+    assert fused.fused_lines.launches == before + 3
+    want = fused.fused_lines_reference(x, t).cpu()
+    assert_close(y.cpu(), want, label=f"K1 mixed n={n} lines={lines}")
+    assert_close(ya.cpu(), fused.fused_lines_reference(x, t, adjoint=True).cpu(),
+                 label=f"K1 mixed n={n} lines={lines} adjoint")
+    assert torch.equal(z, y)
+    launch = fused.launch_report(n, lines)
+    print(f"K1 mixed n={n} lines={lines}: {launch}, {launch.waves:.3f} waves")
+    assert launch.design == "mixed" and launch.grid == launch.work <= lines
+    assert launch.resident >= (2 if 2048 <= n <= MIXED_TWO_CTAS else 1)
+    chain = radix.lines_chain(n)
+    for other in {radix.radix_chain(n), chain[::-1]} - {chain}:
+        rc = _build.library().wgfft_fused_lines(
+            x.data_ptr(), y.data_ptr(), t["cw"].data_ptr(), t["cp"].data_ptr(), lines, n,
+            *_build.chain_arg(other), 0, torch.cuda.current_stream().cuda_stream)
+        assert rc == 1, other   # cudaErrorInvalidValue
+
+
+def test_every_mixed_variant_matches_plain(cuda_device):
+    """Each variant of the mixed-radix design (``probes.lines_variant``)
+    against K1's plain version, forward, adjoint and in place, at a line
+    count that leaves the last CTA ragged where a CTA takes several lines."""
+    from webgpufft_tpu_torch.probes import variants
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    for name, variant in variants.MIXED_VARIANTS.items():
+        n = variant.n
+        t = _dev_tables(fused.lines_consts(n, "inverse", 1.0 / n, "p"), cuda_device)
+        vt = variants.lines_variant_tables(name, "inverse", 1.0 / n, cuda_device)
+        x = torch.randn(7, n, 2, device=cuda_device, generator=gen)
+        assert variants.lines_variant_resident(name) >= 1
+        for adj in (False, True):
+            assert_close(variants.lines_variant(x, vt, name, adj).cpu(),
+                         fused.fused_lines_reference(x, t, adj).cpu(),
+                         label=f"{name} adjoint={adj}")
+        assert_close(variants.lines_variant(x.clone(), vt, name, inplace=True).cpu(),
+                     fused.fused_lines_reference(x, t).cpu(), label=f"{name} in place")
 
 
 def test_every_pow2_variant_matches_plain(cuda_device):
@@ -545,6 +607,35 @@ def test_conv2d_on_gpu_runs_without_tf32(ktype, data, cuda_device):
               for i in range(k) for j in range(k))
     ref = torch.view_as_real(ref) if data == "complex" else ref
     assert_close(y.cpu(), ref.cpu(), label=f"conv2d {data}/{ktype}")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_conv2d_kernel_gradient_is_deterministic(seed, cuda_device):
+    """The conv2d plan's kernel gradient, a sum over every output point,
+    runs cuDNN's deterministic algorithm: the same bits in every call, and
+    within 1e-5 of max|float64 gradient| at the size of chip_smoke.py's
+    autodiff case (8 x 1024 x 1024 around 1.5, zero-mean weights), with the
+    TF32 flag on for the process."""
+    import torch.nn.functional as F
+    plan = T.create_plan({"type": "conv2d", "shape": [1024, 1024], "batch": 8,
+                          "conv": {"kernelSize": 3, "padding": "same", "kernelType": "real"}},
+                         device=cuda_device, cache=T.PlanCache())
+    gen = torch.Generator(device=cuda_device).manual_seed(seed)
+    x = 1.0 + torch.randint(0, 4096, (8, *plan.in_shape), device=cuda_device,
+                            generator=gen).float() / 4096.0
+    k = torch.randn(3, 3, device=cuda_device, generator=gen).requires_grad_()
+    w = torch.randn(8, 1024, 1024, device=cuda_device, generator=gen)
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        grads = [torch.autograd.grad((w * plan(x, kernel=k)).sum(), k)[0] for _ in range(3)]
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+    assert all(torch.equal(g, grads[0]) for g in grads)
+    kd = k.detach().double().requires_grad_()
+    want, = torch.autograd.grad(
+        (w.double() * F.conv2d(x.double()[:, None], kd[None, None], padding=1)[:, 0]).sum(), kd)
+    assert_close(grads[0].cpu(), want.cpu(), label=f"conv2d kernel gradient seed {seed}")
 
 
 def test_staging_on_gpu_out_and_in_place_alias(cuda_device):

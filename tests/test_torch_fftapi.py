@@ -66,6 +66,16 @@ def test_fft_ifft_norms(zc, norm):
     both("ifft", zc, norm=norm)
 
 
+@pytest.mark.parametrize("name,shape", [("fft", (4, 3000)), ("ifft", (2, 6144))])
+def test_fft_at_lengths_of_the_mixed_radix_design(rng, name, shape):
+    """Small CPU cases of two facade calls whose K1 launch runs the
+    mixed-radix design on the card (``radix.MIXED_LINES``): traces of 3000
+    samples forward and frames of 6144 samples inverse, complex64 in."""
+    from webgpufft_tpu_torch.core import radix
+    assert radix.lines_design(shape[1]) == "mixed"
+    both(name, _cplx(rng, *shape).astype(np.complex64))
+
+
 def test_fft_crop_pad_axis(zc):
     both("fft", zc, n=20)
     both("fft", zc, n=48)

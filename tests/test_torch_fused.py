@@ -35,7 +35,8 @@ def _tables(n, direction, scale, device="cpu"):
 
 @pytest.mark.parametrize("normalize", ["none", "backward", "unitary"])
 @pytest.mark.parametrize("direction", ["forward", "inverse"])
-@pytest.mark.parametrize("n", [1024, 2048, 360, 1000, 2310, 8192, 16384, 512, 256])
+@pytest.mark.parametrize("n", [1024, 2048, 360, 1000, 2310, 8192, 16384, 512, 256, 2079, 3000,
+                               6144, 8232])
 def test_lines_match_jax(n, direction, normalize, rng, assert_close):
     scale = normalize_scale(normalize, direction, n)
     x = _input(rng, n)
@@ -57,7 +58,7 @@ def test_split_matches_jax(n):
 
 
 @pytest.mark.parametrize("direction", ["forward", "inverse"])
-@pytest.mark.parametrize("n", [2048, 360, 1000, 2310, 4, 1352, 16384])
+@pytest.mark.parametrize("n", [2048, 360, 1000, 2310, 4, 1352, 16384, 2079, 6144])
 def test_tables_from_reference_are_bitwise(n, direction):
     """The K1 tables recovered from the JAX package's Mosaic layout equal
     the port's own, bit for bit (non-square splits pin the digit order),
@@ -71,6 +72,33 @@ def test_tables_from_reference_are_bitwise(n, direction):
     for k in own:
         assert got[k].shape == own[k].shape, k
         assert np.array_equal(got[k], own[k]), k
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+@pytest.mark.parametrize("n", [2079, 3000, 6144, 8232])
+def test_mixed_design_chain_matches_jax(n, direction, adjoint, rng, assert_close):
+    """At lengths K1's rule gives the mixed-radix design, the kernel's pass
+    schedule on the CPU (``fused_lines_chain_reference``: its chain of
+    composite radices, its ``cw`` table) against the JAX package's K1 on a
+    few lines, with the unitary scale; the adjoint against the JAX
+    transform's conjugate transpose."""
+    from webgpufft_tpu_torch.core import radix
+    assert radix.lines_design(n) == "mixed"
+    lines = 3
+    scale = normalize_scale("unitary", direction, n)
+    x = _input(rng, n, lines)
+    consts = {}
+    fn = jfused.build_fused_lines(n, lines, direction, TuningSpec(), consts, scale, prefix="p")
+    run = lambda v: np.asarray(fn(jnp.asarray(v), {k: jnp.asarray(c) for k, c in consts.items()}))
+    if adjoint:   # conj(F conj x)
+        conj = x * np.array([1, -1], np.float32)
+        want = run(conj) * np.array([1, -1], np.float32)
+    else:
+        want = run(x)
+    got = fused.fused_lines_chain_reference(torch.from_numpy(x), _tables(n, direction, scale),
+                                            adjoint)
+    assert_close(got.numpy(), want, label=f"K1 chain model n={n} {direction} adjoint={adjoint}")
 
 
 def test_wrapper_rejects_unsupported_device():

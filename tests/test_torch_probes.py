@@ -108,11 +108,12 @@ def test_planes_equal_interleaved(n, assert_close):
                  np.fft.ifft(as_complex(x), axis=-1) * np.sqrt(n), label=f"planes n={n}")
 
 
-@pytest.mark.parametrize("n", [8192, 16384, 256])
+@pytest.mark.parametrize("n", [8192, 16384, 256, 2079, 6144])
 def test_stages_and_planes_run_the_direct_chain_where_k1_runs_another(n, assert_close):
-    """At a length where K1's rule gives the power-of-two design a chain of
-    its own (its ``cw`` in that order), P2 and P3 still run the direct
-    design's chain: they read ``cw`` rebuilt for ``radix_chain(n)``
+    """At a length where K1's rule gives the power-of-two or the
+    mixed-radix design a chain of its own (its ``cw`` in that order), P2
+    and P3 still run the direct design's chain: they read ``cw`` rebuilt
+    for ``radix_chain(n)``
     (``radix.direct_tables``), and every stop of P2 is the model of that
     chain; the whole chain and P3 equal K1's plain version."""
     x, t = lines(n, count=2), tables(n, "inverse")
@@ -161,6 +162,35 @@ def test_every_pow2_variant_is_its_chain(name, assert_close):
         variants.lines_variant(lines(128 if n == 64 else 64), vt, name)
     with pytest.raises(ValueError, match="variant must be"):
         variants.lines_variant(x, vt, "no such variant")
+
+
+@pytest.mark.parametrize("name", sorted(probes.variants.MIXED_VARIANTS))
+def test_every_mixed_variant_is_its_chain(name, assert_close):
+    """Each variant of K1's mixed-radix design on the CPU: its chain's model
+    on its own table, equal to K1's plain version forward, adjoint and in
+    place, on a line count that leaves the last CTA ragged; a length other
+    than the variant's is refused.  Its shape is one the kernel template
+    takes: two passes or more of radices up to 32 that the kernels or the
+    composite butterflies have, at least one line and one thread a CTA."""
+    from webgpufft_tpu_torch.probes import variants
+    n, per_cta, threads, minb, chain = variants.MIXED_VARIANTS[name]
+    assert math.prod(chain) == n and minb >= 1 and per_cta >= 1 and threads >= 32
+    assert len(chain) >= 2 and max(chain) <= 32
+    assert all(r in radix.KERNEL_RADICES + radix.MIXED_RADICES + (32,) for r in chain)
+    x = lines(n, count=per_cta + 1)
+    vt = variants.lines_variant_tables(name, "forward", 0.5)
+    t = tables(n, "forward", 0.5)
+    for adjoint in (False, True):
+        assert_close(variants.lines_variant(x, vt, name, adjoint).numpy(),
+                     fused.fused_lines_reference(x, t, adjoint).numpy(),
+                     label=f"{name} adjoint={adjoint}")
+    work = x.clone()
+    assert variants.lines_variant(work, vt, name, inplace=True) is work
+    assert torch.equal(work, variants.lines_variant(x, vt, name))
+    with pytest.raises(ValueError, match="runs N"):
+        variants.lines_variant(lines(64), vt, name)
+    if name.endswith("rule"):
+        assert chain == radix.MIXED_LINES[n]
 
 
 @pytest.mark.parametrize("n", [n for n in LENGTHS if len(radix.radix_chain(n)) > 1])
@@ -284,9 +314,11 @@ def test_ctypes_signatures_match_the_c_sources(which):
 def test_probe_library_is_a_second_library():
     assert {s.name for s in _build.sources("probes")} == {
         "stream_copy.cu", "lines_stages.cu", "lines_planes.cu", "tile_copy.cu",
-        "cols_variants.cu", "lines_variants.cu"}
+        "cols_variants.cu", "lines_variants.cu", "lines_mixed_variants.cu",
+        "lines_mixed_variants_long.cu"}
     assert {s.name for s in _build.sources("core")} == {"fused_lines.cu", "fused_cols.cu",
-                                                        "lines_pow2.cu", "lines_warp.cu"}
+                                                        "lines_pow2.cu", "lines_warp.cu",
+                                                        "lines_mixed.cu"}
     core, probe = _build.library_path("core"), _build.library_path("probes")
     assert core != probe and core.parent == probe.parent == _build.BUILD_DIR
     assert probe.name.startswith("libwgfft_probes_")

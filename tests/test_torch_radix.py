@@ -60,13 +60,15 @@ def test_lines_chain_model_matches_plain_and_numpy(n, direction, normalize, rng,
 @pytest.mark.parametrize("adjoint", [False, True])
 @pytest.mark.parametrize("normalize", ["none", "backward", "unitary"])
 @pytest.mark.parametrize("direction", ["forward", "inverse"])
-@pytest.mark.parametrize("n", [32, 256, 512, 1024, 2048, 4096, 8192, 16384])
+@pytest.mark.parametrize("n", [32, 256, 512, 1024, 2048, 4096, 8192, 16384]
+                         + sorted(radix.MIXED_LINES))
 def test_lines_model_of_each_design_matches_plain_and_numpy(n, direction, normalize, adjoint,
                                                             rng, assert_close):
     """K1's pass schedule in the chain its rule gives the length (the
     power-of-two design's own at 256, 8192 and 16384, the direct design's
-    chain at 32, 512, 1024, 2048 and 4096), forward, inverse and adjoint,
-    against the plain version and numpy in float64."""
+    chain at 32, 512, 1024, 2048 and 4096, the mixed-radix design's
+    composite radices at every length of ``MIXED_LINES``), forward, inverse
+    and adjoint, against the plain version and numpy in float64."""
     scale = normalize_scale(normalize, direction, n)
     x = rng.standard_normal((2, n, 2)).astype(np.float32)
     tables = _tables(fused.lines_consts(n, direction, scale, "p"))
@@ -91,12 +93,18 @@ def test_k1_rule_for_every_eligible_length(n):
     ``radix_chain``'s own chain (their ``cw`` unchanged), 8192 and 16384 on a
     chain that starts with a radix-32 pass where ``radix_chain`` takes four,
     256 on 8 * 8 * 4 where ``radix_chain`` takes 16 * 16; 32 and 512 run the
-    warp design on ``radix_chain``'s own chain; every other length runs the
-    direct design on ``radix_chain``.  No length is in both tables.  K2
-    keeps ``radix_chain``."""
+    warp design on ``radix_chain``'s own chain; the lengths of
+    ``MIXED_LINES``, none a power of two, run the mixed-radix design on two
+    to four passes of radices up to 32, each a radix the kernels or the
+    composite butterflies have, in no more passes than ``radix_chain``; every
+    other length runs the direct design on ``radix_chain``.  No length is in
+    two tables.  K2 keeps ``radix_chain``."""
     chain = radix.lines_chain(n)
     assert set(radix.POW2_LINES) == {256, 1024, 2048, 4096, 8192, 16384}
     assert set(radix.WARP_LINES) == {32, 512}
+    tables = (radix.POW2_LINES, radix.WARP_LINES, radix.MIXED_LINES)
+    assert sum(n in t for t in tables) <= 1
+    assert math.prod(chain) == n
     if n in radix.POW2_LINES:
         assert radix.lines_design(n) == "pow2" and chain == radix.POW2_LINES[n]
         assert len(chain) == 3 and math.prod(chain) == n
@@ -110,19 +118,25 @@ def test_k1_rule_for_every_eligible_length(n):
     elif n in radix.WARP_LINES:
         assert radix.lines_design(n) == "warp" and chain == radix.WARP_LINES[n]
         assert chain == radix.radix_chain(n)
+    elif n in radix.MIXED_LINES:
+        assert radix.lines_design(n) == "mixed" and chain == radix.MIXED_LINES[n]
+        assert n & (n - 1) and 2 <= len(chain) <= 4 and max(chain) <= 32
+        assert all(r in radix.KERNEL_RADICES + radix.MIXED_RADICES + (32,) for r in chain)
+        assert len(chain) <= len(radix.radix_chain(n))
     else:
         assert radix.lines_design(n) == "direct" and chain == radix.radix_chain(n)
 
 
 @pytest.mark.parametrize("direction", ["forward", "inverse"])
-@pytest.mark.parametrize("n", sorted(radix.POW2_LINES) + sorted(radix.WARP_LINES))
+@pytest.mark.parametrize("n", sorted(radix.POW2_LINES) + sorted(radix.WARP_LINES)
+                         + sorted(radix.MIXED_LINES))
 def test_moved_lengths_table_is_float64_roots_in_pass_order(n, direction):
-    """The ``cw`` table K1 reads at a length of the power-of-two or the
-    warp design: laid out for ``lines_chain(n)`` (entry
+    """The ``cw`` table K1 reads at a length of the power-of-two, the warp
+    or the mixed-radix design: laid out for ``lines_chain(n)`` (entry
     ns - 1 + (r - 1) * ns + k is W^(r * k * n / (ns * R))), each root within
     1 ulp of f32 of float64; the direct design's table where the chains
     agree (32, 512, 1024, 2048, 4096), another table where they do not (256,
-    8192, 16384)."""
+    8192, 16384 and every length of the mixed-radix design)."""
     chain = radix.lines_chain(n)
     tw = fused.lines_consts(n, direction, 1.0, "p")["p/cw"]
     assert tw.shape == (n, 2) and tw.dtype == np.float32
@@ -140,6 +154,23 @@ def test_moved_lengths_table_is_float64_roots_in_pass_order(n, direction):
     assert np.array_equal(tw[n - 1], [1.0, 0.0])
     direct = radix.chain_twiddles(n, direction, radix.radix_chain(n))
     assert np.array_equal(tw, direct) == (chain == radix.radix_chain(n))
+
+
+@pytest.mark.parametrize("s", [-1.0, 1.0])
+@pytest.mark.parametrize("r", radix.MIXED_RADICES)
+def test_composite_butterfly_is_the_dft(r, s, rng):
+    """The model of the mixed-radix design's composite butterflies
+    (``Dft<R>`` of ``csrc/lines_mixed.cuh``: R = A * B, B DFTs of A points,
+    rotations by float32 constants, A DFTs of B points) against the R-point
+    DFT with sign s in float64."""
+    z = rng.standard_normal((3, r)) + 1j * rng.standard_normal((3, r))
+    v = [torch.from_numpy(np.stack([z[:, k].real, z[:, k].imag], -1).astype(np.float32))
+         for k in range(r)]
+    got = torch.stack(radix._butterfly(v, s), dim=1).numpy()
+    assert radix._BUTTERFLIES[r] is radix._butterfly_composite
+    want = z @ np.exp(s * 2j * np.pi * np.outer(np.arange(r), np.arange(r)) / r)
+    err = np.abs(got[..., 0] + 1j * got[..., 1] - want).max()
+    assert err <= 1e-5 * np.abs(want).max()
 
 
 @pytest.mark.parametrize("s", [-1.0, 1.0])

@@ -80,6 +80,9 @@ _SIGNATURES = {
         # x, y, cw, cp, lines, n, variant, adjoint, resident (int* or null), stream
         "wgfft_lines_variant": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_int, _INTS, _P),
+        # the same for the mixed-radix design's variants
+        "wgfft_mixed_variant": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_int, _INTS, _P),
         # x, y, cw, cp, pre, h, cols, radices, count, adjoint, design, stream
         "wgfft_cols_variant": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                                ctypes.c_longlong, _INTS, ctypes.c_int, ctypes.c_int,

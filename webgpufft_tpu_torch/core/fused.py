@@ -21,7 +21,8 @@ the same result by a chain of in-register radix butterflies
 (``core/radix.py``) and reads only the ``cw`` and ``cp`` tables; its entry
 point launches the design that K1's rule gives the length
 (``radix.lines_design``: the power-of-two design at 256 and 1024 to
-16384, the warp design at 32 and 512, the direct design elsewhere) on the
+16384, the warp design at 32 and 512, the mixed-radix design at the
+lengths of ``radix.MIXED_LINES``, the direct design elsewhere) on the
 chain ``radix.lines_chain``, for which ``cw`` is laid out;
 ``launch_report`` says what a launch would be (CTAs an SM, SMs, grid,
 waves).  ``fused_lines_chain_reference`` is its pass schedule on the CPU, a
@@ -203,7 +204,7 @@ class LinesLaunch(NamedTuple):
 
 # the name each design's kernel carries in a profiler trace
 KERNEL_NAMES = {"direct": "fused_lines_kernel", "pow2": "pow2_lines_kernel",
-                "warp": "warp_lines_kernel"}
+                "warp": "warp_lines_kernel", "mixed": "mixed_lines_kernel"}
 
 
 def kernel_name(n: int) -> str:

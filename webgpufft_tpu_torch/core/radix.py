@@ -25,17 +25,20 @@ schedule on the CPU with the same index maps, tables and butterfly algebra
 as the CUDA code (``radix_chain_reference``): a test aid that no plan path
 calls.
 
-K1 has three designs (``csrc/fused_lines.cu``).  The lengths of
+K1 has four designs (``csrc/fused_lines.cu``).  The lengths of
 ``POW2_LINES`` (256, 1024, 2048, 4096, 8192, 16384) run the power-of-two
 design (``csrc/lines_pow2.cu``, a kernel per length, one line a CTA) on
 three passes, the first of radix 32 at 8192 and 16384, 8 * 8 * 4 at 256;
 the lengths of ``WARP_LINES`` (32, 512) run the warp design
 (``csrc/lines_warp.cu``, a kernel per length, a line in the lanes of one
-warp); every other length runs the direct design on ``radix_chain(n)``.
-The C entry point holds the same tables (``kPow2Lines``, ``kWarpLines``,
-``csrc/lines.cuh``) and refuses any other chain at those lengths, so K1's
-``cw`` table is laid out for ``lines_chain(n)``.  K2 runs ``radix_chain``
-at every height.
+warp); the lengths of ``MIXED_LINES`` run the mixed-radix design
+(``csrc/lines_mixed.cu``, a kernel per length, two to four passes of
+radices up to 32, the composite ones, 6 to 30, each one butterfly in
+registers: ``MIXED_RADICES``); every other length runs the direct design on
+``radix_chain(n)``.  The C entry point holds the same tables
+(``kPow2Lines``, ``kWarpLines``, ``kMixedLines``, ``csrc/lines.cuh``) and
+refuses any other chain at those lengths, so K1's ``cw`` table is laid out
+for ``lines_chain(n)``.  K2 runs ``radix_chain`` at every height.
 """
 
 from __future__ import annotations
@@ -64,6 +67,17 @@ POW2_LINES = {256: (8, 8, 4), 1024: (16, 8, 8), 2048: (16, 16, 8), 4096: (16, 16
 # and N -> the chain of the warp design (csrc/lines_warp.cu), where it ran
 # fastest: 32 and 512, both on radix_chain's own chain
 WARP_LINES = {32: (8, 4), 512: (8, 8, 8)}
+# and N -> the chain of the mixed-radix design (csrc/lines_mixed.cu): the
+# lengths that are not powers of two where its sweep on the H100 ran faster
+# than the direct design (PERF.md), each in two to four passes where
+# radix_chain takes three to five (1352 in radix_chain's own three)
+MIXED_LINES = {360: (20, 18), 1000: (10, 10, 10), 1352: (13, 13, 8), 1536: (8, 8, 24),
+               2079: (27, 7, 11), 2310: (22, 15, 7), 3000: (10, 10, 30), 3072: (32, 4, 24),
+               5120: (16, 16, 20), 6000: (24, 25, 10), 6144: (32, 24, 8), 8232: (8, 21, 7, 7),
+               9216: (32, 24, 12), 12288: (32, 32, 12), 15360: (32, 32, 15)}
+# the composite radices the mixed-radix design has a butterfly for (R = A * B,
+# lines_mixed.cuh), beside KERNEL_RADICES and 32
+MIXED_RADICES = (6, 9, 10, 12, 14, 15, 18, 20, 21, 22, 24, 25, 26, 27, 28, 30)
 
 
 @lru_cache(maxsize=None)
@@ -90,26 +104,31 @@ def radix_chain(n: int) -> Tuple[int, ...]:
     return tuple(chain)
 
 
+_DESIGNS = {"pow2": POW2_LINES, "warp": WARP_LINES, "mixed": MIXED_LINES}
+
+
 def lines_chain(n: int) -> Tuple[int, ...]:
-    """K1's chain for length ``n``: the power-of-two or the warp design's
-    where ``POW2_LINES`` or ``WARP_LINES`` names ``n``, ``radix_chain(n)``
-    (the direct design's) everywhere else.  K1's ``cw`` table is laid out
-    for this chain."""
-    return POW2_LINES.get(n) or WARP_LINES.get(n) or radix_chain(n)
+    """K1's chain for length ``n``: the power-of-two, the warp or the
+    mixed-radix design's where ``POW2_LINES``, ``WARP_LINES`` or
+    ``MIXED_LINES`` names ``n``, ``radix_chain(n)`` (the direct design's)
+    everywhere else.  K1's ``cw`` table is laid out for this chain."""
+    return POW2_LINES.get(n) or WARP_LINES.get(n) or MIXED_LINES.get(n) or radix_chain(n)
 
 
 def lines_design(n: int) -> str:
     """The design K1's entry point launches for length ``n``: ``"pow2"``,
-    ``"warp"`` or ``"direct"``."""
-    return "pow2" if n in POW2_LINES else "warp" if n in WARP_LINES else "direct"
+    ``"warp"``, ``"mixed"`` or ``"direct"``."""
+    return next((name for name, table in _DESIGNS.items() if n in table), "direct")
 
 
 def roots_table(n: int, direction: str) -> np.ndarray:
     """The n-th roots of unity W^j = exp(-+ 2*pi*i*j/n), j in [0, n), as
     float32 (n, 2) pairs, rounded once from float64."""
     sign = -1.0 if direction == "forward" else 1.0
-    w = np.exp(sign * 2j * np.pi * np.arange(n, dtype=np.float64) / n)
-    return np.stack([w.real, w.imag], axis=-1).astype(np.float32)
+    # cos and sin of a real angle: a complex exp divides a complex by n and
+    # lands a quarter turn of n = 8232 at 2.8e-16 where cos gives 6.1e-17
+    ang = sign * 2.0 * np.pi * np.arange(n, dtype=np.float64) / n
+    return np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
 
 
 def chain_twiddles(n: int, direction: str, radices: Sequence[int]) -> np.ndarray:
@@ -264,8 +283,58 @@ def _butterfly_odd(v, s):
     return out
 
 
+def _turn(m: int, r: int):
+    """cos and sin of 2 pi m / r rounded to float32, as Python floats (the
+    constants of the mixed-radix design's composite butterflies)."""
+    return _f32(math.cos(2.0 * math.pi * m / r)), _f32(math.sin(2.0 * math.pi * m / r))
+
+
+def _rotate(v, m: int, r: int, s: float):
+    """v * w^m with w = exp(s 2 pi i / r): quarter turns exactly, every other
+    root by its float32 cos and sin (``mixed::rotate``)."""
+    if 4 * m == r:
+        return _muli(v, s)
+    if 2 * m == r:
+        return -v
+    if 4 * m == 3 * r:
+        return _muli(v, -s)
+    c, si = _turn(m, r)
+    return _rot(v, c, s * si)
+
+
+def _first_factor(r: int) -> int:
+    """A of a composite radix R = A * B: the power of two in R where R is
+    even, else its least prime factor (``mixed::first_factor``)."""
+    return r & -r if r % 2 == 0 else next(p for p in (3, 5, 7) if r % p == 0)
+
+
+def _butterfly_composite(v, s):
+    """Composite R = A * B (the mixed-radix design's ``Dft``): with
+    n = B * n1 + n2, B DFTs of A points on the classes n2, G[n2][k1] rotated
+    by w_R^(n2 k1), then A DFTs of B points across the classes;
+    X[k1 + A * k2]."""
+    radix = len(v)
+    a = _first_factor(radix)
+    b = radix // a
+    g = [_butterfly(v[n2::b], s) for n2 in range(b)]
+    for n2 in range(1, b):
+        for k1 in range(1, a):
+            g[n2][k1] = _rotate(g[n2][k1], n2 * k1, radix, s)
+    out = [None] * radix
+    for k1 in range(a):
+        t = _butterfly([g[n2][k1] for n2 in range(b)], s)
+        for k2 in range(b):
+            out[k1 + a * k2] = t[k2]
+    return out
+
+
 _BUTTERFLIES = {2: _butterfly2, 4: _butterfly4, 8: _butterfly8, 16: _butterfly16,
-                32: _butterfly32}
+                32: _butterfly32, **{r: _butterfly_composite for r in MIXED_RADICES}}
+
+
+def _butterfly(v, s):
+    """The R-point butterfly of the kernels for R = len(v)."""
+    return _BUTTERFLIES.get(len(v), _butterfly_odd)(v, s)
 
 
 def conj_pairs(x: torch.Tensor) -> torch.Tensor:
@@ -352,7 +421,7 @@ def radix_chain_reference(x: torch.Tensor, radices: Sequence[int],
                 wr, wi = w[..., 0], w[..., 1]
                 vr, vi = v[r][..., 0], v[r][..., 1]
                 v[r] = torch.stack([vr * wr - vi * wi, vr * wi + vi * wr], dim=-1)
-        v = _BUTTERFLIES.get(radix, _butterfly_odd)(v, s)
+        v = _butterfly(v, s)
         out = torch.empty_like(cur)
         j0 = (j - k) * radix + k
         for r in range(radix):

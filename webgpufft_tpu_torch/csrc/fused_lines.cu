@@ -17,9 +17,9 @@
 // passes, each inner pass a trip through shared memory between two
 // barriers, with nothing to cover it when an SM holds one CTA.
 //
-// Three designs, and a rule (kPow2Lines and kWarpLines, lines.cuh;
-// core/radix.py POW2_LINES and WARP_LINES) that gives each length one of
-// them:
+// Four designs, and a rule (kPow2Lines, kWarpLines and kMixedLines,
+// lines.cuh; core/radix.py POW2_LINES, WARP_LINES and MIXED_LINES) that
+// gives each length one of them:
 // - the power-of-two design (lines_pow2.cu, lines_pow2.cuh) for 256, 1024,
 //   2048, 4096, 8192 and 16384: a kernel per length whose chain, strides
 //   and twiddle offsets are template constants, one line a CTA, three
@@ -38,6 +38,13 @@
 //   in the lanes of one warp, its exchanges under __syncwarp, and a grid
 //   sized from the lines and the SMs (1.6-1.65x faster than the direct
 //   design at 32 x 1536 and 512 x 4096);
+// - the mixed-radix design (lines_mixed.cu, lines_mixed.cuh) for the
+//   measured lengths that are not powers of two: a kernel per length whose
+//   chain of two to four passes folds the small odd factors into composite
+//   butterflies of up to 32 points (2079 = 27 * 7 * 11 where the direct
+//   design ran five passes), CTAs sized for the chain so that two or more
+//   share an SM up to 9216 points; 1.7-4.4x faster than the direct design
+//   at the fifteen lengths of its sweep (PERF.md);
 // - the direct design below for every other length.
 //
 // Direct design: a CTA takes as many whole lines as keep about 256 threads
@@ -126,10 +133,11 @@ struct DescribeLines {
   }
 };
 
-// K1's rule: a length that kPow2Lines or kWarpLines (lines.cuh) names runs
-// the power-of-two design (lines_pow2.cu) or the warp design
-// (lines_warp.cu) and must be handed that design's chain; every other
-// length runs the direct design on the chain it is handed.  Each design
+// K1's rule: a length that kPow2Lines, kWarpLines or kMixedLines
+// (lines.cuh) names runs the power-of-two design (lines_pow2.cu), the warp
+// design (lines_warp.cu) or the mixed-radix design (lines_mixed.cu) and
+// must be handed that design's chain; every other length runs the direct
+// design on the chain it is handed.  Each design
 // launches or the call fails: there is no fallback from one to another.
 // With `report` the launch is not made, and it is described there instead.
 int lines_entry(const void* x, void* y, const void* tw, const void* params, long long lines,
@@ -151,6 +159,10 @@ int lines_entry(const void* x, void* y, const void* tw, const void* params, long
         (report == nullptr && x == y && count < 2))
       return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(wgfft::launch_warp_lines(xs, ys, tws, ps, lines, n, cj, st, report));
+  }
+  if (const wgfft::LinesRule* rule = wgfft::lines_rule(wgfft::kMixedLines, n)) {
+    if (!wgfft::rule_chain(*rule, radices, count)) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(wgfft::launch_mixed_lines(xs, ys, tws, ps, lines, n, cj, st, report));
   }
   Chain chain;
   LinesShape shape;

@@ -3,7 +3,7 @@
 // (probes/lines_stages.cu, probes/lines_planes.cu): where a point of a line
 // lives, how many points a thread holds, how many lines a CTA takes, and
 // which kernel instantiation serves a chain; and K1's rule, which sends a
-// length to one of its three designs, with what a launch would be
+// length to one of its four designs, with what a launch would be
 // (LinesReport).
 
 #pragma once
@@ -111,20 +111,26 @@ inline cudaError_t describe_launch(const void* kernel, int threads, size_t smem,
   return e;
 }
 
-// K1's rule, one table a design (core/radix.py holds the same two tables,
-// POW2_LINES and WARP_LINES): the lengths that run the power-of-two design
-// of lines_pow2.cu and the warp design of lines_warp.cu, each on one chain;
-// every other length runs the direct design above on the chain it is
-// handed.
+// K1's rule, one table a design (core/radix.py holds the same three
+// tables, POW2_LINES, WARP_LINES and MIXED_LINES): the lengths that run the
+// power-of-two design of lines_pow2.cu, the warp design of lines_warp.cu and
+// the mixed-radix design of lines_mixed.cu, each on one chain; every other
+// length runs the direct design above on the chain it is handed.
 struct LinesRule {
   int n;
   int count;
-  int radix[3];
+  int radix[4];
 };
 constexpr LinesRule kPow2Lines[] = {{256, 3, {8, 8, 4}},      {1024, 3, {16, 8, 8}},
                                     {2048, 3, {16, 16, 8}},    {4096, 3, {16, 16, 16}},
                                     {8192, 3, {32, 16, 16}},   {16384, 3, {32, 32, 16}}};
 constexpr LinesRule kWarpLines[] = {{32, 2, {8, 4}}, {512, 3, {8, 8, 8}}};
+constexpr LinesRule kMixedLines[] = {
+    {360, 2, {20, 18}}, {1000, 3, {10, 10, 10}}, {1352, 3, {13, 13, 8}}, {1536, 3, {8, 8, 24}},
+    {2079, 3, {27, 7, 11}}, {2310, 3, {22, 15, 7}}, {3000, 3, {10, 10, 30}},
+    {3072, 3, {32, 4, 24}}, {5120, 3, {16, 16, 20}}, {6000, 3, {24, 25, 10}},
+    {6144, 3, {32, 24, 8}}, {8232, 4, {8, 21, 7, 7}}, {9216, 3, {32, 24, 12}},
+    {12288, 3, {32, 32, 12}}, {15360, 3, {32, 32, 15}}};
 
 // The rule of `table` for length n, or nullptr where the table does not
 // name n.
@@ -143,16 +149,20 @@ inline bool rule_chain(const LinesRule& rule, const int* radices, int count) {
   return true;
 }
 
-// lines_pow2.cu, lines_warp.cu: launch the power-of-two or the warp design
-// at a length its table names over `lines` lines; y may be x where the
-// chain has two passes or more.  With `report` not null nothing launches
-// and the launch is described there instead.
+// lines_pow2.cu, lines_warp.cu, lines_mixed.cu: launch the power-of-two,
+// the warp or the mixed-radix design at a length its table names over
+// `lines` lines; y may be x where the chain has two passes or more.  With
+// `report` not null nothing launches and the launch is described there
+// instead.
 cudaError_t launch_pow2_lines(const float2* x, float2* y, const float2* tw, const float* params,
                               long long lines, int n, float cj, cudaStream_t stream,
                               LinesReport* report);
 cudaError_t launch_warp_lines(const float2* x, float2* y, const float2* tw, const float* params,
                               long long lines, int n, float cj, cudaStream_t stream,
                               LinesReport* report);
+cudaError_t launch_mixed_lines(const float2* x, float2* y, const float2* tw, const float* params,
+                               long long lines, int n, float cj, cudaStream_t stream,
+                               LinesReport* report);
 
 // Launch `kernel` on a grid of one CTA per `shape.per_cta` lines with `smem`
 // bytes of dynamic shared memory (opting in above 48 KB).

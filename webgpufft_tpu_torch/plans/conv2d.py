@@ -25,12 +25,14 @@ from ..spec import PlanError, PlanSpec
 from .base import Plan, RouteInfo
 
 
-def _no_tf32():
-    """cuDNN flags scope with TF32 off; ``flags()`` resets what it is not
-    given, so the caller's other cuDNN settings are passed through."""
+def _no_tf32(deterministic=None):
+    """cuDNN flags scope with TF32 off (and cuDNN's deterministic algorithms
+    where ``deterministic``); ``flags()`` resets what it is not given, so
+    the caller's other cuDNN settings are passed through."""
     cudnn = torch.backends.cudnn
     return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                       deterministic=cudnn.deterministic, allow_tf32=False)
+                       deterministic=cudnn.deterministic if deterministic is None
+                       else deterministic, allow_tf32=False)
 
 
 class _ConvF32(torch.autograd.Function):
@@ -56,10 +58,16 @@ class _ConvF32(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         gx = gw = None
-        with _no_tf32():
-            if ctx.needs_input_grad[0]:
+        if ctx.needs_input_grad[0]:
+            with _no_tf32():
                 gx = torch.nn.grad.conv2d_input(x.shape, w, g, groups=ctx.groups)
-            if ctx.needs_input_grad[1]:
+        if ctx.needs_input_grad[1]:
+            # the kernel's gradient sums over every output point: cuDNN's
+            # deterministic algorithm sums in one order, where the default
+            # one's atomics gave 2.1-2.7e-5 of max|gradient| against float64
+            # (an H100, a 3 x 3 kernel over 8 x 1024 x 1024 of chip_smoke.py's
+            # autodiff path) and the deterministic one 4.8e-6, every run
+            with _no_tf32(deterministic=True):
                 gw = torch.nn.grad.conv2d_weight(x, w.shape, g, groups=ctx.groups)
         return gx, gw, None
 

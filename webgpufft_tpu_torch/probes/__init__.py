@@ -14,8 +14,9 @@ module's docstring):
 - ``planes``: K1 on re/im-split planes, and K1 (and K2) in place: what the
   layout and a separate output cost;
 - ``variants``: K2 in a design named by the caller, the direct one or the
-  ring of stages: the one-run comparison of the two; K1's power-of-two
-  design in a variant named by the caller (``lines_variant``).
+  ring of stages: the one-run comparison of the two; K1's power-of-two,
+  warp or mixed-radix design in a variant named by the caller
+  (``lines_variant``).
 
 Every wrapper follows K1's: a CUDA tensor launches the kernel or raises, a
 CPU tensor runs the plain PyTorch version, a ``launches`` counter counts

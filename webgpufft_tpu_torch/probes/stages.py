@@ -11,9 +11,10 @@ order: ``stop = 0`` is the copy every other stop contains, ``stop = count``
 is K1's output (scale included).
 
 The probe runs K1's direct design on ``radix.radix_chain(N)`` at every
-length, also where K1 itself runs its power-of-two design
-(``radix.POW2_LINES``): it takes K1's tables and reads ``cw`` in the direct
-design's order (``radix.direct_tables``).
+length, also where K1 itself runs its power-of-two or mixed-radix design on
+another chain (``radix.POW2_LINES``, ``radix.MIXED_LINES``): it takes K1's
+tables and reads ``cw`` in the direct design's order
+(``radix.direct_tables``).
 
 The plain version is ``radix.radix_chain_reference`` cut at ``stop``.
 """

@@ -1,5 +1,5 @@
 """K2 in a design the caller names, the direct one or the ring; K1's
-power-of-two and warp designs in a variant the caller names.
+power-of-two, warp and mixed-radix designs in a variant the caller names.
 
 No Pallas probe stands behind this module: it launches the counterpart of
 K2 (``webgpufft_tpu/core/fused_cols.py:161``) in one of its designs by name,
@@ -21,11 +21,15 @@ stages, smaller tiles too.
 launches K1 (``webgpufft_tpu/core/fused.py:223``) in one instantiation of
 its power-of-two design (``csrc/lines_pow2.cuh``: one line a CTA) or its
 warp design (``csrc/lines_warp.cuh``: a line in the lanes of one warp)
-named in ``LINES_VARIANTS``, with the twiddle table of its chain
+named in ``LINES_VARIANTS``, or of its mixed-radix design
+(``csrc/lines_mixed.cuh``: lines a CTA, threads, chain; built by
+``csrc/probes/lines_mixed_variants.cu`` and ``lines_mixed_variants_long.cu``)
+named in ``MIXED_VARIANTS``, with the twiddle table of its chain
 (``lines_variant_tables``), for the comparison of
-``chip_probes/k1_pow2_variants.py``.  The plans' entry point launches the
-variant K1's rule names (``radix.POW2_LINES``, ``radix.WARP_LINES``) and
-the direct design elsewhere.
+``chip_probes/k1_pow2_variants.py`` and ``chip_probes/k1_mixed_variants.py``.
+The plans' entry point launches the variant K1's rule names
+(``radix.POW2_LINES``, ``radix.WARP_LINES``, ``radix.MIXED_LINES``) and the
+direct design elsewhere.
 
 Each wrapper runs the kernel's plain version on a CPU tensor and launches or
 raises on a CUDA tensor; ``launches`` counts kernel launches only.
@@ -109,11 +113,73 @@ LINES_VARIANTS: Dict[str, LinesVariant] = {
 }
 
 
+class MixedVariant(NamedTuple):
+    n: int
+    lines: int                # a CTA
+    threads: int              # a CTA
+    minb: int                 # CTAs an SM asked for
+    chain: Tuple[int, ...]
+
+
+def _mixed(n, lines, threads, minb, *chain):
+    return MixedVariant(n, lines, threads, minb, chain)
+
+
+# in the order of the switches of csrc/probes/lines_mixed_variants.cu and
+# lines_mixed_variants_long.cu
+MIXED_VARIANTS: Dict[str, MixedVariant] = {
+    "360 rule": _mixed(360, 4, 80, 8, 20, 18),
+    "360 24 15": _mixed(360, 4, 64, 8, 24, 15),
+    "360 eight lines a CTA": _mixed(360, 8, 128, 6, 24, 15),
+    "1000 rule": _mixed(1000, 1, 100, 10, 10, 10, 10),
+    "1000 128 threads": _mixed(1000, 1, 128, 8, 10, 10, 10),
+    "1000 two lines a CTA": _mixed(1000, 2, 224, 6, 10, 10, 10),
+    "1352 rule": _mixed(1352, 1, 128, 8, 13, 13, 8),
+    "1352 two lines a CTA": _mixed(1352, 2, 224, 4, 13, 13, 8),
+    "1352 8 13 13": _mixed(1352, 1, 128, 8, 8, 13, 13),
+    "1536 rule": _mixed(1536, 1, 64, 8, 8, 8, 24),
+    "2079 rule": _mixed(2079, 1, 96, 4, 27, 7, 11),
+    "2079 eight CTAs": _mixed(2079, 1, 96, 8, 27, 7, 11),
+    "2079 27 11 7": _mixed(2079, 1, 96, 8, 27, 11, 7),
+    "2310 rule": _mixed(2310, 1, 160, 3, 22, 15, 7),
+    "2310 22 21 5": _mixed(2310, 1, 128, 5, 22, 21, 5),
+    "2310 30 7 11": _mixed(2310, 1, 112, 5, 30, 7, 11),
+    "3000 rule": _mixed(3000, 1, 100, 4, 10, 10, 30),
+    "3000 30 10 10": _mixed(3000, 1, 100, 4, 30, 10, 10),
+    "3000 10 30 10": _mixed(3000, 1, 100, 4, 10, 30, 10),
+    "3072 rule": _mixed(3072, 1, 128, 4, 32, 4, 24),
+    "3072 16 8 24": _mixed(3072, 1, 192, 3, 16, 8, 24),
+    "5120 rule": _mixed(5120, 1, 320, 2, 16, 16, 20),
+    "6000 rule": _mixed(6000, 1, 256, 2, 24, 25, 10),
+    "6000 30 25 8": _mixed(6000, 1, 256, 2, 30, 25, 8),
+    "6000 20 30 10": _mixed(6000, 1, 320, 2, 20, 30, 10),
+    "6000 30 8 25": _mixed(6000, 1, 256, 2, 30, 8, 25),
+    "6144 rule": _mixed(6144, 1, 256, 2, 32, 24, 8),
+    "6144 24 32 8": _mixed(6144, 1, 256, 2, 24, 32, 8),
+    "8232 rule": _mixed(8232, 1, 392, 2, 8, 21, 7, 7),
+    "8232 28 14 21": _mixed(8232, 1, 320, 1, 28, 14, 21),
+    "8232 392 threads": _mixed(8232, 1, 392, 1, 28, 14, 21),
+    "9216 rule": _mixed(9216, 1, 384, 2, 32, 24, 12),
+    "12288 rule": _mixed(12288, 1, 512, 1, 32, 32, 12),
+    "15360 rule": _mixed(15360, 1, 512, 1, 32, 32, 15),
+}
+
+
+def _entry(variant: str):
+    """(the variant's record, the probes library's entry point, its index)."""
+    for table, entry in ((LINES_VARIANTS, "wgfft_lines_variant"),
+                         (MIXED_VARIANTS, "wgfft_mixed_variant")):
+        if variant in table:
+            return table[variant], entry, list(table).index(variant)
+    raise ValueError(f"lines_variant: variant must be one of "
+                     f"{sorted(LINES_VARIANTS) + sorted(MIXED_VARIANTS)}, got {variant!r}")
+
+
 def lines_variant_tables(variant: str, direction: str, scale: float,
                          device="cpu") -> Dict[str, torch.Tensor]:
     """The ``cw`` and ``cp`` tables ``variant`` reads: ``cw`` laid out for
     its chain, ``cp`` K1's."""
-    v = LINES_VARIANTS[variant]
+    v = _entry(variant)[0]
     return {k.rsplit("/", 1)[1]: torch.as_tensor(t, device=device)
             for k, t in radix.chain_consts(v.n, direction, scale, "p", v.chain).items()}
 
@@ -121,15 +187,13 @@ def lines_variant_tables(variant: str, direction: str, scale: float,
 def lines_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor], variant: str,
                   adjoint: bool = False, inplace: bool = False) -> torch.Tensor:
     """K1's transform (its adjoint with ``adjoint``) of interleaved float32
-    ``x`` (lines, N, 2) in the ``variant`` of ``LINES_VARIANTS``, whose N
-    must be x's, with the variant's tables
+    ``x`` (lines, N, 2) in the ``variant`` of ``LINES_VARIANTS`` or
+    ``MIXED_VARIANTS``, whose N must be x's, with the variant's tables
     (``lines_variant_tables``); with ``inplace`` written over ``x``.  A CUDA
     tensor launches the probe kernel (and counts one launch); a CPU tensor
     runs the variant's chain through ``radix.radix_chain_reference``."""
-    if variant not in LINES_VARIANTS:
-        raise ValueError(f"lines_variant: variant must be one of {sorted(LINES_VARIANTS)}, "
-                         f"got {variant!r}")
-    n, chain = LINES_VARIANTS[variant].n, LINES_VARIANTS[variant].chain
+    v, entry, index = _entry(variant)
+    n, chain = v.n, v.chain
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lines_variant: unsupported device {x.device}")
     fused._check_cuda(x)
@@ -142,9 +206,8 @@ def lines_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor], variant: str
     lib = _build.library("probes")
     y = x if inplace else torch.empty_like(x)
     with _build.on_device(x.device):
-        rc = lib.wgfft_lines_variant(x.data_ptr(), y.data_ptr(), *ptrs, x.shape[0], n,
-                                     list(LINES_VARIANTS).index(variant), int(adjoint), None,
-                                     torch.cuda.current_stream().cuda_stream)
+        rc = getattr(lib, entry)(x.data_ptr(), y.data_ptr(), *ptrs, x.shape[0], n, index,
+                                 int(adjoint), None, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, f"lines_variant {variant}", "probes")
     lines_variant.launches += 1
     return y
@@ -153,10 +216,10 @@ def lines_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor], variant: str
 def lines_variant_resident(variant: str) -> int:
     """CTAs an SM of the current CUDA device holds of ``variant``'s kernel
     (the CUDA occupancy calculator); needs the card."""
-    n = LINES_VARIANTS[variant].n
+    v, entry, index = _entry(variant)
     ctas = ctypes.c_int(0)
-    rc = _build.library("probes").wgfft_lines_variant(
-        None, None, None, None, 1, n, list(LINES_VARIANTS).index(variant), 0,
+    rc = getattr(_build.library("probes"), entry)(
+        None, None, None, None, 1, v.n, index, 0,
         ctypes.cast(ctypes.pointer(ctas), ctypes.POINTER(ctypes.c_int)), None)
     _build.check(rc, f"lines_variant {variant}", "probes")
     return ctas.value

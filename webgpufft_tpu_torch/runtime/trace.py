@@ -7,7 +7,7 @@ Port of ``webgpufft_tpu/runtime/trace.py`` on ``torch.profiler``:
   (``chrome://tracing``, Perfetto, TensorBoard's trace viewer) into
   ``log_dir``.  The port's kernels appear under their own names
   (K1 by design: ``fused_lines_kernel``, ``pow2_lines_kernel``,
-  ``warp_lines_kernel``, ``core/fused.kernel_name``; K2
+  ``warp_lines_kernel``, ``mixed_lines_kernel``, ``core/fused.kernel_name``; K2
   ``fused_cols_kernel``); every plan call is
   wrapped in a ``wgfft:<plan type>`` span while a trace is being taken.
 - ``annotate(name)``: ``torch.profiler.record_function`` (an NVTX-style named
