@@ -1,10 +1,10 @@
 """Probe: K2's direct design and its ring design, and K1's lines, in one run.
 
     python3 chip_probes/k1_k2_ring.py [--repo DIR] [--out PATH] [--e2e] [--e2e-short]
-                                      [--k1-only]   (from the repository root)
+                                      [--k1-only | --k2-only]   (from the repository root)
 
 For every long shape of the kernel table in PERF.md (K1 from N = 2048 on,
-K2 tiles of 8192 points or more), K1's short powers of two at the line
+every K2 view), K1's short powers of two at the line
 counts the paths launch, K1's lengths that are not powers of two (the
 mixed-radix design's), and a few beside them: the plans' own
 launch (``fused.fused_lines`` / ``fused_cols.fused_cols``, whichever design
@@ -12,19 +12,24 @@ the entry point takes) in device time (``runtime/profile.time_queued``) and
 in host time per call (``host_us``: the microseconds a call takes to return
 while the device is busy, so that it only enqueues), beside
 ``torch.fft.fft`` (cuFFT) and the bound (one read and one write at 3.35
-TB/s).  For K2, each design of ``webgpufft_tpu_torch.probes.variants``
-(``direct``; ``ring``, a 3-D tensor map where the rows are aligned and the
-tiles whole, cp.async otherwise; ``ring-async``, cp.async for every tile)
-is first checked against the plain version (1e-5 of max|plain|, forward
-and adjoint), then timed in turns, in order and in reverse, each time the
-median of both turns, with its host time per call.  K1's plans' launch
+TB/s).  K2's plans' launch is named with what K2's rule picks (design,
+tile, cluster, units, grid) and timed with its adjoint launch; at the
+views of ``RING_CASES`` each design of
+``webgpufft_tpu_torch.probes.variants`` at its own tile (``direct``;
+``ring``, a 3-D tensor map where the rows are aligned and the tiles whole,
+cp.async otherwise; ``ring-async``, cp.async for every tile) is first
+checked against the plain version (1e-5 of max|plain|, forward and
+adjoint), then timed in turns, in order and in reverse, each time the
+median of both turns, with its host time per call (the fixed design's
+variants are timed by ``chip_probes/k2_fill_variants.py``).  K1's plans' launch
 takes the design K1's rule gives the length (``radix.lines_design``: the
 power-of-two design at 256 and 1024 to 16384, the warp design at 32 and
 512, the mixed-radix design at the lengths of ``radix.MIXED_LINES``, the
 direct one elsewhere; a checkout without a rule has the direct design
 there), named in the label, and is timed with its
 adjoint launch; its variants are timed by
-``chip_probes/k1_pow2_variants.py``.  ``--k1-only`` leaves K2 out.
+``chip_probes/k1_pow2_variants.py``.  ``--k1-only`` leaves K2 out,
+``--k2-only`` K1.
 
 ``--e2e`` then times, from idle and queued, the calls whose K1 launches
 are its long lines, each beside the same call on ``torch.fft`` (in turns:
@@ -76,9 +81,18 @@ K1_CASES += [(1024, 4096), (1024, 8192), (512, 4096), (32, 1536), (256, 65536), 
 K1_CASES += [(360, 4096), (360, 11651), (1000, 4195), (1352, 1025), (1352, 3103), (1536, 2731),
              (2310, 2048), (3000, 1399), (3000, 4096), (3072, 1366), (6000, 700), (8232, 510),
              (15360, 274)]
-# (pre, H, 2 * cols)
-K2_CASES = [(8, 1024, 2048), (1, 1024, 2048), (8, 512, 1024), (8, 2048, 1024),
-            (64, 1024, 66), (16, 4096, 64), (256, 256, 512)]
+# (pre, H, 2 * cols): every view of chip_smoke.py's phase_k2 (PERF.md's K2
+# rows), the facade's f-k gather (8, 16384, 128), (16, 4096, 64) and three
+# more views of the heights the paths launch most (512, 256, 128); K2's
+# designs by name (direct, ring, ring-async) at the views of RING_CASES
+K2_CASES = [(256, 256, 512), (1, 256, 131072), (64, 360, 512), (256, 16, 512), (384, 256, 512),
+            (768, 256, 512), (3, 256, 512), (8, 16384, 64), (5, 2048, 66), (3, 2310, 66),
+            (4, 1352, 130), (384, 128, 512), (64, 64, 128), (8, 512, 1024), (8, 1024, 2048),
+            (1, 1024, 2048), (3, 128, 131072), (6, 128, 131072), (8, 3, 512), (8, 9, 512),
+            (8, 2048, 1024), (64, 1024, 66), (8, 16384, 128), (16, 4096, 64),
+            (64, 512, 1024), (16, 256, 2048), (32, 128, 1024)]
+RING_CASES = [(8, 1024, 2048), (1, 1024, 2048), (8, 512, 1024), (8, 2048, 1024), (64, 1024, 66),
+              (16, 4096, 64), (256, 256, 512)]
 TOL = 1e-5
 HOST_CALLS, HOST_ROUNDS = 100, 5
 
@@ -315,6 +329,7 @@ def main():
     ap.add_argument("--e2e-short", action="store_true",
                     help="also time the calls whose K1 launches are short lines")
     ap.add_argument("--k1-only", action="store_true", help="leave K2's shapes out")
+    ap.add_argument("--k2-only", action="store_true", help="leave K1's shapes out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("k1_k2_ring: needs an NVIDIA GPU")
@@ -328,7 +343,7 @@ def main():
     print(f"k1_k2_ring: {Path(T.__file__).parent} [{card}]")
     gen = torch.Generator(device="cuda").manual_seed(13)
     records = []
-    for n, lines in K1_CASES:
+    for n, lines in [] if args.k2_only else K1_CASES:
         t = tables_on_card(fused.lines_consts(n, "forward", 1.0, "p"))
         x = torch.randn(lines, n, 2, device="cuda", generator=gen)
         design = getattr(radix, "lines_design", lambda n: "direct")(n)
@@ -348,16 +363,26 @@ def main():
         x = torch.randn(pre, h, lanes, device="cuda", generator=gen)
         cols = lanes // 2
         label = f"K2 ({pre}, {h}, {lanes})"
-        if hasattr(fused_cols, "launch_shape"):
+        plans = {}
+        if hasattr(fused_cols, "cols_rule"):
+            launch, resident = fused_cols.launch_shape(pre, h, cols)
+            plans = {**launch._asdict(), "resident": resident}
+            label += (f" (plans: {launch.design}, tile {launch.tile}, cluster {launch.cluster}, "
+                      f"units {launch.units}, grid {launch.grid})")
+        elif hasattr(fused_cols, "launch_shape"):
             grid, tile = fused_cols.launch_shape(h, cols)
-            label += f" (plans: {'ring' if grid else 'direct'}, tile {tile})"
-        designs = list(variants.COLS_DESIGNS) if variants is not None else []
-        records.append(measure(
+            plans = {"design": "ring" if grid else "direct", "tile": tile, "grid": grid}
+            label += f" (plans: {plans['design']}, tile {tile})"
+        designs = [d for d in ("direct", "ring", "ring-async")
+                   if variants is not None and (pre, h, lanes) in RING_CASES]
+        rec = measure(
             label, lambda adj: fused_cols.fused_cols_reference(x, t, adj),
             lambda: torch.fft.fft(torch.view_as_complex(x.view(pre, h, cols, 2)), dim=1),
             lambda: fused_cols.fused_cols(x, t), designs,
             lambda d, adj: variants.cols_variant(x, t, d, adjoint=adj), 8 * pre * h * lanes,
-            card, profile))
+            card, profile, plan_adjoint=lambda: fused_cols.fused_cols(x, t, adjoint=True))
+        rec["plans"] = plans
+        records.append(rec)
         del x
     if args.e2e:
         records += end_to_end(long_calls(gen), card, profile)

@@ -65,7 +65,10 @@ held against the plain version once more, with the path's own tables:
   ``fftn`` 256^3 and ``rfftn``/``irfftn`` 256^3 x 3 against ``torch.fft``,
   ``dctn`` (8, 512, 512) against float64 trig matrices, ``fftconvolve``
   (8, 1000, 1000) * (25, 25) and [2^20] * [129] (overlap-save) against
-  ``torch.fft`` convolutions, ``stft``/``istft``/``welch`` on (8, 2^22) at
+  ``torch.fft`` convolutions, ``fft2`` of one complex64 1024 x 1024 image
+  and of an f-k gather (8, 16384, 64) (K1 and K2 once each, K2 on views of
+  few column tiles, ``FACADE_FFT2``) against ``torch.fft.fft2``,
+  ``stft``/``istft``/``welch`` on (8, 2^22) at
   nperseg 1024 (65,544 frames) against ``torch.stft`` and ``scipy.signal``,
   a ``ShortTimeFFT`` pair, ``hilbert`` ((8, 2^20): the four-step einsum
   route; (2048, 4096): K1) and ``resample_poly`` (8, 2^20) against
@@ -135,14 +138,16 @@ their whole domain (neither is a path; their launches count for none):
   lines per CTA) and 3 lines from there on, and in place wherever the chain
   has two or more passes (a one-pass chain must be refused by the wrapper
   and by the C entry point); K2 forward, inverse and adjoint on (2, H, 66),
-  33 columns ragged against the tile.  Wherever the ring design serves the
-  view (K2 tiles of 8192 points or more, as the C entry point reports it:
-  ``fused_cols.launch_shape``), the four launches (in place included) again
-  on ``ring_units(grid)`` tiles: every stage of every persistent CTA used
-  and then reused twice, and a ragged last turn.  Every failure is listed
-  before the phase fails; one JSON line ``{"domain": {...}}`` gives the
-  counts, the launches, the ring's share of them, the worst error and
-  where, and the seconds;
+  33 columns ragged against the tile, in the design K2's rule gives the view
+  (``fused_cols.launch_shape``, which raises where the C rule and its Python
+  copy disagree), in place too where that is the fixed design.  Wherever
+  the rule runs the height on the ring once the tiles fill the card, the
+  four launches (in place included) again on ``ring_units(grid)`` tiles:
+  every stage of every persistent CTA used and then reused twice, and a
+  ragged last turn.  Every failure is listed before the phase fails; one
+  JSON line ``{"domain": {...}}`` gives the counts (K1 lengths and K2
+  heights by design), the launches, the ring's share of them, the worst
+  error and where, and the seconds;
 - fuzz: the seeded random specs of ``tests/test_torch_fuzz.py`` (the JAX
   file's draws, copied here) through the port's entry points on the card
   against float64 numpy / scipy oracles at the JAX file's tolerances: c2c
@@ -166,7 +171,7 @@ r2c paths.  Then each kernel shape is timed beside its plain version, its bound
 over the data sheet's 3.35 TB/s, or its flops over 67 TFLOP/s if that is more) and the one
 ``torch.fft.fft`` call that computes the same function (cuFFT, a yardstick the
 port never calls), and each plan and the solver step beside ``torch.fft``
-(a DCT-II and the convolutions written on ``torch.fft`` in this script), four
+(a DCT-II and the convolutions written on ``torch.fft`` in this script), six
 facade calls beside ``plan(x)`` for the same plan and the one ``torch.fft`` /
 ``torch.stft`` call (idle-device and queued times), and each probe variant beside its bound and ``Tensor.copy_`` timed in the same run,
 with the difference between neighbouring stops of ``lines_stages`` (what a
@@ -430,8 +435,11 @@ def phase_domain(gen):
     leaves the last CTA ragged (the power-of-two design takes one line a
     CTA), and K1 in place (``probes.lines_inplace``) wherever the chain has
     two or more passes; where it has one, the wrapper and the C entry point must
-    both refuse.  K2 forward, inverse and adjoint on (2, H, 66).  Where the
-    ring design serves the view (``fused_cols.launch_shape``), the same
+    both refuse.  K2 forward, inverse and adjoint on (2, H, 66) in the
+    design K2's rule gives the view (``fused_cols.launch_shape``, which also
+    holds the C rule to its Python copy; the summary counts the heights of
+    each design), in place too where that is the fixed design.  Where the
+    rule runs the height on the ring once its tiles fill the card, the same
     three launches and K2 in place again on ``ring_units(grid)`` tiles: the
     ring turned three times with a ragged tail.  Every failure is
     collected first and all of them are printed before the phase fails.
@@ -490,25 +498,40 @@ def phase_domain(gen):
         if rc != CUDA_ERROR_INVALID_VALUE:
             failures.append(f"{label} in place: the entry point returned {rc} for a one-pass "
                             f"chain, not cudaErrorInvalidValue")
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    k2_designs = {}   # K2 heights by the design its rule gives (2, H, 66)
     for h in k2_heights:
         fwd = to_dev(fused_cols.cols_consts(h, "forward", 1.0, "p"))
         inv = to_dev(fused_cols.cols_consts(h, "inverse", 1.0 / math.sqrt(h), "p"))
         x = torch.randn(DOMAIN_PRE, h, 2 * DOMAIN_COLS, device="cuda", generator=gen)
+        try:
+            launch = fused_cols.launch_shape(DOMAIN_PRE, h, DOMAIN_COLS)[0]
+        except Exception as e:  # noqa: BLE001 - collected, the phase fails below
+            failures.append(f"K2 H={h}: the rule: {type(e).__name__}: {e}")
+            continue
+        k2_designs[launch.design] = k2_designs.get(launch.design, 0) + 1
         label = (f"K2 H={h} split={fused_cols.choose_split(h)} chain={radix.radix_chain(h)} "
-                 f"view={tuple(x.shape)}")
+                 f"view={tuple(x.shape)} {launch.design} tile={launch.tile} "
+                 f"cluster={launch.cluster}")
         check(f"{label} forward", lambda: fused_cols.fused_cols(x, fwd),
               lambda: fused_cols.fused_cols_reference(x, fwd))
         check(f"{label} inverse unitary", lambda: fused_cols.fused_cols(x, inv),
               lambda: fused_cols.fused_cols_reference(x, inv))
         check(f"{label} adjoint", lambda: fused_cols.fused_cols(x, fwd, adjoint=True),
               lambda: fused_cols.fused_cols_reference(x, fwd, adjoint=True))
-        grid, tile = fused_cols.launch_shape(h, DOMAIN_COLS)
-        if grid > 0:
-            tiles = -(-DOMAIN_COLS // tile)
-            pre = -(-ring_units(grid) // tiles)
+        if launch.design == "fixed":
+            check(f"{label} in place", lambda: probes.cols_inplace(x.clone(), fwd),
+                  lambda: fused_cols.fused_cols_reference(x, fwd))
+        # where the rule runs this height on the ring once the tiles fill the
+        # card, a view of ring_units(grid) tiles on it
+        at_scale = fused_cols.cols_rule(1 << 16, h, DOMAIN_COLS, sms)
+        if at_scale.design == "ring":
+            tiles = -(-DOMAIN_COLS // at_scale.tile)
+            pre = -(-ring_units(sms) // tiles)
             big = torch.randn(pre, h, 2 * DOMAIN_COLS, device="cuda", generator=gen)
+            grid = fused_cols.launch_shape(pre, h, DOMAIN_COLS)[0].grid
             ring_label = (f"K2 H={h} chain={radix.radix_chain(h)} ring grid={grid} "
-                          f"tile={tile} view={tuple(big.shape)}")
+                          f"tile={at_scale.tile} view={tuple(big.shape)}")
             check(f"{ring_label} forward", lambda: fused_cols.fused_cols(big, fwd),
                   lambda: fused_cols.fused_cols_reference(big, fwd))
             check(f"{ring_label} inverse unitary", lambda: fused_cols.fused_cols(big, inv),
@@ -523,7 +546,7 @@ def phase_domain(gen):
             del big
     after = launches()
     summary = {"k1_lengths": len(k1_lengths), "k1_designs": designs,
-               "k2_heights": len(k2_heights),
+               "k2_heights": len(k2_heights), "k2_designs": k2_designs,
                "launches": after[0] - before[0] + after[1] - before[1],
                "k1_launches": after[0] - before[0], "k2_launches": after[1] - before[1],
                "ring": ring,
@@ -2022,16 +2045,17 @@ def phase_timing(k1_cases, k2_cases, headline, volume, card):
     for (pre, h, lanes), (x, t, direction) in k2_cases.items():
         fft = torch.fft.fft if direction == "forward" else torch.fft.ifft
         norm = fft_norm(direction, "none")
-        grid, tile = fused_cols.launch_shape(h, lanes // 2)
-        design = "ring" if grid > 0 else "direct"
+        launch, resident = fused_cols.launch_shape(pre, h, lanes // 2)
         out[("K2", pre, h, lanes)] = time_kernel(
-            f"K2 fused_cols view=({pre}, {h}, {lanes}) design={design} tile={tile}",
+            f"K2 fused_cols view=({pre}, {h}, {lanes}) design={launch.design} "
+            f"tile={launch.tile} cluster={launch.cluster} units={launch.units} "
+            f"grid={launch.grid} threads={launch.threads} ({resident} "
+            f"{'clusters' if launch.cluster > 1 else 'CTAs'} held at once)",
             fused_cols.fused_cols, fused_cols.fused_cols_reference,
             lambda v, fft=fft, norm=norm: fft(
                 torch.view_as_complex(v.view(v.shape[0], v.shape[1], -1, 2)), dim=1, norm=norm),
             (x, t), h, pre * lanes // 2, card)
-        out[("K2", pre, h, lanes)]["design"] = design
-        out[("K2", pre, h, lanes)]["tile"] = tile
+        out[("K2", pre, h, lanes)].update(launch._asdict(), resident=resident)
     # what Function.apply costs a caller who never differentiates: the
     # headline plan's one kernel pass from an idle device, launched directly
     # (what an untracked call does) and through the Function
@@ -2146,6 +2170,11 @@ def host64(t):
     return t.detach().double().cpu().numpy()
 
 
+# the facade's fft2 calls whose axis 0 (axis 1 of the gather) is a K2 view of
+# few column tiles: (name, complex64 shape)
+FACADE_FFT2 = [("image", (1024, 1024)), ("f-k gather", (8, 16384, 64))]
+
+
 def phase_facade(gen):
     """The numpy/scipy-style facade and its bridges at full size, each result
     against the library: returns what the timing phase needs."""
@@ -2171,6 +2200,22 @@ def phase_facade(gen):
     check_oracle("facade fftn 256^3", y, torch.fft.fftn(v))
     keep = {"fft": z}
     del y, back, v
+
+    # fft2 of one 1024 x 1024 image (axis 0 is K2's view (1, 1024, 2048), the
+    # one a batch-1 2-D transform and the fftconv path's kernel give it) and
+    # of an f-k gather, 8 shots x 16384 time samples x 64 receivers (K2's
+    # view (8, 16384, 128): few column tiles down tall columns; K2 takes an
+    # axis whose trailing columns number 64 or more, so 32 receivers would
+    # run their time axis on the einsum route)
+    for name, shape in FACADE_FFT2:
+        zf = torch.randn(*shape, dtype=torch.complex64, device="cuda", generator=gen)
+        y = facade_call(f"fft2 {name} {shape} complex64", wfft.fft2, zf, expect=(1, 1))
+        view = (math.prod(shape[:-2]), shape[-2], 2 * shape[-1])
+        require(any(key[:3] == view for key in PATH_SHAPES["facade"][1]),
+                f"facade fft2 {shape}: K2 did not launch the view {view}")
+        check_oracle(f"facade fft2 {name} {shape}", y, torch.fft.fft2(zf))
+        keep[f"fft2 {name}"] = zf
+        del y
 
     # traces of 3000 samples forward and frames of 6144 samples inverse: one
     # K1 launch each, at a length K1's rule gives the mixed-radix design
@@ -2345,7 +2390,7 @@ def phase_facade(gen):
 
 
 def phase_facade_timing(keep, card):
-    """Each of four facade calls from an idle device (``call_ms``: the host's
+    """Each of six facade calls from an idle device (``call_ms``: the host's
     share included) and queued behind device work (``time_queued``: device
     time) beside ``plan(x)`` for the same plan and the one library call."""
     import webgpufft_tpu_torch as T
@@ -2375,6 +2420,14 @@ def phase_facade_timing(keep, card):
                          normalize="none", device="cuda")
     row("fft (4096, 1024)", lambda: wfft.fft(z), lambda: plan(zi), lambda: torch.fft.fft(z),
         "torch.fft.fft")
+    for name, shape in FACADE_FFT2:
+        zf = keep[f"fft2 {name}"]
+        zfi = torch.view_as_real(zf).reshape(-1, *shape[-2:], 2)
+        plan2 = T.create_plan(type="c2c", shape=list(shape[-2:]), batch=zfi.shape[0],
+                              direction="forward", normalize="none", device="cuda")
+        row(f"fft2 {name} {shape}", lambda zf=zf: wfft.fft2(zf),
+            lambda plan2=plan2, zfi=zfi: plan2(zfi), lambda zf=zf: torch.fft.fft2(zf),
+            "torch.fft.fft2")
 
     # numpy's rfftn packs the last axis: the facade builds a 1-D r2c plan over
     # it and a 2-D c2c plan over the other two, with one transposing copy
@@ -3818,17 +3871,19 @@ def main():
     by_path = {name: {p: c[order.index(name)] for p, c in paths.items()} for name in order}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": f"webgpufft_tpu_torch/csrc/{src}",
-         "sources": [f"webgpufft_tpu_torch/csrc/{f}" for f in files],
+         "sources": [f"webgpufft_tpu_torch/csrc/{f}" for f in files], "designs": designs,
          "replaces": replaces, "launches": sum(by_path[name].values()),
          "launches_by_path": by_path[name],
          "max_abs_err": err, "shape": shape, **times[key],
          "shapes": [{"shape": list(k[1:]), **v} for k, v in times.items() if k[0] == key[0]]}
-        for name, src, files, replaces, err, shape, key in [
+        for name, src, files, designs, replaces, err, shape, key in [
             ("fused_lines", "fused_lines.cu",
              ("fused_lines.cu", "lines_pow2.cu", "lines_warp.cu", "lines_mixed.cu"),
+             ["direct", "pow2", "warp", "mixed"],
              "webgpufft_tpu/core/fused.py:223", k1_err, "N=1024 x 4096 lines",
              ("K1", 1024, 4096)),
-            ("fused_cols", "fused_cols.cu", ("fused_cols.cu",),
+            ("fused_cols", "fused_cols.cu", ("fused_cols.cu", "cols_fixed.cu"),
+             ["direct", "ring", "fixed"],
              "webgpufft_tpu/core/fused_cols.py:161", k2_err, "view (256, 256, 512)",
              ("K2", 256, 256, 512))]] + [
         {"name": name, "route": "cuda", "source": f"webgpufft_tpu_torch/csrc/probes/{src}",

@@ -278,15 +278,14 @@ def test_every_pow2_variant_matches_plain(cuda_device):
 @pytest.mark.parametrize("view", ["odd columns", "narrow", "one pre"])
 @pytest.mark.parametrize("h", [512, 1024, 2048])
 def test_tall_tiles_forward_adjoint_in_place(h, view, cuda_device):
-    """K2 at heights whose tiles reach 8192 points, in the design its entry
-    point takes: 33 columns (a 264-byte row pitch, not 16-byte aligned: the
+    """K2 at heights whose tiles reach 8192 points, in the design its rule
+    takes: 33 columns (a 264-byte row pitch, not 16-byte aligned: the
     8-byte copies, and a ragged last tile) over two grids and a ragged seven
     of tiles, 5 columns (a tile narrower than 16), and one pre index."""
     cols = {"odd columns": 33, "narrow": 5, "one pre": 1024}[view]
-    grid, tile = fused_cols.launch_shape(h, cols)
-    assert grid > 0 or view == "narrow", (h, cols)   # 5 columns: the direct tile
-    tiles = -(-cols // tile)
-    pre = 1 if view == "one pre" else -(-(2 * (grid or _sms()) + 7) // tiles)
+    tile = fused_cols.cols_rule(1 << 16, h, cols, _sms()).tile
+    pre = 1 if view == "one pre" else -(-(2 * _sms() + 7) // -(-cols // tile))
+    launch = fused_cols.launch_shape(pre, h, cols)[0]
     gen = torch.Generator(device=cuda_device).manual_seed(h + cols)
     t = _dev_tables(fused_cols.cols_consts(h, "inverse", 1.0 / h, "p"), cuda_device)
     x = torch.randn(pre, h, 2 * cols, device=cuda_device, generator=gen)
@@ -297,10 +296,11 @@ def test_tall_tiles_forward_adjoint_in_place(h, view, cuda_device):
     torch.cuda.synchronize()
     assert fused_cols.fused_cols.launches == before + 3
     want = fused_cols.fused_cols_reference(x, t).cpu()
-    assert_close(y.cpu(), want, label=f"K2 ({pre}, {h}, {2 * cols})")
+    label = f"K2 ({pre}, {h}, {2 * cols}) {launch}"
+    assert_close(y.cpu(), want, label=label)
     assert_close(ya.cpu(), fused_cols.fused_cols_reference(x, t, adjoint=True).cpu(),
-                 label=f"K2 ({pre}, {h}, {2 * cols}) adjoint")
-    assert_close(z.cpu(), want, label=f"K2 ({pre}, {h}, {2 * cols}) in place")
+                 label=f"{label} adjoint")
+    assert_close(z.cpu(), want, label=f"{label} in place")
 
 
 def test_ring_launches_after_a_smaller_stage_of_the_same_kernel(cuda_device):
@@ -311,7 +311,7 @@ def test_ring_launches_after_a_smaller_stage_of_the_same_kernel(cuda_device):
         gen = torch.Generator(device=cuda_device).manual_seed(h)
         t = _dev_tables(fused_cols.cols_consts(h, "forward", 1.0, "p"), cuda_device)
         x = torch.randn(3, h, 66, device=cuda_device, generator=gen)
-        assert fused_cols.launch_shape(h, 33)[0] > 0, h
+        assert fused_cols.launch_shape(3, h, 33)[0].design == "ring", h
         assert_close(fused_cols.fused_cols(x, t).cpu(),
                      fused_cols.fused_cols_reference(x, t).cpu(), label=f"K2 ring H={h}")
 
@@ -326,6 +326,130 @@ def test_every_cols_design_matches_plain(pre, h, lanes, design, cuda_device):
         y = probes.cols_variant(x, t, design, adjoint=adjoint)
         assert_close(y.cpu(), fused_cols.fused_cols_reference(x, t, adjoint).cpu(),
                      label=f"K2 {design} ({pre}, {h}, {lanes}) adjoint={adjoint}")
+
+
+# ---- K2's rule and its fixed design ------------------------------------------------
+
+# (pre, H, 2 * cols, direction): the views of chip_smoke.py's phase_k2 that
+# left the card idle, the domain phase's tall 33-column views and the
+# facade's f-k gather
+FILL_VIEWS = [(3, 2310, 66, "inverse"), (8, 16384, 64, "inverse"), (4, 1352, 130, "forward"),
+              (1, 1024, 2048, "forward"), (5, 2048, 66, "forward"), (64, 360, 512, "forward"),
+              (64, 1024, 66, "inverse"), (2, 2048, 66, "forward"), (2, 4096, 66, "forward"),
+              (2, 8192, 66, "forward"), (2, 16384, 66, "forward"), (8, 16384, 128, "forward")]
+
+
+def _cols_plan_in_c(pre, h, cols, sms):
+    """The C rule's launch (wgfft_fused_cols_plan at ``sms`` SMs)."""
+    import ctypes
+    from webgpufft_tpu_torch import _build
+    out = (ctypes.c_longlong * 7)()
+    rc = _build.library().wgfft_fused_cols_plan(
+        pre, h, cols, *_build.chain_arg(radix.radix_chain(h)), sms, out)
+    if rc == 1:
+        return None
+    assert rc == 0, rc
+    return fused_cols.ColsLaunch(fused_cols.DESIGNS[out[0]], *out[1:6])
+
+
+def _python_rule(pre, h, cols, sms):
+    try:
+        return fused_cols.cols_rule(pre, h, cols, sms)
+    except ValueError:
+        return None
+
+
+@pytest.mark.parametrize("sms", [132, 114, 0])
+def test_k2_rule_in_c_equals_its_python_copy(sms, cuda_device):
+    """Every height K2 takes over a grid of column and pre counts: the C
+    rule gives what fused_cols.cols_rule gives (0: the card's own SMs)."""
+    sms = sms or _sms()
+    heights = [h for h in range(2, radix.MAX_LENGTH + 1) if fused_cols.choose_split(h)]
+    for h in heights:
+        for cols in (1, 5, 33, 64, 65, 256, 1024):
+            for pre in (1, 3, 8, 64):
+                assert _cols_plan_in_c(pre, h, cols, sms) == _python_rule(pre, h, cols, sms), \
+                    (pre, h, cols, sms)
+
+
+def test_k2_entry_refuses_views_outside_its_rule(cuda_device):
+    from webgpufft_tpu_torch import _build
+    lib = _build.library()
+    # a height of the fixed design whose chain read backwards is another chain
+    h = next(f.h for f in fused_cols.FIXED_COLS if f.chain != f.chain[::-1])
+    t = _dev_tables(fused_cols.cols_consts(h, "forward", 1.0, "p"), cuda_device)
+    x = torch.zeros(1, h, 8, device=cuda_device)
+    before = fused_cols.fused_cols.launches
+    stream = torch.cuda.current_stream().cuda_stream
+    for pre, cols, chain in [(0, 4, radix.radix_chain(h)), (1, 0, radix.radix_chain(h)),
+                             (1, 4, radix.radix_chain(h)[::-1])]:
+        rc = lib.wgfft_fused_cols(x.data_ptr(), x.data_ptr(), t["cw"].data_ptr(),
+                                  t["cp"].data_ptr(), pre, h, cols, *_build.chain_arg(chain),
+                                  0, stream)
+        assert rc == 1, (pre, cols, chain)   # cudaErrorInvalidValue, nothing launched
+    assert fused_cols.fused_cols.launches == before
+    with pytest.raises(ValueError, match="no design runs"):
+        fused_cols.launch_shape(0, h, 4)
+
+
+@pytest.mark.parametrize("pre,h,lanes,direction", FILL_VIEWS)
+def test_fill_views_forward_adjoint_in_place(pre, h, lanes, direction, cuda_device):
+    """K2 in the design its rule gives each view, against the plain version:
+    forward, the adjoint launch, in place, and the adjoint dot test
+    <F x, u> = <x, F^H u>."""
+    launch, resident = fused_cols.launch_shape(pre, h, lanes // 2)
+    assert resident >= 1
+    gen = torch.Generator(device=cuda_device).manual_seed(pre * h + lanes)
+    t = _dev_tables(fused_cols.cols_consts(h, direction, 1.0, "p"), cuda_device)
+    x = torch.randn(pre, h, lanes, device=cuda_device, generator=gen)
+    u = torch.randn(pre, h, lanes, device=cuda_device, generator=gen)
+    label = f"K2 ({pre}, {h}, {lanes}) {launch}"
+    before = fused_cols.fused_cols.launches
+    fx = fused_cols.fused_cols(x, t)
+    fu = fused_cols.fused_cols(u, t, adjoint=True)
+    z = probes.cols_inplace(x.clone(), t)
+    torch.cuda.synchronize()
+    assert fused_cols.fused_cols.launches == before + 3
+    assert_close(fx.cpu(), fused_cols.fused_cols_reference(x, t).cpu(), label=label)
+    assert_close(fu.cpu(), fused_cols.fused_cols_reference(u, t, adjoint=True).cpu(),
+                 label=f"{label} adjoint")
+    assert_close(z.cpu(), fx.cpu(), label=f"{label} in place")
+    lhs = (fx.double() * u.double()).sum().item()
+    rhs = (x.double() * fu.double()).sum().item()
+    assert abs(lhs - rhs) <= 1e-4 * max(abs(lhs), (fx.double() ** 2).sum().sqrt().item())
+
+
+@pytest.mark.parametrize("entry", range(len(fused_cols.FIXED_COLS)))
+def test_every_fixed_entry_of_the_rule_matches_plain(entry, cuda_device):
+    """Each entry of the rule's fixed design at the smallest and the largest
+    column count of its range (up to 4096 columns in all), a ragged tile."""
+    f = fused_cols.FIXED_COLS[entry]
+    for total, up in ((f.least, True), (min(f.most, 4096), False)):
+        cols = min(total, 33)
+        pre = -(-total // cols) if up else total // cols
+        launch = fused_cols.launch_shape(pre, f.h, cols)[0]
+        assert (launch.design, launch.tile, launch.cluster) == ("fixed", f.tile, f.cluster), f
+        gen = torch.Generator(device=cuda_device).manual_seed(entry + total)
+        t = _dev_tables(fused_cols.cols_consts(f.h, "forward", 1.0, "p"), cuda_device)
+        x = torch.randn(pre, f.h, 2 * cols, device=cuda_device, generator=gen)
+        for adjoint in (False, True):
+            assert_close(fused_cols.fused_cols(x, t, adjoint=adjoint).cpu(),
+                         fused_cols.fused_cols_reference(x, t, adjoint).cpu(),
+                         label=f"{f} ({pre}, {cols}) adjoint={adjoint}")
+
+
+def test_every_fixed_variant_matches_plain(cuda_device):
+    from webgpufft_tpu_torch.probes import variants
+    for name, v in variants.FIXED_VARIANTS.items():
+        gen = torch.Generator(device=cuda_device).manual_seed(v.h)
+        t = _dev_tables(fused_cols.cols_consts(v.h, "inverse", 1.0 / v.h, "p"), cuda_device)
+        x = torch.randn(2, v.h, 2 * (v.tile + 1), device=cuda_device, generator=gen)
+        for adjoint in (False, True):
+            assert_close(variants.cols_fixed_variant(x, t, name, adjoint).cpu(),
+                         fused_cols.fused_cols_reference(x, t, adjoint).cpu(),
+                         label=f"{name} adjoint={adjoint}")
+        assert_close(variants.cols_fixed_variant(x.clone(), t, name, inplace=True).cpu(),
+                     fused_cols.fused_cols_reference(x, t).cpu(), label=f"{name} in place")
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):

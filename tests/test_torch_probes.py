@@ -314,11 +314,11 @@ def test_ctypes_signatures_match_the_c_sources(which):
 def test_probe_library_is_a_second_library():
     assert {s.name for s in _build.sources("probes")} == {
         "stream_copy.cu", "lines_stages.cu", "lines_planes.cu", "tile_copy.cu",
-        "cols_variants.cu", "lines_variants.cu", "lines_mixed_variants.cu",
-        "lines_mixed_variants_long.cu"}
+        "cols_variants.cu", "cols_fixed_variants.cu", "lines_variants.cu",
+        "lines_mixed_variants.cu", "lines_mixed_variants_long.cu"}
     assert {s.name for s in _build.sources("core")} == {"fused_lines.cu", "fused_cols.cu",
-                                                        "lines_pow2.cu", "lines_warp.cu",
-                                                        "lines_mixed.cu"}
+                                                        "cols_fixed.cu", "lines_pow2.cu",
+                                                        "lines_warp.cu", "lines_mixed.cu"}
     core, probe = _build.library_path("core"), _build.library_path("probes")
     assert core != probe and core.parent == probe.parent == _build.BUILD_DIR
     assert probe.name.startswith("libwgfft_probes_")

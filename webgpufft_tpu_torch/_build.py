@@ -47,7 +47,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _INTS = ctypes.POINTER(ctypes.c_int)
 # library -> entry point -> argument types (every entry point returns an int:
-# the cudaError_t of its launch, or for ``wgfft_fused_cols_ring`` the grid)
+# the cudaError_t of its launch or query)
 _SIGNATURES = {
     "core": {
         # x, y, cw, cp, lines, n, radices, count, adjoint, stream
@@ -60,9 +60,11 @@ _SIGNATURES = {
         # x, y, cw, cp, pre, h, cols, radices, count, adjoint, stream
         "wgfft_fused_cols": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                              ctypes.c_longlong, _INTS, ctypes.c_int, ctypes.c_int, _P),
-        # h, cols, radices, count, tile -> the ring's grid, 0 for the direct
-        # design, -1 (no launch); the tile's columns into tile
-        "wgfft_fused_cols_ring": (ctypes.c_int, ctypes.c_longlong, _INTS, ctypes.c_int, _INTS),
+        # pre, h, cols, radices, count, sms (0: the device's), out (7 long
+        # longs: design, tile, cluster, units, grid, threads, resident) ->
+        # what wgfft_fused_cols would launch (K2's rule)
+        "wgfft_fused_cols_plan": (ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, _INTS,
+                                  ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)),
     },
     "probes": {
         # x, y, count, scale, use_scale, mode, stages, stage_bytes, ctas, stream
@@ -83,10 +85,14 @@ _SIGNATURES = {
         # the same for the mixed-radix design's variants
         "wgfft_mixed_variant": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_int, _INTS, _P),
-        # x, y, cw, cp, pre, h, cols, radices, count, adjoint, design, stream
+        # x, y, cw, cp, pre, h, cols, radices, count, adjoint, design, tile,
+        # slots (int* or null), stream
         "wgfft_cols_variant": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                                ctypes.c_longlong, _INTS, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_int, _P),
+                               ctypes.c_int, ctypes.c_int, _INTS, _P),
+        # x, y, cw, cp, pre, h, cols, variant, adjoint, slots (int* or null), stream
+        "wgfft_cols_fixed": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                             ctypes.c_int, ctypes.c_int, _INTS, _P),
     },
 }
 _SOURCE_DIRS = {"core": CSRC, "probes": CSRC / "probes"}

@@ -15,8 +15,16 @@ against DFT(h1) with the scale folded in, and write row k = h2 * k1 + k2.
 (``csrc/fused_cols.cu``) for a CUDA tensor and runs the plain version for a
 CPU tensor; there is no fallback between the two.  The CUDA kernel reaches
 the same natural-order result by a chain of in-register radix butterflies
-(``core/radix.py``) and reads only the ``cw`` and ``cp`` tables;
+(``core/radix.py``) and reads only the ``cw`` and ``cp`` tables (laid out
+for ``radix.radix_chain(H)`` at every height);
 ``fused_cols_chain_reference`` is its pass schedule on the CPU, a test aid.
+
+Which of K2's three designs a view runs is K2's rule, ``cols_rule`` here
+and ``cols_rule`` in ``csrc/cols.cuh``: the fixed design
+(``csrc/cols_fixed.cuh``, a kernel per height, tile and cluster size) for
+the heights and column counts of ``FIXED_COLS``, else the direct design or
+the ring by the tile alone.  ``launch_shape`` asks the card's copy and
+raises where the two disagree.
 
 Autodiff: as for K1 (``core/fused.py``).  ``FusedCols`` is the one
 ``torch.autograd.Function`` for both devices; its backward is the adjoint
@@ -30,7 +38,7 @@ under ``torch.export`` and of ``FusedCols``.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +48,7 @@ from .. import _build
 from ..utils import factors
 
 MAX_SUB = 128
+CUDA_ERROR_INVALID_VALUE = 1
 PLAIN_TABLE_NAMES = ("w1re", "w1im", "tre", "tim", "w2re", "w2im")
 TABLE_NAMES = PLAIN_TABLE_NAMES + radix.TABLE_NAMES
 
@@ -135,17 +144,199 @@ def fused_cols_chain_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor],
     return y.reshape(pre, h, lanes)
 
 
-def launch_shape(h: int, cols: int) -> Tuple[int, int]:
-    """``(grid, tile)``: how K2's entry point runs height ``h`` over ``cols``
-    complex columns on the current CUDA device.  ``grid`` is the persistent
-    grid (CTAs) of the ring design, 0 where the direct design serves the
-    view; ``tile`` the columns of the design's tile.  Needs the card."""
-    tile = ctypes.c_int(0)
-    grid = _build.library().wgfft_fused_cols_ring(
-        h, cols, *_build.chain_arg(radix.radix_chain(h)), ctypes.byref(tile))
-    if grid < 0:
-        raise ValueError(f"fused_cols: no design runs H = {h} over {cols} columns")
-    return grid, tile.value
+# K2's designs, as the C entry point numbers them (csrc/cols.cuh, ColsDesign)
+DESIGNS = ("direct", "ring", "ring-async", "fixed")
+RING_MIN_POINTS = 8192   # kRingMinPoints (csrc/stage.cuh)
+RING_MIN_COLS = 4        # kRingMinCols (csrc/cols.cuh)
+MAX_TILE_ELEMS = 16384   # kMaxTileElems (csrc/cols.cuh)
+SHARED_BYTES = 232448    # kRingShared (csrc/stage.cuh): the most a CTA may opt in to
+RING_BAR_BYTES = 128     # kRingBarBytes
+H100_SMS = 132
+
+
+class FixedCols(NamedTuple):
+    """An entry of K2's rule for its fixed design (``kFixedCols``,
+    csrc/cols_fixed.cuh, and case i of the switch of csrc/cols_fixed.cu):
+    height ``h`` in tiles of ``tile`` columns split over ``cluster`` CTAs
+    of ``threads`` threads, for views of ``least`` to ``most`` columns in
+    all (pre * cols).  ``passes`` groups radix_chain(h)'s entries into the
+    kernel's passes (a group is one butterfly); with a cluster, ``cross``
+    is the last entry, the pass across the cluster."""
+    h: int
+    tile: int
+    cluster: int
+    threads: int
+    least: int
+    most: int
+    passes: Tuple[Tuple[int, ...], ...]
+    cross: int = 0
+
+    @property
+    def chain(self) -> Tuple[int, ...]:
+        return tuple(r for g in self.passes for r in g) + ((self.cross,) if self.cross else ())
+
+
+# the rule's entries, in the order of kFixedCols and of the switch of
+# csrc/cols_fixed.cu
+ALL_COLUMNS = 1 << 40   # kAllColumns: an entry with no upper end
+FIXED_COLS = (
+    FixedCols(64, 16, 1, 128, 1, ALL_COLUMNS, ((8,), (8,)), 0),
+    FixedCols(128, 32, 1, 256, 1, ALL_COLUMNS, ((16,), (8,)), 0),
+    FixedCols(256, 8, 1, 128, 1, 1024, ((16,), (16,)), 0),
+    FixedCols(256, 32, 1, 512, 1025, ALL_COLUMNS, ((16,), (16,)), 0),
+    FixedCols(360, 16, 1, 384, 1, ALL_COLUMNS, ((8,), (5,), (3, 3)), 0),
+    FixedCols(512, 8, 1, 256, 1, ALL_COLUMNS, ((8,), (8,), (8,)), 0),
+    FixedCols(1024, 8, 1, 512, 1, ALL_COLUMNS, ((16,), (8,), (8,)), 0),
+    FixedCols(1352, 4, 4, 128, 1, ALL_COLUMNS, ((13,), (13,)), 8),
+    FixedCols(2048, 4, 4, 128, 1, 128, ((16,), (16,)), 8),
+    FixedCols(2048, 8, 4, 256, 129, ALL_COLUMNS, ((16,), (16,)), 8),
+    FixedCols(2310, 1, 1, 128, 1, ALL_COLUMNS, ((11,), (7,), (5, 3, 2)), 0),
+    FixedCols(4096, 4, 8, 128, 1, ALL_COLUMNS, ((16,), (16,)), 16),
+    FixedCols(8192, 4, 8, 256, 1, ALL_COLUMNS, ((16,), (8,), (8,)), 8),
+    FixedCols(16384, 8, 8, 512, 1, 128, ((16,), (16,), (8,)), 8),
+    FixedCols(16384, 4, 8, 512, 129, ALL_COLUMNS, ((16,), (16,), (8,)), 8),
+)
+
+
+class ColsLaunch(NamedTuple):
+    """What K2's entry point launches for a view: ``design`` (one of
+    ``DESIGNS``), ``tile`` (columns a tile), ``cluster`` (CTAs a tile, 1
+    where no cluster splits a tile), ``units`` (tiles), ``grid`` (CTAs
+    launched) and ``threads`` (a CTA)."""
+    design: str
+    tile: int
+    cluster: int
+    units: int
+    grid: int
+    threads: int
+
+
+def _stage_points(points: int) -> int:
+    return (points + points // 16 + 15) // 16 * 16
+
+
+def _ring_fits(points: int) -> bool:
+    return RING_BAR_BYTES + 2 * _stage_points(points) * 8 <= SHARED_BYTES
+
+
+def _per_thread(e: int, r: int) -> int:
+    return max(e // r, 1)
+
+
+def _threads_needed(chain, n: int, e: int, units: int) -> int:
+    t = 1
+    for r in chain:
+        per = _per_thread(e, r)
+        t = max(t, -(-(units * (n // r)) // per))
+    return t
+
+
+def _tile_direct(chain, h: int, cols: int) -> int:
+    tc = 16 if len(chain) > 1 else 32
+    while tc > 1 and h * tc > MAX_TILE_ELEMS:
+        tc >>= 1
+    while tc > 1 and tc // 2 >= cols:
+        tc >>= 1
+    return tc
+
+
+def _tile_ring(chain, h: int, cols: int) -> int:
+    tc = _tile_direct(chain, h, cols)
+    while tc > 1 and not _ring_fits(h * tc):
+        tc >>= 1
+    return tc if len(chain) >= 2 and _ring_fits(h * tc) else 0
+
+
+def _shape(need) -> Optional[Tuple[int, int]]:
+    """(points a thread, threads) of ``cols_shape`` / ``cluster_shape``:
+    the least of 8, 16, 32 points a thread whose threads fit 512 (1024 as
+    the last resort); None where none does."""
+    e, t = 8, need(8)
+    while t > 512 and e < 32:
+        e *= 2
+        t = need(e)
+    return None if t > 1024 else (e, (t + 31) // 32 * 32)
+
+
+def _plan(chain, h: int, pre: int, cols: int, design: str, tile: int) -> Optional[ColsLaunch]:
+    """``cols_plan`` of csrc/cols.cuh: the direct design or the ring with
+    tiles of ``tile`` columns (0: the design's own), or None where it does
+    not exist.  ``grid`` is the units (the ring's persistent grid is the
+    rule's)."""
+    if pre < 1 or cols < 1 or tile < 0 or tile & (tile - 1) or design not in DESIGNS[:3]:
+        return None
+    ring = design != "direct"
+    tc = tile or (_tile_ring(chain, h, cols) if ring else _tile_direct(chain, h, cols))
+    if ring and (len(chain) < 2 or not _ring_fits(h * tc)):
+        return None
+    if not ring and len(chain) > 1 and h * tc * 8 > SHARED_BYTES:
+        return None
+    shape = None if tc < 1 else _shape(lambda e: _threads_needed(chain, h, e, tc))
+    if shape is None:
+        return None
+    units = pre * -(-cols // tc)
+    if units > 0x7fffffff:
+        return None
+    return ColsLaunch(design, tc, 1, units, units, shape[1])
+
+
+def _design(chain, h: int, cols: int) -> str:
+    """The direct design or the ring, chosen by the tile alone (``cols_design``)."""
+    old = _tile_direct(chain, h, cols)
+    tc = _tile_ring(chain, h, cols)
+    return ("ring" if h * old >= RING_MIN_POINTS and tc > 0 and tc >= min(old, RING_MIN_COLS)
+            else "direct")
+
+
+def cols_rule(pre: int, h: int, cols: int, sms: int = H100_SMS) -> ColsLaunch:
+    """K2's rule, the Python copy of ``cols_rule`` in csrc/cols.cuh: what the
+    entry point launches for a (pre, h, cols) view on a device of ``sms``
+    SMs.  A height of ``FIXED_COLS`` whose view's columns in all (pre *
+    cols) fall in an entry's range runs that entry of the fixed design;
+    every other view the direct design or the ring at its own tile, the
+    ring on one CTA an SM.  Raises ValueError for a view the rule does not
+    cover."""
+    chain = radix.radix_chain(h)
+    if sms < 1 or pre < 1 or cols < 1:
+        raise ValueError(f"fused_cols: no design runs ({pre}, {h}, {2 * cols})")
+    for f in FIXED_COLS:
+        if f.h != h:
+            continue
+        if f.chain != chain:
+            raise ValueError(f"fused_cols: the fixed entry of H = {h} runs {f.chain}")
+        if f.least <= pre * cols <= f.most:
+            units = pre * -(-cols // f.tile)
+            if units * f.cluster > 0x7fffffff:
+                raise ValueError(f"fused_cols: no design runs ({pre}, {h}, {2 * cols})")
+            return ColsLaunch("fixed", f.tile, f.cluster, units, units * f.cluster, f.threads)
+    design = _design(chain, h, cols)
+    plan = _plan(chain, h, pre, cols, design, 0)
+    if plan is None:
+        raise ValueError(f"fused_cols: no design runs ({pre}, {h}, {2 * cols})")
+    if design == "ring":
+        plan = plan._replace(grid=min(plan.units, sms))
+    return plan
+
+
+def launch_shape(pre: int, h: int, cols: int) -> Tuple[ColsLaunch, int]:
+    """``(launch, resident)`` for a (pre, h, cols) view on the current CUDA
+    device: the C entry point's rule (``wgfft_fused_cols_plan``) and how many
+    CTAs (clusters, where a cluster splits a tile) of its kernel the device holds
+    at once.  Raises RuntimeError where the C rule and ``cols_rule``
+    disagree, ValueError for a view no design runs.  Needs the card."""
+    out = (ctypes.c_longlong * 7)()
+    rc = _build.library().wgfft_fused_cols_plan(
+        pre, h, cols, *_build.chain_arg(radix.radix_chain(h)), 0, out)
+    if rc == CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(f"fused_cols: no design runs ({pre}, {h}, {2 * cols})")
+    _build.check(rc, "fused_cols plan")
+    got = ColsLaunch(DESIGNS[out[0]], *out[1:6])
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    want = cols_rule(pre, h, cols, sms)
+    if got != want:
+        raise RuntimeError(f"fused_cols: K2's rule in C gives {got} for ({pre}, {h}, {2 * cols}) "
+                           f"on {sms} SMs, its Python copy {want}")
+    return got, out[6]
 
 
 def _check_cuda(x: torch.Tensor) -> None:

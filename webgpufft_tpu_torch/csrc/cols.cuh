@@ -8,6 +8,7 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
+#include "cols_fixed.cuh"
 #include "radix.cuh"
 #include "stage.cuh"
 
@@ -289,17 +290,14 @@ inline cudaError_t cols_map(const void* x, long long pre, int h, long long cols,
              : cudaErrorInvalidValue;
 }
 
-enum ColsDesign { kColsDirect = 0, kColsRing = 1, kColsRingAsync = 2 };
+enum ColsDesign { kColsDirect = 0, kColsRing = 1, kColsRingAsync = 2, kColsFixed = 3 };
 
-// The design the plans' entry point takes: the ring where the direct
-// design's tile holds kRingMinPoints points or more (H >= 512 at 16
-// columns: one tile fills a CTA and the CTA an SM), two stages of the
-// ring's tile fit, and the ring's tile keeps kRingMinCols columns (a
+// The choice by the tile alone, the rule's starting point: the ring
+// where the direct design's tile holds kRingMinPoints points or more (H >=
+// 512 at 16 columns: one tile fills a CTA and the CTA an SM), two stages of
+// the ring's tile fit, and the ring's tile keeps kRingMinCols columns (a
 // 32-byte sector a row) or the direct tile's width; the direct design
-// elsewhere.  So H = 4096 and 8192, whose ring tiles would read 16- and
-// 8-byte rows (half and a quarter of a sector; 4096 measured slower so),
-// and 14,641 and 16,384, whose tiles do not fit twice, keep the direct
-// design.
+// elsewhere.
 constexpr int kRingMinCols = 4;
 
 inline int cols_design(const Chain& chain, int h, long long cols) {
@@ -311,39 +309,92 @@ inline int cols_design(const Chain& chain, int h, long long cols) {
              : kColsDirect;
 }
 
-// Check the launch and fill `shape` for `design`: the direct design's
-// tile, or the ring's for both ring designs, in cols_shape's CTA shape.
-// (A ring CTA of 32 points a thread, up to 256 threads of 255 registers,
-// measured 6 % slower at H = 1024: PERF.md.)
+// What K2 launches for a view.
+struct ColsPlan {
+  int design;       // ColsDesign
+  int entry;        // the kFixedCols entry (kColsFixed), else -1
+  ColsShape shape;  // the direct or ring design's CTA shape
+  int tile, cluster, threads;
+  long long units;  // tiles: pre * ceil(cols / tile)
+  long long grid;   // CTAs launched: units * cluster; the ring's at most one an SM
+};
+
+// The direct design or the ring (either ring design) for a view, with tiles
+// of `tile` columns (a power of two; 0: the design's own tile, the direct
+// design's or the ring's) in cols_shape's CTA shape; the ring's grid is
+// left for the caller.  (A ring CTA of 32 points a thread, up to 256
+// threads of 255 registers, measured 6 % slower at H = 1024: PERF.md.)
 inline bool cols_plan(const Chain& chain, int h, long long pre, long long cols, int design,
-                      ColsShape* shape) {
-  if (pre < 1 || cols < 1) return false;
-  const int tc = design == kColsDirect ? wgfft::cols_tile_direct(chain, h, cols)
-                                       : wgfft::cols_tile_ring(chain, h, cols);
-  if (!wgfft::cols_shape(chain, h, cols, tc, shape)) return false;
-  const long long units = pre * shape->tiles;
-  return units >= 1 && units <= 0x7fffffffLL;
+                      int tile, ColsPlan* out) {
+  if (pre < 1 || cols < 1 || tile < 0 || (tile & (tile - 1)) || design == kColsFixed)
+    return false;
+  const bool ring = design != kColsDirect;
+  int tc = tile;
+  if (tc == 0)
+    tc = ring ? wgfft::cols_tile_ring(chain, h, cols) : wgfft::cols_tile_direct(chain, h, cols);
+  if (ring && (chain.count < 2 || !wgfft::ring_fits(h * tc))) return false;
+  if (!ring && chain.count > 1 &&
+      static_cast<size_t>(h) * tc * sizeof(float2) > static_cast<size_t>(wgfft::kRingShared))
+    return false;
+  if (!wgfft::cols_shape(chain, h, cols, tc, &out->shape)) return false;
+  out->design = design;
+  out->entry = -1;
+  out->tile = tc;
+  out->cluster = 1;
+  out->threads = out->shape.threads;
+  out->units = pre * out->shape.tiles;
+  out->grid = out->units;
+  return out->units <= 0x7fffffffLL;
+}
+
+// K2's rule (core/fused_cols.py, cols_rule, is the same rule in Python; a
+// test on the card holds the two equal): what the plans' entry point
+// launches for a (pre, h, cols) view on a device of `sms` SMs.  A height of
+// kFixedCols whose view's columns in all fall in an entry's range runs that
+// entry (and must come with the entry's chain); every other view runs the
+// direct design or the ring at its own tile, the ring on one CTA an SM.
+inline bool cols_rule(const Chain& chain, int h, long long pre, long long cols, int sms,
+                      ColsPlan* out) {
+  if (sms < 1 || pre < 1 || cols < 1) return false;
+  for (int i = 0; i < wgfft::kFixedEntries; ++i) {
+    const wgfft::FixedCols& f = wgfft::kFixedCols[i];
+    if (f.h != h) continue;
+    bool same = f.count == chain.count;
+    for (int p = 0; same && p < f.count; ++p) same = f.radix[p] == chain.radix[p];
+    if (!same) return false;  // the entry's kernel reads a `cw` laid out for its chain
+    if (pre * cols < f.least || pre * cols > f.most) continue;
+    out->design = kColsFixed;
+    out->entry = i;
+    out->tile = f.tile;
+    out->cluster = f.cluster;
+    out->threads = f.threads;
+    out->units = pre * ((cols + f.tile - 1) / f.tile);
+    out->grid = out->units * f.cluster;
+    return out->grid <= 0x7fffffffLL;
+  }
+  if (!cols_plan(chain, h, pre, cols, cols_design(chain, h, cols), 0, out)) return false;
+  if (out->design == kColsRing && out->grid > sms) out->grid = sms;
+  return true;
 }
 
 // Launches the direct design or the ring (kColsRingAsync: cp.async for every
 // tile, the tensor map never) with the instantiation `dispatch_cols` picks,
-// or with `grid` set, only computes the ring's persistent grid.
+// the ring on a persistent grid of `grid` CTAs; with `slots` set, only
+// stores how many CTAs of that instantiation the device holds at once.
 struct LaunchCols {
-  const float2* x;
-  float2* y;
-  const float2* tw;
-  const float* params;
-  long long pre, cols;
-  int h;
-  float cj;  // +1, or -1 for the adjoint
-  cudaStream_t stream;
+  const wgfft::ColsCall& call;
   const Chain& chain;
   const ColsShape& shape;
   int design;
-  int* grid;
+  long long grid;
+  int* slots;
 
   template <int E, int MAXT, int MINB, int SET>
   cudaError_t run() const {
+    const float2* x = call.x;
+    float2* y = call.y;
+    const long long pre = call.pre, cols = call.cols;
+    const int h = call.h;
     const long long units = pre * shape.tiles;
     if (design == kColsDirect) {
       const size_t smem =
@@ -354,26 +405,43 @@ struct LaunchCols {
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
         if (e != cudaSuccess) return e;
       }
-      kernel<<<static_cast<unsigned>(units), shape.threads, smem, stream>>>(
-          x, y, tw, params, h, cols, shape.tc, shape.shift, shape.tiles, chain, cj);
+      if (slots != nullptr)
+        return wgfft::ring_slots(reinterpret_cast<const void*>(kernel), shape.threads, smem,
+                                 slots);
+      kernel<<<static_cast<unsigned>(units), shape.threads, smem, call.stream>>>(
+          x, y, call.tw, call.params, h, cols, shape.tc, shape.shift, shape.tiles, chain,
+          call.cj);
       return cudaGetLastError();
     }
     const auto kernel = cols_ring_kernel<E, MAXT, MINB, SET>;
     const size_t smem = wgfft::ring_shared_bytes(h * shape.tc);
     int g = 0;
-    cudaError_t e = wgfft::ring_grid(kernel, shape.threads, smem, units, &g);
-    if (e != cudaSuccess || grid != nullptr) {
-      if (grid != nullptr) *grid = g;
+    cudaError_t e =
+        wgfft::ring_slots(reinterpret_cast<const void*>(kernel), shape.threads, smem, &g);
+    if (e != cudaSuccess || slots != nullptr) {
+      if (slots != nullptr) *slots = g;
       return e;
     }
     const int copy = cols_copy(x, pre, h, cols, shape, design == kColsRingAsync);
     CUtensorMap map = {};
     if (copy == kCopyTensor && (e = cols_map(x, pre, h, cols, shape.tc, &map)) != cudaSuccess)
       return e;
-    kernel<<<g, shape.threads, smem, stream>>>(x, y, tw, params, h, cols, shape.tc, shape.shift,
-                                               shape.tiles, units, chain, cj, copy, map);
+    kernel<<<static_cast<unsigned>(grid), shape.threads, smem, call.stream>>>(
+        x, y, call.tw, call.params, h, cols, shape.tc, shape.shift, shape.tiles, units, chain,
+        call.cj, copy, map);
     return cudaGetLastError();
   }
 };
+
+// Launches `plan` (the fixed design through launch_cols_fixed), the ring
+// on plan.grid CTAs; with `slots` set, only stores how many CTAs (clusters,
+// for a fixed entry of a cluster of 2 or more) of its kernel the device
+// holds at once.
+inline cudaError_t launch_cols(const wgfft::ColsCall& call, const Chain& chain,
+                               const ColsPlan& plan, int* slots) {
+  if (plan.design == kColsFixed) return wgfft::launch_cols_fixed(call, plan.entry, slots);
+  const LaunchCols f = {call, chain, plan.shape, plan.design, plan.grid, slots};
+  return wgfft::dispatch_cols(chain, plan.shape, f);
+}
 
 }  // namespace

@@ -21,8 +21,10 @@
 // threads take neighbouring columns: every global access of a row is one
 // contiguous run of tc * 8 bytes although rows are L floats apart, and a
 // row's twiddle is one broadcast load.  Columns past the ragged edge load
-// zeros and store nothing.  Two designs, chosen by the tile (cols.cuh,
-// cols_design):
+// zeros and store nothing.  Three designs, chosen by K2's rule (cols.cuh,
+// cols_rule, with its Python copy fused_cols.cols_rule): the fixed design
+// (cols_fixed.cu) for the views of its entries, kFixedCols, and by the
+// tile alone (cols_design) elsewhere:
 //
 // - Tiles of fewer than 8192 points (the direct design; H < 512 at 16 columns):
 //   tc = 16, shrunk so H * tc <= 16384 points and no wider than the column
@@ -53,52 +55,90 @@
 //   or not fit twice (H = 14,641, 16,384), the direct design stays.
 //   cp.async for every tile is measured beside the tensor map in
 //   probes/cols_variants.cu.
+// - The fixed design (cols_fixed.cuh, cols_fixed.cu): a kernel per height,
+//   tile and cluster size with the chain at compile time, at the heights
+//   where the two designs above left the card half idle (few column tiles,
+//   tall narrow columns, odd heights) and at the heights the paths launch
+//   most (64 to 512), where it measured faster than both; a tile sized with
+//   the view, split over a thread-block cluster at the tall heights.
 //
 // C interface: wgfft_fused_cols returns the cudaError_t of the launch;
-// cudaErrorInvalidValue for a chain it cannot run.  adjoint != 0 runs the
+// cudaErrorInvalidValue for a chain or view its rule does not cover (at a
+// height of kFixedCols, any chain but the entry's).  adjoint != 0 runs the
 // conjugate transpose of the same tables' transform (autograd's backward).
 // y may be x (in place) for a chain of two or more passes: a CTA owns every
-// tile it transforms and reads a tile before it writes any of it.
-// wgfft_fused_cols_ring says which design and tile a view takes.
+// tile it transforms and reads a tile before it writes any of it (a
+// cluster, every one of its rows).  wgfft_fused_cols_plan says what the
+// rule launches for a view.
 
 #include <cuda_runtime.h>
 
 #include "cols.cuh"
 #include "radix.cuh"
 
+namespace {
+
+// SMs of the current device, asked of the runtime once per device.
+cudaError_t device_sms(int* sms) {
+  constexpr int kDevices = 64;
+  static int known[kDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kDevices && known[dev] > 0) {
+    *sms = known[dev];
+    return cudaSuccess;
+  }
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && dev < kDevices) known[dev] = *sms;
+  return e;
+}
+
+}  // namespace
+
 extern "C" int wgfft_fused_cols(const void* x, void* y, const void* tw, const void* params,
                                 long long pre, int h, long long cols, const int* radices,
                                 int count, int adjoint, void* stream) {
   Chain chain;
-  ColsShape shape;
+  ColsPlan plan;
+  int sms = 0;
   if (!wgfft::make_chain(radices, count, h, &chain))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int design = cols_design(chain, h, cols);
-  if (!cols_plan(chain, h, pre, cols, design, &shape))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const LaunchCols f = {static_cast<const float2*>(x), static_cast<float2*>(y),
-                        static_cast<const float2*>(tw), static_cast<const float*>(params),
-                        pre, cols, h, adjoint ? -1.f : 1.f, static_cast<cudaStream_t>(stream),
-                        chain, shape, design, nullptr};
-  return static_cast<int>(wgfft::dispatch_cols(chain, shape, f));
+  const cudaError_t e = device_sms(&sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!cols_rule(chain, h, pre, cols, sms, &plan)) return static_cast<int>(cudaErrorInvalidValue);
+  const wgfft::ColsCall call = {static_cast<const float2*>(x), static_cast<float2*>(y),
+                                static_cast<const float2*>(tw), static_cast<const float*>(params),
+                                pre, cols, h, adjoint ? -1.f : 1.f,
+                                static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(launch_cols(call, chain, plan, nullptr));
 }
 
-// The design wgfft_fused_cols takes for height h over `cols` complex
-// columns on the current device: the ring's persistent grid (CTAs, for a
-// tile count that fills it) where the ring serves the view, 0 where the
-// direct design does, -1 for a chain no design runs; *tile is set to the
-// columns of the design's tile.
-extern "C" int wgfft_fused_cols_ring(int h, long long cols, const int* radices, int count,
-                                     int* tile) {
+// What wgfft_fused_cols launches for a (pre, h, cols) view: K2's rule on a
+// device of `sms` SMs into out[0..5] = design (ColsDesign), tile (columns),
+// CTAs a tile, units (tiles), grid (CTAs), threads a CTA; with sms = 0 the
+// current device's SMs, and out[6] = how many CTAs (clusters, for a cluster
+// of 2 or more) of the chosen kernel the device holds at once, else -1.
+// cudaErrorInvalidValue for a view the rule does not cover.
+extern "C" int wgfft_fused_cols_plan(long long pre, int h, long long cols, const int* radices,
+                                     int count, int sms, long long* out) {
   Chain chain;
-  ColsShape shape;
-  if (cols < 1 || !wgfft::make_chain(radices, count, h, &chain)) return -1;
-  const int design = cols_design(chain, h, cols);
-  if (!cols_plan(chain, h, 1, cols, design, &shape)) return -1;
-  *tile = shape.tc;
-  if (design == kColsDirect) return 0;
-  int grid = 0;
-  const LaunchCols f = {nullptr, nullptr, nullptr, nullptr, 0x7fffffffLL / shape.tiles, cols, h,
-                        1.f, nullptr, chain, shape, design, &grid};
-  return wgfft::dispatch_cols(chain, shape, f) == cudaSuccess ? grid : -1;
+  ColsPlan plan;
+  const bool device = sms == 0;
+  if (!wgfft::make_chain(radices, count, h, &chain))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (device) {
+    const cudaError_t e = device_sms(&sms);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (!cols_rule(chain, h, pre, cols, sms, &plan)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long fields[7] = {plan.design, plan.tile, plan.cluster, plan.units,
+                               plan.grid,   plan.threads, -1};
+  for (int i = 0; i < 7; ++i) out[i] = fields[i];
+  if (!device) return 0;
+  int slots = 0;
+  const wgfft::ColsCall call = {nullptr, nullptr, nullptr, nullptr, pre, cols, h, 1.f, nullptr};
+  const cudaError_t e = launch_cols(call, chain, plan, &slots);
+  out[6] = slots;
+  return static_cast<int>(e);
 }

@@ -229,16 +229,4 @@ inline cudaError_t ring_slots(const void* kernel, int threads, size_t smem, int*
   return cudaSuccess;
 }
 
-// The persistent grid for `kernel`: as many CTAs as the card holds at once
-// (ring_slots), at most `units`.
-template <class Kernel>
-cudaError_t ring_grid(Kernel kernel, int threads, size_t smem, long long units, int* grid) {
-  int slots = 0;
-  const cudaError_t e =
-      ring_slots(reinterpret_cast<const void*>(kernel), threads, smem, &slots);
-  if (e != cudaSuccess) return e;
-  *grid = static_cast<int>(slots < units ? slots : units);
-  return cudaSuccess;
-}
-
 }  // namespace wgfft

@@ -1,21 +1,28 @@
-"""K2 in a design the caller names, the direct one or the ring; K1's
+"""K2 in a design, tile or fixed-design variant the caller names; K1's
 power-of-two, warp and mixed-radix designs in a variant the caller names.
 
 No Pallas probe stands behind this module: it launches the counterpart of
 K2 (``webgpufft_tpu/core/fused_cols.py:161``) in one of its designs by name,
-for the one-run comparison of ``chip_probes/k1_k2_ring.py``.  The plans'
-entry point picks the design by tile (``csrc/cols.cuh``, ``cols_design``;
-``fused_cols.launch_shape`` says which it takes); here the caller does:
-``cols_variant(x, tables, design)`` (``csrc/probes/cols_variants.cu``) with
-``"direct"``, the direct design (a CTA loads its tile from global memory
-straight into registers, runs the passes, stores; the only place it is still
-launched where the ring serves a view); ``"ring"``, persistent CTAs with a
-ring of two stages, a tile landing by a 3-D tensor map where its rows are
-16-byte aligned and whole (``cp.async`` otherwise), as the plans run it;
-``"ring-async"``, every tile landing row by row by ``cp.async``.
-
-The ring designs take any chain of two or more passes whose tile fits two
-stages, smaller tiles too.
+for the comparisons of ``chip_probes/k1_k2_ring.py`` and
+``chip_probes/k2_fill_variants.py``.  The plans' entry point takes what K2's
+rule picks (``csrc/cols.cuh``, ``cols_rule``; ``fused_cols.cols_rule`` is
+its Python copy and ``fused_cols.launch_shape`` asks the card); here the
+caller does: ``cols_variant(x, tables, design, tile=)``
+(``csrc/probes/cols_variants.cu``) with ``"direct"``, the direct design (a
+CTA loads its tile from global memory straight into registers, runs the
+passes, stores); ``"ring"``, persistent CTAs with a ring of two stages, a
+tile landing by a 3-D tensor map where its rows are 16-byte aligned and
+whole (``cp.async`` otherwise), as the plans run it; ``"ring-async"``,
+every tile landing row by row by ``cp.async`` (``tile`` 0: the design's own
+tile, the direct design's or the ring's narrowed until two stages fit); and
+``cols_fixed_variant(x, tables, name)`` (``csrc/probes/cols_fixed_variants.cu``)
+with a variant of ``FIXED_VARIANTS``, K2's fixed design
+(``csrc/cols_fixed.cuh``: a kernel per height, tile and cluster size, the
+chain fixed at compile time, consecutive entries of radix_chain fused into
+one butterfly, a tile split over a thread-block cluster with its last pass
+through distributed shared memory).  ``cols_variant_slots`` and
+``cols_fixed_slots`` say how many CTAs (clusters) of a variant the card
+holds at once.
 
 ``lines_variant(x, tables, variant)`` (``csrc/probes/lines_variants.cu``)
 launches K1 (``webgpufft_tpu/core/fused.py:223``) in one instantiation of
@@ -228,32 +235,168 @@ def lines_variant_resident(variant: str) -> int:
 lines_variant.launches = 0
 
 
-def cols_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor], design: str,
-                 adjoint: bool = False) -> torch.Tensor:
-    """K2's transform (its adjoint with ``adjoint``) along axis 1 of
-    interleaved float32 ``x`` (pre, H, L) in ``design``.  A CUDA tensor
-    launches the probe kernel (and counts one launch); a CPU tensor runs
-    ``fused_cols.fused_cols_reference``."""
-    if design not in COLS_DESIGNS:
-        raise ValueError(f"cols_variant: design must be one of {sorted(COLS_DESIGNS)}, "
-                         f"got {design!r}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"cols_variant: unsupported device {x.device}")
-    fused_cols._check_cuda(x)
-    if x.device.type == "cpu":
-        return fused_cols.fused_cols_reference(x, tables, adjoint)
+def _cols_call(x, tables, design, adjoint, tile, slots, y):
+    """One call of the probes' K2 entry point for the direct design and the
+    ring; returns its rc."""
     h = x.shape[1]
     ptrs = _build.table_ptrs(x, tables, {"cw": (h, 2), "cp": (2,)}, "cols_variant")
-    lib = _build.library("probes")
-    y = torch.empty_like(x)
     with _build.on_device(x.device):
-        rc = lib.wgfft_cols_variant(x.data_ptr(), y.data_ptr(), *ptrs, x.shape[0], h,
-                                    x.shape[2] // 2, *_build.chain_arg(radix.radix_chain(h)),
-                                    int(adjoint), COLS_DESIGNS[design],
-                                    torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, f"cols_variant {design}", "probes")
+        return _build.library("probes").wgfft_cols_variant(
+            x.data_ptr(), 0 if y is None else y.data_ptr(), *ptrs, x.shape[0], h,
+            x.shape[2] // 2, *_build.chain_arg(radix.radix_chain(h)), int(adjoint),
+            COLS_DESIGNS[design], tile, slots, torch.cuda.current_stream().cuda_stream)
+
+
+def _cols_check(x, design, table, what):
+    if design not in table:
+        raise ValueError(f"{what}: design must be one of {sorted(table)}, got {design!r}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    fused_cols._check_cuda(x)
+
+
+def _slots_arg(slots):
+    return ctypes.cast(ctypes.pointer(slots), ctypes.POINTER(ctypes.c_int))
+
+
+def cols_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor], design: str,
+                 adjoint: bool = False, tile: int = 0, inplace: bool = False) -> torch.Tensor:
+    """K2's transform (its adjoint with ``adjoint``) along axis 1 of
+    interleaved float32 ``x`` (pre, H, L) in ``design`` (``COLS_DESIGNS``)
+    with tiles of ``tile`` columns (0: the design's own); with ``inplace``
+    written over ``x``.  A CUDA tensor launches the probe kernel (and counts
+    one launch) or raises where that variant does not exist; a CPU tensor
+    runs ``fused_cols.fused_cols_reference``."""
+    _cols_check(x, design, COLS_DESIGNS, "cols_variant")
+    if x.device.type == "cpu":
+        y = fused_cols.fused_cols_reference(x, tables, adjoint)
+        return x.copy_(y) if inplace else y
+    y = x if inplace else torch.empty_like(x)
+    rc = _cols_call(x, tables, design, adjoint, tile, None, y)
+    _build.check(rc, f"cols_variant {design} tile {tile}", "probes")
     cols_variant.launches += 1
     return y
 
 
+def cols_variant_slots(x: torch.Tensor, tables: Dict[str, torch.Tensor], design: str,
+                       tile: int = 0) -> int:
+    """How many CTAs of the kernel ``cols_variant`` launches for ``x`` the
+    current CUDA device holds at once (the occupancy calculator); launches
+    nothing.  Needs the card."""
+    _cols_check(x, design, COLS_DESIGNS, "cols_variant")
+    slots = ctypes.c_int(0)
+    rc = _cols_call(x, tables, design, False, tile, _slots_arg(slots), None)
+    _build.check(rc, f"cols_variant {design} tile {tile}", "probes")
+    return slots.value
+
+
+class FixedVariant(NamedTuple):
+    h: int
+    tile: int                 # columns a tile
+    cluster: int              # CTAs a tile (1: no cluster)
+    threads: int              # a CTA
+    minb: int                 # CTAs an SM asked for
+    passes: Tuple[Tuple[int, ...], ...]   # radix_chain's entries, fused where grouped
+    cross: int                # the last pass's radix across the cluster (0: none)
+
+
+# in the order of the switch of csrc/probes/cols_fixed_variants.cu
+FIXED_VARIANTS: Dict[str, FixedVariant] = {
+    "1024 tile 4 16-8-8": FixedVariant(1024, 4, 1, 256, 4, ((16,), (8,), (8,)), 0),
+    "1024 tile 8 16-8-8": FixedVariant(1024, 8, 1, 512, 2, ((16,), (8,), (8,)), 0),
+    "1024 tile 4 cluster 2 16-8 + 8": FixedVariant(1024, 4, 2, 128, 8, ((16,), (8,)), 8),
+    "1024 tile 8 cluster 2 16-8 + 8": FixedVariant(1024, 8, 2, 256, 4, ((16,), (8,)), 8),
+    "1024 tile 8 cluster 4 16-8 + 8": FixedVariant(1024, 8, 4, 128, 8, ((16,), (8,)), 8),
+    "1024 tile 16 cluster 8 16-8 + 8": FixedVariant(1024, 16, 8, 128, 8, ((16,), (8,)), 8),
+    "2048 tile 2 16-16-8": FixedVariant(2048, 2, 1, 256, 4, ((16,), (16,), (8,)), 0),
+    "2048 tile 4 16-16-8": FixedVariant(2048, 4, 1, 512, 2, ((16,), (16,), (8,)), 0),
+    "2048 tile 4 cluster 2 16-16 + 8": FixedVariant(2048, 4, 2, 256, 4, ((16,), (16,)), 8),
+    "2048 tile 4 cluster 4 16-16 + 8": FixedVariant(2048, 4, 4, 128, 8, ((16,), (16,)), 8),
+    "2048 tile 8 cluster 4 16-16 + 8": FixedVariant(2048, 8, 4, 256, 4, ((16,), (16,)), 8),
+    "2048 tile 2 cluster 2 16-16 + 8": FixedVariant(2048, 2, 2, 128, 8, ((16,), (16,)), 8),
+    "4096 tile 4 cluster 2 16-16 + 16": FixedVariant(4096, 4, 2, 512, 2, ((16,), (16,)), 16),
+    "4096 tile 4 cluster 4 16-16 + 16": FixedVariant(4096, 4, 4, 256, 4, ((16,), (16,)), 16),
+    "4096 tile 2 cluster 2 16-16 + 16": FixedVariant(4096, 2, 2, 256, 4, ((16,), (16,)), 16),
+    "4096 tile 4 cluster 8 16-16 + 16": FixedVariant(4096, 4, 8, 128, 8, ((16,), (16,)), 16),
+    "8192 tile 4 cluster 4 16-8-8 + 8": FixedVariant(8192, 4, 4, 512, 2, ((16,), (8,), (8,)), 8),
+    "8192 tile 4 cluster 8 16-8-8 + 8": FixedVariant(8192, 4, 8, 256, 4, ((16,), (8,), (8,)), 8),
+    "8192 tile 2 cluster 4 16-8-8 + 8": FixedVariant(8192, 2, 4, 256, 4, ((16,), (8,), (8,)), 8),
+    "16384 tile 4 cluster 8 16-16-8 + 8": FixedVariant(16384, 4, 8, 512, 2, ((16,), (16,), (8,)), 8),
+    "16384 tile 2 cluster 8 16-16-8 + 8": FixedVariant(16384, 2, 8, 256, 4, ((16,), (16,), (8,)), 8),
+    "16384 tile 4 cluster 4 16-16-8 + 8": FixedVariant(16384, 4, 4, 512, 1, ((16,), (16,), (8,)), 8),
+    "16384 tile 8 cluster 8 16-16-8 + 8": FixedVariant(16384, 8, 8, 512, 1, ((16,), (16,), (8,)), 8),
+    "1352 tile 4 13-13-8": FixedVariant(1352, 4, 1, 256, 3, ((13,), (13,), (8,)), 0),
+    "1352 tile 2 13-13-8": FixedVariant(1352, 2, 1, 128, 6, ((13,), (13,), (8,)), 0),
+    "1352 tile 4 cluster 2 13-13 + 8": FixedVariant(1352, 4, 2, 256, 4, ((13,), (13,)), 8),
+    "1352 tile 8 cluster 4 13-13 + 8": FixedVariant(1352, 8, 4, 256, 4, ((13,), (13,)), 8),
+    "1352 tile 4 cluster 4 13-13 + 8": FixedVariant(1352, 4, 4, 128, 8, ((13,), (13,)), 8),
+    "2310 tile 4 11-7-5x3x2": FixedVariant(2310, 4, 1, 448, 1, ((11,), (7,), (5, 3, 2)), 0),
+    "2310 tile 2 cluster 2 11-7-5x3 + 2": FixedVariant(2310, 2, 2, 128, 5, ((11,), (7,), (5, 3)), 2),
+    "2310 tile 1 11-7-5x3x2": FixedVariant(2310, 1, 1, 128, 5, ((11,), (7,), (5, 3, 2)), 0),
+    "2310 tile 4 cluster 2 11-7-5x3 + 2": FixedVariant(2310, 4, 2, 256, 2, ((11,), (7,), (5, 3)), 2),
+    "2310 tile 2 11-7-5x3-2": FixedVariant(2310, 2, 1, 224, 3, ((11,), (7,), (5, 3), (2,)), 0),
+    "2310 tile 2 11-7-5-3-2": FixedVariant(2310, 2, 1, 224, 3, ((11,), (7,), (5,), (3,), (2,)), 0),
+    "360 tile 16 8-5x3-3": FixedVariant(360, 16, 1, 384, 2, ((8,), (5, 3), (3,)), 0),
+    "360 tile 16 8-5-3x3": FixedVariant(360, 16, 1, 384, 2, ((8,), (5,), (3, 3)), 0),
+    "360 tile 8 8-5x3-3": FixedVariant(360, 8, 1, 192, 4, ((8,), (5, 3), (3,)), 0),
+    "360 tile 16 8-5-3-3": FixedVariant(360, 16, 1, 384, 2, ((8,), (5,), (3,), (3,)), 0),
+    "64 tile 16 8-8": FixedVariant(64, 16, 1, 128, 8, ((8,), (8,)), 0),
+    "128 tile 8 16-8": FixedVariant(128, 8, 1, 64, 16, ((16,), (8,)), 0),
+    "128 tile 16 16-8": FixedVariant(128, 16, 1, 128, 8, ((16,), (8,)), 0),
+    "128 tile 32 16-8": FixedVariant(128, 32, 1, 256, 4, ((16,), (8,)), 0),
+    "256 tile 8 16-16": FixedVariant(256, 8, 1, 128, 8, ((16,), (16,)), 0),
+    "256 tile 16 16-16": FixedVariant(256, 16, 1, 256, 4, ((16,), (16,)), 0),
+    "256 tile 32 16-16": FixedVariant(256, 32, 1, 512, 2, ((16,), (16,)), 0),
+    "512 tile 4 8-8-8": FixedVariant(512, 4, 1, 128, 8, ((8,), (8,), (8,)), 0),
+    "512 tile 8 8-8-8": FixedVariant(512, 8, 1, 256, 4, ((8,), (8,), (8,)), 0),
+    "512 tile 16 8-8-8": FixedVariant(512, 16, 1, 512, 2, ((8,), (8,), (8,)), 0),
+    "2310 tile 1 cluster 2 11-7-5x3 + 2": FixedVariant(2310, 1, 2, 128, 8, ((11,), (7,), (5, 3)), 2),
+    "2310 tile 1 11-7-5x3x2 96 threads": FixedVariant(2310, 1, 1, 96, 8, ((11,), (7,), (5, 3, 2)), 0),
+}
+
+
+def _fixed_call(x, tables, variant, adjoint, slots, y):
+    h = x.shape[1]
+    ptrs = _build.table_ptrs(x, tables, {"cw": (h, 2), "cp": (2,)}, "cols_fixed_variant")
+    with _build.on_device(x.device):
+        return _build.library("probes").wgfft_cols_fixed(
+            x.data_ptr(), 0 if y is None else y.data_ptr(), *ptrs, x.shape[0], h,
+            x.shape[2] // 2, list(FIXED_VARIANTS).index(variant), int(adjoint), slots,
+            torch.cuda.current_stream().cuda_stream)
+
+
+def cols_fixed_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor], variant: str,
+                       adjoint: bool = False, inplace: bool = False) -> torch.Tensor:
+    """K2's transform (its adjoint with ``adjoint``) of ``x`` (pre, H, L) in
+    the fixed design's ``variant`` of ``FIXED_VARIANTS`` (whose height must
+    be x's), with K2's tables (``cw`` of ``radix_chain(H)``); with
+    ``inplace`` written over ``x``.  A CUDA tensor launches the probe kernel
+    (and counts one launch); a CPU tensor runs
+    ``fused_cols.fused_cols_reference``."""
+    _cols_check(x, variant, FIXED_VARIANTS, "cols_fixed_variant")
+    if x.shape[1] != FIXED_VARIANTS[variant].h:
+        raise ValueError(f"cols_fixed_variant: {variant!r} runs H = "
+                         f"{FIXED_VARIANTS[variant].h}, x has H = {x.shape[1]}")
+    if x.device.type == "cpu":
+        y = fused_cols.fused_cols_reference(x, tables, adjoint)
+        return x.copy_(y) if inplace else y
+    y = x if inplace else torch.empty_like(x)
+    rc = _fixed_call(x, tables, variant, adjoint, None, y)
+    _build.check(rc, f"cols_fixed_variant {variant}", "probes")
+    cols_fixed_variant.launches += 1
+    return y
+
+
+def cols_fixed_slots(x: torch.Tensor, tables: Dict[str, torch.Tensor], variant: str) -> int:
+    """How many CTAs (clusters, for a cluster of 2 or more) of ``variant``'s
+    kernel the current CUDA device holds at once; launches nothing.  Needs
+    the card."""
+    _cols_check(x, variant, FIXED_VARIANTS, "cols_fixed_variant")
+    slots = ctypes.c_int(0)
+    rc = _fixed_call(x, tables, variant, False, _slots_arg(slots), None)
+    _build.check(rc, f"cols_fixed_variant {variant}", "probes")
+    return slots.value
+
+
 cols_variant.launches = 0
+cols_fixed_variant.launches = 0
