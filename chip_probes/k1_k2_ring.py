@@ -6,7 +6,9 @@
 For every long shape of the kernel table in PERF.md (K1 from N = 2048 on,
 every K2 view), K1's short powers of two at the line
 counts the paths launch, K1's lengths that are not powers of two (the
-mixed-radix design's), and a few beside them: the plans' own
+mixed-radix design's), every length of 128 or less K1 takes at the line
+counts of ``chip_probes/k1_packed_variants.py`` (2^22 / N and the paths'
+own: the packed design's), and a few beside them: the plans' own
 launch (``fused.fused_lines`` / ``fused_cols.fused_cols``, whichever design
 the entry point takes) in device time (``runtime/profile.time_queued``) and
 in host time per call (``host_us``: the microseconds a call takes to return
@@ -23,10 +25,11 @@ adjoint), then timed in turns, in order and in reverse, each time the
 median of both turns, with its host time per call (the fixed design's
 variants are timed by ``chip_probes/k2_fill_variants.py``).  K1's plans' launch
 takes the design K1's rule gives the length (``radix.lines_design``: the
-power-of-two design at 256 and 1024 to 16384, the warp design at 32 and
-512, the mixed-radix design at the lengths of ``radix.MIXED_LINES``, the
-direct one elsewhere; a checkout without a rule has the direct design
-there), named in the label, and is timed with its
+power-of-two design at 256 and 1024 to 16384, the warp design at 512,
+the mixed-radix design at the lengths of ``radix.MIXED_LINES``, the
+packed design at those of ``radix.PACKED_LINES``, the direct one
+elsewhere; a checkout without a rule has the direct design there), named
+in the label, and is timed with its
 adjoint launch; its variants are timed by
 ``chip_probes/k1_pow2_variants.py``.  ``--k1-only`` leaves K2 out,
 ``--k2-only`` K1.
@@ -343,7 +346,10 @@ def main():
     print(f"k1_k2_ring: {Path(T.__file__).parent} [{card}]")
     gen = torch.Generator(device="cuda").manual_seed(13)
     records = []
-    for n, lines in [] if args.k2_only else K1_CASES:
+    from k1_packed_variants import lines_for   # this checkout's line counts
+    short = [(n, lines) for n in range(2, 129) if fused.choose_split(n)
+             for lines in lines_for(n) if (n, lines) not in K1_CASES]
+    for n, lines in [] if args.k2_only else K1_CASES + short:
         t = tables_on_card(fused.lines_consts(n, "forward", 1.0, "p"))
         x = torch.randn(lines, n, 2, device="cuda", generator=gen)
         design = getattr(radix, "lines_design", lambda n: "direct")(n)

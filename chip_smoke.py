@@ -7,10 +7,11 @@ kernel against its plain PyTorch version (at the shapes the paths below give
 it, and at lengths that stress the radix chain: the shared-memory limit, every
 odd radix, one-butterfly lengths, a ragged column count, small digits; K2's
 tall tiles run the ring design, K1's powers of two 256 and 1024 .. 16384 its
-power-of-two design and 32 and 512 its warp design, the timing lines
-and the kernel record name the design of each shape, with K1's CTAs an SM,
-grid and waves and cuFFT's time without its norm pass beside the normed
-one), and
+power-of-two design, 512 its warp design, the lengths that are not powers of
+two of its table its mixed-radix design and the short lengths of its table
+(32 among them) its packed design; the timing lines and the kernel record
+name the design of each shape, with K1's CTAs an SM, grid and waves and
+cuFFT's time without its norm pass beside the normed one), and
 holds each kernel's adjoint launch (the backward of autograd) against the
 plain adjoint and the dot test <K x, u> = <x, K^H u>, holds the three probe
 kernels (``webgpufft_tpu_torch.probes``) against theirs, and drives seventeen
@@ -135,9 +136,10 @@ their whole domain (neither is a path; their launches count for none):
   ``fused_cols.choose_split``: 824 and 830), each launched against its plain
   version at ``TOL``: K1 forward (scale 1), inverse (unitary scale) and the
   adjoint launch on 257 lines below N = 2048 (a ragged last CTA whatever the
-  lines per CTA) and 3 lines from there on, and in place wherever the chain
-  has two or more passes (a one-pass chain must be refused by the wrapper
-  and by the C entry point); K2 forward, inverse and adjoint on (2, H, 66),
+  lines per CTA) and 3 lines from there on, and in place wherever K1 runs
+  in place (``radix.lines_in_place``: every length of the packed design and
+  every chain of two or more passes; a one-pass chain of another design
+  must be refused by the wrapper and by the C entry point); K2 forward, inverse and adjoint on (2, H, 66),
   33 columns ragged against the tile, in the design K2's rule gives the view
   (``fused_cols.launch_shape``, which raises where the C rule and its Python
   copy disagree), in place too where that is the fixed design.  Wherever
@@ -321,7 +323,9 @@ def phase_k1(gen):
     # (8 * 129 blocks of 8192, 3 a step); then two more long lengths whose
     # CTA filled an SM in the direct design: 2079 = 3^3 * 7 * 11 (odd) and
     # 6144 = 16 * 16 * 8 * 3; then the facade path's traces of 3000 samples
-    # (the mixed-radix design, as 360, 1352, 2310, 2079 and 6144 are)
+    # (the mixed-radix design, as 360, 1352, 2310, 2079 and 6144 are); then
+    # the facade path's 196,608 lines of 128 (the direct design: 128 is not
+    # in the packed design's table, which holds 16, 6, 64, 4 and 8 above)
     for n, lines, direction, normalize in [
             (1024, 4096, "forward", "unitary"), (1024, 4096, "inverse", "unitary"),
             (2048, 4096, "forward", "none"), (360, 4096, "inverse", "backward"),
@@ -338,7 +342,7 @@ def phase_k1(gen):
             (8192, 512, "inverse", "backward"),
             (32, 1536, "forward", "none"), (OS_BLOCK, 1032, "forward", "none"),
             (2079, 4096, "forward", "none"), (6144, 1024, "inverse", "unitary"),
-            (3000, 4096, "forward", "none")]:
+            (3000, 4096, "forward", "none"), (128, 196608, "forward", "none")]:
         scale = {"none": 1.0, "unitary": 1.0 / math.sqrt(n),
                  "backward": 1.0 / n if direction == "inverse" else 1.0}[normalize]
         tables = to_dev(fused.lines_consts(n, direction, scale, "p"))
@@ -433,9 +437,10 @@ def phase_domain(gen):
     lengths of each), forward with scale 1, inverse with the unitary scale,
     the adjoint launch of the forward tables, all on a line count that
     leaves the last CTA ragged (the power-of-two design takes one line a
-    CTA), and K1 in place (``probes.lines_inplace``) wherever the chain has
-    two or more passes; where it has one, the wrapper and the C entry point must
-    both refuse.  K2 forward, inverse and adjoint on (2, H, 66) in the
+    CTA), and K1 in place (``probes.lines_inplace``) wherever K1 runs in
+    place (``radix.lines_in_place``: the packed design's lengths and every
+    chain of two or more passes); elsewhere (a one-pass chain of another
+    design) the wrapper and the C entry point must both refuse.  K2 forward, inverse and adjoint on (2, H, 66) in the
     design K2's rule gives the view (``fused_cols.launch_shape``, which also
     holds the C rule to its Python copy; the summary counts the heights of
     each design), in place too where that is the fixed design.  Where the
@@ -483,7 +488,7 @@ def phase_domain(gen):
               lambda: fused.fused_lines_reference(x, inv))
         check(f"{label} adjoint", lambda: fused.fused_lines(x, fwd, adjoint=True),
               lambda: fused.fused_lines_reference(x, fwd, adjoint=True))
-        if len(chain) > 1:
+        if radix.lines_in_place(n):
             check(f"{label} in place", lambda: probes.lines_inplace(x.clone(), fwd),
                   lambda: fused.fused_lines_reference(x, fwd))
             continue
@@ -1832,8 +1837,8 @@ def phase_probe_kernels(gen):
     """Each probe kernel against its plain version: ``stream_copy`` bit for
     bit (every mode and stage count, plain and scaled, both arrays),
     ``lines_stages`` at every stop of five shapes, ``lines_planes`` and K1 in
-    place at three, and that K1's entry point refuses a one-pass chain in
-    place.  Returns the worst max abs error of each probe and the cases for
+    place at three, and that K1's entry point refuses a one-pass chain of
+    the direct design in place (and runs one of the packed design).  Returns the worst max abs error of each probe and the cases for
     the timing phase.  These launches count for no path."""
     from webgpufft_tpu_torch import _build
     from webgpufft_tpu_torch.core import fused, radix
@@ -1866,14 +1871,23 @@ def phase_probe_kernels(gen):
         compare(f"P3 K1 in place N={n} lines={lines}",
                 lambda v, t: planes.lines_inplace(v.clone(), t), fused.fused_lines_reference,
                 x, tables)
-    # a one-pass chain has no barrier between its reads and writes: refused
-    x, tables = lines_case(gen, 16, 4096)
+    # a one-pass chain of the direct design has no barrier between its reads
+    # and writes: refused (at N = 2, outside the plans' domain: every
+    # one-pass length K1 takes runs the packed design); the packed design
+    # reads a warp's whole block before it writes it: run in place
+    x = torch.randn(4096, 2, 2, device="cuda", generator=gen)
+    tables = to_dev(radix.chain_consts(2, "forward", 1.0, "p", (2,)))
     rc = _build.library().wgfft_fused_lines(
-        x.data_ptr(), x.data_ptr(), tables["cw"].data_ptr(), tables["cp"].data_ptr(), 4096, 16,
-        *_build.chain_arg(radix.radix_chain(16)), 0, torch.cuda.current_stream().cuda_stream)
-    print(f"P3 K1 in place N=16 (one pass): entry point returned {rc} "
+        x.data_ptr(), x.data_ptr(), tables["cw"].data_ptr(), tables["cp"].data_ptr(), 4096, 2,
+        *_build.chain_arg((2,)), 0, torch.cuda.current_stream().cuda_stream)
+    print(f"P3 K1 in place N=2 (one pass, direct design): entry point returned {rc} "
           f"(cudaErrorInvalidValue = {CUDA_ERROR_INVALID_VALUE})")
     require(rc == CUDA_ERROR_INVALID_VALUE, "K1 ran a one-pass chain in place")
+    for n in (n for n in (4, 8, 16) if radix.lines_design(n) == "packed"):
+        x, tables = lines_case(gen, n, 4097)
+        compare(f"P3 K1 in place N={n} (one pass, packed design)",
+                lambda v, t: planes.lines_inplace(v.clone(), t), fused.fused_lines_reference,
+                x, tables)
     return worst, copies, lines_cases
 
 
@@ -3878,8 +3892,10 @@ def main():
          "shapes": [{"shape": list(k[1:]), **v} for k, v in times.items() if k[0] == key[0]]}
         for name, src, files, designs, replaces, err, shape, key in [
             ("fused_lines", "fused_lines.cu",
-             ("fused_lines.cu", "lines_pow2.cu", "lines_warp.cu", "lines_mixed.cu"),
-             ["direct", "pow2", "warp", "mixed"],
+             ("fused_lines.cu", "lines_pow2.cu", "lines_warp.cu", "lines_mixed.cu",
+              "lines_packed.cu", "lines_packed_2.cu", "lines_packed_3.cu",
+              "lines_packed_4.cu"),
+             ["direct", "pow2", "warp", "mixed", "packed"],
              "webgpufft_tpu/core/fused.py:223", k1_err, "N=1024 x 4096 lines",
              ("K1", 1024, 4096)),
             ("fused_cols", "fused_cols.cu", ("fused_cols.cu", "cols_fixed.cu"),

@@ -152,17 +152,18 @@ def test_pow2_design_at_each_length_of_the_rule(n, direction, lines, cuda_device
 @pytest.mark.parametrize("n", [32, 256, 512, 1024])
 def test_short_design_at_each_length_of_the_rule(n, direction, lines, cuda_device):
     """K1's rule sends the short powers of two the paths launch to a
-    compile-time design (the warp design at 32 and 512, the power-of-two
-    design's one line a CTA at 256 and 1024): forward, adjoint and in place
-    against the plain version at line counts that leave a warp's last group
-    ragged (a warp of the warp design holds 8 lines at 32) and that run one
-    round or several, each launch counted; the launch fills the card (CTAs
-    an SM >= 1, a grid of more than 24 CTAs at 32 x 1536, the warp design
-    never more than one wave); and the entry point refuses any chain but
-    the rule's (no fallback to the direct design)."""
+    compile-time design (the warp design at 512, the power-of-two design's
+    one line a CTA at 256 and 1024, the packed design at 32, which the warp
+    design ran until the packed design beat it): forward, adjoint and in
+    place against the plain version at line counts that leave a warp's last
+    group ragged and that run one round or several, each launch counted;
+    the launch fills the card (CTAs an SM >= 1, a grid of more than 24 CTAs
+    at 32 x 1536, the warp and packed designs never more than one wave);
+    and the entry point refuses any chain but the rule's (no fallback to
+    the direct design)."""
     from webgpufft_tpu_torch import _build
     from webgpufft_tpu_torch.core import radix
-    design = "warp" if n in (32, 512) else "pow2"
+    design = {32: "packed", 512: "warp"}.get(n, "pow2")
     assert radix.lines_design(n) == design
     gen = torch.Generator(device=cuda_device).manual_seed(n + lines)
     t = _dev_tables(fused.lines_consts(n, direction, 1.0 / math.sqrt(n), "p"), cuda_device)
@@ -182,7 +183,7 @@ def test_short_design_at_each_length_of_the_rule(n, direction, lines, cuda_devic
     print(f"K1 {design} n={n} lines={lines}: {launch}, {launch.waves:.3f} waves")
     assert launch.design == design and launch.resident >= 1
     assert launch.sms == torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    if design == "warp":
+    if design in ("warp", "packed"):
         assert 1 <= launch.grid <= min(launch.work, launch.resident * launch.sms)
     else:
         assert launch.grid == launch.work == lines
@@ -273,6 +274,107 @@ def test_every_pow2_variant_matches_plain(cuda_device):
                          label=f"{name} adjoint={adj}")
         assert_close(variants.lines_variant(x.clone(), vt, name, inplace=True).cpu(),
                      fused.fused_lines_reference(x, t).cpu(), label=f"{name} in place")
+
+
+@pytest.mark.parametrize("lines", [1, 7, 257, 100003])
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+@pytest.mark.parametrize("n", sorted(radix.PACKED_LINES))
+def test_packed_design_at_each_length_of_the_rule(n, direction, lines, cuda_device):
+    """K1's rule sends the lengths of ``radix.PACKED_LINES`` to the packed
+    design: forward, adjoint and in place (at every chain, one pass
+    included) against the plain version at line counts that leave a warp's
+    last block ragged (1, 7, 257) and that run the grid's rounds
+    (100,003), each launch counted; the launch report names the design, a
+    grid of at most one wave and no more CTAs than its work; and the entry
+    point refuses any chain but the rule's (no fallback)."""
+    from webgpufft_tpu_torch import _build
+    assert radix.lines_design(n) == "packed" and radix.lines_in_place(n)
+    gen = torch.Generator(device=cuda_device).manual_seed(n + lines)
+    t = _dev_tables(fused.lines_consts(n, direction, 1.0 / math.sqrt(n), "p"), cuda_device)
+    x = torch.randn(lines, n, 2, device=cuda_device, generator=gen)
+    before = fused.fused_lines.launches
+    y = fused.fused_lines(x, t)
+    ya = fused.fused_lines(x, t, adjoint=True)
+    z = probes.lines_inplace(x.clone(), t)
+    torch.cuda.synchronize()
+    assert fused.fused_lines.launches == before + 3
+    want = fused.fused_lines_reference(x, t).cpu()
+    assert_close(y.cpu(), want, label=f"K1 packed n={n} lines={lines}")
+    assert_close(ya.cpu(), fused.fused_lines_reference(x, t, adjoint=True).cpu(),
+                 label=f"K1 packed n={n} lines={lines} adjoint")
+    assert torch.equal(z, y)
+    launch = fused.launch_report(n, lines)
+    assert launch.design == "packed" and launch.resident >= 1
+    assert 1 <= launch.grid <= min(launch.work, launch.resident * launch.sms)
+    chain = radix.lines_chain(n)
+    for other in {chain[::-1], (n,), (2, n // 2)} - {chain}:
+        rc = _build.library().wgfft_fused_lines(
+            x.data_ptr(), y.data_ptr(), t["cw"].data_ptr(), t["cp"].data_ptr(), lines, n,
+            *_build.chain_arg(other), 0, torch.cuda.current_stream().cuda_stream)
+        assert rc == 1, other   # cudaErrorInvalidValue
+
+
+@pytest.mark.parametrize("n,lines", [(16, 100003), (77, 7), (64, 257), (6, 77), (126, 33),
+                                     (9, 1)])
+def test_packed_design_on_an_8_byte_aligned_view(n, lines, cuda_device):
+    """The packed design on an input that starts 8 bytes past a 16-byte
+    boundary (an offset view into a larger buffer): its 8-byte copies, the
+    same kernel, forward, adjoint and in place (input and output both
+    offset), against the plain version on the same values; at odd N with an
+    odd line count the aligned path's last point is copied alone."""
+    assert radix.lines_design(n) == "packed"
+    gen = torch.Generator(device=cuda_device).manual_seed(n * lines)
+    t = _dev_tables(fused.lines_consts(n, "inverse", 1.0 / n, "p"), cuda_device)
+    base = torch.randn(lines * n + 1, 2, device=cuda_device, generator=gen)
+    x = base[1:].view(lines, n, 2)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 8
+    want = fused.fused_lines_reference(x, t).cpu()
+    assert_close(fused.fused_lines(x, t).cpu(), want, label=f"K1 packed n={n} offset view")
+    assert_close(fused.fused_lines(x, t, adjoint=True).cpu(),
+                 fused.fused_lines_reference(x, t, adjoint=True).cpu(),
+                 label=f"K1 packed n={n} offset view adjoint")
+    work = base.clone()
+    assert_close(probes.lines_inplace(work[1:].view(lines, n, 2), t).cpu(), want,
+                 label=f"K1 packed n={n} offset view in place")
+    assert torch.equal(work[0], base[0])   # the point before the view untouched
+    aligned = x.contiguous().clone()
+    assert aligned.data_ptr() % 16 == 0
+    assert_close(fused.fused_lines(aligned, t).cpu(), want, label=f"K1 packed n={n} aligned")
+
+
+def test_k1_rule_is_one_table_in_c_and_python(cuda_device):
+    """The design K1's C entry point gives every length it takes
+    (``fused.launch_report``, read from ``wgfft_fused_lines_resident``)
+    is ``radix.lines_design``'s: the four tables of lines.cuh (kPow2Lines,
+    kWarpLines, kMixedLines, kPackedLines) equal core/radix.py's."""
+    lengths = [n for n in range(2, radix.MAX_LENGTH + 1) if fused.choose_split(n)]
+    wrong = [(n, fused.launch_report(n, 1000).design, radix.lines_design(n)) for n in lengths
+             if fused.launch_report(n, 1000).design != radix.lines_design(n)]
+    assert not wrong
+    assert {n for n in lengths if radix.lines_design(n) == "packed"} == set(radix.PACKED_LINES)
+
+
+def test_every_packed_variant_matches_plain(cuda_device):
+    """Each variant of the packed design (``probes.lines_variant``) against
+    K1's plain version, forward, adjoint and in place, at a line count that
+    leaves a warp's last block ragged, and on an input 8 bytes past a
+    16-byte boundary (the same kernel's 8-byte copies)."""
+    from webgpufft_tpu_torch.probes import variants
+    gen = torch.Generator(device=cuda_device).manual_seed(19)
+    for name, v in variants.PACKED_VARIANTS.items():
+        n = v.n
+        t = _dev_tables(fused.lines_consts(n, "inverse", 1.0 / n, "p"), cuda_device)
+        vt = variants.lines_variant_tables(name, "inverse", 1.0 / n, cuda_device)
+        lines = 32 // v.lanes * 3 + 5
+        base = torch.randn(lines * n + 1, 2, device=cuda_device, generator=gen)
+        assert variants.lines_variant_resident(name) >= 1
+        for x in (base[:-1].view(lines, n, 2), base[1:].view(lines, n, 2)):
+            for adj in (False, True):
+                assert_close(variants.lines_variant(x, vt, name, adj).cpu(),
+                             fused.fused_lines_reference(x, t, adj).cpu(),
+                             label=f"{name} adjoint={adj} at {x.data_ptr() % 16}")
+            assert_close(variants.lines_variant(x.clone(), vt, name, inplace=True).cpu(),
+                         fused.fused_lines_reference(x, t).cpu(), label=f"{name} in place")
 
 
 @pytest.mark.parametrize("view", ["odd columns", "narrow", "one pre"])
@@ -1042,7 +1144,7 @@ def test_lines_planes_and_in_place_match_k1(n, lines, direction, cuda_device):
     assert_close(yp.cpu(), probes.lines_planes_reference(xp, t).cpu(), label=f"P3 n={n}")
     assert_close(torch.stack(yp.unbind(1), dim=-1).cpu(), k1.cpu(), label=f"P3 n={n} vs K1")
     chain = radix.radix_chain(n)
-    if len(chain) > 1:
+    if radix.lines_in_place(n):   # two passes or more, or the packed design
         work = x.clone()
         before = fused.fused_lines.launches
         assert probes.lines_inplace(work, t) is work

@@ -36,7 +36,7 @@ def _tables(n, direction, scale, device="cpu"):
 @pytest.mark.parametrize("normalize", ["none", "backward", "unitary"])
 @pytest.mark.parametrize("direction", ["forward", "inverse"])
 @pytest.mark.parametrize("n", [1024, 2048, 360, 1000, 2310, 8192, 16384, 512, 256, 2079, 3000,
-                               6144, 8232])
+                               6144, 8232, 16, 64, 128, 6, 77])
 def test_lines_match_jax(n, direction, normalize, rng, assert_close):
     scale = normalize_scale(normalize, direction, n)
     x = _input(rng, n)

@@ -193,6 +193,37 @@ def test_every_mixed_variant_is_its_chain(name, assert_close):
         assert chain == radix.MIXED_LINES[n]
 
 
+@pytest.mark.parametrize("name", sorted(probes.variants.PACKED_VARIANTS))
+def test_every_packed_variant_is_its_chain(name, assert_close):
+    """Each variant of K1's packed design on the CPU: the design's
+    block-staged model (``radix.packed_lines_reference``) in the variant's
+    layout on its own table, equal to K1's plain version forward, adjoint
+    and in place, on a line count that leaves the last block ragged; a
+    length other than the variant's is refused.  Its shape is one the
+    kernel template takes: radix_chain's chain (the rule's ``cw``), a power
+    of two of lanes a line up to 8, several only where the chain has two
+    passes or more, one or two stages."""
+    from webgpufft_tpu_torch.probes import variants
+    v = variants.PACKED_VARIANTS[name]
+    n, chain = v.n, v.chain
+    assert chain == radix.radix_chain(n) and n <= 128 and fused.choose_split(n)
+    assert v.lanes in (1, 2, 4, 8) and (v.lanes == 1 or len(chain) > 1)
+    assert v.stages in (1, 2)
+    x = lines(n, count=32 // v.lanes + 3)
+    vt = variants.lines_variant_tables(name, "forward", 0.5)
+    t = tables(n, "forward", 0.5)
+    assert torch.equal(vt["cw"], t["cw"])
+    for adjoint in (False, True):
+        assert_close(variants.lines_variant(x, vt, name, adjoint).numpy(),
+                     fused.fused_lines_reference(x, t, adjoint).numpy(),
+                     label=f"{name} adjoint={adjoint}")
+    work = x.clone()
+    assert variants.lines_variant(work, vt, name, inplace=True) is work
+    assert torch.equal(work, variants.lines_variant(x, vt, name))
+    with pytest.raises(ValueError, match="runs N"):
+        variants.lines_variant(lines(256), vt, name)
+
+
 @pytest.mark.parametrize("n", [n for n in LENGTHS if len(radix.radix_chain(n)) > 1])
 def test_in_place_writes_the_input(n):
     x, t = lines(n), tables(n)
@@ -202,10 +233,26 @@ def test_in_place_writes_the_input(n):
 
 
 @pytest.mark.parametrize("n", [4, 8, 16])   # the one-butterfly lengths K1 has a split for
-def test_one_pass_chain_in_place_is_refused(n):
+def test_one_pass_chain_in_place_is_refused(n, monkeypatch):
+    """A one-pass chain of the direct design has no barrier between its
+    reads and its writes, so K1 refuses it in place; the packed design
+    reads a warp's whole block before it writes it, so at a length of its
+    table the same chain runs in place (next test).  Here the length is
+    taken out of the packed design's table: the direct design's refusal."""
     assert len(radix.radix_chain(n)) == 1
+    monkeypatch.delitem(radix.PACKED_LINES, n, raising=False)
+    assert radix.lines_design(n) == "direct" and not radix.lines_in_place(n)
     with pytest.raises(ValueError, match="one-pass"):
         probes.lines_inplace(lines(n), tables(n))
+
+
+@pytest.mark.parametrize("n", [n for n in (4, 8, 16) if n in radix.PACKED_LINES])
+def test_one_pass_chain_in_place_runs_in_the_packed_design(n):
+    assert radix.lines_design(n) == "packed" and radix.lines_in_place(n)
+    x, t = lines(n), tables(n)
+    work = x.clone()
+    assert probes.lines_inplace(work, t) is work
+    assert torch.equal(work, fused.fused_lines_reference(x, t))
 
 
 @pytest.mark.parametrize("scale", [None, 1.000001, -2.5])
@@ -315,10 +362,11 @@ def test_probe_library_is_a_second_library():
     assert {s.name for s in _build.sources("probes")} == {
         "stream_copy.cu", "lines_stages.cu", "lines_planes.cu", "tile_copy.cu",
         "cols_variants.cu", "cols_fixed_variants.cu", "lines_variants.cu",
-        "lines_mixed_variants.cu", "lines_mixed_variants_long.cu"}
-    assert {s.name for s in _build.sources("core")} == {"fused_lines.cu", "fused_cols.cu",
-                                                        "cols_fixed.cu", "lines_pow2.cu",
-                                                        "lines_warp.cu", "lines_mixed.cu"}
+        "lines_mixed_variants.cu", "lines_mixed_variants_long.cu", "lines_packed_variants.cu"}
+    assert {s.name for s in _build.sources("core")} == {
+        "fused_lines.cu", "fused_cols.cu", "cols_fixed.cu", "lines_pow2.cu", "lines_warp.cu",
+        "lines_mixed.cu", "lines_packed.cu", "lines_packed_2.cu", "lines_packed_3.cu",
+        "lines_packed_4.cu"}
     core, probe = _build.library_path("core"), _build.library_path("probes")
     assert core != probe and core.parent == probe.parent == _build.BUILD_DIR
     assert probe.name.startswith("libwgfft_probes_")

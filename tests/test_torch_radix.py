@@ -13,6 +13,8 @@ Tolerance: 1e-5 * max|expected| (tests/conftest._assert_close).
 """
 
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -57,33 +59,87 @@ def test_lines_chain_model_matches_plain_and_numpy(n, direction, normalize, rng,
                  label=f"K1 model vs numpy n={n} {direction} {normalize}")
 
 
+def _packed_layouts(n):
+    """(lanes a line, 16-byte copies) of every layout the packed design can
+    give length n: one lane a line, and where the chain has two passes or
+    more 2, 4 and 8 lanes a line (csrc/lines_packed.cuh)."""
+    lanes = (1,) if len(radix.radix_chain(n)) == 1 else (1, 2, 4, 8)
+    return [(lane, wide) for lane in lanes for wide in (True, False)]
+
+
 @pytest.mark.parametrize("adjoint", [False, True])
 @pytest.mark.parametrize("normalize", ["none", "backward", "unitary"])
 @pytest.mark.parametrize("direction", ["forward", "inverse"])
 @pytest.mark.parametrize("n", [32, 256, 512, 1024, 2048, 4096, 8192, 16384]
-                         + sorted(radix.MIXED_LINES))
+                         + sorted(radix.MIXED_LINES) + sorted(radix.PACKED_LINES))
 def test_lines_model_of_each_design_matches_plain_and_numpy(n, direction, normalize, adjoint,
                                                             rng, assert_close):
     """K1's pass schedule in the chain its rule gives the length (the
     power-of-two design's own at 256, 8192 and 16384, the direct design's
     chain at 32, 512, 1024, 2048 and 4096, the mixed-radix design's
     composite radices at every length of ``MIXED_LINES``), forward, inverse
-    and adjoint, against the plain version and numpy in float64."""
+    and adjoint, against the plain version and numpy in float64.  At the
+    lengths of ``PACKED_LINES`` the model is the packed design's block-staged
+    one (``radix.packed_lines_reference``: line u, point p of a warp's block
+    landed at u * P + p, the last block ragged, the padding and the dead
+    lines NaN) in every layout the design can take (``_packed_layouts``),
+    on 37 lines, which leaves the last block of every layout ragged."""
     scale = normalize_scale(normalize, direction, n)
-    x = rng.standard_normal((2, n, 2)).astype(np.float32)
+    packed = n in radix.PACKED_LINES
+    lines = 37 if packed else 2
+    x = rng.standard_normal((lines, n, 2)).astype(np.float32)
     tables = _tables(fused.lines_consts(n, direction, scale, "p"))
-    got = fused.fused_lines_chain_reference(torch.from_numpy(x), tables, adjoint)
-    assert got.shape == (2, n, 2) and got.dtype == torch.float32
-    assert_close(got.numpy(), fused.fused_lines_reference(torch.from_numpy(x), tables,
-                                                          adjoint).numpy(),
-                 label=f"K1 model vs plain n={n} adjoint={adjoint}")
     z = x[..., 0].astype(np.float64) + 1j * x[..., 1]
     if adjoint:   # the conjugate transpose: conj(F conj z)
         want = np.conj(_numpy_fft(np.conj(z), direction, scale, 1))
     else:
         want = _numpy_fft(z, direction, scale, 1)
-    assert_close(got.numpy(), np.stack([want.real, want.imag], -1),
-                 label=f"K1 model vs numpy n={n} {direction} {normalize} adjoint={adjoint}")
+    plain = fused.fused_lines_reference(torch.from_numpy(x), tables, adjoint).numpy()
+    if packed:
+        chain = radix.lines_chain(n)
+        models = {layout: radix.packed_lines_reference(torch.from_numpy(x), chain, tables,
+                                                       adjoint, *layout)
+                  for layout in _packed_layouts(n)}
+    else:
+        models = {"chain": fused.fused_lines_chain_reference(torch.from_numpy(x), tables,
+                                                              adjoint)}
+    for layout, got in models.items():
+        assert got.shape == (lines, n, 2) and got.dtype == torch.float32
+        assert torch.isfinite(got).all(), layout   # no padding or dead line reached y
+        assert_close(got.numpy(), plain,
+                     label=f"K1 model {layout} vs plain n={n} adjoint={adjoint}")
+        assert_close(got.numpy(), np.stack([want.real, want.imag], -1),
+                     label=f"K1 model {layout} vs numpy n={n} {direction} {normalize} "
+                           f"adjoint={adjoint}")
+
+
+@pytest.mark.parametrize("n", sorted(radix.PACKED_LINES))
+def test_packed_layout_keeps_copies_whole_and_lines_apart(n):
+    """The packed design's stage layout (``radix.packed_pitch``, the
+    ``Shape::P`` of csrc/lines_packed.cuh) in every layout the design can
+    give n: odd n at pitch n (no radix is even, the block contiguous, so a
+    16-byte copy may straddle two lines); even n at a pitch that holds the
+    line's exchanges, 2 mod 4 with one lane a line and lanes mod 2 lanes
+    otherwise, so that no 16-byte copy (points 2c, 2c + 1) splits a line
+    and every one lands 16-byte aligned; the points of a block land on
+    distinct places inside their own line's stretch."""
+    chain = radix.lines_chain(n)
+    for lanes, _ in _packed_layouts(n):
+        pitch = radix.packed_pitch(n, chain, lanes)
+        block = 32 // lanes
+        assert pitch >= n
+        if n % 2:
+            assert pitch == n
+        else:
+            modulus, want = (4, 2) if lanes == 1 else (2 * lanes, lanes)
+            assert pitch % modulus == want and pitch < n + n // 2 + modulus
+        q = np.arange(block * n)
+        at = (q // n) * pitch + q % n
+        assert len(set(at.tolist())) == block * n
+        assert np.all(at // pitch == q // n)             # inside its own line's stretch
+        if n % 2 == 0:
+            pair = q[::2]
+            assert np.all(at[pair + 1] == at[pair] + 1) and np.all(at[pair] % 2 == 0)
 
 
 @pytest.mark.parametrize("n", [n for n in ELIGIBLE if fused.choose_split(n)])
@@ -96,15 +152,19 @@ def test_k1_rule_for_every_eligible_length(n):
     warp design on ``radix_chain``'s own chain; the lengths of
     ``MIXED_LINES``, none a power of two, run the mixed-radix design on two
     to four passes of radices up to 32, each a radix the kernels or the
-    composite butterflies have, in no more passes than ``radix_chain``; every
-    other length runs the direct design on ``radix_chain``.  No length is in
+    composite butterflies have, in no more passes than ``radix_chain``; the
+    lengths of ``PACKED_LINES``, all of 128 points or less, run the packed
+    design on ``radix_chain`` (its ``cw`` unchanged) and may run in place at
+    every chain; every other length runs the direct design on
+    ``radix_chain``, in place only at two passes or more.  No length is in
     two tables.  K2 keeps ``radix_chain``."""
     chain = radix.lines_chain(n)
     assert set(radix.POW2_LINES) == {256, 1024, 2048, 4096, 8192, 16384}
-    assert set(radix.WARP_LINES) == {32, 512}
-    tables = (radix.POW2_LINES, radix.WARP_LINES, radix.MIXED_LINES)
+    assert set(radix.WARP_LINES) == {512}
+    tables = (radix.POW2_LINES, radix.WARP_LINES, radix.MIXED_LINES, radix.PACKED_LINES)
     assert sum(n in t for t in tables) <= 1
     assert math.prod(chain) == n
+    assert radix.lines_in_place(n) == (n in radix.PACKED_LINES or len(chain) > 1)
     if n in radix.POW2_LINES:
         assert radix.lines_design(n) == "pow2" and chain == radix.POW2_LINES[n]
         assert len(chain) == 3 and math.prod(chain) == n
@@ -123,20 +183,62 @@ def test_k1_rule_for_every_eligible_length(n):
         assert n & (n - 1) and 2 <= len(chain) <= 4 and max(chain) <= 32
         assert all(r in radix.KERNEL_RADICES + radix.MIXED_RADICES + (32,) for r in chain)
         assert len(chain) <= len(radix.radix_chain(n))
+    elif n in radix.PACKED_LINES:
+        assert radix.lines_design(n) == "packed" and chain == radix.PACKED_LINES[n]
+        assert n <= 128 and chain == radix.radix_chain(n) and radix.lines_in_place(n)
     else:
         assert radix.lines_design(n) == "direct" and chain == radix.radix_chain(n)
 
 
+def _c_rule(name):
+    """{n: chain} of the table ``name`` of csrc/lines.cuh; for
+    ``kPackedLines`` {n: (lanes, stages, chain)} of ``WGFFT_PACKED_LINES``,
+    the list it is made from."""
+    text = (Path(fused.__file__).parent.parent / "csrc" / "lines.cuh").read_text()
+    if name == "kPackedLines":
+        body = re.search(r"#define WGFFT_PACKED_LINES\(X\)((?:.*\\\n)*.*)", text).group(1)
+        return {int(n): (int(lanes), int(stages), tuple(int(r) for r in chain.split(",")))
+                for n, lanes, stages, chain in re.findall(r"X\((\d+), (\d+), (\d+), ([\d, ]+)\)",
+                                                          body)}
+    body = re.search(r"constexpr LinesRule " + name + r"\[\] = \{(.*?)\};", text, re.S).group(1)
+    return {int(n): tuple(int(r) for r in radices.split(","))
+            for n, count, radices in re.findall(r"\{(\d+), (\d+), \{([\d, ]+)\}\}", body)}
+
+
+@pytest.mark.parametrize("name,table", [("kPow2Lines", radix.POW2_LINES),
+                                        ("kWarpLines", radix.WARP_LINES),
+                                        ("kMixedLines", radix.MIXED_LINES),
+                                        ("kPackedLines", radix.PACKED_LINES)])
+def test_k1_tables_match_the_c_sources(name, table):
+    """Each table of K1's rule in csrc/lines.cuh equals its copy in
+    core/radix.py, length by length and chain by chain.  The packed
+    design's table is one list, ``WGFFT_PACKED_LINES``, from which both
+    ``kPackedLines`` and the design's launch switch are made; each entry's
+    shape is one the kernel template takes (a power of two of lanes a line
+    up to 8, several only where the chain has two passes or more; one or
+    two stages).  (On the card the entry point's report holds the rule
+    itself to ``radix.lines_design``.)"""
+    rule = _c_rule(name)
+    if name == "kPackedLines":
+        assert len(rule) == len(table)
+        for n, (lanes, stages, chain) in rule.items():
+            assert lanes in (1, 2, 4, 8) and (lanes == 1 or len(chain) > 1), n
+            assert stages in (1, 2), n
+        rule = {n: chain for n, (_, _, chain) in rule.items()}
+    assert rule == dict(table)
+
+
 @pytest.mark.parametrize("direction", ["forward", "inverse"])
 @pytest.mark.parametrize("n", sorted(radix.POW2_LINES) + sorted(radix.WARP_LINES)
-                         + sorted(radix.MIXED_LINES))
+                         + sorted(radix.MIXED_LINES) + sorted(radix.PACKED_LINES))
 def test_moved_lengths_table_is_float64_roots_in_pass_order(n, direction):
-    """The ``cw`` table K1 reads at a length of the power-of-two, the warp
-    or the mixed-radix design: laid out for ``lines_chain(n)`` (entry
-    ns - 1 + (r - 1) * ns + k is W^(r * k * n / (ns * R))), each root within
-    1 ulp of f32 of float64; the direct design's table where the chains
-    agree (32, 512, 1024, 2048, 4096), another table where they do not (256,
-    8192, 16384 and every length of the mixed-radix design)."""
+    """The ``cw`` table K1 reads at a length of the power-of-two, the warp,
+    the mixed-radix or the packed design: laid out for ``lines_chain(n)``
+    (entry ns - 1 + (r - 1) * ns + k is W^(r * k * n / (ns * R))), each root
+    within 1 ulp of f32 of float64; the direct design's table where the
+    chains agree (32, 512, 1024, 2048, 4096 and every length of the packed
+    design), another table where they do not (256, 8192, 16384 and every
+    length of the mixed-radix design)."""
     chain = radix.lines_chain(n)
     tw = fused.lines_consts(n, direction, 1.0, "p")["p/cw"]
     assert tw.shape == (n, 2) and tw.dtype == np.float32

@@ -53,8 +53,8 @@ _SIGNATURES = {
         # x, y, cw, cp, lines, n, radices, count, adjoint, stream
         "wgfft_fused_lines": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                               _INTS, ctypes.c_int, ctypes.c_int, _P),
-        # lines, n, radices, count, report (4 long longs: CTAs an SM, SMs,
-        # grid, work) -> what wgfft_fused_lines would launch
+        # lines, n, radices, count, report (5 long longs: CTAs an SM, SMs,
+        # grid, work, design) -> what wgfft_fused_lines would launch
         "wgfft_fused_lines_resident": (ctypes.c_longlong, ctypes.c_int, _INTS, ctypes.c_int,
                                        ctypes.POINTER(ctypes.c_longlong)),
         # x, y, cw, cp, pre, h, cols, radices, count, adjoint, stream
@@ -85,6 +85,9 @@ _SIGNATURES = {
         # the same for the mixed-radix design's variants
         "wgfft_mixed_variant": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_int, _INTS, _P),
+        # and for the packed design's
+        "wgfft_packed_variant": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_int, _INTS, _P),
         # x, y, cw, cp, pre, h, cols, radices, count, adjoint, design, tile,
         # slots (int* or null), stream
         "wgfft_cols_variant": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,

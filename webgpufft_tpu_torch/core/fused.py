@@ -21,11 +21,12 @@ the same result by a chain of in-register radix butterflies
 (``core/radix.py``) and reads only the ``cw`` and ``cp`` tables; its entry
 point launches the design that K1's rule gives the length
 (``radix.lines_design``: the power-of-two design at 256 and 1024 to
-16384, the warp design at 32 and 512, the mixed-radix design at the
-lengths of ``radix.MIXED_LINES``, the direct design elsewhere) on the
-chain ``radix.lines_chain``, for which ``cw`` is laid out;
-``launch_report`` says what a launch would be (CTAs an SM, SMs, grid,
-waves).  ``fused_lines_chain_reference`` is its pass schedule on the CPU, a
+16384, the warp design at 512, the mixed-radix design at the
+lengths of ``radix.MIXED_LINES``, the packed design at the short lengths of
+``radix.PACKED_LINES``, the direct design elsewhere) on the chain
+``radix.lines_chain``, for which ``cw`` is laid out; ``launch_report`` says
+what a launch would be (the design the C rule gave the length, CTAs an SM,
+SMs, grid, waves).  ``fused_lines_chain_reference`` is its pass schedule on the CPU, a
 test aid.
 
 Autodiff.  The pass is the real-linear map y = s * F x, so its VJP is
@@ -190,7 +191,7 @@ def _launch(x: torch.Tensor, tables: Dict[str, torch.Tensor], adjoint: bool) -> 
 
 class LinesLaunch(NamedTuple):
     """What K1's entry point would launch for a shape (``launch_report``)."""
-    design: str      # radix.lines_design(n)
+    design: str      # the design the C rule gave n (DESIGNS), radix.lines_design(n)
     resident: int    # CTAs an SM holds of the kernel (the occupancy calculator)
     sms: int         # SMs of the device
     grid: int        # CTAs of the grid
@@ -202,9 +203,12 @@ class LinesLaunch(NamedTuple):
         return self.work / (self.resident * self.sms)
 
 
-# the name each design's kernel carries in a profiler trace
+# the name each design's kernel carries in a profiler trace, in the
+# numbering of the C entry point's report (LinesDesign, csrc/lines.cuh)
 KERNEL_NAMES = {"direct": "fused_lines_kernel", "pow2": "pow2_lines_kernel",
-                "warp": "warp_lines_kernel", "mixed": "mixed_lines_kernel"}
+                "warp": "warp_lines_kernel", "mixed": "mixed_lines_kernel",
+                "packed": "packed_lines_kernel"}
+DESIGNS = tuple(KERNEL_NAMES)
 
 
 def kernel_name(n: int) -> str:
@@ -215,13 +219,14 @@ def kernel_name(n: int) -> str:
 
 def launch_report(n: int, lines: int) -> LinesLaunch:
     """What a launch of K1 over ``lines`` lines of ``n`` points would be on
-    the current CUDA device, in the design K1's rule gives ``n``; needs the
-    card."""
-    out = (ctypes.c_longlong * 4)()
+    the current CUDA device, in the design K1's rule gives ``n`` (the C
+    rule's answer, which the card tests hold to ``radix.lines_design``);
+    needs the card."""
+    out = (ctypes.c_longlong * 5)()
     rc = _build.library().wgfft_fused_lines_resident(
         lines, n, *_build.chain_arg(radix.lines_chain(n)), out)
     _build.check(rc, "fused_lines")
-    return LinesLaunch(radix.lines_design(n), *out)
+    return LinesLaunch(DESIGNS[out[4]], *out[:4])
 
 
 def _run(x: torch.Tensor, tables: Dict[str, torch.Tensor], adjoint: bool) -> torch.Tensor:

@@ -25,20 +25,25 @@ schedule on the CPU with the same index maps, tables and butterfly algebra
 as the CUDA code (``radix_chain_reference``): a test aid that no plan path
 calls.
 
-K1 has four designs (``csrc/fused_lines.cu``).  The lengths of
+K1 has five designs (``csrc/fused_lines.cu``).  The lengths of
 ``POW2_LINES`` (256, 1024, 2048, 4096, 8192, 16384) run the power-of-two
 design (``csrc/lines_pow2.cu``, a kernel per length, one line a CTA) on
 three passes, the first of radix 32 at 8192 and 16384, 8 * 8 * 4 at 256;
-the lengths of ``WARP_LINES`` (32, 512) run the warp design
+the length of ``WARP_LINES`` (512) runs the warp design
 (``csrc/lines_warp.cu``, a kernel per length, a line in the lanes of one
 warp); the lengths of ``MIXED_LINES`` run the mixed-radix design
 (``csrc/lines_mixed.cu``, a kernel per length, two to four passes of
 radices up to 32, the composite ones, 6 to 30, each one butterfly in
-registers: ``MIXED_RADICES``); every other length runs the direct design on
+registers: ``MIXED_RADICES``); the lengths of ``PACKED_LINES`` (128 points
+or less) run the packed design (``csrc/lines_packed.cu``, a kernel per
+length, a warp's lines landed in shared memory as one contiguous block and
+run there, on ``radix_chain(n)``: ``packed_lines_reference`` models its
+block-staged layout); every other length runs the direct design on
 ``radix_chain(n)``.  The C entry point holds the same tables
-(``kPow2Lines``, ``kWarpLines``, ``kMixedLines``, ``csrc/lines.cuh``) and
-refuses any other chain at those lengths, so K1's ``cw`` table is laid out
-for ``lines_chain(n)``.  K2 runs ``radix_chain`` at every height.
+(``kPow2Lines``, ``kWarpLines``, ``kMixedLines``, ``kPackedLines``,
+``csrc/lines.cuh``) and refuses any other chain at those lengths, so K1's
+``cw`` table is laid out for ``lines_chain(n)``.  K2 runs ``radix_chain`` at
+every height.
 """
 
 from __future__ import annotations
@@ -65,8 +70,9 @@ KERNEL_RADICES = factors.SUPPORTED_RADICES + (16,)
 POW2_LINES = {256: (8, 8, 4), 1024: (16, 8, 8), 2048: (16, 16, 8), 4096: (16, 16, 16),
               8192: (32, 16, 16), 16384: (32, 32, 16)}
 # and N -> the chain of the warp design (csrc/lines_warp.cu), where it ran
-# fastest: 32 and 512, both on radix_chain's own chain
-WARP_LINES = {32: (8, 4), 512: (8, 8, 8)}
+# fastest: 512, on radix_chain's own chain (32, its other length until the
+# packed design, runs that design now)
+WARP_LINES = {512: (8, 8, 8)}
 # and N -> the chain of the mixed-radix design (csrc/lines_mixed.cu): the
 # lengths that are not powers of two where its sweep on the H100 ran faster
 # than the direct design (PERF.md), each in two to four passes where
@@ -75,6 +81,22 @@ MIXED_LINES = {360: (20, 18), 1000: (10, 10, 10), 1352: (13, 13, 8), 1536: (8, 8
                2079: (27, 7, 11), 2310: (22, 15, 7), 3000: (10, 10, 30), 3072: (32, 4, 24),
                5120: (16, 16, 20), 6000: (24, 25, 10), 6144: (32, 24, 8), 8232: (8, 21, 7, 7),
                9216: (32, 24, 12), 12288: (32, 32, 12), 15360: (32, 32, 15)}
+# and N -> the chain of the packed design (csrc/lines_packed.cu): the short
+# lengths where its sweep on the H100 ran faster than the direct design at
+# both line counts (PERF.md), each on radix_chain's own chain (the same cw
+# table)
+PACKED_LINES = {4: (4,), 6: (3, 2), 8: (8,), 9: (3, 3), 10: (5, 2), 12: (4, 3), 14: (7, 2),
+                15: (5, 3), 16: (16,), 18: (3, 3, 2), 20: (5, 4), 21: (7, 3), 22: (11, 2),
+                24: (8, 3), 25: (5, 5), 26: (13, 2), 27: (3, 3, 3), 28: (7, 4), 30: (5, 3, 2),
+                32: (8, 4), 33: (11, 3), 35: (7, 5), 36: (4, 3, 3), 39: (13, 3), 40: (8, 5),
+                42: (7, 3, 2), 44: (11, 4), 45: (5, 3, 3), 48: (16, 3), 49: (7, 7),
+                50: (5, 5, 2), 52: (13, 4), 54: (3, 3, 3, 2), 55: (11, 5), 56: (8, 7),
+                60: (5, 4, 3), 63: (7, 3, 3), 64: (8, 8), 65: (13, 5), 66: (11, 3, 2),
+                70: (7, 5, 2), 72: (8, 3, 3), 75: (5, 5, 3), 77: (11, 7), 78: (13, 3, 2),
+                80: (16, 5), 81: (3, 3, 3, 3), 84: (7, 4, 3), 88: (11, 8), 90: (5, 3, 3, 2),
+                91: (13, 7), 98: (7, 7, 2), 99: (11, 3, 3), 100: (5, 5, 4), 104: (13, 8),
+                105: (7, 5, 3), 110: (11, 5, 2), 112: (16, 7), 117: (13, 3, 3), 121: (11, 11),
+                125: (5, 5, 5), 126: (7, 3, 3, 2)}
 # the composite radices the mixed-radix design has a butterfly for (R = A * B,
 # lines_mixed.cuh), beside KERNEL_RADICES and 32
 MIXED_RADICES = (6, 9, 10, 12, 14, 15, 18, 20, 21, 22, 24, 25, 26, 27, 28, 30)
@@ -104,21 +126,32 @@ def radix_chain(n: int) -> Tuple[int, ...]:
     return tuple(chain)
 
 
-_DESIGNS = {"pow2": POW2_LINES, "warp": WARP_LINES, "mixed": MIXED_LINES}
+_DESIGNS = {"pow2": POW2_LINES, "warp": WARP_LINES, "mixed": MIXED_LINES,
+            "packed": PACKED_LINES}
 
 
 def lines_chain(n: int) -> Tuple[int, ...]:
-    """K1's chain for length ``n``: the power-of-two, the warp or the
-    mixed-radix design's where ``POW2_LINES``, ``WARP_LINES`` or
-    ``MIXED_LINES`` names ``n``, ``radix_chain(n)`` (the direct design's)
-    everywhere else.  K1's ``cw`` table is laid out for this chain."""
-    return POW2_LINES.get(n) or WARP_LINES.get(n) or MIXED_LINES.get(n) or radix_chain(n)
+    """K1's chain for length ``n``: the power-of-two, the warp, the
+    mixed-radix or the packed design's where ``POW2_LINES``, ``WARP_LINES``,
+    ``MIXED_LINES`` or ``PACKED_LINES`` names ``n``, ``radix_chain(n)`` (the
+    direct design's) everywhere else.  K1's ``cw`` table is laid out for this
+    chain."""
+    return next((table[n] for table in _DESIGNS.values() if n in table), None) or radix_chain(n)
 
 
 def lines_design(n: int) -> str:
     """The design K1's entry point launches for length ``n``: ``"pow2"``,
-    ``"warp"``, ``"mixed"`` or ``"direct"``."""
+    ``"warp"``, ``"mixed"``, ``"packed"`` or ``"direct"``."""
     return next((name for name, table in _DESIGNS.items() if n in table), "direct")
+
+
+def lines_in_place(n: int) -> bool:
+    """May K1 run length ``n`` in place (y = x)?  At every length of the
+    packed design, whose warps read their whole block before they write it
+    back, and wherever the chain has two passes or more (a barrier after the
+    first pass separates the last read from the first write); a one-pass
+    chain of the other designs is refused."""
+    return n in PACKED_LINES or len(lines_chain(n)) > 1
 
 
 def roots_table(n: int, direction: str) -> np.ndarray:
@@ -385,6 +418,63 @@ def register_pass_op(op) -> None:
     op.register_autograd(backward, setup_context=setup_context)
 
 
+def packed_pitch(n: int, radices: Sequence[int], lanes: int) -> int:
+    """Points a line of ``n`` takes in a stage of the packed design
+    (``Shape::P`` of ``csrc/lines_packed.cuh``): with ``lanes`` > 1 its
+    exchanges' extent (one point of padding in every ns * R after a pass of
+    even radix R, the last pass in natural order), with one lane a line n
+    (the passes run in registers); for odd n that alone (no radix is even,
+    so it is n), else the least pitch from there up that is 2 mod 4 (one
+    lane a line) or ``lanes`` mod 2 ``lanes``."""
+    extent, ns = n, 1
+    for r in radices[:-1] if lanes > 1 else ():
+        if r % 2 == 0:
+            extent = max(extent, n + (n - 1) // (ns * r))
+        ns *= r
+    if n % 2:
+        return extent
+    modulus, want = (4, 2) if lanes == 1 else (2 * lanes, lanes)
+    return next(p for p in range(extent, extent + modulus) if p % modulus == want)
+
+
+def packed_lines_reference(x: torch.Tensor, radices: Sequence[int],
+                           tables: Dict[str, torch.Tensor], adjoint: bool = False,
+                           lanes: int = 1, wide: bool = True) -> torch.Tensor:
+    """The packed design's block-staged schedule in plain torch, along axis 1
+    of float32 ``x`` (lines, N, 2): the lines in blocks of B = 32 / ``lanes``
+    (the last block ragged); point q of a block landed in its stage at
+    (q // N) * P + q % N (``packed_pitch``), as the 16-byte copies of
+    ``csrc/lines_packed.cuh`` land it where ``wide`` (point 2c + 1 beside
+    point 2c, the last point of an odd count alone) and the 8-byte copies
+    otherwise; what no copy lands is NaN (the dead lines of the last block,
+    the padding); the chain (``radix_chain_reference``) on every line of
+    every stage, written back in natural order; and the live points copied
+    out by the same map.  Returns a new tensor of x's shape."""
+    lines, n = x.shape[0], x.shape[1]
+    block = 32 // lanes
+    pitch = packed_pitch(n, radices, lanes)
+    blocks = -(-lines // block)
+    g = torch.arange(lines * n, device=x.device)
+    b, q = g // (block * n), g % (block * n)             # block, point in it
+    live = torch.clamp(lines - b * block, max=block) * n   # points of its block
+
+    def at(i):
+        return (i // n) * pitch + i % n
+
+    if wide:
+        pair = q - q % 2
+        tail = (live % 2 == 1) & (q == live - 1)
+        dst = torch.where(tail, at(q), at(pair) + q % 2)
+    else:
+        dst = at(q)
+    dst = dst + b * block * pitch
+    stage = torch.full((blocks * block * pitch, 2), float("nan"), device=x.device)
+    stage[dst] = x.reshape(-1, 2)
+    grid = stage.view(blocks * block, pitch, 2)
+    grid[:, :n] = radix_chain_reference(grid[:, :n], radices, tables, adjoint)
+    return stage[dst].reshape(x.shape)
+
+
 def radix_chain_reference(x: torch.Tensor, radices: Sequence[int],
                           tables: Dict[str, torch.Tensor],
                           adjoint: bool = False, stop: Optional[int] = None) -> torch.Tensor:
@@ -412,20 +502,24 @@ def radix_chain_reference(x: torch.Tensor, radices: Sequence[int],
     ns = 1
     for radix in radices[:stop]:
         m = n // radix
-        j = torch.arange(m, device=x.device)
-        k = j % ns
-        v = [cur[:, j + r * m] for r in range(radix)]
+        # butterfly j = q * ns + k reads points j + r * m (a slice a radix
+        # r), twiddled by W^(r * k * n / (ns * radix)) (entry
+        # ns - 1 + (r - 1) * ns + k, the same for every q), and writes its
+        # output r to (q * radix + r) * ns + k: plain slices and views, so
+        # that no gather or scatter runs
+        v = [cur[:, r * m:(r + 1) * m] for r in range(radix)]
         if ns > 1:
             for r in range(1, radix):
-                w = tw[ns - 1 + (r - 1) * ns + k].reshape(1, m, *ride)
+                row = tw[ns - 1 + (r - 1) * ns:ns - 1 + r * ns]
+                w = row.repeat(m // ns, 1).reshape(1, m, *ride)
                 wr, wi = w[..., 0], w[..., 1]
                 vr, vi = v[r][..., 0], v[r][..., 1]
                 v[r] = torch.stack([vr * wr - vi * wi, vr * wi + vi * wr], dim=-1)
         v = _butterfly(v, s)
-        out = torch.empty_like(cur)
-        j0 = (j - k) * radix + k
+        out = torch.empty(cur.shape, dtype=cur.dtype, device=cur.device)
+        groups = out.view(out.shape[0], m // ns, radix, ns, *out.shape[2:])
         for r in range(radix):
-            out[:, j0 + r * ns] = v[r]
+            groups[:, :, r] = v[r].reshape(v[r].shape[0], m // ns, ns, *v[r].shape[2:])
         cur = out
         ns *= radix
     return (conj_pairs(cur) if adjoint else cur) * scale

@@ -17,9 +17,9 @@
 // passes, each inner pass a trip through shared memory between two
 // barriers, with nothing to cover it when an SM holds one CTA.
 //
-// Four designs, and a rule (kPow2Lines, kWarpLines and kMixedLines,
-// lines.cuh; core/radix.py POW2_LINES, WARP_LINES and MIXED_LINES) that
-// gives each length one of them:
+// Five designs, and a rule (kPow2Lines, kWarpLines, kMixedLines and
+// kPackedLines, lines.cuh; core/radix.py POW2_LINES, WARP_LINES,
+// MIXED_LINES and PACKED_LINES) that gives each length one of them:
 // - the power-of-two design (lines_pow2.cu, lines_pow2.cuh) for 256, 1024,
 //   2048, 4096, 8192 and 16384: a kernel per length whose chain, strides
 //   and twiddle offsets are template constants, one line a CTA, three
@@ -34,10 +34,10 @@
 //   current one runs its passes, and a split of a line over a thread-block
 //   cluster, were measured at the long lengths before and lost to the
 //   direct design: the load they hide is small beside the passes;
-// - the warp design (lines_warp.cu, lines_warp.cuh) for 32 and 512: a line
-//   in the lanes of one warp, its exchanges under __syncwarp, and a grid
-//   sized from the lines and the SMs (1.6-1.65x faster than the direct
-//   design at 32 x 1536 and 512 x 4096);
+// - the warp design (lines_warp.cu, lines_warp.cuh) for 512: a line in the
+//   lanes of one warp, its exchanges under __syncwarp, and a grid sized
+//   from the lines and the SMs (1.6-1.65x faster than the direct design at
+//   32 x 1536 and 512 x 4096; 32 runs the packed design now);
 // - the mixed-radix design (lines_mixed.cu, lines_mixed.cuh) for the
 //   measured lengths that are not powers of two: a kernel per length whose
 //   chain of two to four passes folds the small odd factors into composite
@@ -45,6 +45,12 @@
 //   design ran five passes), CTAs sized for the chain so that two or more
 //   share an SM up to 9216 points; 1.7-4.4x faster than the direct design
 //   at the fifteen lengths of its sweep (PERF.md);
+// - the packed design (lines_packed.cu, lines_packed.cuh) for the short
+//   lengths (128 points or less) where its sweep beat the direct design: a
+//   kernel per length, a warp's lines landed in shared memory as one
+//   contiguous block by 16-byte copies, run there in one lane's registers
+//   (or a few lanes' under __syncwarp) and stored the same way, on a grid
+//   sized from the lines and the SMs; it runs in place at every chain;
 // - the direct design below for every other length.
 //
 // Direct design: a CTA takes as many whole lines as keep about 256 threads
@@ -133,13 +139,14 @@ struct DescribeLines {
   }
 };
 
-// K1's rule: a length that kPow2Lines, kWarpLines or kMixedLines
-// (lines.cuh) names runs the power-of-two design (lines_pow2.cu), the warp
-// design (lines_warp.cu) or the mixed-radix design (lines_mixed.cu) and
-// must be handed that design's chain; every other length runs the direct
-// design on the chain it is handed.  Each design
-// launches or the call fails: there is no fallback from one to another.
-// With `report` the launch is not made, and it is described there instead.
+// K1's rule: a length that kPow2Lines, kWarpLines, kMixedLines or
+// kPackedLines (lines.cuh) names runs the power-of-two design
+// (lines_pow2.cu), the warp design (lines_warp.cu), the mixed-radix design
+// (lines_mixed.cu) or the packed design (lines_packed.cu) and must be handed
+// that design's chain; every other length runs the direct design on the
+// chain it is handed.  Each design launches or the call fails: there is no
+// fallback from one to another.  With `report` the launch is not made, and
+// it is described there instead, with the design the rule gave the length.
 int lines_entry(const void* x, void* y, const void* tw, const void* params, long long lines,
                 int n, const int* radices, int count, int adjoint, void* stream,
                 wgfft::LinesReport* report) {
@@ -150,20 +157,34 @@ int lines_entry(const void* x, void* y, const void* tw, const void* params, long
   const auto* const tws = static_cast<const float2*>(tw);
   const auto* const ps = static_cast<const float*>(params);
   const auto st = static_cast<cudaStream_t>(stream);
+  const auto design = [report](wgfft::LinesDesign d) {
+    if (report != nullptr) report->design = d;
+  };
   if (const wgfft::LinesRule* rule = wgfft::lines_rule(wgfft::kPow2Lines, n)) {
     if (!wgfft::rule_chain(*rule, radices, count)) return static_cast<int>(cudaErrorInvalidValue);
+    design(wgfft::kPow2);
     return static_cast<int>(wgfft::launch_pow2_lines(xs, ys, tws, ps, lines, n, cj, st, report));
   }
   if (const wgfft::LinesRule* rule = wgfft::lines_rule(wgfft::kWarpLines, n)) {
     if (!wgfft::rule_chain(*rule, radices, count) ||
         (report == nullptr && x == y && count < 2))
       return static_cast<int>(cudaErrorInvalidValue);
+    design(wgfft::kWarp);
     return static_cast<int>(wgfft::launch_warp_lines(xs, ys, tws, ps, lines, n, cj, st, report));
   }
   if (const wgfft::LinesRule* rule = wgfft::lines_rule(wgfft::kMixedLines, n)) {
     if (!wgfft::rule_chain(*rule, radices, count)) return static_cast<int>(cudaErrorInvalidValue);
+    design(wgfft::kMixed);
     return static_cast<int>(wgfft::launch_mixed_lines(xs, ys, tws, ps, lines, n, cj, st, report));
   }
+  if (const wgfft::LinesRule* rule = wgfft::lines_rule(wgfft::kPackedLines, n)) {
+    // in place at every chain, one pass included (lines_packed.cuh)
+    if (!wgfft::rule_chain(*rule, radices, count)) return static_cast<int>(cudaErrorInvalidValue);
+    design(wgfft::kPacked);
+    return static_cast<int>(
+        wgfft::launch_packed_lines(xs, ys, tws, ps, lines, n, cj, st, report));
+  }
+  design(wgfft::kDirect);
   Chain chain;
   LinesShape shape;
   if (!wgfft::make_chain(radices, count, n, &chain) ||
@@ -186,7 +207,8 @@ int lines_entry(const void* x, void* y, const void* tw, const void* params, long
 // y may be x (in place) for a chain of two or more passes: a CTA owns whole
 // lines, and the barrier after the first pass separates its last global read
 // from the last pass's first global write.  A one-pass chain has no barrier
-// and is refused in place.
+// and is refused in place, except at the lengths of the packed design,
+// whose warps read their whole block before they write it.
 extern "C" int wgfft_fused_lines(const void* x, void* y, const void* tw, const void* params,
                                  long long lines, int n, const int* radices, int count,
                                  int adjoint, void* stream) {
@@ -194,11 +216,12 @@ extern "C" int wgfft_fused_lines(const void* x, void* y, const void* tw, const v
 }
 
 // What wgfft_fused_lines would launch for `lines` lines of n points, into
-// report[0..3]: the CTAs an SM holds of its kernel
+// report[0..4]: the CTAs an SM holds of its kernel
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the SMs of the current
-// device, the CTAs of its grid, and the CTAs' worth of work (work over
-// CTAs an SM times SMs is the waves it makes).  Returns the cudaError_t:
-// nonzero where the launch would be refused.
+// device, the CTAs of its grid, the CTAs' worth of work (work over CTAs an
+// SM times SMs is the waves it makes) and the design K1's rule gave n
+// (LinesDesign, lines.cuh).  Returns the cudaError_t: nonzero where the
+// launch would be refused.
 extern "C" int wgfft_fused_lines_resident(long long lines, int n, const int* radices, int count,
                                           long long* report) {
   wgfft::LinesReport r = {};
@@ -208,6 +231,7 @@ extern "C" int wgfft_fused_lines_resident(long long lines, int n, const int* rad
   report[1] = r.sms;
   report[2] = r.grid;
   report[3] = r.work;
+  report[4] = r.design;
   return rc;
 }
 

@@ -1,5 +1,6 @@
-// K1's warp design: the lengths of kWarpLines (lines.cuh), 32 and 512, each
-// in a kernel of its own (lines_warp.cuh).
+// K1's warp design: the length of kWarpLines (lines.cuh), 512, in a kernel
+// of its own (lines_warp.cuh); 32, its other length until the packed design
+// (lines_packed.cu) ran it faster, stays among the probe variants.
 //
 // Same function as the direct design (fused_lines.cu): the natural-order
 // DFT of every line of interleaved f32 (lines, N, 2) times the scale, with
@@ -41,7 +42,6 @@ cudaError_t launch_warp_lines(const float2* x, float2* y, const float2* tw, cons
                               long long lines, int n, float cj, cudaStream_t stream,
                               LinesReport* report) {
   switch (n) {
-    case 32: return warp::launch<32, 4, 64, 16, 8, 4>(x, y, tw, params, lines, cj, stream, report);
     case 512:
       return warp::launch<512, 32, 64, 6, 8, 8, 8>(x, y, tw, params, lines, cj, stream, report);
     default: return cudaErrorInvalidValue;

@@ -189,11 +189,30 @@ __device__ __forceinline__ void ring_walk(const Ring& ring, long long units, Fil
 // ---- host side ------------------------------------------------------------
 
 // CTAs of `kernel` at `threads` threads and `smem` bytes of dynamic shared
-// memory that the current device holds at once.  Asked of the runtime once
-// per (kernel, device, threads, smem) and host thread, then read from a
-// small cache: a launch costs no occupancy query.  The kernel is opted in
-// to all the shared memory a CTA may have, not to `smem`: a later query
-// with less would lower the limit that a cached entry's launches need.
+// memory that device `dev` holds at once, asked of the runtime.  The kernel
+// is opted in to all the shared memory a CTA may have, not to `smem`: a
+// later query with less would lower the limit that an earlier answer's
+// launches need.
+inline cudaError_t query_slots(const void* kernel, int dev, int threads, size_t smem,
+                               int* slots) {
+  int sms = 0, optin = 0, per_sm = 0;
+  cudaError_t e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+          cudaSuccess ||
+      (e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin)) !=
+          cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
+          cudaSuccess)
+    return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *slots = sms * per_sm;
+  return cudaSuccess;
+}
+
+// query_slots on the current device, asked once per (kernel, device,
+// threads, smem) and host thread, then read from a small cache: a launch
+// costs no occupancy query.
 inline cudaError_t ring_slots(const void* kernel, int threads, size_t smem, int* slots) {
   struct Entry {
     const void* kernel;
@@ -214,17 +233,7 @@ inline cudaError_t ring_slots(const void* kernel, int threads, size_t smem, int*
       return cudaSuccess;
     }
   }
-  int sms = 0, optin = 0, per_sm = 0;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
-      (e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
-          cudaSuccess ||
-      (e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin)) !=
-          cudaSuccess ||
-      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
-          cudaSuccess)
-    return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *slots = sms * per_sm;
+  if ((e = query_slots(kernel, dev, threads, smem, slots)) != cudaSuccess) return e;
   cache[used++ % kEntries] = {kernel, dev, threads, smem, *slots};
   return cudaSuccess;
 }

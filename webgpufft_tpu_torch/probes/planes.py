@@ -74,8 +74,9 @@ lines_planes.launches = 0
 def lines_inplace(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> torch.Tensor:
     """K1 on interleaved float32 ``x`` (lines, N, 2), written over ``x``;
     returns ``x``.  A CUDA tensor launches K1 with y = x (one K1 launch); a
-    CPU tensor gets K1's plain version copied into it.  Raises for a
-    one-pass chain (N <= 16), which K1 cannot run in place."""
+    CPU tensor gets K1's plain version copied into it.  Raises where K1
+    cannot run in place (``radix.lines_in_place``: a one-pass chain outside
+    the packed design)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lines_inplace: unsupported device {x.device}")
     if (x.dtype != torch.float32 or x.dim() != 3 or x.shape[2] != 2 or x.shape[0] < 1
@@ -85,10 +86,10 @@ def lines_inplace(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> torch.Ten
             f"got {x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
     n = x.shape[1]
     chain = radix.lines_chain(n)
-    if len(chain) < 2:
+    if not radix.lines_in_place(n):
         raise ValueError(
-            f"lines_inplace: N = {n} is a one-pass chain {chain}: no barrier separates its "
-            f"reads from its writes, so it cannot run in place")
+            f"lines_inplace: N = {n} is a one-pass chain {chain} of the {radix.lines_design(n)} "
+            f"design: no barrier separates its reads from its writes, so it cannot run in place")
     if x.device.type == "cpu":
         return x.copy_(fused.fused_lines_reference(x, tables))
     ptrs = _build.table_ptrs(x, tables, {"cw": (n, 2), "cp": (2,)}, "lines_inplace")

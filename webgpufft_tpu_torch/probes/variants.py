@@ -1,5 +1,6 @@
 """K2 in a design, tile or fixed-design variant the caller names; K1's
-power-of-two, warp and mixed-radix designs in a variant the caller names.
+power-of-two, warp, mixed-radix and packed designs in a variant the caller
+names.
 
 No Pallas probe stands behind this module: it launches the counterpart of
 K2 (``webgpufft_tpu/core/fused_cols.py:161``) in one of its designs by name,
@@ -31,12 +32,15 @@ warp design (``csrc/lines_warp.cuh``: a line in the lanes of one warp)
 named in ``LINES_VARIANTS``, or of its mixed-radix design
 (``csrc/lines_mixed.cuh``: lines a CTA, threads, chain; built by
 ``csrc/probes/lines_mixed_variants.cu`` and ``lines_mixed_variants_long.cu``)
-named in ``MIXED_VARIANTS``, with the twiddle table of its chain
+named in ``MIXED_VARIANTS``, or of its packed design
+(``csrc/lines_packed.cuh``: lanes a line, stages; built by
+``csrc/probes/lines_packed_variants.cu``) named in ``PACKED_VARIANTS``, with the twiddle table of its chain
 (``lines_variant_tables``), for the comparison of
-``chip_probes/k1_pow2_variants.py`` and ``chip_probes/k1_mixed_variants.py``.
-The plans' entry point launches the variant K1's rule names
-(``radix.POW2_LINES``, ``radix.WARP_LINES``, ``radix.MIXED_LINES``) and the
-direct design elsewhere.
+``chip_probes/k1_pow2_variants.py``, ``chip_probes/k1_mixed_variants.py`` and
+``chip_probes/k1_packed_variants.py``.  The plans' entry point launches the
+variant K1's rule names (``radix.POW2_LINES``, ``radix.WARP_LINES``,
+``radix.MIXED_LINES``, ``radix.PACKED_LINES``) and the direct design
+elsewhere.
 
 Each wrapper runs the kernel's plain version on a CPU tensor and launches or
 raises on a CUDA tensor; ``launches`` counts kernel launches only.
@@ -172,14 +176,32 @@ MIXED_VARIANTS: Dict[str, MixedVariant] = {
 }
 
 
+class PackedVariant(NamedTuple):
+    n: int
+    lanes: int                # a line (1: a whole line in one lane's registers)
+    stages: int               # a warp's stages (2: the next block lands meanwhile)
+    chain: Tuple[int, ...]
+
+
+# in the order of csrc/probes/lines_packed_variants.cu: the packed design at
+# 128 points, which its rule leaves on the direct design (faster at 8,192
+# lines, slower at 196,608; PERF.md), for a rule by line count
+PACKED_VARIANTS: Dict[str, PackedVariant] = {
+    "128 lanes 8 stages 2": PackedVariant(128, 8, 2, (16, 8)),
+    "128 lanes 8 stages 1": PackedVariant(128, 8, 1, (16, 8)),
+}
+
+_TABLES = ((LINES_VARIANTS, "wgfft_lines_variant"), (MIXED_VARIANTS, "wgfft_mixed_variant"),
+           (PACKED_VARIANTS, "wgfft_packed_variant"))
+
+
 def _entry(variant: str):
     """(the variant's record, the probes library's entry point, its index)."""
-    for table, entry in ((LINES_VARIANTS, "wgfft_lines_variant"),
-                         (MIXED_VARIANTS, "wgfft_mixed_variant")):
+    for table, entry in _TABLES:
         if variant in table:
             return table[variant], entry, list(table).index(variant)
     raise ValueError(f"lines_variant: variant must be one of "
-                     f"{sorted(LINES_VARIANTS) + sorted(MIXED_VARIANTS)}, got {variant!r}")
+                     f"{sorted(n for table, _ in _TABLES for n in table)}, got {variant!r}")
 
 
 def lines_variant_tables(variant: str, direction: str, scale: float,
@@ -194,11 +216,13 @@ def lines_variant_tables(variant: str, direction: str, scale: float,
 def lines_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor], variant: str,
                   adjoint: bool = False, inplace: bool = False) -> torch.Tensor:
     """K1's transform (its adjoint with ``adjoint``) of interleaved float32
-    ``x`` (lines, N, 2) in the ``variant`` of ``LINES_VARIANTS`` or
-    ``MIXED_VARIANTS``, whose N must be x's, with the variant's tables
-    (``lines_variant_tables``); with ``inplace`` written over ``x``.  A CUDA
-    tensor launches the probe kernel (and counts one launch); a CPU tensor
-    runs the variant's chain through ``radix.radix_chain_reference``."""
+    ``x`` (lines, N, 2) in the ``variant`` of ``LINES_VARIANTS``,
+    ``MIXED_VARIANTS`` or ``PACKED_VARIANTS``, whose N must be x's, with the
+    variant's tables (``lines_variant_tables``); with ``inplace`` written
+    over ``x``.  A CUDA tensor launches the probe kernel (and counts one
+    launch); a CPU tensor runs the variant's chain through
+    ``radix.radix_chain_reference`` (a packed variant through
+    ``radix.packed_lines_reference``, its block-staged layout)."""
     v, entry, index = _entry(variant)
     n, chain = v.n, v.chain
     if x.device.type not in ("cpu", "cuda"):
@@ -207,7 +231,10 @@ def lines_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor], variant: str
     if x.shape[1] != n:
         raise ValueError(f"lines_variant: {variant!r} runs N = {n}, x has N = {x.shape[1]}")
     if x.device.type == "cpu":
-        y = radix.radix_chain_reference(x, chain, tables, adjoint)
+        if isinstance(v, PackedVariant):
+            y = radix.packed_lines_reference(x, chain, tables, adjoint, v.lanes)
+        else:
+            y = radix.radix_chain_reference(x, chain, tables, adjoint)
         return x.copy_(y) if inplace else y
     ptrs = _build.table_ptrs(x, tables, {"cw": (n, 2), "cp": (2,)}, "lines_variant")
     lib = _build.library("probes")
