@@ -27,10 +27,10 @@ variants are timed by ``chip_probes/k2_fill_variants.py``).  K1's plans' launch
 takes the design K1's rule gives the length (``radix.lines_design``: the
 power-of-two design at 256 and 1024 to 16384, the warp design at 512,
 the mixed-radix design at the lengths of ``radix.MIXED_LINES``, the
-packed design at those of ``radix.PACKED_LINES``, the direct one
-elsewhere; a checkout without a rule has the direct design there), named
-in the label, and is timed with its
-adjoint launch; its variants are timed by
+packed design at those of ``radix.PACKED_LINES``, the general design at
+those of ``radix.GENERAL_LINES``, the direct one elsewhere; a checkout
+without a rule has the direct design there), named in the label, and is
+timed with its adjoint launch; its variants are timed by
 ``chip_probes/k1_pow2_variants.py``.  ``--k1-only`` leaves K2 out,
 ``--k2-only`` K1.
 
@@ -84,6 +84,10 @@ K1_CASES += [(1024, 4096), (1024, 8192), (512, 4096), (32, 1536), (256, 65536), 
 K1_CASES += [(360, 4096), (360, 11651), (1000, 4195), (1352, 1025), (1352, 3103), (1536, 2731),
              (2310, 2048), (3000, 1399), (3000, 4096), (3072, 1366), (6000, 700), (8232, 510),
              (15360, 274)]
+# the facade path's HD frames (8640 lines of 1920) and 25 ms frames (8192
+# lines of 1200): the general design (chip_probes/k1_general_variants.py
+# times every length of that design)
+K1_CASES += [(1920, 8640), (1200, 8192)]
 # (pre, H, 2 * cols): every view of chip_smoke.py's phase_k2 (PERF.md's K2
 # rows), the facade's f-k gather (8, 16384, 128), (16, 4096, 64) and three
 # more views of the heights the paths launch most (512, 256, 128); K2's

@@ -8,9 +8,10 @@ it, and at lengths that stress the radix chain: the shared-memory limit, every
 odd radix, one-butterfly lengths, a ragged column count, small digits; K2's
 tall tiles run the ring design, K1's powers of two 256 and 1024 .. 16384 its
 power-of-two design, 512 its warp design, the lengths that are not powers of
-two of its table its mixed-radix design and the short lengths of its table
-(32 among them) its packed design; the timing lines and the kernel record
-name the design of each shape, with K1's CTAs an SM, grid and waves and
+two of its table its mixed-radix design, the short lengths of its table
+(32 among them) its packed design and the lengths of its general design's
+table (1200, 1920, 128 among them) that design; the timing lines and the
+kernel record name the design of each shape, with K1's CTAs an SM, grid and waves and
 cuFFT's time without its norm pass beside the normed one), and
 holds each kernel's adjoint launch (the backward of autograd) against the
 plain adjoint and the dot test <K x, u> = <x, K^H u>, holds the three probe
@@ -68,7 +69,10 @@ held against the plain version once more, with the path's own tables:
   (8, 1000, 1000) * (25, 25) and [2^20] * [129] (overlap-save) against
   ``torch.fft`` convolutions, ``fft2`` of one complex64 1024 x 1024 image
   and of an f-k gather (8, 16384, 64) (K1 and K2 once each, K2 on views of
-  few column tiles, ``FACADE_FFT2``) against ``torch.fft.fft2``,
+  few column tiles, ``FACADE_FFT2``) against ``torch.fft.fft2``, ``fft``
+  (4096, 3000) and ``ifft`` (1024, 6144) (K1's mixed-radix design), ``fft2``
+  of eight HD frames (8, 1080, 1920) and ``fft`` of 8192 frames of 1200
+  samples (K1's general design, ``FACADE_GENERAL``) against ``torch.fft``,
   ``stft``/``istft``/``welch`` on (8, 2^22) at
   nperseg 1024 (65,544 frames) against ``torch.stft`` and ``scipy.signal``,
   a ``ShortTimeFFT`` pair, ``hilbert`` ((8, 2^20): the four-step einsum
@@ -173,7 +177,7 @@ r2c paths.  Then each kernel shape is timed beside its plain version, its bound
 over the data sheet's 3.35 TB/s, or its flops over 67 TFLOP/s if that is more) and the one
 ``torch.fft.fft`` call that computes the same function (cuFFT, a yardstick the
 port never calls), and each plan and the solver step beside ``torch.fft``
-(a DCT-II and the convolutions written on ``torch.fft`` in this script), six
+(a DCT-II and the convolutions written on ``torch.fft`` in this script), eight
 facade calls beside ``plan(x)`` for the same plan and the one ``torch.fft`` /
 ``torch.stft`` call (idle-device and queued times), and each probe variant beside its bound and ``Tensor.copy_`` timed in the same run,
 with the difference between neighbouring stops of ``lines_stages`` (what a
@@ -324,8 +328,10 @@ def phase_k1(gen):
     # CTA filled an SM in the direct design: 2079 = 3^3 * 7 * 11 (odd) and
     # 6144 = 16 * 16 * 8 * 3; then the facade path's traces of 3000 samples
     # (the mixed-radix design, as 360, 1352, 2310, 2079 and 6144 are); then
-    # the facade path's 196,608 lines of 128 (the direct design: 128 is not
-    # in the packed design's table, which holds 16, 6, 64, 4 and 8 above)
+    # the facade path's 196,608 lines of 128 (128 is not in the packed
+    # design's table, which holds 16, 6, 64, 4 and 8 above); then the
+    # facade path's HD frames (8640 lines of 1920) and 25 ms frames (8192
+    # lines of 1200), the general design
     for n, lines, direction, normalize in [
             (1024, 4096, "forward", "unitary"), (1024, 4096, "inverse", "unitary"),
             (2048, 4096, "forward", "none"), (360, 4096, "inverse", "backward"),
@@ -342,7 +348,8 @@ def phase_k1(gen):
             (8192, 512, "inverse", "backward"),
             (32, 1536, "forward", "none"), (OS_BLOCK, 1032, "forward", "none"),
             (2079, 4096, "forward", "none"), (6144, 1024, "inverse", "unitary"),
-            (3000, 4096, "forward", "none"), (128, 196608, "forward", "none")]:
+            (3000, 4096, "forward", "none"), (128, 196608, "forward", "none"),
+            (1920, 8640, "forward", "none"), (1200, 8192, "forward", "none")]:
         scale = {"none": 1.0, "unitary": 1.0 / math.sqrt(n),
                  "backward": 1.0 / n if direction == "inverse" else 1.0}[normalize]
         tables = to_dev(fused.lines_consts(n, direction, scale, "p"))
@@ -2187,6 +2194,12 @@ def host64(t):
 # the facade's fft2 calls whose axis 0 (axis 1 of the gather) is a K2 view of
 # few column tiles: (name, complex64 shape)
 FACADE_FFT2 = [("image", (1024, 1024)), ("f-k gather", (8, 16384, 64))]
+# the facade's calls at lengths of K1's general design, sizes users meet:
+# (function, complex64 shape, axes transformed, K1/K2 launches): fft2 of a
+# batch of eight HD frames (K1 at 1920 over 8640 lines, 265.4 MB; K2's view
+# (8, 1080, 3840)) and fft of 8192 frames of 25 ms at 48 kHz (K1 at 1200
+# over 8192 lines, 157.3 MB)
+FACADE_GENERAL = [("fft2", (8, 1080, 1920), 2, (1, 1)), ("fft", (8192, 1200), 1, (1, 0))]
 
 
 def phase_facade(gen):
@@ -2245,6 +2258,20 @@ def phase_facade(gen):
                 f"mixed-radix design")
         check_oracle(f"facade {name} {shape}", y, oracle(zm))
         del zm, y
+
+    # sizes users meet at lengths of K1's general design: one K1 launch each
+    # (and one K2 launch for the frames' columns, K2's view (8, 1080, 3840))
+    for name, shape, _, expect in FACADE_GENERAL:
+        zg = torch.randn(*shape, dtype=torch.complex64, device="cuda", generator=gen)
+        y = facade_call(f"{name} {shape} complex64", getattr(wfft, name), zg, expect=expect)
+        n, lines = shape[-1], math.prod(shape[:-1])
+        require(radix.lines_design(n) == "general"
+                and any(key[:2] == (n, lines) for key in PATH_SHAPES["facade"][0]),
+                f"facade {name} {shape}: K1 did not launch {lines} lines of {n} in the "
+                f"general design")
+        check_oracle(f"facade {name} {shape}", y, getattr(torch.fft, name)(zg))
+        keep[f"general {name}"] = zg
+        del zg, y
 
     # r2c / c2r over three axes of a batch of three volumes
     x = torch.randn(3, NS_N, NS_N, NS_N, device="cuda", generator=gen)
@@ -2404,7 +2431,7 @@ def phase_facade(gen):
 
 
 def phase_facade_timing(keep, card):
-    """Each of six facade calls from an idle device (``call_ms``: the host's
+    """Each of eight facade calls from an idle device (``call_ms``: the host's
     share included) and queued behind device work (``time_queued``: device
     time) beside ``plan(x)`` for the same plan and the one library call."""
     import webgpufft_tpu_torch as T
@@ -2442,6 +2469,15 @@ def phase_facade_timing(keep, card):
         row(f"fft2 {name} {shape}", lambda zf=zf: wfft.fft2(zf),
             lambda plan2=plan2, zfi=zfi: plan2(zfi), lambda zf=zf: torch.fft.fft2(zf),
             "torch.fft.fft2")
+
+    for name, shape, axes, _ in FACADE_GENERAL:
+        zg = keep[f"general {name}"]
+        planx = T.create_plan(type="c2c", shape=list(shape[-axes:]),
+                              batch=math.prod(shape[:-axes]), direction="forward",
+                              normalize="none", device="cuda")
+        row(f"{name} {shape}", lambda f=getattr(wfft, name), zg=zg: f(zg),
+            lambda p=planx, v=torch.view_as_real(zg): p(v),
+            lambda f=getattr(torch.fft, name), zg=zg: f(zg), f"torch.fft.{name}")
 
     # numpy's rfftn packs the last axis: the facade builds a 1-D r2c plan over
     # it and a 2-D c2c plan over the other two, with one transposing copy
@@ -3894,8 +3930,9 @@ def main():
             ("fused_lines", "fused_lines.cu",
              ("fused_lines.cu", "lines_pow2.cu", "lines_warp.cu", "lines_mixed.cu",
               "lines_packed.cu", "lines_packed_2.cu", "lines_packed_3.cu",
-              "lines_packed_4.cu"),
-             ["direct", "pow2", "warp", "mixed", "packed"],
+              "lines_packed_4.cu", "lines_general.cu", "lines_general_16.cu",
+              "lines_general_32.cu", "lines_general_64.cu"),
+             ["direct", "pow2", "warp", "mixed", "packed", "general"],
              "webgpufft_tpu/core/fused.py:223", k1_err, "N=1024 x 4096 lines",
              ("K1", 1024, 4096)),
             ("fused_cols", "fused_cols.cu", ("fused_cols.cu", "cols_fixed.cu"),

@@ -104,11 +104,11 @@ def _without_k1_chains(blob, edit=None):
     return len(head).to_bytes(8, "big") + head + blob[8 + hlen:]
 
 
-@pytest.mark.parametrize("n", [8192, 16384, 256, 2079, 6144])
+@pytest.mark.parametrize("n", [8192, 16384, 256, 2079, 6144, 1920])
 def test_artifact_laid_out_for_another_k1_chain_is_refused(n, rng):
     """K1 reads ``cw`` in the order of ``radix.lines_chain(N)`` (the
     power-of-two design's at 256, 8192 and 16384, the mixed-radix design's
-    at 2079 and 6144): an export records that chain
+    at 2079 and 6144, the general design's at 1920): an export records that chain
     for every K1 table and loads; an artifact without the record (written
     when every length ran ``radix.radix_chain``) or with another chain is
     refused with a PlanError that names the table and both chains, for a

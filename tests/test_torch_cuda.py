@@ -342,16 +342,67 @@ def test_packed_design_on_an_8_byte_aligned_view(n, lines, cuda_device):
     assert_close(fused.fused_lines(aligned, t).cpu(), want, label=f"K1 packed n={n} aligned")
 
 
+@pytest.mark.parametrize("n", sorted(radix.GENERAL_LINES))
+def test_general_design_at_each_length_of_the_rule(n, cuda_device):
+    """K1's rule sends the lengths of ``radix.GENERAL_LINES`` to the
+    general design: forward (inverse at odd table positions), adjoint, in
+    place and on an input 8 bytes past a 16-byte boundary (an offset view,
+    in place there too) against the plain version, on a line count that
+    leaves the last CTA ragged, each launch counted; the launch report names
+    the design and a grid of one CTA a ``lines`` lines; and the entry point
+    refuses ``radix_chain``'s chain and the rule's reversed where they
+    differ from the rule's (no fallback)."""
+    from webgpufft_tpu_torch import _build
+    points, per_cta, chain = radix.GENERAL_LINES[n]
+    assert radix.lines_design(n) == "general" and radix.lines_in_place(n)
+    direction = ("forward", "inverse")[sorted(radix.GENERAL_LINES).index(n) % 2]
+    lines = per_cta + 2 if per_cta > 1 else 3
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    t = _dev_tables(fused.lines_consts(n, direction, 1.0 / math.sqrt(n), "p"), cuda_device)
+    base = torch.randn(lines * n + 1, 2, device=cuda_device, generator=gen)
+    x = base[:-1].view(lines, n, 2)
+    off = base[1:].view(lines, n, 2)
+    assert off.data_ptr() % 16 == 8
+    before = fused.fused_lines.launches
+    y = fused.fused_lines(x, t)
+    ya = fused.fused_lines(x, t, adjoint=True)
+    z = probes.lines_inplace(x.clone(), t)
+    yo = fused.fused_lines(off, t)
+    work = base.clone()
+    zo = probes.lines_inplace(work[1:].view(lines, n, 2), t)
+    torch.cuda.synchronize()
+    assert fused.fused_lines.launches == before + 5
+    label = f"K1 general n={n} {chain} {points} points {per_cta} lines a CTA, {lines} lines"
+    assert_close(y.cpu(), fused.fused_lines_reference(x, t).cpu(), label=label)
+    assert_close(ya.cpu(), fused.fused_lines_reference(x, t, adjoint=True).cpu(),
+                 label=f"{label} adjoint")
+    assert torch.equal(z, y)
+    want = fused.fused_lines_reference(off, t).cpu()
+    assert_close(yo.cpu(), want, label=f"{label} offset view")
+    assert_close(zo.cpu(), want, label=f"{label} offset view in place")
+    assert torch.equal(work[0], base[0])   # the point before the view untouched
+    launch = fused.launch_report(n, lines)
+    assert launch.design == "general" and launch.resident >= 1
+    assert launch.grid == launch.work == -(-lines // per_cta)
+    for other in {radix.radix_chain(n), chain[::-1]} - {chain}:
+        rc = _build.library().wgfft_fused_lines(
+            x.data_ptr(), y.data_ptr(), t["cw"].data_ptr(), t["cp"].data_ptr(), lines, n,
+            *_build.chain_arg(other), 0, torch.cuda.current_stream().cuda_stream)
+        assert rc == 1, other   # cudaErrorInvalidValue
+
+
 def test_k1_rule_is_one_table_in_c_and_python(cuda_device):
     """The design K1's C entry point gives every length it takes
     (``fused.launch_report``, read from ``wgfft_fused_lines_resident``)
-    is ``radix.lines_design``'s: the four tables of lines.cuh (kPow2Lines,
-    kWarpLines, kMixedLines, kPackedLines) equal core/radix.py's."""
+    is ``radix.lines_design``'s: the five tables of lines.cuh (kPow2Lines,
+    kWarpLines, kMixedLines, kPackedLines, kGeneralLines) equal
+    core/radix.py's."""
     lengths = [n for n in range(2, radix.MAX_LENGTH + 1) if fused.choose_split(n)]
     wrong = [(n, fused.launch_report(n, 1000).design, radix.lines_design(n)) for n in lengths
              if fused.launch_report(n, 1000).design != radix.lines_design(n)]
     assert not wrong
     assert {n for n in lengths if radix.lines_design(n) == "packed"} == set(radix.PACKED_LINES)
+    assert {n for n in lengths if radix.lines_design(n) == "general"} == set(radix.GENERAL_LINES)
 
 
 def test_every_packed_variant_matches_plain(cuda_device):

@@ -36,7 +36,7 @@ def _tables(n, direction, scale, device="cpu"):
 @pytest.mark.parametrize("normalize", ["none", "backward", "unitary"])
 @pytest.mark.parametrize("direction", ["forward", "inverse"])
 @pytest.mark.parametrize("n", [1024, 2048, 360, 1000, 2310, 8192, 16384, 512, 256, 2079, 3000,
-                               6144, 8232, 16, 64, 128, 6, 77])
+                               6144, 8232, 16, 64, 128, 6, 77, 1080, 1200, 1920, 2401])
 def test_lines_match_jax(n, direction, normalize, rng, assert_close):
     scale = normalize_scale(normalize, direction, n)
     x = _input(rng, n)
@@ -99,6 +99,34 @@ def test_mixed_design_chain_matches_jax(n, direction, adjoint, rng, assert_close
     got = fused.fused_lines_chain_reference(torch.from_numpy(x), _tables(n, direction, scale),
                                             adjoint)
     assert_close(got.numpy(), want, label=f"K1 chain model n={n} {direction} adjoint={adjoint}")
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+@pytest.mark.parametrize("n", [96, 1080, 1200, 1920, 2000, 2401])
+def test_general_design_chain_matches_jax(n, direction, adjoint, rng, assert_close):
+    """At lengths K1's rule gives the general design (two to four passes of
+    radices up to 32: 96 = 12 * 8, 1920 in three, 7^4 in four), the
+    kernel's pass schedule on the CPU (``fused_lines_chain_reference``: the
+    table's chain and ``cw`` table) against the JAX package's K1 on a few
+    lines, with the unitary scale; the adjoint against the JAX transform's
+    conjugate transpose."""
+    from webgpufft_tpu_torch.core import radix
+    assert radix.lines_design(n) == "general"
+    lines = 3
+    scale = normalize_scale("unitary", direction, n)
+    x = _input(rng, n, lines)
+    consts = {}
+    fn = jfused.build_fused_lines(n, lines, direction, TuningSpec(), consts, scale, prefix="p")
+    run = lambda v: np.asarray(fn(jnp.asarray(v), {k: jnp.asarray(c) for k, c in consts.items()}))
+    if adjoint:   # conj(F conj x)
+        conj = x * np.array([1, -1], np.float32)
+        want = run(conj) * np.array([1, -1], np.float32)
+    else:
+        want = run(x)
+    got = fused.fused_lines_chain_reference(torch.from_numpy(x), _tables(n, direction, scale),
+                                            adjoint)
+    assert_close(got.numpy(), want, label=f"K1 general chain n={n} {direction} adjoint={adjoint}")
 
 
 def test_wrapper_rejects_unsupported_device():

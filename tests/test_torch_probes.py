@@ -224,6 +224,35 @@ def test_every_packed_variant_is_its_chain(name, assert_close):
         variants.lines_variant(lines(256), vt, name)
 
 
+@pytest.mark.parametrize("n,chain,points,per_cta", [
+    (96, (12, 8), 16, 21), (96, (8, 12), 32, 5), (1080, (12, 10, 9), 16, 1),
+    (1080, (9, 10, 12), 32, 2), (2000, (20, 10, 10), 32, 1), (12000, (25, 24, 20), 64, 1)])
+def test_general_variant_is_its_chain(n, chain, points, per_cta, assert_close):
+    """The general design on a chain the caller names
+    (``variants.general_variant``) on the CPU: its chain's model on its own
+    table, equal to K1's plain version forward, adjoint and in place, on a
+    line count that leaves the last CTA ragged; a shape the design cannot
+    run is refused: a chain that does not multiply to N, one pass, a radix
+    wider than the class's points, more threads than the class has."""
+    from webgpufft_tpu_torch.probes import variants
+    x = lines(n, count=per_cta + 1)
+    vt = {k.rsplit("/", 1)[1]: torch.from_numpy(v)
+          for k, v in radix.chain_consts(n, "forward", 0.5, "p", chain).items()}
+    t = tables(n, "forward", 0.5)
+    for adjoint in (False, True):
+        assert_close(variants.general_variant(x, vt, chain, points, per_cta, adjoint).numpy(),
+                     fused.fused_lines_reference(x, t, adjoint).numpy(),
+                     label=f"general {chain} adjoint={adjoint}")
+    work = x.clone()
+    assert variants.general_variant(work, vt, chain, points, per_cta, inplace=True) is work
+    assert torch.equal(work, variants.general_variant(x, vt, chain, points, per_cta))
+    wide = max(chain)
+    for bad in [(chain + (2,), points, per_cta), ((n,), 64, 1),
+                (chain, 16 if wide > 16 else 8, per_cta), (chain, points, 1 << 12)]:
+        with pytest.raises(ValueError, match="does not run"):
+            variants.general_variant(x, vt, *bad)
+
+
 @pytest.mark.parametrize("n", [n for n in LENGTHS if len(radix.radix_chain(n)) > 1])
 def test_in_place_writes_the_input(n):
     x, t = lines(n), tables(n)
@@ -366,7 +395,8 @@ def test_probe_library_is_a_second_library():
     assert {s.name for s in _build.sources("core")} == {
         "fused_lines.cu", "fused_cols.cu", "cols_fixed.cu", "lines_pow2.cu", "lines_warp.cu",
         "lines_mixed.cu", "lines_packed.cu", "lines_packed_2.cu", "lines_packed_3.cu",
-        "lines_packed_4.cu"}
+        "lines_packed_4.cu", "lines_general.cu", "lines_general_16.cu", "lines_general_20.cu",
+        "lines_general_24.cu", "lines_general_32.cu", "lines_general_64.cu"}
     core, probe = _build.library_path("core"), _build.library_path("probes")
     assert core != probe and core.parent == probe.parent == _build.BUILD_DIR
     assert probe.name.startswith("libwgfft_probes_")

@@ -24,6 +24,10 @@ from webgpufft_tpu_torch.core import fused, fused_cols, radix
 from webgpufft_tpu_torch.utils import factors
 from webgpufft_tpu_torch.utils.mathref import normalize_scale
 
+# lengths of the general design's table: the four of 128 points or less
+# it takes, the facade's 1080, 1200 and 1920, 5-smooth 2000, three- and
+# four-pass odd ones (3^7, 7^4) and a long one
+GENERAL_SAMPLE = [96, 108, 120, 128, 1080, 1200, 1920, 2000, 2187, 2401, 12000]
 # squares, non-squares, every radix, both shared-memory extremes, and the
 # warp design's lengths
 LENGTHS = [1024, 2048, 360, 1000, 2310, 1352, 4096, 16384, 16, 6, 121, 32, 8192, 256, 512]
@@ -71,13 +75,15 @@ def _packed_layouts(n):
 @pytest.mark.parametrize("normalize", ["none", "backward", "unitary"])
 @pytest.mark.parametrize("direction", ["forward", "inverse"])
 @pytest.mark.parametrize("n", [32, 256, 512, 1024, 2048, 4096, 8192, 16384]
-                         + sorted(radix.MIXED_LINES) + sorted(radix.PACKED_LINES))
+                         + sorted(radix.MIXED_LINES) + sorted(radix.PACKED_LINES)
+                         + [n for n in GENERAL_SAMPLE if n in radix.GENERAL_LINES])
 def test_lines_model_of_each_design_matches_plain_and_numpy(n, direction, normalize, adjoint,
                                                             rng, assert_close):
     """K1's pass schedule in the chain its rule gives the length (the
     power-of-two design's own at 256, 8192 and 16384, the direct design's
     chain at 32, 512, 1024, 2048 and 4096, the mixed-radix design's
-    composite radices at every length of ``MIXED_LINES``), forward, inverse
+    composite radices at every length of ``MIXED_LINES``, the general
+    design's at the lengths of ``GENERAL_SAMPLE``), forward, inverse
     and adjoint, against the plain version and numpy in float64.  At the
     lengths of ``PACKED_LINES`` the model is the packed design's block-staged
     one (``radix.packed_lines_reference``: line u, point p of a warp's block
@@ -111,6 +117,36 @@ def test_lines_model_of_each_design_matches_plain_and_numpy(n, direction, normal
         assert_close(got.numpy(), np.stack([want.real, want.imag], -1),
                      label=f"K1 model {layout} vs numpy n={n} {direction} {normalize} "
                            f"adjoint={adjoint}")
+
+
+_CASES = [(d, nz, a) for d in ("forward", "inverse") for nz in ("none", "backward", "unitary")
+          for a in (False, True)]
+
+
+@pytest.mark.parametrize("n", sorted(radix.GENERAL_LINES))
+def test_general_design_model_at_every_length_of_its_table(n, rng, assert_close):
+    """The general design's chain at every length of its table, in the CPU
+    model of the kernels' pass schedule (``radix_chain_reference`` on
+    ``lines_chain(n)`` and its ``cw`` table) on two lines, against the plain
+    version and numpy in float64; the lengths take the twelve cases of
+    direction, norm and adjoint in turn (``GENERAL_SAMPLE`` takes all
+    twelve in the test above)."""
+    direction, normalize, adjoint = _CASES[sorted(radix.GENERAL_LINES).index(n) % len(_CASES)]
+    scale = normalize_scale(normalize, direction, n)
+    x = rng.standard_normal((2, n, 2)).astype(np.float32)
+    tables = _tables(fused.lines_consts(n, direction, scale, "p"))
+    got = radix.radix_chain_reference(torch.from_numpy(x), radix.lines_chain(n), tables, adjoint)
+    z = x[..., 0].astype(np.float64) + 1j * x[..., 1]
+    if adjoint:
+        want = np.conj(_numpy_fft(np.conj(z), direction, scale, 1))
+    else:
+        want = _numpy_fft(z, direction, scale, 1)
+    assert_close(got.numpy(), fused.fused_lines_reference(torch.from_numpy(x), tables,
+                                                          adjoint).numpy(),
+                 label=f"K1 general model vs plain n={n}")
+    assert_close(got.numpy(), np.stack([want.real, want.imag], -1),
+                 label=f"K1 general model vs numpy n={n} {direction} {normalize} "
+                       f"adjoint={adjoint}")
 
 
 @pytest.mark.parametrize("n", sorted(radix.PACKED_LINES))
@@ -155,13 +191,16 @@ def test_k1_rule_for_every_eligible_length(n):
     composite butterflies have, in no more passes than ``radix_chain``; the
     lengths of ``PACKED_LINES``, all of 128 points or less, run the packed
     design on ``radix_chain`` (its ``cw`` unchanged) and may run in place at
-    every chain; every other length runs the direct design on
-    ``radix_chain``, in place only at two passes or more.  No length is in
-    two tables.  K2 keeps ``radix_chain``."""
+    every chain; the lengths of ``GENERAL_LINES`` run the general design on
+    two to four passes of ``GENERAL_RADICES`` (next test); every other
+    length runs the direct design on ``radix_chain``, in place only at two
+    passes or more.  No length is in two tables.  K2 keeps
+    ``radix_chain``."""
     chain = radix.lines_chain(n)
     assert set(radix.POW2_LINES) == {256, 1024, 2048, 4096, 8192, 16384}
     assert set(radix.WARP_LINES) == {512}
-    tables = (radix.POW2_LINES, radix.WARP_LINES, radix.MIXED_LINES, radix.PACKED_LINES)
+    tables = (radix.POW2_LINES, radix.WARP_LINES, radix.MIXED_LINES, radix.PACKED_LINES,
+              radix.GENERAL_LINES)
     assert sum(n in t for t in tables) <= 1
     assert math.prod(chain) == n
     assert radix.lines_in_place(n) == (n in radix.PACKED_LINES or len(chain) > 1)
@@ -186,15 +225,69 @@ def test_k1_rule_for_every_eligible_length(n):
     elif n in radix.PACKED_LINES:
         assert radix.lines_design(n) == "packed" and chain == radix.PACKED_LINES[n]
         assert n <= 128 and chain == radix.radix_chain(n) and radix.lines_in_place(n)
+    elif n in radix.GENERAL_LINES:
+        assert radix.lines_design(n) == "general" and chain == radix.GENERAL_LINES[n].chain
+        assert radix.lines_in_place(n)
     else:
         assert radix.lines_design(n) == "direct" and chain == radix.radix_chain(n)
+
+
+def _fewest_passes(n):
+    """The fewest passes of ``radix.GENERAL_RADICES`` whose product is n."""
+    reach = {1: 0}
+    for passes in range(1, 5):
+        reach = {p * r: passes for p in reach for r in radix.GENERAL_RADICES
+                 if n % (p * r) == 0} | reach
+        if n in reach:
+            return reach[n]
+    return None
+
+
+@pytest.mark.parametrize("n", sorted(radix.GENERAL_LINES))
+def test_general_design_chain_for_every_length_of_its_table(n):
+    """Every entry of the general design's table: a chain of two to four
+    radices of ``GENERAL_RADICES`` (up to 32, primes 2 .. 13) whose product
+    is n, in the fewest passes those radices allow (fewer than
+    ``radix_chain``'s wherever that takes more than two); a class of
+    points a thread (``GENERAL_CLASSES``: 16, 20, 24, 32, 64) whose radices
+    (2 .. 16, 4 .. 20, 4 .. 24, 5 .. 32, 16 .. 32) hold its chain, and lines a CTA whose threads fit
+    the class (``general_threads``, the C ``make_plan``'s count); its shared
+    memory (two buffers, one for two passes, of ``lines`` lines at the
+    longest padded exchange: ``general_shared``) within a CTA's 227 KB.
+    The table takes lengths from 96 points on, each eligible for K1 and in
+    no other design's table."""
+    points, lines, chain = radix.GENERAL_LINES[n]
+    assert fused.choose_split(n) and n >= 96
+    assert 2 <= len(chain) <= 4 and math.prod(chain) == n
+    assert all(r in radix.GENERAL_RADICES for r in chain)
+    assert len(chain) == _fewest_passes(n)
+    assert len(chain) <= len(radix.radix_chain(n))
+    least, most = radix.GENERAL_CLASSES[points]
+    assert least <= min(chain) and max(chain) <= points and lines >= 1
+    threads = radix.general_threads(n, chain, points, lines)
+    assert threads is not None and threads <= most
+    pitch, ns = n, 1
+    for r in chain[:-1]:
+        if r % 2 == 0:
+            pitch = max(pitch, n + (n - 1) // (ns * r))
+        ns *= r
+    buffers = 2 if len(chain) > 2 else 1
+    assert radix.general_shared(n, chain, lines) == buffers * lines * pitch * 8 <= 227 * 1024
+    assert not any(n in t for t in (radix.POW2_LINES, radix.WARP_LINES, radix.MIXED_LINES,
+                                    radix.PACKED_LINES))
 
 
 def _c_rule(name):
     """{n: chain} of the table ``name`` of csrc/lines.cuh; for
     ``kPackedLines`` {n: (lanes, stages, chain)} of ``WGFFT_PACKED_LINES``,
-    the list it is made from."""
+    the list it is made from; for ``kGeneralLines`` {n: (points, lines,
+    chain)} of ``WGFFT_GENERAL_LINES``."""
     text = (Path(fused.__file__).parent.parent / "csrc" / "lines.cuh").read_text()
+    if name == "kGeneralLines":
+        body = re.search(r"#define WGFFT_GENERAL_LINES\(X\)((?:.*\\\n)*.*)", text).group(1)
+        return {int(n): (int(points), int(lines), tuple(int(r) for r in chain.split(",")))
+                for n, points, lines, chain in re.findall(
+                    r"X\((\d+), (\d+), (\d+), ([\d, ]+)\)", body)}
     if name == "kPackedLines":
         body = re.search(r"#define WGFFT_PACKED_LINES\(X\)((?:.*\\\n)*.*)", text).group(1)
         return {int(n): (int(lanes), int(stages), tuple(int(r) for r in chain.split(",")))
@@ -208,7 +301,8 @@ def _c_rule(name):
 @pytest.mark.parametrize("name,table", [("kPow2Lines", radix.POW2_LINES),
                                         ("kWarpLines", radix.WARP_LINES),
                                         ("kMixedLines", radix.MIXED_LINES),
-                                        ("kPackedLines", radix.PACKED_LINES)])
+                                        ("kPackedLines", radix.PACKED_LINES),
+                                        ("kGeneralLines", radix.GENERAL_LINES)])
 def test_k1_tables_match_the_c_sources(name, table):
     """Each table of K1's rule in csrc/lines.cuh equals its copy in
     core/radix.py, length by length and chain by chain.  The packed
@@ -216,9 +310,14 @@ def test_k1_tables_match_the_c_sources(name, table):
     ``kPackedLines`` and the design's launch switch are made; each entry's
     shape is one the kernel template takes (a power of two of lanes a line
     up to 8, several only where the chain has two passes or more; one or
-    two stages).  (On the card the entry point's report holds the rule
-    itself to ``radix.lines_design``.)"""
+    two stages).  The general design's table is one list too,
+    ``WGFFT_GENERAL_LINES``, each entry N, points a thread, lines a CTA and
+    chain, equal to ``GENERAL_LINES``.  (On the card the entry point's report
+    holds the rule itself to ``radix.lines_design``.)"""
     rule = _c_rule(name)
+    if name == "kGeneralLines":
+        assert rule == {n: tuple(line) for n, line in table.items()}
+        return
     if name == "kPackedLines":
         assert len(rule) == len(table)
         for n, (lanes, stages, chain) in rule.items():
@@ -230,15 +329,17 @@ def test_k1_tables_match_the_c_sources(name, table):
 
 @pytest.mark.parametrize("direction", ["forward", "inverse"])
 @pytest.mark.parametrize("n", sorted(radix.POW2_LINES) + sorted(radix.WARP_LINES)
-                         + sorted(radix.MIXED_LINES) + sorted(radix.PACKED_LINES))
+                         + sorted(radix.MIXED_LINES) + sorted(radix.PACKED_LINES)
+                         + [n for n in GENERAL_SAMPLE if n in radix.GENERAL_LINES])
 def test_moved_lengths_table_is_float64_roots_in_pass_order(n, direction):
     """The ``cw`` table K1 reads at a length of the power-of-two, the warp,
-    the mixed-radix or the packed design: laid out for ``lines_chain(n)``
-    (entry ns - 1 + (r - 1) * ns + k is W^(r * k * n / (ns * R))), each root
+    the mixed-radix, the packed or the general design: laid out for
+    ``lines_chain(n)`` (entry ns - 1 + (r - 1) * ns + k is W^(r * k * n / (ns * R))), each root
     within 1 ulp of f32 of float64; the direct design's table where the
     chains agree (32, 512, 1024, 2048, 4096 and every length of the packed
-    design), another table where they do not (256, 8192, 16384 and every
-    length of the mixed-radix design)."""
+    design), another table where they do not (256, 8192, 16384, every
+    length of the mixed-radix design and every one of the general design
+    whose chain is not ``radix_chain``'s)."""
     chain = radix.lines_chain(n)
     tw = fused.lines_consts(n, direction, 1.0, "p")["p/cw"]
     assert tw.shape == (n, 2) and tw.dtype == np.float32

@@ -57,6 +57,12 @@ _SIGNATURES = {
         # grid, work, design) -> what wgfft_fused_lines would launch
         "wgfft_fused_lines_resident": (ctypes.c_longlong, ctypes.c_int, _INTS, ctypes.c_int,
                                        ctypes.POINTER(ctypes.c_longlong)),
+        # x, y, cw, cp, lines, n, radices, count, points, per_cta, adjoint,
+        # report (5 long longs or null: CTAs an SM, SMs, grid, work, threads),
+        # stream: the general design of K1 on any chain it runs
+        "wgfft_general_lines": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _INTS,
+                                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                ctypes.POINTER(ctypes.c_longlong), _P),
         # x, y, cw, cp, pre, h, cols, radices, count, adjoint, stream
         "wgfft_fused_cols": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                              ctypes.c_longlong, _INTS, ctypes.c_int, ctypes.c_int, _P),

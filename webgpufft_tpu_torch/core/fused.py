@@ -23,7 +23,8 @@ point launches the design that K1's rule gives the length
 (``radix.lines_design``: the power-of-two design at 256 and 1024 to
 16384, the warp design at 512, the mixed-radix design at the
 lengths of ``radix.MIXED_LINES``, the packed design at the short lengths of
-``radix.PACKED_LINES``, the direct design elsewhere) on the chain
+``radix.PACKED_LINES``, the general mixed-radix design at the lengths of
+``radix.GENERAL_LINES``, the direct design elsewhere) on the chain
 ``radix.lines_chain``, for which ``cw`` is laid out; ``launch_report`` says
 what a launch would be (the design the C rule gave the length, CTAs an SM,
 SMs, grid, waves).  ``fused_lines_chain_reference`` is its pass schedule on the CPU, a
@@ -207,7 +208,7 @@ class LinesLaunch(NamedTuple):
 # numbering of the C entry point's report (LinesDesign, csrc/lines.cuh)
 KERNEL_NAMES = {"direct": "fused_lines_kernel", "pow2": "pow2_lines_kernel",
                 "warp": "warp_lines_kernel", "mixed": "mixed_lines_kernel",
-                "packed": "packed_lines_kernel"}
+                "packed": "packed_lines_kernel", "general": "general_lines_kernel"}
 DESIGNS = tuple(KERNEL_NAMES)
 
 

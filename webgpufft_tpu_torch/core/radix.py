@@ -25,7 +25,7 @@ schedule on the CPU with the same index maps, tables and butterfly algebra
 as the CUDA code (``radix_chain_reference``): a test aid that no plan path
 calls.
 
-K1 has five designs (``csrc/fused_lines.cu``).  The lengths of
+K1 has six designs (``csrc/fused_lines.cu``).  The lengths of
 ``POW2_LINES`` (256, 1024, 2048, 4096, 8192, 16384) run the power-of-two
 design (``csrc/lines_pow2.cu``, a kernel per length, one line a CTA) on
 three passes, the first of radix 32 at 8192 and 16384, 8 * 8 * 4 at 256;
@@ -38,11 +38,15 @@ registers: ``MIXED_RADICES``); the lengths of ``PACKED_LINES`` (128 points
 or less) run the packed design (``csrc/lines_packed.cu``, a kernel per
 length, a warp's lines landed in shared memory as one contiguous block and
 run there, on ``radix_chain(n)``: ``packed_lines_reference`` models its
-block-staged layout); every other length runs the direct design on
-``radix_chain(n)``.  The C entry point holds the same tables
-(``kPow2Lines``, ``kWarpLines``, ``kMixedLines``, ``kPackedLines``,
-``csrc/lines.cuh``) and refuses any other chain at those lengths, so K1's
-``cw`` table is laid out for ``lines_chain(n)``.  K2 runs ``radix_chain`` at
+block-staged layout); the lengths of ``GENERAL_LINES`` run the general
+mixed-radix design (``csrc/lines_general.cu``, one kernel a class of points
+a thread for every chain of two to four passes of ``GENERAL_RADICES``, in
+the fewest passes they allow: ``general_threads`` sizes its CTA); every
+other length runs the direct design on ``radix_chain(n)``.  The C entry
+point holds the same tables (``kPow2Lines``, ``kWarpLines``,
+``kMixedLines``, ``kPackedLines``, ``kGeneralLines``, ``csrc/lines.cuh``)
+and refuses any other chain at those lengths, so K1's ``cw`` table is laid
+out for ``lines_chain(n)``.  K2 runs ``radix_chain`` at
 every height.
 """
 
@@ -50,7 +54,7 @@ from __future__ import annotations
 
 import math
 from functools import lru_cache
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -100,6 +104,258 @@ PACKED_LINES = {4: (4,), 6: (3, 2), 8: (8,), 9: (3, 3), 10: (5, 2), 12: (4, 3), 
 # the composite radices the mixed-radix design has a butterfly for (R = A * B,
 # lines_mixed.cuh), beside KERNEL_RADICES and 32
 MIXED_RADICES = (6, 9, 10, 12, 14, 15, 18, 20, 21, 22, 24, 25, 26, 27, 28, 30)
+# every radix of the mixed-radix and the general designs: up to 32, primes
+# 2 .. 13
+GENERAL_RADICES = tuple(sorted(set(KERNEL_RADICES + MIXED_RADICES + (32,))))
+# the general design's classes (csrc/lines_general.cuh least_radix,
+# max_threads): the most points a thread holds -> (the least radix it
+# takes, the most threads a CTA)
+GENERAL_CLASSES = {16: (2, 768), 20: (4, 704), 24: (4, 640), 32: (5, 512), 64: (16, 352)}
+
+
+class GeneralLine(NamedTuple):
+    """A length's entry in the general design's table."""
+    points: int               # the most points a thread holds: the kernel's class
+    lines: int                # a CTA
+    chain: Tuple[int, ...]
+
+
+# and N -> (points, lines a CTA, chain) of the general mixed-radix design
+# (csrc/lines_general.cu, one kernel a class for every chain of two to four
+# passes of GENERAL_RADICES): the lengths where its sweep on the H100 beat
+# the direct design at both line counts, each in the fewest passes those
+# radices allow, in the order, class and lines a CTA that won
+# (chip_probes/k1_general_variants.py --fit writes this table and
+# WGFFT_GENERAL_LINES of csrc/lines.cuh from the sweep)
+_GENERAL = (
+    (96, 20, 21, 12, 8), (108, 16, 18, 9, 12), (120, 16, 17, 10, 12), (128, 16, 16, 16, 8),
+    (130, 16, 15, 10, 13), (132, 20, 15, 12, 11), (135, 16, 15, 9, 15), (140, 16, 14, 10, 14),
+    (143, 20, 14, 13, 11), (144, 20, 14, 12, 12), (147, 24, 13, 21, 7), (150, 16, 13, 10, 15),
+    (154, 20, 13, 14, 11), (156, 16, 13, 12, 13), (160, 16, 12, 16, 10), (162, 20, 12, 18, 9),
+    (165, 20, 12, 15, 11), (168, 20, 12, 14, 12), (169, 16, 12, 13, 13), (175, 32, 11, 25, 7),
+    (176, 20, 11, 16, 11), (180, 16, 11, 12, 15), (182, 24, 11, 14, 13), (189, 24, 10, 21, 9),
+    (192, 20, 10, 16, 12), (195, 24, 10, 15, 13), (196, 24, 10, 14, 14), (198, 20, 10, 18, 11),
+    (200, 20, 10, 20, 10), (208, 20, 9, 16, 13), (210, 24, 9, 15, 14), (216, 20, 9, 12, 18),
+    (220, 20, 9, 20, 11), (224, 24, 9, 16, 14), (225, 24, 9, 15, 15), (231, 24, 8, 21, 11),
+    (234, 20, 8, 18, 13), (240, 20, 8, 16, 15), (242, 24, 8, 22, 11), (243, 32, 8, 27, 9),
+    (245, 20, 8, 7, 7, 5), (250, 32, 8, 25, 10), (252, 20, 8, 18, 14), (260, 20, 7, 20, 13),
+    (264, 32, 7, 22, 12), (270, 20, 7, 15, 18), (273, 24, 7, 13, 21), (275, 32, 7, 25, 11),
+    (280, 20, 7, 20, 14), (286, 24, 7, 13, 22), (288, 20, 7, 16, 18), (294, 24, 6, 14, 21),
+    (297, 32, 6, 27, 11), (300, 20, 6, 15, 20), (308, 24, 6, 14, 22), (312, 24, 6, 24, 13),
+    (315, 24, 6, 15, 21), (320, 20, 6, 16, 20), (324, 24, 6, 18, 18), (325, 32, 6, 25, 13),
+    (330, 24, 6, 15, 22), (336, 24, 6, 16, 21), (338, 32, 6, 26, 13), (343, 20, 5, 7, 7, 7),
+    (350, 32, 11, 25, 14), (351, 32, 5, 27, 13), (352, 24, 5, 16, 22), (363, 16, 5, 11, 11, 3),
+    (364, 32, 5, 14, 26), (375, 32, 10, 25, 15), (378, 24, 5, 18, 21), (384, 24, 5, 16, 24),
+    (385, 20, 5, 11, 7, 5), (390, 32, 5, 26, 15), (392, 32, 5, 14, 28), (396, 24, 5, 18, 22),
+    (400, 32, 5, 20, 20), (405, 32, 5, 27, 15), (416, 32, 4, 16, 26), (420, 24, 4, 20, 21),
+    (429, 16, 4, 13, 11, 3), (432, 32, 4, 24, 18), (440, 24, 4, 20, 22), (441, 32, 4, 21, 21),
+    (448, 32, 4, 28, 16), (450, 32, 4, 18, 25), (455, 24, 4, 13, 7, 5), (462, 24, 4, 22, 21),
+    (468, 32, 4, 18, 26), (480, 24, 4, 20, 24), (484, 24, 4, 22, 22), (486, 32, 4, 18, 27),
+    (490, 20, 4, 10, 7, 7), (495, 16, 4, 11, 9, 5), (500, 32, 4, 20, 25), (504, 32, 4, 24, 21),
+    (507, 16, 8, 13, 13, 3), (520, 32, 3, 20, 26), (525, 32, 3, 21, 25), (528, 24, 3, 22, 24),
+    (539, 16, 3, 11, 7, 7), (540, 32, 3, 20, 27), (546, 32, 3, 21, 26), (550, 32, 3, 22, 25),
+    (560, 32, 3, 20, 28), (567, 32, 3, 21, 27), (572, 32, 3, 22, 26), (576, 32, 3, 24, 24),
+    (585, 16, 3, 9, 13, 5), (588, 32, 3, 28, 21), (594, 32, 3, 27, 22), (600, 32, 3, 24, 25),
+    (605, 20, 3, 11, 11, 5), (616, 32, 3, 28, 22), (624, 32, 3, 24, 26), (625, 32, 3, 25, 25),
+    (630, 32, 3, 21, 30), (637, 20, 3, 13, 7, 7), (640, 32, 3, 20, 32), (648, 32, 3, 24, 27),
+    (650, 32, 3, 26, 25), (660, 32, 3, 30, 22), (672, 32, 3, 28, 24), (675, 32, 3, 27, 25),
+    (676, 32, 3, 26, 26), (686, 24, 2, 14, 7, 7), (693, 16, 2, 11, 9, 7), (700, 32, 2, 28, 25),
+    (702, 32, 2, 27, 26), (704, 32, 2, 32, 22), (715, 16, 2, 11, 13, 5), (720, 32, 2, 24, 30),
+    (726, 20, 2, 11, 11, 6), (728, 32, 2, 28, 26), (729, 32, 2, 27, 27), (735, 20, 2, 15, 7, 7),
+    (750, 32, 2, 25, 30), (756, 32, 2, 28, 27), (768, 32, 2, 24, 32), (770, 16, 2, 11, 10, 7),
+    (780, 32, 2, 30, 26), (784, 32, 2, 28, 28), (792, 16, 2, 9, 11, 8), (800, 32, 2, 25, 32),
+    (810, 32, 2, 30, 27), (819, 16, 2, 9, 13, 7), (825, 16, 4, 15, 11, 5), (832, 32, 2, 32, 26),
+    (840, 32, 2, 28, 30), (845, 24, 2, 13, 13, 5), (847, 20, 2, 11, 11, 7),
+    (858, 20, 2, 13, 11, 6), (864, 32, 2, 32, 27), (875, 32, 4, 25, 7, 5),
+    (880, 16, 2, 10, 11, 8), (882, 16, 2, 9, 14, 7), (891, 16, 2, 11, 9, 9), (896, 32, 2, 32, 28),
+    (900, 32, 2, 30, 30), (910, 16, 2, 10, 13, 7), (924, 20, 2, 12, 11, 7),
+    (936, 16, 2, 9, 13, 8), (945, 16, 2, 9, 15, 7), (960, 32, 2, 32, 30), (968, 16, 2, 11, 11, 8),
+    (972, 16, 2, 12, 9, 9), (975, 24, 2, 15, 13, 5), (980, 16, 2, 10, 14, 7),
+    (990, 16, 2, 11, 10, 9), (1001, 16, 2, 11, 13, 7), (1008, 20, 2, 12, 12, 7),
+    (1014, 16, 2, 6, 13, 13), (1029, 24, 3, 21, 7, 7), (1040, 20, 1, 13, 10, 8),
+    (1050, 20, 1, 15, 10, 7), (1053, 16, 1, 9, 9, 13), (1056, 20, 1, 12, 11, 8),
+    (1078, 16, 1, 7, 11, 14), (1080, 20, 1, 12, 10, 9), (1089, 24, 1, 11, 11, 9),
+    (1092, 16, 1, 7, 12, 13), (1100, 24, 1, 11, 10, 10), (1120, 20, 1, 14, 10, 8),
+    (1125, 16, 1, 15, 15, 5), (1134, 16, 1, 9, 14, 9), (1144, 16, 1, 8, 11, 13),
+    (1152, 16, 1, 12, 12, 8), (1155, 16, 1, 11, 15, 7), (1170, 20, 1, 13, 10, 9),
+    (1176, 16, 1, 7, 12, 14), (1183, 16, 1, 7, 13, 13), (1188, 16, 1, 12, 11, 9),
+    (1200, 16, 1, 10, 10, 12), (1210, 16, 1, 10, 11, 11), (1215, 20, 1, 15, 9, 9),
+    (1225, 32, 3, 25, 7, 7), (1232, 32, 1, 14, 11, 8), (1248, 16, 1, 8, 12, 13),
+    (1250, 32, 3, 25, 10, 5), (1260, 20, 1, 14, 10, 9), (1274, 16, 1, 14, 13, 7),
+    (1280, 16, 1, 16, 10, 8), (1287, 16, 1, 9, 11, 13), (1296, 16, 1, 9, 12, 12),
+    (1300, 16, 1, 10, 10, 13), (1320, 16, 1, 11, 12, 10), (1323, 32, 1, 21, 9, 7),
+    (1331, 20, 1, 11, 11, 11), (1344, 16, 1, 8, 12, 14), (1350, 20, 1, 15, 10, 9),
+    (1365, 16, 1, 7, 13, 15), (1372, 16, 2, 14, 14, 7), (1375, 32, 1, 11, 25, 5),
+    (1386, 16, 1, 11, 14, 9), (1400, 16, 1, 10, 10, 14), (1404, 16, 1, 9, 12, 13),
+    (1408, 20, 1, 16, 11, 8), (1430, 16, 1, 10, 11, 13), (1440, 16, 1, 10, 12, 12),
+    (1452, 16, 1, 11, 12, 11), (1456, 16, 2, 14, 13, 8), (1458, 20, 1, 9, 9, 18),
+    (1470, 16, 2, 15, 14, 7), (1485, 16, 1, 9, 11, 15), (1500, 16, 1, 10, 10, 15),
+    (1512, 16, 1, 9, 12, 14), (1521, 16, 1, 9, 13, 13), (1540, 16, 1, 11, 14, 10),
+    (1560, 16, 1, 10, 12, 13), (1568, 16, 2, 14, 14, 8), (1573, 16, 1, 11, 13, 11),
+    (1575, 16, 2, 15, 15, 7), (1584, 16, 1, 11, 12, 12), (1600, 16, 1, 16, 10, 10),
+    (1617, 24, 2, 21, 11, 7), (1620, 16, 1, 12, 15, 9), (1625, 32, 1, 5, 13, 25),
+    (1638, 16, 1, 9, 13, 14), (1650, 16, 1, 10, 11, 15), (1664, 20, 1, 16, 13, 8),
+    (1680, 16, 1, 10, 12, 14), (1690, 16, 1, 10, 13, 13), (1694, 16, 1, 11, 14, 11),
+    (1701, 24, 1, 9, 9, 21), (1715, 16, 1, 5, 7, 7, 7), (1716, 16, 1, 11, 12, 13),
+    (1728, 16, 2, 12, 12, 12), (1750, 32, 1, 7, 10, 25), (1755, 16, 1, 9, 13, 15),
+    (1760, 16, 1, 11, 16, 10), (1764, 16, 1, 14, 14, 9), (1782, 20, 1, 18, 11, 9),
+    (1792, 20, 1, 16, 14, 8), (1800, 16, 1, 10, 12, 15), (1815, 16, 1, 11, 11, 15),
+    (1820, 16, 1, 14, 13, 10), (1848, 20, 1, 14, 12, 11), (1872, 16, 1, 12, 12, 13),
+    (1875, 32, 1, 15, 25, 5), (1890, 16, 1, 9, 14, 15), (1911, 24, 1, 21, 13, 7),
+    (1920, 16, 1, 12, 16, 10), (1925, 32, 1, 11, 25, 7), (1936, 20, 1, 16, 11, 11),
+    (1944, 24, 1, 18, 12, 9), (1950, 16, 1, 10, 13, 15), (1960, 16, 1, 10, 14, 14),
+    (1980, 16, 1, 15, 12, 11), (2000, 24, 1, 20, 10, 10), (2002, 20, 1, 14, 13, 11),
+    (2016, 16, 1, 14, 12, 12), (2025, 24, 1, 15, 15, 9), (2028, 16, 1, 12, 13, 13),
+    (2058, 24, 1, 21, 14, 7), (2080, 16, 1, 16, 13, 10), (2100, 16, 1, 10, 14, 15),
+    (2106, 20, 1, 18, 13, 9), (2112, 16, 1, 16, 12, 11), (2145, 16, 1, 15, 13, 11),
+    (2156, 16, 1, 11, 14, 14), (2160, 16, 1, 15, 12, 12), (2178, 24, 1, 18, 11, 11),
+    (2184, 16, 1, 12, 13, 14), (2187, 32, 1, 27, 9, 9), (2200, 24, 1, 20, 11, 10),
+    (2205, 24, 1, 15, 21, 7), (2240, 16, 1, 16, 14, 10), (2250, 20, 1, 15, 15, 10),
+    (2268, 20, 1, 18, 14, 9), (2275, 32, 1, 13, 25, 7), (2288, 16, 1, 16, 13, 11),
+    (2304, 20, 1, 16, 12, 12), (2340, 16, 1, 12, 13, 15), (2352, 16, 1, 12, 14, 14),
+    (2366, 16, 1, 14, 13, 13), (2376, 20, 1, 18, 12, 11), (2400, 20, 1, 16, 15, 10),
+    (2401, 16, 1, 7, 7, 7, 7), (2420, 20, 1, 11, 11, 20), (2430, 20, 1, 18, 15, 9),
+    (2450, 32, 1, 14, 25, 7), (2457, 24, 1, 21, 13, 9), (2464, 16, 1, 14, 16, 11),
+    (2475, 16, 1, 15, 15, 11), (2496, 16, 1, 12, 13, 16), (2500, 32, 1, 25, 10, 10),
+    (2520, 16, 1, 12, 14, 15), (2535, 16, 1, 15, 13, 13), (2541, 24, 1, 11, 21, 11),
+    (2548, 16, 1, 14, 14, 13), (2560, 24, 1, 16, 16, 10), (2574, 20, 1, 18, 13, 11),
+    (2592, 24, 1, 18, 12, 12), (2600, 20, 1, 20, 13, 10), (2625, 32, 1, 7, 15, 25),
+    (2640, 16, 1, 16, 15, 11), (2646, 32, 1, 21, 14, 9), (2662, 24, 1, 11, 11, 22),
+    (2673, 32, 1, 11, 27, 9), (2688, 16, 1, 14, 16, 12), (2695, 24, 1, 11, 7, 7, 5),
+    (2700, 16, 1, 12, 15, 15), (2704, 16, 1, 16, 13, 13), (2730, 16, 1, 14, 15, 13),
+    (2744, 16, 1, 14, 14, 14), (2750, 32, 1, 11, 25, 10), (2772, 20, 1, 18, 14, 11),
+    (2800, 20, 1, 20, 14, 10), (2808, 20, 1, 12, 13, 18), (2816, 16, 1, 16, 16, 11),
+    (2835, 24, 1, 15, 21, 9), (2860, 20, 1, 11, 13, 20), (2880, 16, 1, 16, 15, 12),
+    (2904, 24, 1, 22, 12, 11), (2912, 20, 1, 16, 14, 13), (2916, 20, 1, 9, 18, 18),
+    (2925, 16, 1, 15, 15, 13), (2940, 16, 1, 15, 14, 14), (2970, 20, 1, 11, 15, 18),
+    (3003, 32, 1, 21, 13, 11), (3024, 20, 1, 18, 14, 12), (3025, 32, 1, 11, 11, 25),
+    (3042, 20, 1, 18, 13, 13), (3080, 20, 1, 11, 14, 20), (3087, 24, 1, 21, 21, 7),
+    (3120, 16, 1, 16, 15, 13), (3125, 32, 1, 25, 25, 5), (3136, 20, 1, 16, 14, 14),
+    (3146, 32, 1, 22, 13, 11), (3150, 16, 1, 15, 15, 14), (3159, 32, 1, 13, 27, 9),
+    (3168, 20, 1, 16, 18, 11), (3185, 16, 1, 13, 7, 7, 5), (3200, 20, 1, 16, 20, 10),
+    (3234, 32, 1, 21, 14, 11), (3240, 20, 1, 12, 15, 18), (3250, 32, 1, 13, 25, 10),
+    (3267, 32, 1, 11, 27, 11), (3276, 20, 1, 14, 18, 13), (3300, 20, 1, 15, 20, 11),
+    (3328, 16, 1, 16, 16, 13), (3360, 16, 1, 15, 16, 14), (3375, 16, 1, 15, 15, 15),
+    (3380, 24, 1, 20, 13, 13), (3388, 32, 1, 22, 14, 11), (3402, 24, 1, 18, 21, 9),
+    (3430, 20, 1, 10, 7, 7, 7), (3432, 32, 1, 22, 13, 12), (3456, 20, 1, 16, 18, 12),
+    (3465, 24, 1, 15, 21, 11), (3500, 32, 1, 25, 14, 10), (3510, 20, 1, 18, 15, 13),
+    (3520, 20, 1, 16, 20, 11), (3528, 20, 1, 18, 14, 14), (3549, 24, 1, 13, 13, 21),
+    (3564, 20, 1, 18, 18, 11), (3575, 32, 1, 25, 13, 11), (3584, 16, 1, 16, 16, 14),
+    (3600, 16, 1, 16, 15, 15), (3630, 24, 1, 15, 22, 11), (3640, 20, 1, 20, 14, 13),
+    (3645, 32, 1, 15, 27, 9), (3675, 32, 1, 21, 25, 7), (3696, 24, 1, 16, 21, 11),
+    (3744, 20, 1, 16, 18, 13), (3750, 32, 1, 15, 25, 10), (3773, 24, 1, 11, 7, 7, 7),
+    (3780, 20, 1, 14, 15, 18), (3822, 24, 1, 13, 14, 21), (3840, 16, 1, 16, 16, 15),
+    (3850, 32, 1, 11, 14, 25), (3861, 32, 1, 27, 13, 11), (3872, 24, 1, 16, 22, 11),
+    (3888, 20, 1, 18, 18, 12), (3900, 24, 1, 20, 15, 13), (3920, 20, 1, 20, 14, 14),
+    (3960, 20, 1, 20, 18, 11), (3969, 24, 1, 21, 21, 9), (3993, 16, 1, 11, 11, 11, 3),
+    (4000, 20, 1, 10, 20, 20), (4004, 24, 1, 13, 14, 22), (4032, 20, 1, 16, 18, 14),
+    (4050, 20, 1, 15, 18, 15), (4056, 24, 1, 24, 13, 13), (4095, 24, 1, 13, 15, 21),
+    (4116, 24, 1, 14, 14, 21), (4125, 32, 1, 25, 15, 11), (4158, 24, 1, 21, 18, 11),
+    (4160, 20, 1, 16, 20, 13), (4200, 24, 1, 20, 15, 14), (4212, 20, 1, 18, 18, 13),
+    (4224, 24, 1, 16, 22, 12), (4225, 32, 1, 25, 13, 13), (4235, 16, 1, 11, 11, 7, 5),
+    (4290, 32, 1, 22, 15, 13), (4312, 24, 1, 14, 14, 22), (4320, 20, 1, 16, 18, 15),
+    (4356, 24, 1, 18, 22, 11), (4368, 32, 1, 21, 16, 13), (4374, 32, 1, 27, 18, 9),
+    (4375, 32, 1, 25, 25, 7), (4400, 32, 1, 20, 20, 11), (4410, 24, 1, 14, 15, 21),
+    (4455, 32, 1, 27, 15, 11), (4459, 20, 1, 13, 7, 7, 7), (4480, 20, 1, 16, 20, 14),
+    (4500, 20, 1, 20, 15, 15), (4536, 20, 1, 18, 18, 14), (4550, 32, 1, 25, 14, 13),
+    (4563, 32, 1, 13, 27, 13), (4576, 32, 1, 22, 16, 13), (4608, 20, 1, 16, 18, 16),
+    (4620, 32, 1, 21, 20, 11), (4680, 20, 1, 20, 18, 13), (4704, 32, 1, 21, 16, 14),
+    (4719, 16, 1, 11, 13, 11, 3), (4725, 24, 1, 15, 15, 21), (4732, 32, 1, 13, 14, 26),
+    (4752, 24, 1, 22, 18, 12), (4800, 20, 1, 16, 20, 15), (4802, 20, 1, 14, 7, 7, 7),
+    (4840, 24, 1, 22, 20, 11), (4851, 32, 1, 21, 21, 11), (4860, 20, 1, 18, 18, 15),
+    (4875, 32, 1, 15, 25, 13), (4900, 32, 1, 25, 14, 14), (4914, 24, 1, 13, 18, 21),
+    (4928, 32, 1, 22, 16, 14), (4950, 32, 1, 22, 15, 15), (4992, 32, 1, 24, 16, 13),
+    (5000, 32, 1, 20, 25, 10), (5005, 32, 1, 13, 11, 7, 5), (5040, 20, 1, 18, 20, 14),
+    (5070, 32, 1, 15, 26, 13), (5082, 24, 1, 22, 21, 11), (5096, 32, 1, 14, 14, 26),
+    (5103, 32, 1, 21, 27, 9), (5145, 16, 1, 15, 7, 7, 7), (5148, 24, 1, 18, 22, 13),
+    (5184, 20, 1, 16, 18, 18), (5200, 20, 1, 13, 20, 20), (5250, 32, 1, 14, 15, 25),
+    (5265, 32, 1, 15, 27, 13), (5280, 32, 1, 22, 16, 15), (5292, 24, 1, 14, 18, 21),
+    (5324, 24, 1, 22, 22, 11), (5346, 32, 1, 18, 27, 11), (5376, 32, 1, 21, 16, 16),
+    (5390, 24, 1, 11, 10, 7, 7), (5400, 20, 1, 15, 18, 20), (5408, 32, 1, 13, 16, 26),
+    (5445, 24, 1, 11, 11, 9, 5), (5460, 24, 1, 13, 20, 21), (5488, 32, 1, 14, 28, 14),
+    (5500, 32, 1, 20, 25, 11), (5544, 24, 1, 18, 22, 14), (5600, 20, 1, 14, 20, 20),
+    (5616, 24, 1, 18, 24, 13), (5625, 32, 1, 25, 15, 15), (5632, 32, 1, 22, 16, 16),
+    (5670, 24, 1, 15, 18, 21), (5720, 24, 1, 13, 20, 22), (5733, 24, 1, 13, 21, 21),
+    (5760, 20, 1, 16, 18, 20), (5775, 32, 1, 21, 25, 11), (5808, 24, 1, 22, 22, 12),
+    (5824, 32, 1, 14, 16, 26), (5832, 20, 1, 18, 18, 18), (5850, 32, 1, 25, 18, 13),
+    (5880, 24, 1, 14, 20, 21), (5915, 32, 1, 13, 13, 7, 5), (5929, 24, 1, 11, 11, 7, 7),
+    (5940, 24, 1, 15, 18, 22), (6006, 24, 1, 13, 21, 22), (6048, 24, 1, 16, 18, 21),
+    (6050, 32, 1, 22, 25, 11), (6075, 32, 1, 15, 27, 15), (6084, 32, 1, 18, 26, 13),
+    (6125, 32, 1, 7, 25, 7, 5), (6160, 24, 1, 14, 20, 22), (6174, 24, 1, 14, 21, 21),
+    (6237, 32, 1, 21, 27, 11), (6240, 24, 1, 13, 20, 24), (6250, 32, 1, 25, 25, 10),
+    (6272, 32, 1, 14, 16, 28), (6292, 24, 1, 13, 22, 22), (6300, 24, 1, 15, 20, 21),
+    (6318, 32, 1, 27, 18, 13), (6336, 24, 1, 16, 18, 22), (6370, 32, 1, 13, 10, 7, 7),
+    (6400, 20, 1, 16, 20, 20), (6435, 16, 1, 11, 13, 9, 5), (6468, 24, 1, 14, 21, 22),
+    (6480, 20, 1, 18, 18, 20), (6500, 32, 1, 20, 25, 13), (6534, 32, 1, 22, 27, 11),
+    (6552, 24, 1, 13, 21, 24), (6561, 32, 1, 27, 27, 9), (6600, 24, 1, 15, 20, 22),
+    (6615, 24, 1, 15, 21, 21), (6655, 20, 1, 11, 11, 11, 5), (6656, 32, 1, 16, 16, 26),
+    (6720, 24, 1, 16, 20, 21), (6750, 32, 1, 15, 18, 25), (6760, 32, 1, 20, 26, 13),
+    (6776, 24, 1, 14, 22, 22), (6804, 24, 1, 18, 18, 21), (6825, 32, 1, 21, 25, 13),
+    (6860, 20, 1, 14, 10, 7, 7), (6864, 24, 1, 13, 22, 24), (6875, 32, 1, 25, 25, 11),
+    (6912, 24, 1, 16, 18, 24), (6930, 24, 1, 15, 21, 22), (7000, 32, 1, 20, 25, 14),
+    (7007, 16, 1, 11, 13, 7, 7), (7020, 32, 1, 15, 18, 26), (7040, 24, 1, 16, 20, 22),
+    (7056, 24, 1, 16, 21, 21), (7098, 32, 1, 21, 26, 13), (7128, 24, 1, 18, 22, 18),
+    (7150, 32, 1, 22, 25, 13), (7168, 32, 1, 28, 16, 16), (7200, 24, 1, 20, 20, 18),
+    (7260, 24, 1, 15, 22, 22), (7280, 32, 1, 20, 26, 14), (7290, 32, 1, 18, 27, 15),
+    (7350, 32, 1, 21, 25, 14), (7371, 32, 1, 21, 27, 13), (7392, 24, 1, 16, 21, 22),
+    (7425, 32, 1, 25, 27, 11), (7488, 24, 1, 13, 24, 24), (7500, 32, 1, 20, 25, 15),
+    (7546, 16, 1, 11, 14, 7, 7), (7560, 24, 1, 21, 20, 18), (7605, 24, 1, 13, 13, 9, 5),
+    (7623, 20, 1, 11, 11, 9, 7), (7644, 32, 1, 21, 26, 14), (7680, 24, 1, 16, 20, 24),
+    (7700, 32, 1, 22, 25, 14), (7722, 32, 1, 22, 27, 13), (7744, 24, 1, 16, 22, 22),
+    (7776, 24, 1, 18, 24, 18), (7800, 32, 1, 24, 25, 13), (7840, 32, 1, 20, 28, 14),
+    (7865, 16, 1, 11, 13, 11, 5), (7875, 32, 1, 21, 25, 15), (7920, 24, 1, 20, 22, 18),
+    (7938, 24, 1, 21, 21, 18), (7986, 16, 1, 11, 11, 11, 6), (8000, 32, 1, 20, 20, 20),
+    (8008, 32, 1, 22, 26, 14), (8019, 32, 1, 11, 27, 27), (8064, 24, 1, 16, 21, 24),
+    (8085, 16, 1, 11, 15, 7, 7), (8100, 32, 1, 18, 18, 25), (8112, 32, 1, 13, 24, 26),
+    (8125, 32, 1, 25, 25, 13), (8190, 32, 1, 15, 21, 26), (8250, 32, 1, 15, 22, 25),
+    (8281, 24, 1, 13, 13, 7, 7), (8316, 24, 1, 21, 22, 18), (8320, 32, 1, 20, 26, 16),
+    (8400, 24, 1, 20, 21, 20), (8424, 32, 1, 18, 26, 18), (8448, 24, 1, 16, 22, 24),
+    (8470, 24, 1, 11, 11, 10, 7), (8505, 32, 1, 21, 27, 15), (8580, 32, 1, 15, 22, 26),
+    (8624, 32, 1, 14, 22, 28), (8640, 24, 1, 20, 24, 18), (8712, 24, 1, 18, 22, 22),
+    (8736, 32, 1, 21, 26, 16), (8748, 32, 1, 18, 18, 27), (8750, 32, 1, 25, 25, 14),
+    (8775, 32, 1, 25, 27, 13), (8800, 24, 1, 20, 20, 22), (8820, 24, 1, 20, 21, 21),
+    (8910, 32, 1, 27, 22, 15), (8918, 20, 1, 14, 13, 7, 7), (8960, 32, 1, 20, 28, 16),
+    (9000, 32, 1, 18, 20, 25), (9009, 32, 1, 11, 13, 9, 7), (9072, 24, 1, 24, 21, 18),
+    (9075, 24, 1, 15, 11, 11, 5), (9100, 32, 1, 14, 25, 26), (9126, 32, 1, 13, 26, 27),
+    (9152, 32, 1, 16, 22, 26), (9240, 24, 1, 20, 21, 22), (9317, 24, 1, 11, 11, 11, 7),
+    (9360, 64, 1, 20, 26, 18), (9375, 32, 1, 25, 25, 15), (9408, 32, 1, 21, 28, 16),
+    (9438, 32, 1, 11, 13, 11, 6), (9450, 64, 1, 21, 25, 18), (9464, 32, 1, 26, 26, 14),
+    (9477, 32, 1, 13, 27, 27), (9504, 24, 1, 24, 22, 18), (9555, 16, 1, 15, 13, 7, 7),
+    (9600, 24, 1, 20, 20, 24), (9604, 20, 1, 14, 14, 7, 7), (9625, 32, 1, 11, 25, 7, 5),
+    (9680, 32, 1, 22, 22, 20), (9702, 24, 1, 21, 22, 21), (9720, 64, 1, 20, 27, 18),
+    (9750, 32, 1, 26, 25, 15), (9800, 32, 1, 25, 28, 14), (9801, 24, 1, 9, 9, 11, 11),
+    (9828, 64, 1, 26, 21, 18), (9856, 32, 1, 22, 28, 16), (9900, 64, 1, 22, 25, 18),
+    (9984, 32, 1, 24, 26, 16), (10000, 32, 1, 20, 20, 25), (10010, 32, 1, 11, 13, 10, 7),
+    (10080, 24, 1, 20, 21, 24), (10125, 32, 1, 27, 25, 15), (10164, 24, 1, 21, 22, 22),
+    (10192, 32, 1, 14, 26, 28), (10206, 64, 1, 21, 27, 18), (10240, 32, 1, 20, 32, 16),
+    (10290, 16, 1, 15, 14, 7, 7), (10296, 64, 1, 22, 26, 18), (10368, 24, 1, 18, 24, 24),
+    (10395, 32, 1, 11, 15, 9, 7), (10400, 64, 1, 26, 20, 20), (10500, 64, 1, 20, 21, 25),
+    (10530, 32, 1, 15, 26, 27), (10560, 24, 1, 20, 22, 24), (10584, 32, 1, 24, 21, 21),
+    (10647, 32, 1, 13, 13, 9, 7), (10648, 32, 1, 22, 22, 22), (10692, 64, 1, 22, 27, 18),
+    (10752, 32, 1, 16, 24, 28), (10780, 32, 1, 11, 14, 10, 7), (10800, 64, 1, 25, 24, 18),
+    (10816, 32, 1, 16, 26, 26), (10890, 24, 1, 9, 10, 11, 11), (10920, 64, 1, 21, 26, 20),
+    (10976, 32, 1, 14, 28, 28), (11000, 64, 1, 22, 25, 20), (11011, 32, 1, 11, 13, 11, 7),
+    (11025, 64, 1, 21, 25, 21), (11088, 24, 1, 22, 24, 21), (11200, 64, 1, 28, 20, 20),
+    (11232, 64, 1, 24, 26, 18), (11250, 64, 1, 25, 25, 18), (11264, 32, 1, 16, 22, 32),
+    (11340, 64, 1, 21, 27, 20), (11375, 32, 1, 13, 25, 7, 5), (11440, 64, 1, 22, 26, 20),
+    (11466, 64, 1, 21, 26, 21), (11520, 24, 1, 24, 24, 20), (11550, 64, 1, 22, 25, 21),
+    (11616, 24, 1, 22, 24, 22), (11648, 32, 1, 28, 26, 16), (11664, 64, 1, 24, 27, 18),
+    (11700, 64, 1, 25, 26, 18), (11760, 64, 1, 21, 28, 20), (11880, 64, 1, 22, 27, 20),
+    (12000, 64, 1, 25, 24, 20), (12096, 24, 1, 21, 24, 24), (12100, 64, 1, 25, 22, 22),
+    (12168, 64, 1, 26, 26, 18), (12250, 32, 1, 25, 10, 7, 7), (12285, 32, 1, 13, 15, 9, 7),
+    (12320, 64, 1, 20, 22, 28), (12348, 64, 1, 21, 28, 21), (12474, 64, 1, 21, 22, 27),
+    (12480, 64, 1, 20, 24, 26), (12500, 64, 1, 20, 25, 25), (12544, 32, 1, 16, 28, 28),
+    (12584, 64, 1, 22, 22, 26), (12600, 64, 1, 24, 25, 21), (12636, 64, 1, 27, 26, 18),
+    (12672, 24, 1, 22, 24, 24), (12800, 64, 1, 32, 20, 20), (12960, 64, 1, 20, 24, 27),
+    (13000, 64, 1, 20, 25, 26), (13068, 64, 1, 22, 22, 27), (13104, 64, 1, 21, 24, 26),
+    (13125, 64, 1, 21, 25, 25), (13200, 64, 1, 24, 25, 22), (13230, 64, 1, 21, 30, 21),
+    (13312, 32, 1, 16, 26, 32), (13440, 64, 1, 20, 24, 28), (13500, 64, 1, 20, 25, 27),
+    (13552, 64, 1, 22, 28, 22), (13608, 64, 1, 21, 24, 27), (13750, 64, 1, 25, 25, 22),
+    (13824, 24, 1, 24, 24, 24), (13860, 64, 1, 30, 22, 21), (14000, 64, 1, 25, 28, 20),
+    (14040, 64, 1, 27, 26, 20), (14080, 64, 1, 32, 22, 20), (14112, 64, 1, 21, 24, 28),
+    (14400, 64, 1, 25, 24, 24),
+)
+GENERAL_LINES = {e[0]: GeneralLine(e[1], e[2], tuple(e[3:])) for e in _GENERAL}
 
 
 @lru_cache(maxsize=None)
@@ -127,22 +383,52 @@ def radix_chain(n: int) -> Tuple[int, ...]:
 
 
 _DESIGNS = {"pow2": POW2_LINES, "warp": WARP_LINES, "mixed": MIXED_LINES,
-            "packed": PACKED_LINES}
+            "packed": PACKED_LINES,
+            "general": {n: line.chain for n, line in GENERAL_LINES.items()}}
 
 
 def lines_chain(n: int) -> Tuple[int, ...]:
     """K1's chain for length ``n``: the power-of-two, the warp, the
-    mixed-radix or the packed design's where ``POW2_LINES``, ``WARP_LINES``,
-    ``MIXED_LINES`` or ``PACKED_LINES`` names ``n``, ``radix_chain(n)`` (the
-    direct design's) everywhere else.  K1's ``cw`` table is laid out for this
-    chain."""
+    mixed-radix, the packed or the general design's where ``POW2_LINES``,
+    ``WARP_LINES``, ``MIXED_LINES``, ``PACKED_LINES`` or ``GENERAL_LINES``
+    names ``n``, ``radix_chain(n)`` (the direct design's) everywhere else.
+    K1's ``cw`` table is laid out for this chain."""
     return next((table[n] for table in _DESIGNS.values() if n in table), None) or radix_chain(n)
 
 
 def lines_design(n: int) -> str:
     """The design K1's entry point launches for length ``n``: ``"pow2"``,
-    ``"warp"``, ``"mixed"``, ``"packed"`` or ``"direct"``."""
+    ``"warp"``, ``"mixed"``, ``"packed"``, ``"general"`` or ``"direct"``."""
     return next((name for name, table in _DESIGNS.items() if n in table), "direct")
+
+
+def general_shared(n: int, chain: Sequence[int], lines: int) -> int:
+    """Bytes of shared memory a CTA of the general design takes for
+    ``chain`` over ``lines`` lines of ``n``: the exchanges' buffers (two,
+    one for a chain of two passes) of ``lines`` lines at the longest
+    exchange's padded extent (one point in every ns * R after a pass of even
+    radix R)."""
+    pitch, ns = n, 1
+    for r in chain[:-1]:
+        if r % 2 == 0:
+            pitch = max(pitch, n + (n - 1) // (ns * r))
+        ns *= r
+    return (2 if len(chain) > 2 else 1) * lines * pitch * 8
+
+
+def general_threads(n: int, chain: Sequence[int], points: int, lines: int) -> Optional[int]:
+    """Threads a CTA of the general design takes for ``chain`` over
+    ``lines`` lines of ``n`` with at most ``points`` points a thread: enough
+    that every pass's butterflies fit in points // R rounds (the C
+    ``make_plan``); None where the C ``make_plan`` refuses the shape:
+    ``points`` is no class, a radix is outside the class's, the class has
+    too few threads or the CTA's shared memory (``general_shared``) is over
+    227 KB."""
+    least, most = GENERAL_CLASSES.get(points, (points + 1, 0))
+    if any(not least <= r <= points for r in chain) or general_shared(n, chain, lines) > 227 << 10:
+        return None
+    threads = max(-(-(lines * (n // r)) // (points // r)) for r in chain)
+    return threads if threads <= most else None
 
 
 def lines_in_place(n: int) -> bool:

@@ -17,9 +17,10 @@
 // passes, each inner pass a trip through shared memory between two
 // barriers, with nothing to cover it when an SM holds one CTA.
 //
-// Five designs, and a rule (kPow2Lines, kWarpLines, kMixedLines and
-// kPackedLines, lines.cuh; core/radix.py POW2_LINES, WARP_LINES,
-// MIXED_LINES and PACKED_LINES) that gives each length one of them:
+// Six designs, and a rule (kPow2Lines, kWarpLines, kMixedLines,
+// kPackedLines and kGeneralLines, lines.cuh; core/radix.py POW2_LINES,
+// WARP_LINES, MIXED_LINES, PACKED_LINES and GENERAL_LINES) that gives each
+// length one of them:
 // - the power-of-two design (lines_pow2.cu, lines_pow2.cuh) for 256, 1024,
 //   2048, 4096, 8192 and 16384: a kernel per length whose chain, strides
 //   and twiddle offsets are template constants, one line a CTA, three
@@ -51,7 +52,17 @@
 //   contiguous block by 16-byte copies, run there in one lane's registers
 //   (or a few lanes' under __syncwarp) and stored the same way, on a grid
 //   sized from the lines and the SMs; it runs in place at every chain;
-// - the direct design below for every other length.
+// - the general mixed-radix design (lines_general.cu, lines_general.cuh)
+//   for the lengths of its table: the mixed-radix design's butterflies on
+//   a run-time chain of two to four passes, the fewest its radices allow
+//   (where radix_chain takes four to eight from 129 points), CTAs sized for
+//   the chain, five kernel instantiations (16 to 64 points a thread) for
+//   all of its 715 lengths; on the NVIDIA H100 80GB HBM3 at 700 W each ran
+//   in 0.11-0.91 of the direct design's time at 1000 lines and at 67 MB
+//   (PERF.md);
+// - the direct design below for every other length (25 lengths from 11583
+//   points, which no class of the general design holds in one CTA: two
+//   exchange buffers over 227 KB, or more threads than the class has).
 //
 // Direct design: a CTA takes as many whole lines as keep about 256 threads
 // busy with one butterfly group each in every pass (16 lines at N = 128 =
@@ -139,12 +150,13 @@ struct DescribeLines {
   }
 };
 
-// K1's rule: a length that kPow2Lines, kWarpLines, kMixedLines or
-// kPackedLines (lines.cuh) names runs the power-of-two design
-// (lines_pow2.cu), the warp design (lines_warp.cu), the mixed-radix design
-// (lines_mixed.cu) or the packed design (lines_packed.cu) and must be handed
-// that design's chain; every other length runs the direct design on the
-// chain it is handed.  Each design launches or the call fails: there is no
+// K1's rule: a length that kPow2Lines, kWarpLines, kMixedLines,
+// kPackedLines or kGeneralLines (lines.cuh) names runs the power-of-two
+// design (lines_pow2.cu), the warp design (lines_warp.cu), the mixed-radix
+// design (lines_mixed.cu), the packed design (lines_packed.cu) or the
+// general design (lines_general.cu) and must be handed that design's chain;
+// every other length runs the direct design on the chain it is handed.
+// Each design launches or the call fails: there is no
 // fallback from one to another.  With `report` the launch is not made, and
 // it is described there instead, with the design the rule gave the length.
 int lines_entry(const void* x, void* y, const void* tw, const void* params, long long lines,
@@ -183,6 +195,12 @@ int lines_entry(const void* x, void* y, const void* tw, const void* params, long
     design(wgfft::kPacked);
     return static_cast<int>(
         wgfft::launch_packed_lines(xs, ys, tws, ps, lines, n, cj, st, report));
+  }
+  if (const wgfft::GeneralLine* g = wgfft::general_line(n)) {
+    if (!wgfft::rule_chain(g->rule, radices, count)) return static_cast<int>(cudaErrorInvalidValue);
+    design(wgfft::kGeneral);
+    return static_cast<int>(
+        wgfft::launch_general_lines(xs, ys, tws, ps, lines, n, cj, st, report));
   }
   design(wgfft::kDirect);
   Chain chain;

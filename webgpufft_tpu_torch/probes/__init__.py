@@ -16,7 +16,8 @@ module's docstring):
 - ``variants``: K2 in a design named by the caller, the direct one or the
   ring of stages: the one-run comparison of the two; K1's power-of-two,
   warp or mixed-radix design in a variant named by the caller
-  (``lines_variant``).
+  (``lines_variant``), and its general design on any chain, class and
+  lines a CTA the caller names (``general_variant``).
 
 Every wrapper follows K1's: a CUDA tensor launches the kernel or raises, a
 CPU tensor runs the plain PyTorch version, a ``launches`` counter counts

@@ -1,6 +1,6 @@
 """K2 in a design, tile or fixed-design variant the caller names; K1's
 power-of-two, warp, mixed-radix and packed designs in a variant the caller
-names.
+names, and its general design on a chain and shape the caller names.
 
 No Pallas probe stands behind this module: it launches the counterpart of
 K2 (``webgpufft_tpu/core/fused_cols.py:161``) in one of its designs by name,
@@ -42,6 +42,14 @@ variant K1's rule names (``radix.POW2_LINES``, ``radix.WARP_LINES``,
 ``radix.MIXED_LINES``, ``radix.PACKED_LINES``) and the direct design
 elsewhere.
 
+``general_variant(x, tables, chain, points, lines)`` launches K1's general
+design (``csrc/lines_general.cuh``: one kernel a class of points a thread,
+the chain, the class and the lines a CTA run-time values) through the
+plans' library's own entry point ``wgfft_general_lines``, so that no
+kernel is built twice; ``general_report`` says what that launch would be.
+The plans' entry point launches the shape ``radix.GENERAL_LINES`` names,
+fitted to the sweep of ``chip_probes/k1_general_variants.py``.
+
 Each wrapper runs the kernel's plain version on a CPU tensor and launches or
 raises on a CUDA tensor; ``launches`` counts kernel launches only.
 """
@@ -49,6 +57,7 @@ raises on a CUDA tensor; ``launches`` counts kernel launches only.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -260,6 +269,66 @@ def lines_variant_resident(variant: str) -> int:
 
 
 lines_variant.launches = 0
+
+
+def general_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor], chain: Tuple[int, ...],
+                    points: int, lines: int, adjoint: bool = False,
+                    inplace: bool = False) -> torch.Tensor:
+    """K1's transform (its adjoint with ``adjoint``) of interleaved float32
+    ``x`` (lines, N, 2) in the general design (``csrc/lines_general.cuh``)
+    on any ``chain`` of two to four passes of ``radix.GENERAL_RADICES`` that
+    multiplies to N, in the class of ``points`` (the most points a thread
+    holds: a class of ``radix.GENERAL_CLASSES``) with ``lines`` lines a CTA, whatever K1's rule says
+    of N, with ``tables`` laid out for the chain (``radix.chain_consts``);
+    with ``inplace`` written over ``x``: the variants of
+    ``chip_probes/k1_general_variants.py``.  A CUDA tensor launches the
+    kernel of the plans' library (and counts one launch here, none in
+    ``fused_lines``) or raises where the design cannot run that shape; a
+    CPU tensor runs the chain through ``radix.radix_chain_reference``."""
+    n = x.shape[1]
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"general_variant: unsupported device {x.device}")
+    fused._check_cuda(x)
+    if (not 2 <= len(chain) <= 4 or math.prod(chain) != n
+            or radix.general_threads(n, chain, points, lines) is None
+            or any(r not in radix.GENERAL_RADICES for r in chain)):
+        raise ValueError(f"general_variant: the general design does not run N = {n} on "
+                         f"{tuple(chain)} at {points} points a thread, {lines} lines a CTA")
+    if x.device.type == "cpu":
+        y = radix.radix_chain_reference(x, chain, tables, adjoint)
+        return x.copy_(y) if inplace else y
+    ptrs = _build.table_ptrs(x, tables, {"cw": (n, 2), "cp": (2,)}, "general_variant")
+    y = x if inplace else torch.empty_like(x)
+    with _build.on_device(x.device):
+        rc = _build.library().wgfft_general_lines(
+            x.data_ptr(), y.data_ptr(), *ptrs, x.shape[0], n, *_build.chain_arg(tuple(chain)),
+            points, lines, int(adjoint), None, torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, f"general_variant {tuple(chain)} points {points} lines {lines}")
+    general_variant.launches += 1
+    return y
+
+
+general_variant.launches = 0
+
+
+class GeneralReport(NamedTuple):
+    """What a launch of the general design would be (``general_report``)."""
+    resident: int    # CTAs an SM holds of the kernel
+    sms: int
+    grid: int
+    threads: int     # a CTA
+
+
+def general_report(n: int, count: int, chain: Tuple[int, ...], points: int,
+                   lines: int) -> GeneralReport:
+    """What ``general_variant`` would launch for ``count`` lines of ``n``
+    on the current CUDA device; needs the card."""
+    out = (ctypes.c_longlong * 5)()
+    rc = _build.library().wgfft_general_lines(None, None, None, None, count, n,
+                                              *_build.chain_arg(tuple(chain)), points, lines,
+                                              0, out, None)
+    _build.check(rc, f"general_variant {tuple(chain)} points {points} lines {lines}")
+    return GeneralReport(out[0], out[1], out[2], out[4])
 
 
 def _cols_call(x, tables, design, adjoint, tile, slots, y):
