@@ -98,6 +98,12 @@ K2_CASES = [(256, 256, 512), (1, 256, 131072), (64, 360, 512), (256, 16, 512), (
             (1, 1024, 2048), (3, 128, 131072), (6, 128, 131072), (8, 3, 512), (8, 9, 512),
             (8, 2048, 1024), (64, 1024, 66), (8, 16384, 128), (16, 4096, 64),
             (64, 512, 1024), (16, 256, 2048), (32, 128, 1024)]
+# the facade's fft2 of eight HD frames, an H = 32 view of the kind the
+# NS-3D main at n 32 gives K2, and the halo fftconv [1000, 1000] x 8 with
+# 25 x 25 taps of the examples and distributed paths (H = 1078): heights
+# of K2's general design but 32 (chip_probes/k2_general_variants.py times
+# every height of that design)
+K2_CASES += [(8, 1080, 3840), (3, 32, 1088), (1, 1078, 2156), (8, 1078, 2156)]
 RING_CASES = [(8, 1024, 2048), (1, 1024, 2048), (8, 512, 1024), (8, 2048, 1024), (64, 1024, 66),
               (16, 4096, 64), (256, 256, 512)]
 TOL = 1e-5

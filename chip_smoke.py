@@ -146,7 +146,7 @@ their whole domain (neither is a path; their launches count for none):
   must be refused by the wrapper and by the C entry point); K2 forward, inverse and adjoint on (2, H, 66),
   33 columns ragged against the tile, in the design K2's rule gives the view
   (``fused_cols.launch_shape``, which raises where the C rule and its Python
-  copy disagree), in place too where that is the fixed design.  Wherever
+  copy disagree), in place too where that is the fixed or the general design.  Wherever
   the rule runs the height on the ring once the tiles fill the card, the
   four launches (in place included) again on ``ring_units(grid)`` tiles:
   every stage of every persistent CTA used and then reused twice, and a
@@ -375,7 +375,9 @@ def phase_k2(gen):
     # kernel (1, 1024, 2048)), axis 0 of the 256^3 r2c/c2r plans
     # ((b, 128, 131072)) and one-butterfly heights a short axis 0 gives (3, 9);
     # then two more views of the ring design: a 4-column tile (H = 2048) and
-    # an odd column count (33: 8-byte copies, a ragged last tile)
+    # an odd column count (33: 8-byte copies, a ragged last tile); then the
+    # facade's fft2 of eight HD frames (8, 1080, 3840) and an H = 32 view of
+    # the kind the NS-3D main at n 32 gives it, heights of the general design
     for pre, h, lanes, direction in [
             (256, 256, 512, "forward"), (1, 256, 131072, "forward"),
             (64, 360, 512, "forward"), (256, 16, 512, "forward"),
@@ -386,7 +388,8 @@ def phase_k2(gen):
             (8, 512, 1024, "forward"), (8, 1024, 2048, "forward"),
             (1, 1024, 2048, "forward"), (3, 128, 131072, "forward"),
             (6, 128, 131072, "inverse"), (8, 3, 512, "forward"), (8, 9, 512, "inverse"),
-            (8, 2048, 1024, "forward"), (64, 1024, 66, "inverse")]:
+            (8, 2048, 1024, "forward"), (64, 1024, 66, "inverse"),
+            (8, 1080, 3840, "forward"), (3, 32, 1088, "inverse")]:
         if (pre, h) == (256, 16):
             tables = cols_tables_h2_is_1(h, direction, 1.0)
             split = (16, 1)
@@ -395,7 +398,8 @@ def phase_k2(gen):
             split = fused_cols.choose_split(h)
         x = torch.randn(pre, h, lanes, device="cuda", generator=gen)
         label = (f"K2 fused_cols view=({pre}, {h}, {lanes}) split={split} "
-                 f"chain={radix.radix_chain(h)} {direction}")
+                 f"chain={fused_cols.cols_chain(h)} "
+                 f"design={fused_cols.launch_shape(pre, h, lanes // 2)[0].design} {direction}")
         worst = max(worst, compare(label, fused_cols.fused_cols,
                                    fused_cols.fused_cols_reference, x, tables))
         cases[(pre, h, lanes)] = (x, tables, direction)
@@ -450,7 +454,7 @@ def phase_domain(gen):
     design) the wrapper and the C entry point must both refuse.  K2 forward, inverse and adjoint on (2, H, 66) in the
     design K2's rule gives the view (``fused_cols.launch_shape``, which also
     holds the C rule to its Python copy; the summary counts the heights of
-    each design), in place too where that is the fixed design.  Where the
+    each design), in place too where that is the fixed or the general design.  Where the
     rule runs the height on the ring once its tiles fill the card, the same
     three launches and K2 in place again on ``ring_units(grid)`` tiles: the
     ring turned three times with a ragged tail.  Every failure is
@@ -522,7 +526,7 @@ def phase_domain(gen):
             failures.append(f"K2 H={h}: the rule: {type(e).__name__}: {e}")
             continue
         k2_designs[launch.design] = k2_designs.get(launch.design, 0) + 1
-        label = (f"K2 H={h} split={fused_cols.choose_split(h)} chain={radix.radix_chain(h)} "
+        label = (f"K2 H={h} split={fused_cols.choose_split(h)} chain={fused_cols.cols_chain(h)} "
                  f"view={tuple(x.shape)} {launch.design} tile={launch.tile} "
                  f"cluster={launch.cluster}")
         check(f"{label} forward", lambda: fused_cols.fused_cols(x, fwd),
@@ -531,7 +535,7 @@ def phase_domain(gen):
               lambda: fused_cols.fused_cols_reference(x, inv))
         check(f"{label} adjoint", lambda: fused_cols.fused_cols(x, fwd, adjoint=True),
               lambda: fused_cols.fused_cols_reference(x, fwd, adjoint=True))
-        if launch.design == "fixed":
+        if launch.design in ("fixed", "general"):
             check(f"{label} in place", lambda: probes.cols_inplace(x.clone(), fwd),
                   lambda: fused_cols.fused_cols_reference(x, fwd))
         # where the rule runs this height on the ring once the tiles fill the
@@ -542,7 +546,7 @@ def phase_domain(gen):
             pre = -(-ring_units(sms) // tiles)
             big = torch.randn(pre, h, 2 * DOMAIN_COLS, device="cuda", generator=gen)
             grid = fused_cols.launch_shape(pre, h, DOMAIN_COLS)[0].grid
-            ring_label = (f"K2 H={h} chain={radix.radix_chain(h)} ring grid={grid} "
+            ring_label = (f"K2 H={h} chain={fused_cols.cols_chain(h)} ring grid={grid} "
                           f"tile={at_scale.tile} view={tuple(big.shape)}")
             check(f"{ring_label} forward", lambda: fused_cols.fused_cols(big, fwd),
                   lambda: fused_cols.fused_cols_reference(big, fwd))
@@ -1067,6 +1071,19 @@ PROBE_KERNELS = ("stream_copy", "lines_stages", "lines_planes")
 PATH_SHAPES = {}
 
 
+class LaunchLog(dict):
+    """A wrapper's ``seen`` log that also counts the launches of each key
+    (the wrapper enters every launch with ``setdefault``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = {}
+
+    def setdefault(self, key, value=None):
+        self.counts[key] = self.counts.get(key, 0) + 1
+        return super().setdefault(key, value)
+
+
 def drive(name, paths, fn, *args, k1=True, k2=True, probes=False):
     """Run one path with every launch count set to 0 just before it and
     read just after; each kernel of the path (``k1``, ``k2``, the three
@@ -1076,7 +1093,7 @@ def drive(name, paths, fn, *args, k1=True, k2=True, probes=False):
     wrappers = counters()
     for wrapper in wrappers.values():
         wrapper.launches = 0
-    PATH_SHAPES[name] = ({}, {})
+    PATH_SHAPES[name] = (LaunchLog(), LaunchLog())
     wrappers["fused_lines"].seen, wrappers["fused_cols"].seen = PATH_SHAPES[name]
     t0 = time.perf_counter()
     try:
@@ -1123,6 +1140,16 @@ def phase_path_shapes(gen):
         print(f"path shapes: {kernel.__name__} held against its plain version at "
               f"{len(seen)} (shape, adjoint, tables) combinations of the paths' own launches")
         require(seen, f"no path launched {kernel.__name__}")
+    # K2's launches over the paths by the design its rule gave each view and
+    # by height
+    by_design = {}
+    for logs in PATH_SHAPES.values():
+        for (pre, h, lanes, *_), n in logs[1].counts.items():
+            design = fused_cols.launch_shape(pre, h, lanes // 2)[0].design
+            heights = by_design.setdefault(design, {})
+            heights[h] = heights.get(h, 0) + n
+    print(json.dumps({"k2_path_launches": {d: dict(sorted(v.items()))
+                                           for d, v in sorted(by_design.items())}}))
     return worst
 
 
@@ -3931,12 +3958,16 @@ def main():
              ("fused_lines.cu", "lines_pow2.cu", "lines_warp.cu", "lines_mixed.cu",
               "lines_packed.cu", "lines_packed_2.cu", "lines_packed_3.cu",
               "lines_packed_4.cu", "lines_general.cu", "lines_general_16.cu",
-              "lines_general_32.cu", "lines_general_64.cu"),
+              "lines_general_20.cu", "lines_general_24.cu", "lines_general_32.cu",
+              "lines_general_64.cu"),
              ["direct", "pow2", "warp", "mixed", "packed", "general"],
              "webgpufft_tpu/core/fused.py:223", k1_err, "N=1024 x 4096 lines",
              ("K1", 1024, 4096)),
-            ("fused_cols", "fused_cols.cu", ("fused_cols.cu", "cols_fixed.cu"),
-             ["direct", "ring", "fixed"],
+            ("fused_cols", "fused_cols.cu",
+             ("fused_cols.cu", "cols_fixed.cu", "cols_general.cu", "cols_general_16.cu",
+              "cols_general_20.cu", "cols_general_24.cu", "cols_general_32.cu",
+              "cols_general_64.cu"),
+             ["direct", "ring", "fixed", "general"],
              "webgpufft_tpu/core/fused_cols.py:161", k2_err, "view (256, 256, 512)",
              ("K2", 256, 256, 512))]] + [
         {"name": name, "route": "cuda", "source": f"webgpufft_tpu_torch/csrc/probes/{src}",

@@ -92,16 +92,23 @@ def test_bad_artifacts_raise():
     assert T.load_exported_plan(bytearray(blob), device="cpu").plan.spec == plan.spec
 
 
-def _without_k1_chains(blob, edit=None):
-    """``blob`` with its header's ``k1_chains`` dropped (an artifact written
-    before K1 recorded its chains), or replaced by ``edit(chains)``."""
+def _without_chains(blob, key, edit=None):
+    """``blob`` with its header's ``key`` (``k1_chains`` or ``k2_chains``)
+    dropped (an artifact written before the kernel recorded its chains), or
+    replaced by ``edit(chains)``."""
     hlen = int.from_bytes(blob[:8], "big")
     meta = json.loads(blob[8:8 + hlen])
-    chains = meta.pop("k1_chains")
+    chains = meta.pop(key)
     if edit is not None:
-        meta["k1_chains"] = edit(chains)
+        meta[key] = edit(chains)
     head = json.dumps(meta).encode()
     return len(head).to_bytes(8, "big") + head + blob[8 + hlen:]
+
+
+def _without_k1_chains(blob, edit=None):
+    """``blob`` with its header's ``k1_chains`` dropped, or replaced by
+    ``edit(chains)``."""
+    return _without_chains(blob, "k1_chains", edit)
 
 
 @pytest.mark.parametrize("n", [8192, 16384, 256, 2079, 6144, 1920])
@@ -148,6 +155,66 @@ def test_artifact_of_an_unmoved_k1_length_loads_without_the_record(rng):
                          cache=T.PlanCache())
     old = _without_k1_chains(T.export_plan(plan))
     x = torch.from_numpy(rng.standard_normal((8, 1024, 2)).astype(np.float32))
+    assert torch.equal(T.load_exported_plan(old, device="cpu")(x), plan(x))
+
+
+def _k2_moved():
+    """Heights where K2's chain (``fused_cols.cols_chain``, the general
+    design's) is not ``radix_chain``'s, a few of the paths' first."""
+    from webgpufft_tpu_torch.core import fused_cols, radix
+    moved = [h for h in sorted({g.h for g in fused_cols.GENERAL_COLS})
+             if fused_cols.cols_chain(h) != radix.radix_chain(h)]
+    return [h for h in (1080, 1920, 32) if h in moved] or moved[:2]
+
+
+@pytest.mark.parametrize("h", _k2_moved())
+def test_artifact_laid_out_for_another_k2_chain_is_refused(h, rng):
+    """K2 reads ``cw`` in the order of ``fused_cols.cols_chain(H)`` (the
+    general design's at the heights of its table): an export records that
+    chain for every K2 table (``k2_chains``) and loads; an artifact without
+    the record (written when every height ran ``radix.radix_chain``) or with
+    another chain is refused with a PlanError that names the table and both
+    chains, for a plan and for a pipeline."""
+    from webgpufft_tpu_torch.core import fused_cols, radix
+    assert fused_cols.cols_chain(h) != radix.radix_chain(h)
+    plan = T.create_plan({"type": "c2c", "shape": [h, 64], "batch": 2}, device="cpu",
+                         cache=T.PlanCache())
+    blob = T.export_plan(plan)
+    hlen = int.from_bytes(blob[:8], "big")
+    meta = json.loads(blob[8:8 + hlen])
+    assert meta["k2_chains"] == {"fc0/cw": list(fused_cols.cols_chain(h))}
+    assert meta["k1_chains"] == {"fl1/cw": list(radix.lines_chain(64))}
+    x = torch.from_numpy(rng.standard_normal((2, h, 64, 2)).astype(np.float32))
+    assert torch.equal(T.load_exported_plan(blob, device="cpu")(x), plan(x))
+    old = "laid out for the chain %s" % (radix.radix_chain(h),)
+    with pytest.raises(T.PlanError, match=re.escape(old)):
+        T.load_exported_plan(_without_chains(blob, "k2_chains"), device="cpu")
+    with pytest.raises(T.PlanError, match="K2 twiddle table 'fc0/cw'"):
+        T.load_exported_plan(_without_chains(blob, "k2_chains", lambda c: {"fc0/cw": [h]}),
+                             device="cpu")
+    with pytest.raises(T.PlanError, match="chain None"):
+        T.load_exported_plan(_without_chains(blob, "k2_chains", lambda c: {}), device="cpu")
+
+    with T.fft.default_device("cpu"):
+        pipe = T.export_pipeline(lambda v: T.fft.fft2(v), torch.view_as_complex(x))
+    hlen = int.from_bytes(pipe[:8], "big")
+    assert json.loads(pipe[8:8 + hlen])["k2_chains"] == {
+        f"H={h}": list(fused_cols.cols_chain(h))}
+    T.load_exported_pipeline(pipe)
+    with pytest.raises(T.PlanError, match=re.escape(old)):
+        T.load_exported_pipeline(_without_chains(pipe, "k2_chains"))
+
+
+def test_artifact_of_an_unmoved_k2_height_loads_without_the_record(rng):
+    """Where K2's chain is the one it always had (every height outside the
+    general design's table, the fixed design's among them), an artifact
+    without ``k2_chains`` loads and runs its tables bit for bit."""
+    from webgpufft_tpu_torch.core import fused_cols, radix
+    assert fused_cols.cols_chain(256) == radix.radix_chain(256)
+    plan = T.create_plan({"type": "c2c", "shape": [256, 64], "batch": 2}, device="cpu",
+                         cache=T.PlanCache())
+    old = _without_chains(T.export_plan(plan), "k2_chains")
+    x = torch.from_numpy(rng.standard_normal((2, 256, 64, 2)).astype(np.float32))
     assert torch.equal(T.load_exported_plan(old, device="cpu")(x), plan(x))
 
 

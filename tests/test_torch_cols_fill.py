@@ -260,6 +260,14 @@ def test_rule_fills_the_card_at_the_views_that_left_it_idle(pre, h, cols):
 def test_rule_is_a_launch_that_exists(pre, h, cols):
     launch = fused_cols.cols_rule(pre, h, cols, SMS)
     chain = radix.radix_chain(h)
+    if launch.design == "general":
+        entry = next(g for g in fused_cols.GENERAL_COLS if g.h == h and g.least <= pre * cols
+                     <= g.most)
+        assert (launch.tile, launch.cluster, launch.threads) == (
+            entry.tile, 1, fused_cols.general_cols_threads(h, entry.chain, entry.points,
+                                                           entry.tile))
+        assert launch.grid == launch.units == pre * -(-cols // entry.tile)
+        return
     if launch.design == "fixed":
         entry = next(f for f in fused_cols.FIXED_COLS if f.h == h and f.least <= pre * cols
                      <= f.most)
@@ -289,6 +297,105 @@ def test_fixed_entries_cover_disjoint_ranges_on_radix_chain():
         for g in fused_cols.FIXED_COLS:
             if g is not f and g.h == f.h:
                 assert g.most < f.least or f.most < g.least
+
+
+# ---- the general design's table -----------------------------------------------
+
+GENERAL_HEIGHTS = sorted({g.h for g in fused_cols.GENERAL_COLS})
+
+
+def _fewest_passes(h):
+    """The fewest radices of ``radix.GENERAL_RADICES`` (two at least) whose
+    product is h, or None past four."""
+    level = {h}
+    for passes in range(1, 5):
+        level = {q // r for q in level for r in radix.GENERAL_RADICES if q % r == 0}
+        if passes >= 2 and 1 in level:
+            return passes
+    return None
+
+
+@pytest.mark.parametrize("h", GENERAL_HEIGHTS)
+def test_general_design_chain_for_every_height_of_its_table(h):
+    """Every height of ``GENERAL_COLS``: one chain for all its entries (the
+    one ``cols_chain`` gives and ``cw`` is laid out for) that multiplies to
+    H in two to four passes, the fewest those radices allow, each radix
+    within its entry's class; entries whose column ranges cover every view
+    once, each a shape the design runs (``general_cols_threads``), which
+    the rule gives the views of its range; no fixed entry at H."""
+    entries = [g for g in fused_cols.GENERAL_COLS if g.h == h]
+    chain = entries[0].chain
+    assert fused_cols.cols_chain(h) == chain and all(g.chain == chain for g in entries)
+    assert math.prod(chain) == h and 2 <= len(chain) <= 4 and len(chain) == _fewest_passes(h)
+    assert h not in {f.h for f in fused_cols.FIXED_COLS}
+    spans = sorted((g.least, g.most) for g in entries)
+    assert spans[0][0] == 1 and spans[-1][1] == fused_cols.ALL_COLUMNS
+    assert all(a[1] + 1 == b[0] for a, b in zip(spans, spans[1:]))
+    for g in entries:
+        least, _ = radix.GENERAL_CLASSES[g.points]
+        assert all(r in radix.GENERAL_RADICES and least <= r <= g.points for r in chain), g
+        threads = fused_cols.general_cols_threads(h, chain, g.points, g.tile)
+        assert threads is not None and g.tile & (g.tile - 1) == 0, g
+        for total in {g.least, min(g.most, 1 << 20)}:
+            launch = fused_cols.cols_rule(1, h, total, SMS)
+            assert launch == fused_cols.ColsLaunch("general", g.tile, 1, -(-total // g.tile),
+                                                   -(-total // g.tile), threads), (g, total)
+
+
+def test_general_table_is_the_c_header():
+    """K2's general design has one table, ``WGFFT_GENERAL_COLS`` of
+    csrc/cols_general.cuh, which the C rule compiles and ``fused_cols``
+    reads: ``GENERAL_COLS`` is that text's entries, parsed here again; the
+    reader takes any layout of the macro (an empty one, kAllColumns, lines
+    continued); the design's limits in C are the Python copy's."""
+    text = fused_cols.GENERAL_HEADER.read_text()
+    body = text.split("#define WGFFT_GENERAL_COLS(X)", 1)[1].split("\n\n", 1)[0]
+    rows = re.findall(r"X\((\d+), (\d+), (\d+|kAllColumns), (\d+), (\d+), ([\d, ]+)\)", body)
+    assert len(rows) == len(fused_cols.GENERAL_COLS) == body.count("X(")
+    for row, g in zip(rows, fused_cols.GENERAL_COLS):
+        most = fused_cols.ALL_COLUMNS if row[2] == "kAllColumns" else int(row[2])
+        assert (int(row[0]), int(row[1]), most, int(row[3]), int(row[4])) == g[:5]
+        assert tuple(int(r) for r in row[5].split(",")) == g.chain
+    assert fused_cols.read_general_cols("#define WGFFT_GENERAL_COLS(X)\n\nstruct") == ()
+    two = ("#define WGFFT_GENERAL_COLS(X) \\\n  X(1080, 1, 128, 16, 2, 12, 10, 9) \\\n"
+           "  X(1080, 129, kAllColumns, 24, 8, 12, 10, 9)\n")
+    assert fused_cols.read_general_cols(two) == (
+        fused_cols.GeneralCols(1080, 1, 128, 16, 2, (12, 10, 9)),
+        fused_cols.GeneralCols(1080, 129, fused_cols.ALL_COLUMNS, 24, 8, (12, 10, 9)))
+    assert re.search(r"constexpr int kMaxTile = (\d+);", text).group(1) == \
+        str(fused_cols.GENERAL_MAX_TILE)
+    assert "constexpr int kMaxShared = 227 * 1024;" in text
+    assert fused_cols.GENERAL_MAX_SHARED == 227 * 1024
+
+
+@pytest.mark.parametrize("h", GENERAL_HEIGHTS)
+def test_general_design_model_at_every_height_of_its_table(h, rng, assert_close):
+    """The kernel's pass schedule on ``cols_chain(h)`` with the ``cw`` of
+    ``cols_consts`` (``fused_cols_chain_reference``) at every height of the
+    general design, against numpy, forward and adjoint, on 3 columns."""
+    x = rng.standard_normal((1, h, 6)).astype(np.float32)
+    t = _tables(fused_cols.cols_consts(h, "forward", 1.0, "p"))
+    for adjoint in (False, True):
+        got = fused_cols.fused_cols_chain_reference(torch.from_numpy(x), t, adjoint).numpy()
+        assert_close(got, _numpy_cols(x, "forward", 1.0, adjoint),
+                     label=f"general H={h} {fused_cols.cols_chain(h)} adj={adjoint}")
+
+
+def test_probes_read_radix_chain_tables_at_the_general_heights(rng):
+    """The direct design, the ring and the fixed design run ``radix_chain``
+    at every height: ``direct_tables`` lays ``cw`` out for it anew where
+    ``cols_chain`` moved it (bit for bit the table ``radix.chain_consts``
+    gives that chain) and is the tables themselves elsewhere."""
+    for h in GENERAL_HEIGHTS[:3] + [256, 1024]:
+        for direction in ("forward", "inverse"):
+            t = _tables(fused_cols.cols_consts(h, direction, 0.5, "p"))
+            d = fused_cols.direct_tables(t, h)
+            if fused_cols.cols_chain(h) == radix.radix_chain(h):
+                assert d is t
+                continue
+            want = radix.chain_consts(h, direction, 0.5, "p", radix.radix_chain(h))["p/cw"]
+            assert np.array_equal(d["cw"].numpy(), want) and d["cp"] is t["cp"]
+            assert not np.array_equal(t["cw"].numpy(), want)
 
 
 # ---- the fixed design's index maps ---------------------------------------------

@@ -459,13 +459,17 @@ def test_tall_tiles_forward_adjoint_in_place(h, view, cuda_device):
 def test_ring_launches_after_a_smaller_stage_of_the_same_kernel(cuda_device):
     """H = 768 and 640 (16 * 16 * 3, 16 * 8 * 5) run the same ring kernel
     with stages of 12,288 and 10,240 points: the launch after the smaller
-    one still has the shared memory its larger stages need."""
+    one still has the shared memory its larger stages need.  (K2's rule
+    gives both heights the general design since it has one, so the ring
+    runs by name, ``probes.variants.cols_variant``, through the same launch
+    code of csrc/cols.cuh.)"""
+    from webgpufft_tpu_torch.probes import variants
     for h in (768, 640, 768):
         gen = torch.Generator(device=cuda_device).manual_seed(h)
         t = _dev_tables(fused_cols.cols_consts(h, "forward", 1.0, "p"), cuda_device)
         x = torch.randn(3, h, 66, device=cuda_device, generator=gen)
-        assert fused_cols.launch_shape(3, h, 33)[0].design == "ring", h
-        assert_close(fused_cols.fused_cols(x, t).cpu(),
+        assert fused_cols.cols_rule(3, h, 33).design == "general", h
+        assert_close(variants.cols_variant(x, t, "ring").cpu(),
                      fused_cols.fused_cols_reference(x, t).cpu(), label=f"K2 ring H={h}")
 
 
@@ -498,7 +502,7 @@ def _cols_plan_in_c(pre, h, cols, sms):
     from webgpufft_tpu_torch import _build
     out = (ctypes.c_longlong * 7)()
     rc = _build.library().wgfft_fused_cols_plan(
-        pre, h, cols, *_build.chain_arg(radix.radix_chain(h)), sms, out)
+        pre, h, cols, *_build.chain_arg(fused_cols.cols_chain(h)), sms, out)
     if rc == 1:
         return None
     assert rc == 0, rc
@@ -543,6 +547,70 @@ def test_k2_entry_refuses_views_outside_its_rule(cuda_device):
     assert fused_cols.fused_cols.launches == before
     with pytest.raises(ValueError, match="no design runs"):
         fused_cols.launch_shape(0, h, 4)
+
+
+def _general_views(h):
+    """(pre, cols) views of each entry of K2's general design at height h:
+    (2, 33) (66 columns in all, ragged against every tile) where an entry
+    holds it, and 1 x (129 or the tile + 1, whichever is more) where a
+    later entry holds 129 columns."""
+    entries = [g for g in fused_cols.GENERAL_COLS if g.h == h]
+    views = []
+    for g in entries:
+        if g.least <= 66 <= g.most:
+            views.append((2, 33, g))
+        if g.least <= max(129, g.tile + 1) <= g.most and g.most > 66:
+            views.append((1, max(129, g.tile + 1), g))
+    return views
+
+
+@pytest.mark.parametrize("h", sorted({g.h for g in fused_cols.GENERAL_COLS}))
+def test_general_cols_design_at_each_height_of_the_rule(h, cuda_device):
+    """K2's rule sends the heights of ``fused_cols.GENERAL_COLS`` to the
+    general design: at a view of each entry's range, over ragged columns,
+    forward, inverse unitary, the adjoint launch, in place, and on an input
+    8 bytes past a 16-byte boundary (in place there too) against the plain
+    version, each launch counted; ``launch_shape`` names the entry's tile
+    and threads; and the entry point refuses ``radix_chain``'s chain and
+    the reversed chain where they differ from ``cols_chain``'s."""
+    from webgpufft_tpu_torch import _build
+    chain = fused_cols.cols_chain(h)
+    fwd = _dev_tables(fused_cols.cols_consts(h, "forward", 1.0, "p"), cuda_device)
+    inv = _dev_tables(fused_cols.cols_consts(h, "inverse", 1.0 / math.sqrt(h), "p"), cuda_device)
+    for pre, cols, g in _general_views(h):
+        launch, resident = fused_cols.launch_shape(pre, h, cols)
+        assert (launch.design, launch.tile) == ("general", g.tile) and resident >= 1, launch
+        gen = torch.Generator(device=cuda_device).manual_seed(h * cols)
+        base = torch.randn(pre * h * cols + 1, 2, device=cuda_device, generator=gen)
+        x = base[:-1].view(pre, h, 2 * cols)
+        off = base[1:].view(pre, h, 2 * cols)
+        assert off.data_ptr() % 16 == 8
+        before = fused_cols.fused_cols.launches
+        y = fused_cols.fused_cols(x, fwd)
+        yi = fused_cols.fused_cols(x, inv)
+        ya = fused_cols.fused_cols(x, fwd, adjoint=True)
+        z = probes.cols_inplace(x.clone(), fwd)
+        yo = fused_cols.fused_cols(off, fwd)
+        work = base.clone()
+        zo = probes.cols_inplace(work[1:].view(pre, h, 2 * cols), fwd)
+        torch.cuda.synchronize()
+        assert fused_cols.fused_cols.launches == before + 6
+        label = f"K2 general ({pre}, {h}, {2 * cols}) {chain} {g.points} points tile {g.tile}"
+        assert_close(y.cpu(), fused_cols.fused_cols_reference(x, fwd).cpu(), label=label)
+        assert_close(yi.cpu(), fused_cols.fused_cols_reference(x, inv).cpu(),
+                     label=f"{label} inverse")
+        assert_close(ya.cpu(), fused_cols.fused_cols_reference(x, fwd, adjoint=True).cpu(),
+                     label=f"{label} adjoint")
+        assert torch.equal(z, y)
+        want = fused_cols.fused_cols_reference(off, fwd).cpu()
+        assert_close(yo.cpu(), want, label=f"{label} offset view")
+        assert_close(zo.cpu(), want, label=f"{label} offset view in place")
+        assert torch.equal(work[0], base[0])   # the point before the view untouched
+        for other in {radix.radix_chain(h), chain[::-1]} - {chain}:
+            rc = _build.library().wgfft_fused_cols(
+                x.data_ptr(), y.data_ptr(), fwd["cw"].data_ptr(), fwd["cp"].data_ptr(), pre, h,
+                cols, *_build.chain_arg(other), 0, torch.cuda.current_stream().cuda_stream)
+            assert rc == 1, other   # cudaErrorInvalidValue
 
 
 @pytest.mark.parametrize("pre,h,lanes,direction", FILL_VIEWS)

@@ -18,6 +18,10 @@ from webgpufft_tpu_torch.core import fused_cols
 
 PRE = 2
 BIG_VMEM = TuningSpec(vmem_limit_bytes=256 << 20)
+# heights K2's rule gives the general design (fused_cols.GENERAL_COLS), on
+# a chain of their own (cols_chain): the paths' and a few others
+GENERAL_SAMPLE = [h for h in (1080, 1920, 3000, 6561, 9, 32, 2401, 210)
+                  if h in {g.h for g in fused_cols.GENERAL_COLS}]
 
 
 @pytest.mark.parametrize("direction", ["forward", "inverse"])
@@ -41,6 +45,34 @@ def test_cols_match_jax(h, lanes, direction, rng, assert_close):
     assert_close(got.numpy(), want, label=f"K2 h={h} lanes={lanes} {direction}")
 
 
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("h", GENERAL_SAMPLE)
+def test_general_chain_matches_jax(h, adjoint, direction, rng, assert_close):
+    """The CUDA kernel's pass schedule at a height of the general design
+    (``fused_cols_chain_reference`` on ``cols_chain(h)`` with the ``cw``
+    of ``cols_consts``) against the JAX package's K2 in interpret mode;
+    the adjoint as conj(F conj x)."""
+    chain = fused_cols.cols_chain(h)
+    assert chain == next(g.chain for g in fused_cols.GENERAL_COLS if g.h == h)
+    scale = 1.0 / h if direction == "inverse" else 1.0
+    x = rng.standard_normal((PRE, h, 128)).astype(np.float32)
+    consts = {}
+    fn = jcols.build_fused_cols(PRE, h, 128, direction, scale, consts, "p", BIG_VMEM)
+    jc = {k: jnp.asarray(v) for k, v in consts.items()}
+    if adjoint:
+        conj = x.copy()
+        conj[..., 1::2] *= -1
+        want = np.asarray(fn(jnp.asarray(conj), jc)).copy()
+        want[..., 1::2] *= -1
+    else:
+        want = np.asarray(fn(jnp.asarray(x), jc))
+    tables = {k.rsplit("/", 1)[1]: torch.from_numpy(v)
+              for k, v in fused_cols.cols_consts(h, direction, scale, "p").items()}
+    got = fused_cols.fused_cols_chain_reference(torch.from_numpy(x), tables, adjoint)
+    assert_close(got.numpy(), want, label=f"K2 general h={h} {chain} {direction} adj={adjoint}")
+
+
 @pytest.mark.parametrize("h", [256, 2048, 360, 7, 16, 13, 16384, 17])
 def test_split_matches_jax(h):
     assert fused_cols.choose_split(h) == jcols.choose_split(h)
@@ -48,7 +80,7 @@ def test_split_matches_jax(h):
 
 
 @pytest.mark.parametrize("direction", ["forward", "inverse"])
-@pytest.mark.parametrize("h", [256, 2048, 360, 7, 2, 3, 16, 1352])
+@pytest.mark.parametrize("h", [256, 2048, 360, 7, 2, 3, 16, 1352] + GENERAL_SAMPLE)
 def test_tables_from_reference_are_bitwise(h, direction):
     """The JAX package's K2 tables pass through, and the CUDA kernel's tables
     (``cw``, ``cp``), rebuilt from the length, direction and scale that those

@@ -253,6 +253,39 @@ def test_general_variant_is_its_chain(n, chain, points, per_cta, assert_close):
             variants.general_variant(x, vt, *bad)
 
 
+@pytest.mark.parametrize("h,chain,points,tile", [(1080, (12, 10, 9), 24, 8),
+                                                (32, (8, 4), 16, 32), (9, (3, 3), 16, 64),
+                                                (2401, (7, 7, 7, 7), 16, 4)])
+def test_general_cols_variant_is_its_chain(h, chain, points, tile, assert_close):
+    """K2's general design on a chain the caller names
+    (``variants.general_cols_variant``) on the CPU: its chain's model on its
+    own table, equal to K2's plain version forward, adjoint and in place,
+    over ragged columns; a shape the design cannot run is refused: a chain
+    that does not multiply to H, one pass, a radix wider than the class's
+    points, a tile that is no power of two or too wide for the threads."""
+    from webgpufft_tpu_torch.core import fused_cols
+    from webgpufft_tpu_torch.probes import variants
+    gen = torch.Generator().manual_seed(h)
+    x = torch.randn(2, h, 2 * (tile + 1), generator=gen)
+    vt = {k.rsplit("/", 1)[1]: torch.from_numpy(v)
+          for k, v in radix.chain_consts(h, "inverse", 0.5, "p", chain).items()}
+    t = {k.rsplit("/", 1)[1]: torch.from_numpy(v)
+         for k, v in fused_cols.cols_consts(h, "inverse", 0.5, "p").items()}
+    before = (variants.general_cols_variant.launches, fused_cols.fused_cols.launches)
+    for adjoint in (False, True):
+        assert_close(variants.general_cols_variant(x, vt, chain, points, tile, adjoint).numpy(),
+                     fused_cols.fused_cols_reference(x, t, adjoint).numpy(),
+                     label=f"general cols {chain} adjoint={adjoint}")
+    work = x.clone()
+    assert variants.general_cols_variant(work, vt, chain, points, tile, inplace=True) is work
+    assert torch.equal(work, variants.general_cols_variant(x, vt, chain, points, tile))
+    assert (variants.general_cols_variant.launches, fused_cols.fused_cols.launches) == before
+    for bad in [(chain + (2,), points, tile), ((h,), 64, tile), (chain, 8, tile),
+                (chain, points, 3), (chain, points, 128)]:
+        with pytest.raises(ValueError, match="does not run"):
+            variants.general_cols_variant(x, vt, *bad)
+
+
 @pytest.mark.parametrize("n", [n for n in LENGTHS if len(radix.radix_chain(n)) > 1])
 def test_in_place_writes_the_input(n):
     x, t = lines(n), tables(n)
@@ -396,7 +429,9 @@ def test_probe_library_is_a_second_library():
         "fused_lines.cu", "fused_cols.cu", "cols_fixed.cu", "lines_pow2.cu", "lines_warp.cu",
         "lines_mixed.cu", "lines_packed.cu", "lines_packed_2.cu", "lines_packed_3.cu",
         "lines_packed_4.cu", "lines_general.cu", "lines_general_16.cu", "lines_general_20.cu",
-        "lines_general_24.cu", "lines_general_32.cu", "lines_general_64.cu"}
+        "lines_general_24.cu", "lines_general_32.cu", "lines_general_64.cu",
+        "cols_general.cu", "cols_general_16.cu", "cols_general_20.cu", "cols_general_24.cu",
+        "cols_general_32.cu", "cols_general_64.cu"}
     core, probe = _build.library_path("core"), _build.library_path("probes")
     assert core != probe and core.parent == probe.parent == _build.BUILD_DIR
     assert probe.name.startswith("libwgfft_probes_")

@@ -63,6 +63,12 @@ _SIGNATURES = {
         "wgfft_general_lines": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _INTS,
                                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                 ctypes.POINTER(ctypes.c_longlong), _P),
+        # x, y, cw, cp, pre, h, cols, radices, count, points, tile, adjoint,
+        # report (4 long longs or null: CTAs an SM, SMs, grid, threads),
+        # stream: the general design of K2 on any chain it runs
+        "wgfft_general_cols": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                               ctypes.c_longlong, _INTS, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong), _P),
         # x, y, cw, cp, pre, h, cols, radices, count, adjoint, stream
         "wgfft_fused_cols": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                              ctypes.c_longlong, _INTS, ctypes.c_int, ctypes.c_int, _P),

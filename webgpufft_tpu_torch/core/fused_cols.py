@@ -16,15 +16,19 @@ against DFT(h1) with the scale folded in, and write row k = h2 * k1 + k2.
 CPU tensor; there is no fallback between the two.  The CUDA kernel reaches
 the same natural-order result by a chain of in-register radix butterflies
 (``core/radix.py``) and reads only the ``cw`` and ``cp`` tables (laid out
-for ``radix.radix_chain(H)`` at every height);
+for ``cols_chain(H)``: the general design's chain where ``GENERAL_COLS``
+names H, ``radix.radix_chain(H)`` at every other height);
 ``fused_cols_chain_reference`` is its pass schedule on the CPU, a test aid.
 
-Which of K2's three designs a view runs is K2's rule, ``cols_rule`` here
+Which of K2's four designs a view runs is K2's rule, ``cols_rule`` here
 and ``cols_rule`` in ``csrc/cols.cuh``: the fixed design
 (``csrc/cols_fixed.cuh``, a kernel per height, tile and cluster size) for
-the heights and column counts of ``FIXED_COLS``, else the direct design or
-the ring by the tile alone.  ``launch_shape`` asks the card's copy and
-raises where the two disagree.
+the heights and column counts of ``FIXED_COLS``, the general design
+(``csrc/cols_general.cuh``, a run-time chain of two to four passes, a
+kernel per class of points a thread) for the heights of ``GENERAL_COLS``,
+read from that header's table, else the direct design or the ring by the
+tile alone.  ``launch_shape`` asks the card's copy and raises where the
+two disagree.
 
 Autodiff: as for K1 (``core/fused.py``).  ``FusedCols`` is the one
 ``torch.autograd.Function`` for both devices; its backward is the adjoint
@@ -38,6 +42,7 @@ under ``torch.export`` and of ``FusedCols``.
 from __future__ import annotations
 
 import ctypes
+import re
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -87,14 +92,14 @@ def cols_consts(h: int, direction: str, scale: float, prefix: str) -> Dict[str, 
         f"{prefix}/tim": tw.imag.astype(np.float32)[:, :, None],
         f"{prefix}/w2re": np.ascontiguousarray(w2.real.astype(np.float32)),
         f"{prefix}/w2im": np.ascontiguousarray(w2.imag.astype(np.float32)),
-        **radix.chain_consts(h, direction, scale, prefix),
+        **radix.chain_consts(h, direction, scale, prefix, cols_chain(h)),
     }
 
 
 def tables_from_reference(np_consts: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
     """This kernel's tables from the JAX package's ``cols_consts`` under
     ``prefix``: its six tables pass through, and ``cw``/``cp`` are built anew
-    from what they say: H from their shapes, the scale from
+    (``cw`` for ``cols_chain``) from what they say: H from their shapes, the scale from
     DFT(h1)[0, 0] * scale = ``w1re[0, 0]`` and the direction from the sign of
     Im W_H^1 (``tim[1, 1]``, or ``w1im[1, 1]`` when h2 = 1)."""
     out = {f"{prefix}/{k}": np_consts[f"{prefix}/{k}"] for k in PLAIN_TABLE_NAMES}
@@ -102,7 +107,7 @@ def tables_from_reference(np_consts: Dict[str, np.ndarray], prefix: str) -> Dict
     h1, h2 = w1re.shape[0], np_consts[f"{prefix}/w2re"].shape[0]
     im = tim[1, 1, 0] if h2 > 1 else w1im[1, 1]
     direction = "forward" if im < 0 else "inverse"
-    out.update(radix.chain_consts(h1 * h2, direction, w1re[0, 0], prefix))
+    out.update(radix.chain_consts(h1 * h2, direction, w1re[0, 0], prefix, cols_chain(h1 * h2)))
     return out
 
 
@@ -140,12 +145,12 @@ def fused_cols_chain_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor],
     with the chain and tables the kernel gets): a test aid, on no plan path."""
     pre, h, lanes = x.shape
     y = radix.radix_chain_reference(x.reshape(pre, h, lanes // 2, 2),
-                                    radix.radix_chain(h), tables, adjoint)
+                                    cols_chain(h), tables, adjoint)
     return y.reshape(pre, h, lanes)
 
 
 # K2's designs, as the C entry point numbers them (csrc/cols.cuh, ColsDesign)
-DESIGNS = ("direct", "ring", "ring-async", "fixed")
+DESIGNS = ("direct", "ring", "ring-async", "fixed", "general")
 RING_MIN_POINTS = 8192   # kRingMinPoints (csrc/stage.cuh)
 RING_MIN_COLS = 4        # kRingMinCols (csrc/cols.cuh)
 MAX_TILE_ELEMS = 16384   # kMaxTileElems (csrc/cols.cuh)
@@ -196,6 +201,96 @@ FIXED_COLS = (
     FixedCols(16384, 8, 8, 512, 1, 128, ((16,), (16,), (8,)), 8),
     FixedCols(16384, 4, 8, 512, 129, ALL_COLUMNS, ((16,), (16,), (8,)), 8),
 )
+
+
+class GeneralCols(NamedTuple):
+    """An entry of K2's rule for its general design (``WGFFT_GENERAL_COLS``,
+    csrc/cols_general.cuh): height ``h`` for views of ``least`` to ``most``
+    columns in all (pre * cols), in the class of ``points`` (the most points
+    a thread holds) with tiles of ``tile`` columns, on ``chain``."""
+    h: int
+    least: int
+    most: int
+    points: int
+    tile: int
+    chain: Tuple[int, ...]
+
+
+GENERAL_HEADER = _build.CSRC / "cols_general.cuh"
+
+
+def read_general_cols(text: str) -> Tuple[GeneralCols, ...]:
+    """The entries of ``WGFFT_GENERAL_COLS(X)`` in the text of
+    csrc/cols_general.cuh, in order: the one copy of the general design's
+    table, which the C rule compiles and this module reads."""
+    body = re.search(r"#define WGFFT_GENERAL_COLS\(X\)((?:.*\\\n)*.*)\n", text)
+    if body is None:
+        raise ValueError("fused_cols: csrc/cols_general.cuh has no WGFFT_GENERAL_COLS(X)")
+    out = []
+    for args in re.findall(r"X\(([^)]*)\)", body.group(1)):
+        v = [ALL_COLUMNS if a.strip() == "kAllColumns" else int(a) for a in args.split(",")]
+        out.append(GeneralCols(v[0], v[1], v[2], v[3], v[4], tuple(v[5:])))
+    return tuple(out)
+
+
+# the general design's entries, in the order of kGeneralCols
+GENERAL_COLS = read_general_cols(GENERAL_HEADER.read_text())
+_GENERAL_CHAINS = {g.h: g.chain for g in GENERAL_COLS}
+GENERAL_MAX_TILE = 64        # general_cols::kMaxTile
+GENERAL_MAX_SHARED = 227 << 10
+
+
+def cols_chain(h: int) -> Tuple[int, ...]:
+    """K2's chain for height ``h``: the general design's where
+    ``GENERAL_COLS`` names ``h``, ``radix.radix_chain(h)`` (the direct
+    design's, the ring's and the fixed design's) everywhere else.  K2's
+    ``cw`` table is laid out for this chain."""
+    return _GENERAL_CHAINS.get(h) or radix.radix_chain(h)
+
+
+def general_cols_shared(h: int, chain, tile: int) -> int:
+    """Bytes of shared memory a CTA of the general design takes for
+    ``chain`` down a tile of ``tile`` columns: the exchanges' buffers (two,
+    one for a chain of two passes) of the longest exchange's rows, one row
+    of padding in every ns * R rows after a pass of even radix R where the
+    tile is narrower than 16 columns (the C ``make_plan``)."""
+    pitch, ns = h, 1
+    for r in chain[:-1]:
+        if tile < 16 and r % 2 == 0:
+            pitch = max(pitch, h + (h - 1) // (ns * r))
+        ns *= r
+    return (2 if len(chain) > 2 else 1) * pitch * tile * 8
+
+
+def general_cols_threads(h: int, chain, points: int, tile: int) -> Optional[int]:
+    """Threads a CTA of the general design takes for ``chain`` down a tile
+    of ``tile`` columns with at most ``points`` points a thread: enough that
+    every pass's butterflies fit in points // R rounds; None where the C
+    ``make_plan`` refuses the shape (no class, a radix outside the class's,
+    not two to four passes multiplying to ``h``, a tile that is no power of
+    two up to 64, too many threads for the class, over 227 KB of shared
+    memory)."""
+    least, most = radix.GENERAL_CLASSES.get(points, (points + 1, 0))
+    if (not 2 <= len(chain) <= 4 or int(np.prod(chain)) != h
+            or any(r not in radix.GENERAL_RADICES or not least <= r <= points for r in chain)
+            or not 1 <= tile <= GENERAL_MAX_TILE or tile & (tile - 1)
+            or general_cols_shared(h, chain, tile) > GENERAL_MAX_SHARED):
+        return None
+    threads = max(-(-(tile * (h // r)) // (points // r)) for r in chain)
+    return threads if threads <= most else None
+
+
+def direct_tables(tables: Dict[str, torch.Tensor], h: int) -> Dict[str, torch.Tensor]:
+    """K2's tables for height ``h`` (``cols_consts``, ``cw`` laid out for
+    ``cols_chain(h)``) with ``cw`` laid out for ``radix.radix_chain(h)``
+    instead, for the probes that run the direct design, the ring or the
+    fixed design at any height: ``tables`` itself where the two chains
+    agree, else a copy whose ``cw`` is built for the direction that
+    ``cp``'s sign gives, on ``cw``'s device."""
+    if cols_chain(h) == radix.radix_chain(h):
+        return tables
+    direction = "forward" if float(tables["cp"][1]) < 0 else "inverse"
+    return {**tables, "cw": radix._direct_twiddles(h, direction, str(tables["cw"].device))}
 
 
 class ColsLaunch(NamedTuple):
@@ -294,8 +389,9 @@ def cols_rule(pre: int, h: int, cols: int, sms: int = H100_SMS) -> ColsLaunch:
     SMs.  A height of ``FIXED_COLS`` whose view's columns in all (pre *
     cols) fall in an entry's range runs that entry of the fixed design;
     every other view the direct design or the ring at its own tile, the
-    ring on one CTA an SM.  Raises ValueError for a view the rule does not
-    cover."""
+    ring on one CTA an SM.  A height of ``GENERAL_COLS`` runs the entry
+    whose range holds pre * cols in the general design.  Raises ValueError
+    for a view the rule does not cover."""
     chain = radix.radix_chain(h)
     if sms < 1 or pre < 1 or cols < 1:
         raise ValueError(f"fused_cols: no design runs ({pre}, {h}, {2 * cols})")
@@ -309,6 +405,17 @@ def cols_rule(pre: int, h: int, cols: int, sms: int = H100_SMS) -> ColsLaunch:
             if units * f.cluster > 0x7fffffff:
                 raise ValueError(f"fused_cols: no design runs ({pre}, {h}, {2 * cols})")
             return ColsLaunch("fixed", f.tile, f.cluster, units, units * f.cluster, f.threads)
+    for g in GENERAL_COLS:
+        if g.h != h or not g.least <= pre * cols <= g.most:
+            continue
+        threads = general_cols_threads(h, g.chain, g.points, g.tile)
+        units = pre * -(-cols // g.tile)
+        if threads is None or units > 0x7fffffff:
+            raise ValueError(f"fused_cols: no design runs ({pre}, {h}, {2 * cols})")
+        return ColsLaunch("general", g.tile, 1, units, units, threads)
+    if h in _GENERAL_CHAINS:
+        raise ValueError(f"fused_cols: no entry of the general design holds ({pre}, {h}, "
+                         f"{2 * cols})")
     design = _design(chain, h, cols)
     plan = _plan(chain, h, pre, cols, design, 0)
     if plan is None:
@@ -326,7 +433,7 @@ def launch_shape(pre: int, h: int, cols: int) -> Tuple[ColsLaunch, int]:
     disagree, ValueError for a view no design runs.  Needs the card."""
     out = (ctypes.c_longlong * 7)()
     rc = _build.library().wgfft_fused_cols_plan(
-        pre, h, cols, *_build.chain_arg(radix.radix_chain(h)), 0, out)
+        pre, h, cols, *_build.chain_arg(cols_chain(h)), 0, out)
     if rc == CUDA_ERROR_INVALID_VALUE:
         raise ValueError(f"fused_cols: no design runs ({pre}, {h}, {2 * cols})")
     _build.check(rc, "fused_cols plan")
@@ -357,7 +464,7 @@ def _launch(x: torch.Tensor, tables: Dict[str, torch.Tensor], adjoint: bool) -> 
     y = torch.empty_like(x)
     with _build.on_device(x.device):
         rc = lib.wgfft_fused_cols(x.data_ptr(), y.data_ptr(), *ptrs, x.shape[0], h,
-                                  x.shape[2] // 2, *_build.chain_arg(radix.radix_chain(h)),
+                                  x.shape[2] // 2, *_build.chain_arg(cols_chain(h)),
                                   int(adjoint), torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "fused_cols")
     fused_cols.launches += 1

@@ -9,6 +9,7 @@
 #include <cuda_runtime.h>
 
 #include "cols_fixed.cuh"
+#include "cols_general.cuh"
 #include "radix.cuh"
 #include "stage.cuh"
 
@@ -290,7 +291,13 @@ inline cudaError_t cols_map(const void* x, long long pre, int h, long long cols,
              : cudaErrorInvalidValue;
 }
 
-enum ColsDesign { kColsDirect = 0, kColsRing = 1, kColsRingAsync = 2, kColsFixed = 3 };
+enum ColsDesign {
+  kColsDirect = 0,
+  kColsRing = 1,
+  kColsRingAsync = 2,
+  kColsFixed = 3,
+  kColsGeneral = 4
+};
 
 // The choice by the tile alone, the rule's starting point: the ring
 // where the direct design's tile holds kRingMinPoints points or more (H >=
@@ -312,7 +319,7 @@ inline int cols_design(const Chain& chain, int h, long long cols) {
 // What K2 launches for a view.
 struct ColsPlan {
   int design;       // ColsDesign
-  int entry;        // the kFixedCols entry (kColsFixed), else -1
+  int entry;        // the kFixedCols (kColsFixed) or kGeneralCols (kColsGeneral) entry, else -1
   ColsShape shape;  // the direct or ring design's CTA shape
   int tile, cluster, threads;
   long long units;  // tiles: pre * ceil(cols / tile)
@@ -347,21 +354,30 @@ inline bool cols_plan(const Chain& chain, int h, long long pre, long long cols, 
   return out->units <= 0x7fffffffLL;
 }
 
+// Whether `chain` is radix[0, count): the chain a table entry's kernel and
+// `cw` are laid out for.
+inline bool same_chain(const Chain& chain, const int* radix, int count) {
+  bool same = count == chain.count;
+  for (int p = 0; same && p < count; ++p) same = radix[p] == chain.radix[p];
+  return same;
+}
+
 // K2's rule (core/fused_cols.py, cols_rule, is the same rule in Python; a
 // test on the card holds the two equal): what the plans' entry point
 // launches for a (pre, h, cols) view on a device of `sms` SMs.  A height of
 // kFixedCols whose view's columns in all fall in an entry's range runs that
-// entry (and must come with the entry's chain); every other view runs the
-// direct design or the ring at its own tile, the ring on one CTA an SM.
+// entry (and must come with the entry's chain); else a height of
+// kGeneralCols runs its entry for the view's columns in all (and must come
+// with the entry's chain, cols_chain); every other view runs the direct
+// design or the ring at its own tile, the ring on one CTA an SM.
 inline bool cols_rule(const Chain& chain, int h, long long pre, long long cols, int sms,
                       ColsPlan* out) {
   if (sms < 1 || pre < 1 || cols < 1) return false;
   for (int i = 0; i < wgfft::kFixedEntries; ++i) {
     const wgfft::FixedCols& f = wgfft::kFixedCols[i];
     if (f.h != h) continue;
-    bool same = f.count == chain.count;
-    for (int p = 0; same && p < f.count; ++p) same = f.radix[p] == chain.radix[p];
-    if (!same) return false;  // the entry's kernel reads a `cw` laid out for its chain
+    // the entry's kernel reads a `cw` laid out for its chain
+    if (!same_chain(chain, f.radix, f.count)) return false;
     if (pre * cols < f.least || pre * cols > f.most) continue;
     out->design = kColsFixed;
     out->entry = i;
@@ -370,6 +386,25 @@ inline bool cols_rule(const Chain& chain, int h, long long pre, long long cols, 
     out->threads = f.threads;
     out->units = pre * ((cols + f.tile - 1) / f.tile);
     out->grid = out->units * f.cluster;
+    return out->grid <= 0x7fffffffLL;
+  }
+  const int g = wgfft::general_cols_entry(h, pre * cols);
+  if (g != -1) {
+    if (g < 0) return false;
+    const wgfft::GeneralCols& e = wgfft::kGeneralCols[g];
+    wgfft::general_cols::Plan plan;
+    int threads = 0, smem = 0;
+    if (!same_chain(chain, e.radix, e.count) ||
+        !wgfft::general_cols::make_plan(h, e.radix, e.count, e.points, e.tile, &plan, &threads,
+                                        &smem))
+      return false;
+    out->design = kColsGeneral;
+    out->entry = g;
+    out->tile = e.tile;
+    out->cluster = 1;
+    out->threads = threads;
+    out->units = pre * ((cols + e.tile - 1) / e.tile);
+    out->grid = out->units;
     return out->grid <= 0x7fffffffLL;
   }
   if (!cols_plan(chain, h, pre, cols, cols_design(chain, h, cols), 0, out)) return false;
@@ -433,10 +468,12 @@ struct LaunchCols {
   }
 };
 
-// Launches `plan` (the fixed design through launch_cols_fixed), the ring
-// on plan.grid CTAs; with `slots` set, only stores how many CTAs (clusters,
-// for a fixed entry of a cluster of 2 or more) of its kernel the device
-// holds at once.
+// Launches `plan` (the fixed design through launch_cols_fixed; not the
+// general design, which fused_cols.cu launches through launch_cols_general,
+// so that the probes' library, which shares this header, builds none of
+// its kernels), the ring on plan.grid CTAs; with `slots` set, only stores
+// how many CTAs (clusters, for a fixed entry of a cluster of 2 or more) of
+// its kernel the device holds at once.
 inline cudaError_t launch_cols(const wgfft::ColsCall& call, const Chain& chain,
                                const ColsPlan& plan, int* slots) {
   if (plan.design == kColsFixed) return wgfft::launch_cols_fixed(call, plan.entry, slots);

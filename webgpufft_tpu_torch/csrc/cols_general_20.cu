@@ -1,0 +1,16 @@
+// K2's general design (cols_general.cuh), its class of 20 points a thread, in
+// a translation unit of its own so that the classes compile side by side.
+
+#include <cuda_runtime.h>
+
+#include "cols_general.cuh"
+
+namespace wgfft {
+namespace general_cols {
+
+cudaError_t launch_20(const Launch& g) {
+  return launch_kernel<20, general::max_threads(20)>(g);
+}
+
+}  // namespace general_cols
+}  // namespace wgfft

@@ -21,10 +21,11 @@
 // threads take neighbouring columns: every global access of a row is one
 // contiguous run of tc * 8 bytes although rows are L floats apart, and a
 // row's twiddle is one broadcast load.  Columns past the ragged edge load
-// zeros and store nothing.  Three designs, chosen by K2's rule (cols.cuh,
+// zeros and store nothing.  Four designs, chosen by K2's rule (cols.cuh,
 // cols_rule, with its Python copy fused_cols.cols_rule): the fixed design
-// (cols_fixed.cu) for the views of its entries, kFixedCols, and by the
-// tile alone (cols_design) elsewhere:
+// (cols_fixed.cu) for the views of its entries, kFixedCols, the general
+// design (cols_general.cu) for the heights of its table,
+// WGFFT_GENERAL_COLS, and by the tile alone (cols_design) elsewhere:
 //
 // - Tiles of fewer than 8192 points (the direct design; H < 512 at 16 columns):
 //   tc = 16, shrunk so H * tc <= 16384 points and no wider than the column
@@ -61,10 +62,15 @@
 //   tall narrow columns, odd heights) and at the heights the paths launch
 //   most (64 to 512), where it measured faster than both; a tile sized with
 //   the view, split over a thread-block cluster at the tall heights.
+// - The general design (cols_general.cuh, cols_general.cu): 772 of the
+//   other heights, each in the fewest passes of radices up to 32 (a
+//   run-time chain; 1080 = 12 * 10 * 9 where radix_chain takes five
+//   passes), with K2's `cw` laid out for that chain (cols_chain); the
+//   direct design and the ring keep the heights where it lost (PERF.md).
 //
 // C interface: wgfft_fused_cols returns the cudaError_t of the launch;
 // cudaErrorInvalidValue for a chain or view its rule does not cover (at a
-// height of kFixedCols, any chain but the entry's).  adjoint != 0 runs the
+// height of kFixedCols or kGeneralCols, any chain but the entry's).  adjoint != 0 runs the
 // conjugate transpose of the same tables' transform (autograd's backward).
 // y may be x (in place) for a chain of two or more passes: a CTA owns every
 // tile it transforms and reads a tile before it writes any of it (a
@@ -94,6 +100,26 @@ cudaError_t device_sms(int* sms) {
   return e;
 }
 
+// The chain an entry point is handed, as a Chain: at a height of the
+// general design's table its radices as they are (up to 32; cols_rule
+// holds them to the table's chain), elsewhere the direct design's radices
+// that multiply to h (make_chain).
+bool entry_chain(const int* radices, int count, int h, Chain* out) {
+  if (wgfft::general_cols_entry(h, 1) == -1) return wgfft::make_chain(radices, count, h, out);
+  if (count < 1 || count > wgfft::general::kMaxPasses) return false;
+  *out = {};
+  out->count = count;
+  for (int p = 0; p < count; ++p) out->radix[p] = radices[p];
+  return true;
+}
+
+// launch_cols, and the general design's entries, which it leaves out
+cudaError_t launch_k2(const wgfft::ColsCall& call, const Chain& chain, const ColsPlan& plan,
+                      int* slots) {
+  if (plan.design == kColsGeneral) return wgfft::launch_cols_general(call, plan.entry, slots);
+  return launch_cols(call, chain, plan, slots);
+}
+
 }  // namespace
 
 extern "C" int wgfft_fused_cols(const void* x, void* y, const void* tw, const void* params,
@@ -102,7 +128,7 @@ extern "C" int wgfft_fused_cols(const void* x, void* y, const void* tw, const vo
   Chain chain;
   ColsPlan plan;
   int sms = 0;
-  if (!wgfft::make_chain(radices, count, h, &chain))
+  if (!entry_chain(radices, count, h, &chain))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e = device_sms(&sms);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -111,7 +137,7 @@ extern "C" int wgfft_fused_cols(const void* x, void* y, const void* tw, const vo
                                 static_cast<const float2*>(tw), static_cast<const float*>(params),
                                 pre, cols, h, adjoint ? -1.f : 1.f,
                                 static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(launch_cols(call, chain, plan, nullptr));
+  return static_cast<int>(launch_k2(call, chain, plan, nullptr));
 }
 
 // What wgfft_fused_cols launches for a (pre, h, cols) view: K2's rule on a
@@ -125,7 +151,7 @@ extern "C" int wgfft_fused_cols_plan(long long pre, int h, long long cols, const
   Chain chain;
   ColsPlan plan;
   const bool device = sms == 0;
-  if (!wgfft::make_chain(radices, count, h, &chain))
+  if (!entry_chain(radices, count, h, &chain))
     return static_cast<int>(cudaErrorInvalidValue);
   if (device) {
     const cudaError_t e = device_sms(&sms);
@@ -138,7 +164,7 @@ extern "C" int wgfft_fused_cols_plan(long long pre, int h, long long cols, const
   if (!device) return 0;
   int slots = 0;
   const wgfft::ColsCall call = {nullptr, nullptr, nullptr, nullptr, pre, cols, h, 1.f, nullptr};
-  const cudaError_t e = launch_cols(call, chain, plan, &slots);
+  const cudaError_t e = launch_k2(call, chain, plan, &slots);
   out[6] = slots;
   return static_cast<int>(e);
 }

@@ -119,7 +119,7 @@ def cols_inplace(x: torch.Tensor, tables: Dict[str, torch.Tensor]) -> torch.Tens
     lib = _build.library()
     with _build.on_device(x.device):
         rc = lib.wgfft_fused_cols(x.data_ptr(), x.data_ptr(), *ptrs, x.shape[0], h,
-                                  x.shape[2] // 2, *_build.chain_arg(radix.radix_chain(h)), 0,
+                                  x.shape[2] // 2, *_build.chain_arg(fused_cols.cols_chain(h)), 0,
                                   torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "cols_inplace")
     fused_cols.fused_cols.launches += 1

@@ -42,6 +42,15 @@ variant K1's rule names (``radix.POW2_LINES``, ``radix.WARP_LINES``,
 ``radix.MIXED_LINES``, ``radix.PACKED_LINES``) and the direct design
 elsewhere.
 
+``general_cols_variant(x, tables, chain, points, tile)`` launches K2's
+general design (``csrc/cols_general.cuh``) the same way through
+``wgfft_general_cols``, ``general_cols_report`` says what it would be;
+the plans' entry point launches the shape ``fused_cols.GENERAL_COLS``
+names, fitted to the sweep of ``chip_probes/k2_general_variants.py``.
+The direct design and the ring (``cols_variant``) and the fixed design
+(``cols_fixed_variant``) run on ``radix_chain(H)`` at every height, so
+they read ``fused_cols.direct_tables``.
+
 ``general_variant(x, tables, chain, points, lines)`` launches K1's general
 design (``csrc/lines_general.cuh``: one kernel a class of points a thread,
 the chain, the class and the lines a CTA run-time values) through the
@@ -331,11 +340,65 @@ def general_report(n: int, count: int, chain: Tuple[int, ...], points: int,
     return GeneralReport(out[0], out[1], out[2], out[4])
 
 
+def general_cols_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor],
+                         chain: Tuple[int, ...], points: int, tile: int, adjoint: bool = False,
+                         inplace: bool = False) -> torch.Tensor:
+    """K2's transform (its adjoint with ``adjoint``) along axis 1 of
+    interleaved float32 ``x`` (pre, H, L) in the general design
+    (``csrc/cols_general.cuh``) on any ``chain`` of two to four passes of
+    ``radix.GENERAL_RADICES`` that multiplies to H, in the class of
+    ``points`` with tiles of ``tile`` columns, whatever K2's rule says of H,
+    with ``tables`` laid out for the chain (``radix.chain_consts``); with
+    ``inplace`` written over ``x``: the variants of
+    ``chip_probes/k2_general_variants.py``.  A CUDA tensor launches the
+    kernel of the plans' library (and counts one launch here, none in
+    ``fused_cols``) or raises where the design cannot run that shape; a CPU
+    tensor runs the chain through ``radix.radix_chain_reference``."""
+    pre, h, lanes = x.shape
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"general_cols_variant: unsupported device {x.device}")
+    fused_cols._check_cuda(x)
+    if fused_cols.general_cols_threads(h, tuple(chain), points, tile) is None:
+        raise ValueError(f"general_cols_variant: the general design does not run H = {h} on "
+                         f"{tuple(chain)} at {points} points a thread, tiles of {tile}")
+    if x.device.type == "cpu":
+        y = radix.radix_chain_reference(x.reshape(pre, h, lanes // 2, 2), chain, tables,
+                                        adjoint).reshape(pre, h, lanes)
+        return x.copy_(y) if inplace else y
+    ptrs = _build.table_ptrs(x, tables, {"cw": (h, 2), "cp": (2,)}, "general_cols_variant")
+    y = x if inplace else torch.empty_like(x)
+    with _build.on_device(x.device):
+        rc = _build.library().wgfft_general_cols(
+            x.data_ptr(), y.data_ptr(), *ptrs, pre, h, lanes // 2,
+            *_build.chain_arg(tuple(chain)), points, tile, int(adjoint), None,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, f"general_cols_variant {tuple(chain)} points {points} tile {tile}")
+    general_cols_variant.launches += 1
+    return y
+
+
+general_cols_variant.launches = 0
+
+
+def general_cols_report(pre: int, h: int, cols: int, chain: Tuple[int, ...], points: int,
+                        tile: int) -> GeneralReport:
+    """What ``general_cols_variant`` would launch for a (pre, h, 2 * cols)
+    view on the current CUDA device; needs the card."""
+    out = (ctypes.c_longlong * 4)()
+    rc = _build.library().wgfft_general_cols(None, None, None, None, pre, h, cols,
+                                             *_build.chain_arg(tuple(chain)), points, tile, 0,
+                                             out, None)
+    _build.check(rc, f"general_cols_variant {tuple(chain)} points {points} tile {tile}")
+    return GeneralReport(out[0], out[1], out[2], out[3])
+
+
 def _cols_call(x, tables, design, adjoint, tile, slots, y):
     """One call of the probes' K2 entry point for the direct design and the
-    ring; returns its rc."""
+    ring (on ``radix_chain(H)``, ``cw`` laid out anew for it where K2's
+    chain differs); returns its rc."""
     h = x.shape[1]
-    ptrs = _build.table_ptrs(x, tables, {"cw": (h, 2), "cp": (2,)}, "cols_variant")
+    ptrs = _build.table_ptrs(x, fused_cols.direct_tables(tables, h), {"cw": (h, 2), "cp": (2,)},
+                             "cols_variant")
     with _build.on_device(x.device):
         return _build.library("probes").wgfft_cols_variant(
             x.data_ptr(), 0 if y is None else y.data_ptr(), *ptrs, x.shape[0], h,
@@ -453,7 +516,8 @@ FIXED_VARIANTS: Dict[str, FixedVariant] = {
 
 def _fixed_call(x, tables, variant, adjoint, slots, y):
     h = x.shape[1]
-    ptrs = _build.table_ptrs(x, tables, {"cw": (h, 2), "cp": (2,)}, "cols_fixed_variant")
+    ptrs = _build.table_ptrs(x, fused_cols.direct_tables(tables, h), {"cw": (h, 2), "cp": (2,)},
+                             "cols_fixed_variant")
     with _build.on_device(x.device):
         return _build.library("probes").wgfft_cols_fixed(
             x.data_ptr(), 0 if y is None else y.data_ptr(), *ptrs, x.shape[0], h,
