@@ -2,6 +2,7 @@
 
     python3 chip_probes/k1_k2_ring.py [--repo DIR] [--out PATH] [--e2e] [--e2e-short]
                                       [--k1-only | --k2-only]   (from the repository root)
+    python3 chip_probes/k1_k2_ring.py --ab P1.jsonl C1.jsonl C2.jsonl P2.jsonl
 
 For every long shape of the kernel table in PERF.md (K1 from N = 2048 on,
 every K2 view), K1's short powers of two at the line
@@ -55,6 +56,11 @@ one are timed in one call on one card (parent, change, change, parent); a
 checkout without ``probes.variants`` gets the plans' launches only.  With
 ``--out PATH`` one JSON line a shape or call is also written to PATH.
 Needs a GPU.
+
+``--ab P1 C1 C2 P2`` (no GPU) compares the four arms of a parent / change
+A/B run of this probe (parent, change, change, parent): every shape's
+plans' launch, C / P (the mean of the two arms each), whether both C arms
+beat both P arms, and the shapes outside 1 % of the parent.
 """
 
 import argparse
@@ -88,6 +94,10 @@ K1_CASES += [(360, 4096), (360, 11651), (1000, 4195), (1352, 1025), (1352, 3103)
 # lines of 1200): the general design (chip_probes/k1_general_variants.py
 # times every length of that design)
 K1_CASES += [(1920, 8640), (1200, 8192)]
+# the facade path's 16-s seismic records trace-major (512 lines of 16000):
+# the cluster design (chip_probes/k1_general_variants.py --cluster times
+# every length of that design)
+K1_CASES += [(16000, 512)]
 # (pre, H, 2 * cols): every view of chip_smoke.py's phase_k2 (PERF.md's K2
 # rows), the facade's f-k gather (8, 16384, 128), (16, 4096, 64) and three
 # more views of the heights the paths launch most (512, 256, 128); K2's
@@ -104,6 +114,9 @@ K2_CASES = [(256, 256, 512), (1, 256, 131072), (64, 360, 512), (256, 16, 512), (
 # of K2's general design but 32 (chip_probes/k2_general_variants.py times
 # every height of that design)
 K2_CASES += [(8, 1080, 3840), (3, 32, 1088), (1, 1078, 2156), (8, 1078, 2156)]
+# and the facade's 16-s seismic records time-major (8, 16000, 128): the
+# cluster design
+K2_CASES += [(8, 16000, 128)]
 RING_CASES = [(8, 1024, 2048), (1, 1024, 2048), (8, 512, 1024), (8, 2048, 1024), (64, 1024, 66),
               (16, 4096, 64), (256, 256, 512)]
 TOL = 1e-5
@@ -409,5 +422,34 @@ def main():
         args.out.write_text("".join(json.dumps(rec) + "\n" for rec in records))
 
 
+def ab(p1, c1, c2, p2):
+    """The plans' launch of every shape in four arms: C / P and whether both
+    C arms beat both P arms; the shapes outside 1 % of the parent listed."""
+    def read(path):
+        # a shape's label names the design the rule gave it: key by the shape
+        return {r["shape"].split(" (plans")[0]: r
+                for r in map(json.loads, Path(path).read_text().splitlines())
+                if "shape" in r and "plans_ms" in r}
+    P1, C1, C2, P2 = (read(p) for p in (p1, c1, c2, p2))
+    rows = []
+    for key in C1:
+        if key in C2 and key in P1 and key in P2:
+            cs = (C1[key]["plans_ms"], C2[key]["plans_ms"])
+            ps = (P1[key]["plans_ms"], P2[key]["plans_ms"])
+            rows.append((sum(cs) / sum(ps), max(cs) < min(ps), key, cs, ps))
+    moved = {key for key in C1 if key in P1 and C1[key].get("design", C1[key]["shape"])
+             != P1[key].get("design", P1[key]["shape"])}
+    within = [r for r in rows if abs(r[0] - 1) <= 0.01]
+    print(f"{len(rows)} shapes: {len(within)} within 1 % of the parent, "
+          f"{sum(r[1] for r in rows)} faster in both arms; the design moved at {len(moved)}")
+    for ratio, faster, key, cs, ps in sorted(rows):
+        if abs(ratio - 1) > 0.01 or key in moved:
+            print(f"  {key}: C / P {ratio:.3f}{' (both arms faster)' if faster else ''}; "
+                  f"C {cs[0]:.4f} / {cs[1]:.4f}, P {ps[0]:.4f} / {ps[1]:.4f} ms")
+
+
 if __name__ == "__main__":
-    main()
+    if "--ab" in sys.argv:
+        ab(*sys.argv[sys.argv.index("--ab") + 1:][:4])
+    else:
+        main()

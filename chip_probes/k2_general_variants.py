@@ -3,7 +3,8 @@
     python3 chip_probes/k2_general_variants.py [--repo DIR] [--variants] [--h ...]
                                                [--out PATH]   (from the repository root)
     python3 chip_probes/k2_general_variants.py --fft2 [--repo DIR] [--out PATH]
-    python3 chip_probes/k2_general_variants.py --fit SWEEP.jsonl BEFORE.jsonl
+    python3 chip_probes/k2_general_variants.py --fit SWEEP.jsonl BEFORE.jsonl [--cluster]
+    python3 chip_probes/k2_general_variants.py --cluster [--repo DIR] [--variants] [--h ...]
     python3 chip_probes/k2_general_variants.py --summary BEFORE.jsonl [AFTER.jsonl]
     python3 chip_probes/k2_general_variants.py --ab P1.jsonl C1.jsonl C2.jsonl P2.jsonl
 
@@ -24,6 +25,21 @@ holds 512 to 16384 points), first checked the same way; then device time
 beside ``torch.fft.fft`` along axis 1 with the unitary norm (cuFFT and its
 scaling pass) and without a norm (cuFFT alone), and the bound
 (``profile.bound_ms``: one read and one write at 3.35 TB/s).
+
+``--cluster`` takes the heights of the cluster design instead (11583 to
+16128, ``fused_cols.CLUSTER_COLS``; in a checkout without it, the heights
+from 11583 outside the fixed design), and with ``--variants`` times every
+candidate of ``probes.variants.cluster_candidates(h, CLUSTER_TILES)`` in
+the cluster design (``probes.variants.cluster_variant``: a chain of the
+fewest passes with each of its radices first, across the cluster, every
+cluster size of 2, 4 and 8 its first radix holds, tiles of 1 to 16
+columns, the least and the widest class of 24, 32 and 64 points a thread
+that holds it); with ``--fit`` it writes the cluster design's table,
+``WGFFT_CLUSTER_COLS`` of ``webgpufft_tpu_torch/csrc/cluster.cuh`` (which
+``core/fused_cols.py`` reads), the same way as the general design's.
+``--fft2 --cluster`` times the facade's ``fft2`` of 16-s seismic records
+instead (``SEISMIC``: (8, 16000, 64) time-major and (8, 64, 16000)
+trace-major), each split into K1, K2 and the rest.
 
 ``--fft2`` times the facade's ``fft2`` of eight HD frames (8, 1080, 1920),
 queued and from idle, beside ``torch.fft.fft2``; its two kernels alone (K1
@@ -71,6 +87,11 @@ MARGIN = 0.97         # --fit: a height moves where it wins at both views by thi
 SPLIT = 128           # --fit: columns in all of the few-tile entry, at most
 ALL_COLUMNS = 1 << 40
 HD = (8, 1080, 1920)  # the facade's fft2 of eight HD frames
+# the facade's fft2 of eight 16-s shot records at 1 ms, 64 receivers: time-
+# major (K2 down the 16000 samples) and trace-major as SEG-Y stores them (K1)
+SEISMIC = ((8, 16000, 64), (8, 64, 16000))
+CLUSTER_FROM = 11583  # --cluster: the heights of this and more
+CLUSTER_TILES = (1, 2, 4, 8, 16)
 
 
 def views_for(h):
@@ -156,9 +177,13 @@ def sweep(args):
     print(f"k2_general_variants: {Path(T.__file__).parent} [{card}]", flush=True)
     if args.variants and not hasattr(variants, "general_cols_variant"):
         raise SystemExit("k2_general_variants: --variants needs a checkout with the general design")
+    if args.cluster and args.variants and not hasattr(variants, "cluster_variant"):
+        raise SystemExit("k2_general_variants: --cluster --variants needs a checkout with the "
+                         "cluster design")
     fixed = {f.h for f in fused_cols.FIXED_COLS}
     heights = args.h or [h for h in range(2, radix.MAX_LENGTH + 1)
-                         if fused_cols.choose_split(h) and h not in fixed]
+                         if fused_cols.choose_split(h) and h not in fixed
+                         and (h >= CLUSTER_FROM or not args.cluster)]
     chain_of = getattr(fused_cols, "cols_chain", radix.radix_chain)
     gen = torch.Generator(device="cuda").manual_seed(21)
     out = open(args.out, "w") if args.out else None
@@ -166,9 +191,19 @@ def sweep(args):
     for h in heights:
         scale = 1.0 / math.sqrt(h)
         t = dev_tables(fused_cols.cols_consts(h, "forward", scale, "p"))
-        cands = candidates(h, radix, fused_cols) if args.variants else []
+        if not args.variants:
+            cands = []
+        elif args.cluster:
+            cands = [(name, c, e, (tile, clusters)) for name, c, e, tile, clusters
+                     in variants.cluster_candidates(h, CLUSTER_TILES)]
+        else:
+            cands = candidates(h, radix, fused_cols)
         vt = {c: dev_tables(radix.chain_consts(h, "forward", scale, "p", c))
               for c in {c for _, c, _, _ in cands}}
+        launch_variant = (
+            (lambda x, tt, c, e, shape, adj=False:
+             variants.cluster_variant(x, tt, c, e, *shape, adj)) if args.cluster
+            else variants.general_cols_variant)
         for pre, cols in views_for(h):
             x = torch.randn(pre, h, 2 * cols, device="cuda", generator=gen)
             want = {adj: fused_cols.fused_cols_reference(x, t, adj) for adj in (False, True)}
@@ -179,9 +214,9 @@ def sweep(args):
             runs = {"plans": lambda adj: fused_cols.fused_cols(x, t, adjoint=adj)}
             for name, c, e, tile in cands:
                 runs[name] = (lambda adj, c=c, e=e, tile=tile:
-                              variants.general_cols_variant(x, vt[c], c, e, tile, adj))
+                              launch_variant(x, vt[c], c, e, tile, adj))
                 arms[name] = (lambda c=c, e=e, tile=tile:
-                              variants.general_cols_variant(x, vt[c], c, e, tile))
+                              launch_variant(x, vt[c], c, e, tile))
             # a kernel that fails or disagrees is reported, left untimed, and
             # the sweep goes on (the fit takes only variants that passed)
             errs = {}
@@ -214,6 +249,13 @@ def sweep(args):
                    "variants": {}}
             for name, c, e, tile in cands:
                 if name not in ms:
+                    continue
+                if args.cluster:
+                    r = variants.cluster_report(pre, h, cols, c, e, *tile)
+                    rec["variants"][name] = {"ms": ms[name], "err": errs[name], "chain": list(c),
+                                             "points": e, "tile": tile[0], "clusters": tile[1],
+                                             "threads": r.threads, "resident": r.resident,
+                                             "held": r.clusters, "shared": r.shared}
                     continue
                 r = variants.general_cols_report(pre, h, cols, c, e, tile)
                 rec["variants"][name] = {"ms": ms[name], "err": errs[name], "chain": list(c),
@@ -248,8 +290,14 @@ def fft2(args):
     from webgpufft_tpu_torch import fft as wfft
     card = profile.card_line()
     gen = torch.Generator(device="cuda").manual_seed(21)
-    b, h, n = HD
-    z = torch.randn(*HD, dtype=torch.complex64, device="cuda", generator=gen)
+    for shape in (SEISMIC if args.cluster else (HD,)):
+        fft2_split(args, shape, torch, fused, fused_cols, radix, profile, wfft, card, gen)
+
+
+def fft2_split(args, shape, torch, fused, fused_cols, radix, profile, wfft, card, gen):
+    """One facade fft2 of ``shape`` (b, h, n) split into K1, K2 and the rest."""
+    b, h, n = shape
+    z = torch.randn(*shape, dtype=torch.complex64, device="cuda", generator=gen)
     want = torch.fft.fft2(z)
     got = torch.view_as_complex(wfft.fft2(z).contiguous())
     err = rel(got, want)
@@ -288,7 +336,7 @@ def fft2(args):
             us = getattr(ev, "cuda_time_total", 0.0)
         if us and not ev.key.startswith("aten::"):
             kernels[ev.key[:80]] = round(us / 10 / 1e3, 4)
-    rec = {"card": card, "shape": list(HD), "err": err, "k1_err": k1_err, "k2_err": k2_err,
+    rec = {"card": card, "shape": list(shape), "err": err, "k1_err": k1_err, "k2_err": k2_err,
            "queued_ms": ms, "idle_ms": idle_ms,
            "rest_ms": ms["facade fft2"] - ms["K1"] - ms["K2"],
            "k1_bound_ms": profile.bound_ms(16 * b * h * n, 0.0)[0],
@@ -344,24 +392,31 @@ def fit(sweep_path, before_path):
         chain, picks, worst = best
         few = picks[(FEW_PRE, FEW_COLS)]
         big = next(p for key, p in picks.items() if key != (FEW_PRE, FEW_COLS))
-        if (few[1]["points"], few[1]["tile"]) == (big[1]["points"], big[1]["tile"]):
-            entries = [(1, ALL_COLUMNS, big[1]["points"], big[1]["tile"], big[0], worst)]
+
+        def shape(v):
+            return (v["tile"], v["clusters"]) if "clusters" in v else v["tile"]
+        if (few[1]["points"], shape(few[1])) == (big[1]["points"], shape(big[1])):
+            entries = [(1, ALL_COLUMNS, big[1]["points"], shape(big[1]), big[0], worst)]
         else:
-            entries = [(1, SPLIT, few[1]["points"], few[1]["tile"], few[0], few[2]),
-                       (SPLIT + 1, ALL_COLUMNS, big[1]["points"], big[1]["tile"], big[0],
+            entries = [(1, SPLIT, few[1]["points"], shape(few[1]), few[0], few[2]),
+                       (SPLIT + 1, ALL_COLUMNS, big[1]["points"], shape(big[1]), big[0],
                         big[2])]
         table[h] = (chain, entries, worst)
     return table, left
 
 
-def write_rule(table):
+def write_rule(table, cluster=False):
     """Write ``table`` ({h: (chain, entries, ...)}) as the general design's
-    table, ``WGFFT_GENERAL_COLS`` of csrc/cols_general.cuh."""
+    table, ``WGFFT_GENERAL_COLS`` of csrc/cols_general.cuh, or with
+    ``cluster`` as the cluster design's, ``WGFFT_CLUSTER_COLS`` of
+    csrc/cluster.cuh (each entry's shape (tile, clusters))."""
     items = []
     for h, (chain, entries, _) in sorted(table.items()):
         for least, most, points, tile, *_ in entries:
             most = "kAllColumns" if most == ALL_COLUMNS else str(most)
-            items.append(f"X({h}, {least}, {most}, {points}, {tile}, {', '.join(map(str, chain))})")
+            shape = ", ".join(map(str, tile)) if cluster else str(tile)
+            items.append(f"X({h}, {least}, {most}, {points}, {shape}, "
+                         f"{', '.join(map(str, chain))})")
     rows, row = [], ""
     for item in items:
         if row and len(row) + len(item) + 1 > 94:
@@ -372,10 +427,12 @@ def write_rule(table):
         rows.append(row)
     body = "".join(f" \\\n  {r.rstrip():<94}" for r in rows)
     body = re.sub(r" +$", "", body)
-    path = ROOT / "webgpufft_tpu_torch" / "csrc" / "cols_general.cuh"
+    name = "WGFFT_CLUSTER_COLS" if cluster else "WGFFT_GENERAL_COLS"
+    path = ROOT / "webgpufft_tpu_torch" / "csrc" / ("cluster.cuh" if cluster else
+                                                    "cols_general.cuh")
     text = path.read_text()
-    text = re.sub(r"#define WGFFT_GENERAL_COLS\(X\)(?: \\\n(?:.*\\\n)*.*)?\n",
-                  lambda _: f"#define WGFFT_GENERAL_COLS(X){body}\n", text, count=1)
+    text = re.sub(rf"#define {name}\(X\)(?: \\\n(?:.*\\\n)*.*)?\n",
+                  lambda _: f"#define {name}(X){body}\n", text, count=1)
     path.write_text(text)
 
 
@@ -383,7 +440,8 @@ def quantiles(ratios):
     ratios = sorted(ratios)
     q = [ratios[int(f * (len(ratios) - 1))] for f in (0, 0.1, 0.5, 0.9, 1)]
     return (f"min {q[0]:.3f} p10 {q[1]:.3f} median {q[2]:.3f} p90 {q[3]:.3f} max {q[4]:.3f}; "
-            f"over 1.10: {sum(x > 1.10 for x in ratios)}")
+            f"over 1.10: {sum(x > 1.10 for x in ratios)}; under 1.5: {sum(x < 1.5 for x in ratios)}, "
+            f"under 1: {sum(x < 1 for x in ratios)}")
 
 
 def summary(before_path, after_path=None):
@@ -417,9 +475,9 @@ def summary(before_path, after_path=None):
 
 
 def ab(p1, c1, c2, p2):
-    """Every view the change runs in the general design: C / P (mean of the
-    two arms each) and whether both C arms beat both P arms; and the views
-    whose design did not move."""
+    """Every view the change runs in another design than the parent: C / P
+    (mean of the two arms each) and whether both C arms beat both P arms;
+    and the views whose design did not move."""
     P1, C1, C2, P2 = (read(p) for p in (p1, c1, c2, p2))
     moved, other, losers = [], [], []
     for key, c in sorted(C1.items()):
@@ -428,17 +486,17 @@ def ab(p1, c1, c2, p2):
         cs = (c["plans_ms"], C2[key]["plans_ms"])
         ps = (P1[key]["plans_ms"], P2[key]["plans_ms"])
         ratio = sum(cs) / sum(ps)
-        if c["plans_design"] == "general":
-            moved.append(ratio)
+        if c["plans_design"] != P1[key]["plans_design"]:
+            moved.append((ratio, key))
             if max(cs) >= min(ps):
                 losers.append((key, cs, ps))
         else:
             other.append((ratio, key))
-    moved.sort()
+    moved.sort(key=lambda m: m[0])
     if moved:
-        print(f"{len(moved)} views in the general design: C / P min {moved[0]:.3f} median "
-              f"{moved[len(moved) // 2]:.3f} max {moved[-1]:.3f}; both C arms under both P arms "
-              f"at {len(moved) - len(losers)}")
+        print(f"{len(moved)} views that moved design: C / P min {moved[0][0]:.3f} ({moved[0][1]}) "
+              f"median {moved[len(moved) // 2][0]:.3f} max {moved[-1][0]:.3f} ({moved[-1][1]}); "
+              f"both C arms under both P arms at {len(moved) - len(losers)}")
     for key, cs, ps in losers:
         print(f"  not faster in both arms: {key} C {cs} P {ps}")
     other.sort()
@@ -460,6 +518,9 @@ def main():
     ap.add_argument("--out", type=Path, help="also write one JSON line a view here")
     ap.add_argument("--fft2", action="store_true",
                     help="split the facade's fft2 of eight HD frames into K1, K2 and the rest")
+    ap.add_argument("--cluster", action="store_true",
+                    help="the cluster design's heights (11583 on) and variants; with --fit its "
+                         "table, with --fft2 the seismic records")
     ap.add_argument("--fit", nargs=2, metavar=("SWEEP", "BEFORE"),
                     help="write the general design's table from a sweep (no GPU)")
     ap.add_argument("--summary", nargs="+", metavar="RUN",
@@ -469,11 +530,12 @@ def main():
     args = ap.parse_args()
     if args.fit:
         table, left = fit(*args.fit)
-        write_rule(table)
+        write_rule(table, args.cluster)
         for h, (chain, entries, worst) in sorted(table.items()):
             print(f"{h}: {chain} " + "; ".join(f"{e[0]}..{e[1]} {e[4]} ({e[5]:.3f})"
                                                for e in entries) + f" (worse {worst:.3f})")
-        print(f"{len(table)} heights to the general design; left: {len(left)}")
+        print(f"{len(table)} heights to the {'cluster' if args.cluster else 'general'} design; "
+              f"left: {len(left)}")
         for h, why in sorted(left.items()):
             print(f"  left {h}: {why}")
     elif args.summary:

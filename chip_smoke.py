@@ -73,6 +73,9 @@ held against the plain version once more, with the path's own tables:
   (4096, 3000) and ``ifft`` (1024, 6144) (K1's mixed-radix design), ``fft2``
   of eight HD frames (8, 1080, 1920) and ``fft`` of 8192 frames of 1200
   samples (K1's general design, ``FACADE_GENERAL``) against ``torch.fft``,
+  ``fft2`` of eight 16-s shot records at 1 ms by 64 receivers, time-major
+  (8, 16000, 64) and trace-major (8, 64, 16000) (K2's and K1's cluster
+  design, ``FACADE_CLUSTER``) against ``torch.fft.fft2``,
   ``stft``/``istft``/``welch`` on (8, 2^22) at
   nperseg 1024 (65,544 frames) against ``torch.stft`` and ``scipy.signal``,
   a ``ShortTimeFFT`` pair, ``hilbert`` ((8, 2^20): the four-step einsum
@@ -331,7 +334,8 @@ def phase_k1(gen):
     # the facade path's 196,608 lines of 128 (128 is not in the packed
     # design's table, which holds 16, 6, 64, 4 and 8 above); then the
     # facade path's HD frames (8640 lines of 1920) and 25 ms frames (8192
-    # lines of 1200), the general design
+    # lines of 1200), the general design; then its 16-s seismic records
+    # trace-major (512 lines of 16000), the cluster design
     for n, lines, direction, normalize in [
             (1024, 4096, "forward", "unitary"), (1024, 4096, "inverse", "unitary"),
             (2048, 4096, "forward", "none"), (360, 4096, "inverse", "backward"),
@@ -349,7 +353,8 @@ def phase_k1(gen):
             (32, 1536, "forward", "none"), (OS_BLOCK, 1032, "forward", "none"),
             (2079, 4096, "forward", "none"), (6144, 1024, "inverse", "unitary"),
             (3000, 4096, "forward", "none"), (128, 196608, "forward", "none"),
-            (1920, 8640, "forward", "none"), (1200, 8192, "forward", "none")]:
+            (1920, 8640, "forward", "none"), (1200, 8192, "forward", "none"),
+            (16000, 512, "forward", "none")]:
         scale = {"none": 1.0, "unitary": 1.0 / math.sqrt(n),
                  "backward": 1.0 / n if direction == "inverse" else 1.0}[normalize]
         tables = to_dev(fused.lines_consts(n, direction, scale, "p"))
@@ -377,7 +382,10 @@ def phase_k2(gen):
     # then two more views of the ring design: a 4-column tile (H = 2048) and
     # an odd column count (33: 8-byte copies, a ragged last tile); then the
     # facade's fft2 of eight HD frames (8, 1080, 3840) and an H = 32 view of
-    # the kind the NS-3D main at n 32 gives it, heights of the general design
+    # the kind the NS-3D main at n 32 gives it, heights of the general design;
+    # then its 16-s seismic records time-major (8, 16000, 128), the cluster
+    # design; then the halo fftconv [1000, 1000] x 8 and one image of the
+    # examples and distributed paths ((8, 1078, 2156), (1, 1078, 2156))
     for pre, h, lanes, direction in [
             (256, 256, 512, "forward"), (1, 256, 131072, "forward"),
             (64, 360, 512, "forward"), (256, 16, 512, "forward"),
@@ -389,7 +397,9 @@ def phase_k2(gen):
             (1, 1024, 2048, "forward"), (3, 128, 131072, "forward"),
             (6, 128, 131072, "inverse"), (8, 3, 512, "forward"), (8, 9, 512, "inverse"),
             (8, 2048, 1024, "forward"), (64, 1024, 66, "inverse"),
-            (8, 1080, 3840, "forward"), (3, 32, 1088, "inverse")]:
+            (8, 1080, 3840, "forward"), (3, 32, 1088, "inverse"),
+            (8, 16000, 128, "forward"), (8, 1078, 2156, "forward"),
+            (1, 1078, 2156, "forward")]:
         if (pre, h) == (256, 16):
             tables = cols_tables_h2_is_1(h, direction, 1.0)
             split = (16, 1)
@@ -535,7 +545,7 @@ def phase_domain(gen):
               lambda: fused_cols.fused_cols_reference(x, inv))
         check(f"{label} adjoint", lambda: fused_cols.fused_cols(x, fwd, adjoint=True),
               lambda: fused_cols.fused_cols_reference(x, fwd, adjoint=True))
-        if launch.design in ("fixed", "general"):
+        if launch.design in ("fixed", "general", "cluster"):
             check(f"{label} in place", lambda: probes.cols_inplace(x.clone(), fwd),
                   lambda: fused_cols.fused_cols_reference(x, fwd))
         # where the rule runs this height on the ring once the tiles fill the
@@ -2227,6 +2237,14 @@ FACADE_FFT2 = [("image", (1024, 1024)), ("f-k gather", (8, 16384, 64))]
 # (8, 1080, 3840)) and fft of 8192 frames of 25 ms at 48 kHz (K1 at 1200
 # over 8192 lines, 157.3 MB)
 FACADE_GENERAL = [("fft2", (8, 1080, 1920), 2, (1, 1)), ("fft", (8192, 1200), 1, (1, 0))]
+# the facade's f-k transform of eight marine shot records of 16 s at 1 ms
+# (16000 samples) by 64 receivers, at lengths of the cluster design: (name,
+# complex64 shape, kernel and its view): time-major, as the f-k gather above
+# (K2 down the 16000 samples, view (8, 16000, 128); K1 at 64), and
+# trace-major as SEG-Y stores it (K1 at 16000 over 512 lines; K2 at (8, 64,
+# 32000)); 65.5 MB each way
+FACADE_CLUSTER = [("time-major", (8, 16000, 64), "K2", (8, 16000, 64)),
+                  ("trace-major", (8, 64, 16000), "K1", (16000, 512))]
 
 
 def phase_facade(gen):
@@ -2299,6 +2317,28 @@ def phase_facade(gen):
         check_oracle(f"facade {name} {shape}", y, getattr(torch.fft, name)(zg))
         keep[f"general {name}"] = zg
         del zg, y
+
+    # the f-k transform of 16-s records: one K1 and one K2 launch each, the
+    # 16000 samples in the cluster design (K2's view in the time-major
+    # layout, K1's lines in the trace-major one)
+    from webgpufft_tpu_torch.core import fused, fused_cols
+    for name, shape, kernel, view in FACADE_CLUSTER:
+        zs = torch.randn(*shape, dtype=torch.complex64, device="cuda", generator=gen)
+        y = facade_call(f"fft2 seismic {name} {shape} complex64", wfft.fft2, zs, expect=(1, 1))
+        if kernel == "K1":
+            n, lines = view
+            design = fused.launch_report(n, lines).design
+            ran = any(key[:2] == view for key in PATH_SHAPES["facade"][0])
+        else:
+            pre, h, cols = view
+            design = fused_cols.launch_shape(pre, h, cols)[0].design
+            ran = any(key[:3] == (pre, h, 2 * cols) for key in PATH_SHAPES["facade"][1])
+        require(design == "cluster" and ran,
+                f"facade fft2 seismic {shape}: {kernel} did not launch {view} in the cluster "
+                f"design ({design})")
+        check_oracle(f"facade fft2 seismic {name} {shape}", y, torch.fft.fft2(zs))
+        keep[f"seismic {name}"] = zs
+        del zs, y
 
     # r2c / c2r over three axes of a batch of three volumes
     x = torch.randn(3, NS_N, NS_N, NS_N, device="cuda", generator=gen)
@@ -2505,6 +2545,14 @@ def phase_facade_timing(keep, card):
         row(f"{name} {shape}", lambda f=getattr(wfft, name), zg=zg: f(zg),
             lambda p=planx, v=torch.view_as_real(zg): p(v),
             lambda f=getattr(torch.fft, name), zg=zg: f(zg), f"torch.fft.{name}")
+
+    for name, shape, _, _ in FACADE_CLUSTER:
+        zs = keep[f"seismic {name}"]
+        plans = T.create_plan(type="c2c", shape=list(shape[-2:]), batch=shape[0],
+                              direction="forward", normalize="none", device="cuda")
+        row(f"fft2 seismic {name} {shape}", lambda zs=zs: wfft.fft2(zs),
+            lambda p=plans, v=torch.view_as_real(zs): p(v), lambda zs=zs: torch.fft.fft2(zs),
+            "torch.fft.fft2")
 
     # numpy's rfftn packs the last axis: the facade builds a 1-D r2c plan over
     # it and a 2-D c2c plan over the other two, with one transposing copy
@@ -3959,15 +4007,17 @@ def main():
               "lines_packed.cu", "lines_packed_2.cu", "lines_packed_3.cu",
               "lines_packed_4.cu", "lines_general.cu", "lines_general_16.cu",
               "lines_general_20.cu", "lines_general_24.cu", "lines_general_32.cu",
-              "lines_general_64.cu"),
-             ["direct", "pow2", "warp", "mixed", "packed", "general"],
+              "lines_general_64.cu", "cluster.cu", "cluster_24.cu", "cluster_32.cu",
+              "cluster_64.cu"),
+             ["direct", "pow2", "warp", "mixed", "packed", "general", "cluster"],
              "webgpufft_tpu/core/fused.py:223", k1_err, "N=1024 x 4096 lines",
              ("K1", 1024, 4096)),
             ("fused_cols", "fused_cols.cu",
              ("fused_cols.cu", "cols_fixed.cu", "cols_general.cu", "cols_general_16.cu",
               "cols_general_20.cu", "cols_general_24.cu", "cols_general_32.cu",
-              "cols_general_64.cu"),
-             ["direct", "ring", "fixed", "general"],
+              "cols_general_64.cu", "cluster.cu", "cluster_24.cu", "cluster_32.cu",
+              "cluster_64.cu"),
+             ["direct", "ring", "fixed", "general", "cluster"],
              "webgpufft_tpu/core/fused_cols.py:161", k2_err, "view (256, 256, 512)",
              ("K2", 256, 256, 512))]] + [
         {"name": name, "route": "cuda", "source": f"webgpufft_tpu_torch/csrc/probes/{src}",

@@ -111,11 +111,12 @@ def _without_k1_chains(blob, edit=None):
     return _without_chains(blob, "k1_chains", edit)
 
 
-@pytest.mark.parametrize("n", [8192, 16384, 256, 2079, 6144, 1920])
+@pytest.mark.parametrize("n", [8192, 16384, 256, 2079, 6144, 1920, 16000])
 def test_artifact_laid_out_for_another_k1_chain_is_refused(n, rng):
     """K1 reads ``cw`` in the order of ``radix.lines_chain(N)`` (the
     power-of-two design's at 256, 8192 and 16384, the mixed-radix design's
-    at 2079 and 6144, the general design's at 1920): an export records that chain
+    at 2079 and 6144, the general design's at 1920, the cluster design's at
+    16000): an export records that chain
     for every K1 table and loads; an artifact without the record (written
     when every length ran ``radix.radix_chain``) or with another chain is
     refused with a PlanError that names the table and both chains, for a
@@ -159,18 +160,20 @@ def test_artifact_of_an_unmoved_k1_length_loads_without_the_record(rng):
 
 
 def _k2_moved():
-    """Heights where K2's chain (``fused_cols.cols_chain``, the general
-    design's) is not ``radix_chain``'s, a few of the paths' first."""
+    """Heights where K2's chain (``fused_cols.cols_chain``, the general or
+    the cluster design's) is not ``radix_chain``'s, a few of the paths'
+    first."""
     from webgpufft_tpu_torch.core import fused_cols, radix
-    moved = [h for h in sorted({g.h for g in fused_cols.GENERAL_COLS})
+    moved = [h for h in sorted({g.h for g in fused_cols.GENERAL_COLS + fused_cols.CLUSTER_COLS})
              if fused_cols.cols_chain(h) != radix.radix_chain(h)]
-    return [h for h in (1080, 1920, 32) if h in moved] or moved[:2]
+    return [h for h in (1080, 1920, 32, 16000) if h in moved] or moved[:2]
 
 
 @pytest.mark.parametrize("h", _k2_moved())
 def test_artifact_laid_out_for_another_k2_chain_is_refused(h, rng):
     """K2 reads ``cw`` in the order of ``fused_cols.cols_chain(H)`` (the
-    general design's at the heights of its table): an export records that
+    general or the cluster design's at the heights of their tables): an
+    export records that
     chain for every K2 table (``k2_chains``) and loads; an artifact without
     the record (written when every height ran ``radix.radix_chain``) or with
     another chain is refused with a PlanError that names the table and both

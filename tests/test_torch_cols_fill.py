@@ -268,6 +268,15 @@ def test_rule_is_a_launch_that_exists(pre, h, cols):
                                                            entry.tile))
         assert launch.grid == launch.units == pre * -(-cols // entry.tile)
         return
+    if launch.design == "cluster":
+        entry = next(g for g in fused_cols.CLUSTER_COLS if g.h == h and g.least <= pre * cols
+                     <= g.most)
+        assert (launch.tile, launch.cluster, launch.threads) == (
+            entry.tile, entry.clusters,
+            radix.cluster_plan(h, entry.chain, entry.points, entry.tile, entry.clusters)[0])
+        assert launch.grid == launch.units * entry.clusters == \
+            pre * -(-cols // entry.tile) * entry.clusters
+        return
     if launch.design == "fixed":
         entry = next(f for f in fused_cols.FIXED_COLS if f.h == h and f.least <= pre * cols
                      <= f.most)

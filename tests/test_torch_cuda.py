@@ -391,18 +391,72 @@ def test_general_design_at_each_length_of_the_rule(n, cuda_device):
         assert rc == 1, other   # cudaErrorInvalidValue
 
 
+@pytest.mark.parametrize("n", sorted(radix.CLUSTER_LINES))
+def test_cluster_design_at_each_length_of_the_rule(n, cuda_device):
+    """K1's rule sends the lengths of ``radix.CLUSTER_LINES`` (11583 on) to
+    the cluster design: forward, inverse unitary, adjoint, in place and on
+    an input 8 bytes past a 16-byte boundary (in place there too) against
+    the plain version, each launch counted; the launch report names the
+    design and a grid of C CTAs a line; at least one cluster of its kernel
+    is resident; and the entry point refuses ``radix_chain``'s chain and
+    the rule's reversed (no fallback)."""
+    from webgpufft_tpu_torch import _build
+    from webgpufft_tpu_torch.probes import variants
+    line = radix.CLUSTER_LINES[n]
+    assert radix.lines_design(n) == "cluster" and radix.lines_in_place(n)
+    lines = 3
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    t = _dev_tables(fused.lines_consts(n, "forward", 1.0, "p"), cuda_device)
+    inv = _dev_tables(fused.lines_consts(n, "inverse", 1.0 / math.sqrt(n), "p"), cuda_device)
+    base = torch.randn(lines * n + 1, 2, device=cuda_device, generator=gen)
+    x = base[:-1].view(lines, n, 2)
+    off = base[1:].view(lines, n, 2)
+    assert off.data_ptr() % 16 == 8
+    before = fused.fused_lines.launches
+    y = fused.fused_lines(x, t)
+    yi = fused.fused_lines(x, inv)
+    ya = fused.fused_lines(x, t, adjoint=True)
+    z = probes.lines_inplace(x.clone(), t)
+    yo = fused.fused_lines(off, t)
+    work = base.clone()
+    zo = probes.lines_inplace(work[1:].view(lines, n, 2), t)
+    torch.cuda.synchronize()
+    assert fused.fused_lines.launches == before + 6
+    label = f"K1 cluster n={n} {line}"
+    assert_close(y.cpu(), fused.fused_lines_reference(x, t).cpu(), label=label)
+    assert_close(yi.cpu(), fused.fused_lines_reference(x, inv).cpu(), label=f"{label} inverse")
+    assert_close(ya.cpu(), fused.fused_lines_reference(x, t, adjoint=True).cpu(),
+                 label=f"{label} adjoint")
+    assert torch.equal(z, y)
+    want = fused.fused_lines_reference(off, t).cpu()
+    assert_close(yo.cpu(), want, label=f"{label} offset view")
+    assert_close(zo.cpu(), want, label=f"{label} offset view in place")
+    assert torch.equal(work[0], base[0])   # the point before the view untouched
+    launch = fused.launch_report(n, lines)
+    assert launch.design == "cluster" and launch.resident >= 1
+    assert launch.grid == launch.work == lines * line.clusters
+    report = variants.cluster_report(lines, n, 1, line.chain, line.points, 1, line.clusters)
+    assert report.clusters >= 1 and report.grid == lines * line.clusters
+    for other in {radix.radix_chain(n), line.chain[::-1]} - {line.chain}:
+        rc = _build.library().wgfft_fused_lines(
+            x.data_ptr(), y.data_ptr(), t["cw"].data_ptr(), t["cp"].data_ptr(), lines, n,
+            *_build.chain_arg(other), 0, torch.cuda.current_stream().cuda_stream)
+        assert rc == 1, other   # cudaErrorInvalidValue
+
+
 def test_k1_rule_is_one_table_in_c_and_python(cuda_device):
     """The design K1's C entry point gives every length it takes
     (``fused.launch_report``, read from ``wgfft_fused_lines_resident``)
     is ``radix.lines_design``'s: the five tables of lines.cuh (kPow2Lines,
-    kWarpLines, kMixedLines, kPackedLines, kGeneralLines) equal
-    core/radix.py's."""
+    kWarpLines, kMixedLines, kPackedLines, kGeneralLines) and the cluster
+    design's of cluster.cuh (kClusterLines) equal core/radix.py's."""
     lengths = [n for n in range(2, radix.MAX_LENGTH + 1) if fused.choose_split(n)]
     wrong = [(n, fused.launch_report(n, 1000).design, radix.lines_design(n)) for n in lengths
              if fused.launch_report(n, 1000).design != radix.lines_design(n)]
     assert not wrong
     assert {n for n in lengths if radix.lines_design(n) == "packed"} == set(radix.PACKED_LINES)
     assert {n for n in lengths if radix.lines_design(n) == "general"} == set(radix.GENERAL_LINES)
+    assert {n for n in lengths if radix.lines_design(n) == "cluster"} == set(radix.CLUSTER_LINES)
 
 
 def test_every_packed_variant_matches_plain(cuda_device):
@@ -611,6 +665,91 @@ def test_general_cols_design_at_each_height_of_the_rule(h, cuda_device):
                 x.data_ptr(), y.data_ptr(), fwd["cw"].data_ptr(), fwd["cp"].data_ptr(), pre, h,
                 cols, *_build.chain_arg(other), 0, torch.cuda.current_stream().cuda_stream)
             assert rc == 1, other   # cudaErrorInvalidValue
+
+
+def _cluster_views(h):
+    """(pre, cols, entry) views of each entry of K2's cluster design at
+    height h: (2, 33) where an entry holds 66 columns in all, and 1 x (129
+    or the tile + 1) where a later entry holds them."""
+    views = []
+    for g in (g for g in fused_cols.CLUSTER_COLS if g.h == h):
+        if g.least <= 66 <= g.most:
+            views.append((2, 33, g))
+        if g.least <= max(129, g.tile + 1) <= g.most and g.most > 66:
+            views.append((1, max(129, g.tile + 1), g))
+    return views
+
+
+@pytest.mark.parametrize("h", sorted({g.h for g in fused_cols.CLUSTER_COLS}))
+def test_cluster_cols_design_at_each_height_of_the_rule(h, cuda_device):
+    """K2's rule sends the heights of ``fused_cols.CLUSTER_COLS`` (11583 on)
+    to the cluster design: at a view of each entry's range, over ragged
+    columns, forward, inverse unitary, the adjoint launch, in place, and on
+    an input 8 bytes past a 16-byte boundary (in place there too) against
+    the plain version, each launch counted; ``launch_shape`` names the
+    entry's tile and cluster, and at least one cluster is resident; and the
+    entry point refuses ``radix_chain``'s chain and the reversed chain."""
+    from webgpufft_tpu_torch import _build
+    chain = fused_cols.cols_chain(h)
+    fwd = _dev_tables(fused_cols.cols_consts(h, "forward", 1.0, "p"), cuda_device)
+    inv = _dev_tables(fused_cols.cols_consts(h, "inverse", 1.0 / math.sqrt(h), "p"), cuda_device)
+    for pre, cols, g in _cluster_views(h):
+        launch, resident = fused_cols.launch_shape(pre, h, cols)
+        assert (launch.design, launch.tile, launch.cluster) == ("cluster", g.tile, g.clusters)
+        assert resident >= 1, launch
+        gen = torch.Generator(device=cuda_device).manual_seed(h * cols)
+        base = torch.randn(pre * h * cols + 1, 2, device=cuda_device, generator=gen)
+        x = base[:-1].view(pre, h, 2 * cols)
+        off = base[1:].view(pre, h, 2 * cols)
+        assert off.data_ptr() % 16 == 8
+        before = fused_cols.fused_cols.launches
+        y = fused_cols.fused_cols(x, fwd)
+        yi = fused_cols.fused_cols(x, inv)
+        ya = fused_cols.fused_cols(x, fwd, adjoint=True)
+        z = probes.cols_inplace(x.clone(), fwd)
+        yo = fused_cols.fused_cols(off, fwd)
+        work = base.clone()
+        zo = probes.cols_inplace(work[1:].view(pre, h, 2 * cols), fwd)
+        torch.cuda.synchronize()
+        assert fused_cols.fused_cols.launches == before + 6
+        label = (f"K2 cluster ({pre}, {h}, {2 * cols}) {chain} {g.points} points tile {g.tile} "
+                 f"cluster {g.clusters}")
+        assert_close(y.cpu(), fused_cols.fused_cols_reference(x, fwd).cpu(), label=label)
+        assert_close(yi.cpu(), fused_cols.fused_cols_reference(x, inv).cpu(),
+                     label=f"{label} inverse")
+        assert_close(ya.cpu(), fused_cols.fused_cols_reference(x, fwd, adjoint=True).cpu(),
+                     label=f"{label} adjoint")
+        assert torch.equal(z, y)
+        want = fused_cols.fused_cols_reference(off, fwd).cpu()
+        assert_close(yo.cpu(), want, label=f"{label} offset view")
+        assert_close(zo.cpu(), want, label=f"{label} offset view in place")
+        assert torch.equal(work[0], base[0])   # the point before the view untouched
+        for other in {radix.radix_chain(h), chain[::-1]} - {chain}:
+            rc = _build.library().wgfft_fused_cols(
+                x.data_ptr(), y.data_ptr(), fwd["cw"].data_ptr(), fwd["cp"].data_ptr(), pre, h,
+                cols, *_build.chain_arg(other), 0, torch.cuda.current_stream().cuda_stream)
+            assert rc == 1, other   # cudaErrorInvalidValue
+
+
+def test_cluster_launch_refused_raises(cuda_device):
+    """No fallback: a shape the cluster design does not run (a cluster of 16,
+    a first radix under twice the cluster) comes back from the C entry point
+    as cudaErrorInvalidValue with nothing launched, and the wrapper raises."""
+    from webgpufft_tpu_torch import _build
+    from webgpufft_tpu_torch.probes import variants
+    n = 16000
+    t = _dev_tables(radix.chain_consts(n, "forward", 1.0, "p", (32, 25, 20)), cuda_device)
+    x = torch.zeros(1, n, 2, device=cuda_device)
+    for chain, clusters in (((32, 25, 20), 16), ((32, 25, 20), 3), ((10, 20, 16, 5), 8)):
+        rc = _build.library().wgfft_cluster(
+            x.data_ptr(), x.data_ptr(), t["cw"].data_ptr(), t["cp"].data_ptr(), 1, n, 1,
+            *_build.chain_arg(chain), 32, 1, clusters, 0, None,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 1, (chain, clusters)
+        with pytest.raises(ValueError, match="does not run"):
+            variants.cluster_variant(x, t, chain, 32, 1, clusters)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        _build.check(1, "cluster_variant")
 
 
 @pytest.mark.parametrize("pre,h,lanes,direction", FILL_VIEWS)

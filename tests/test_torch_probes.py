@@ -431,7 +431,8 @@ def test_probe_library_is_a_second_library():
         "lines_packed_4.cu", "lines_general.cu", "lines_general_16.cu", "lines_general_20.cu",
         "lines_general_24.cu", "lines_general_32.cu", "lines_general_64.cu",
         "cols_general.cu", "cols_general_16.cu", "cols_general_20.cu", "cols_general_24.cu",
-        "cols_general_32.cu", "cols_general_64.cu"}
+        "cols_general_32.cu", "cols_general_64.cu", "cluster.cu", "cluster_24.cu",
+        "cluster_32.cu", "cluster_64.cu"}
     core, probe = _build.library_path("core"), _build.library_path("probes")
     assert core != probe and core.parent == probe.parent == _build.BUILD_DIR
     assert probe.name.startswith("libwgfft_probes_")

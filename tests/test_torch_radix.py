@@ -192,15 +192,17 @@ def test_k1_rule_for_every_eligible_length(n):
     lengths of ``PACKED_LINES``, all of 128 points or less, run the packed
     design on ``radix_chain`` (its ``cw`` unchanged) and may run in place at
     every chain; the lengths of ``GENERAL_LINES`` run the general design on
-    two to four passes of ``GENERAL_RADICES`` (next test); every other
-    length runs the direct design on ``radix_chain``, in place only at two
-    passes or more.  No length is in two tables.  K2 keeps
-    ``radix_chain``."""
+    two to four passes of ``GENERAL_RADICES`` (next test); the lengths of
+    ``CLUSTER_LINES``, all from 11583, run the cluster design on two to four
+    passes of ``GENERAL_RADICES``, in place, the first radix at least twice
+    the cluster size (tests/test_torch_cluster.py); every other length runs
+    the direct design on ``radix_chain``, in place only at two passes or
+    more.  No length is in two tables.  K2 keeps ``radix_chain``."""
     chain = radix.lines_chain(n)
     assert set(radix.POW2_LINES) == {256, 1024, 2048, 4096, 8192, 16384}
     assert set(radix.WARP_LINES) == {512}
     tables = (radix.POW2_LINES, radix.WARP_LINES, radix.MIXED_LINES, radix.PACKED_LINES,
-              radix.GENERAL_LINES)
+              radix.GENERAL_LINES, radix.CLUSTER_LINES)
     assert sum(n in t for t in tables) <= 1
     assert math.prod(chain) == n
     assert radix.lines_in_place(n) == (n in radix.PACKED_LINES or len(chain) > 1)
@@ -228,6 +230,11 @@ def test_k1_rule_for_every_eligible_length(n):
     elif n in radix.GENERAL_LINES:
         assert radix.lines_design(n) == "general" and chain == radix.GENERAL_LINES[n].chain
         assert radix.lines_in_place(n)
+    elif n in radix.CLUSTER_LINES:
+        line = radix.CLUSTER_LINES[n]
+        assert radix.lines_design(n) == "cluster" and chain == line.chain and n >= 11583
+        assert 2 <= len(chain) <= 4 and all(r in radix.GENERAL_RADICES for r in chain)
+        assert chain[0] >= 2 * line.clusters and radix.lines_in_place(n)
     else:
         assert radix.lines_design(n) == "direct" and chain == radix.radix_chain(n)
 

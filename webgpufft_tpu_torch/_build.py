@@ -69,6 +69,13 @@ _SIGNATURES = {
         "wgfft_general_cols": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                                ctypes.c_longlong, _INTS, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong), _P),
+        # x, y, cw, cp, pre, h, cols, radices, count, points, tile, clusters,
+        # adjoint, report (6 long longs or null: CTAs an SM, SMs, clusters the
+        # device holds, grid, threads, shared bytes), stream: the cluster
+        # design of K1 (a (lines, N, 1) view, tile 1) and K2 on any chain it runs
+        "wgfft_cluster": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                          _INTS, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.POINTER(ctypes.c_longlong), _P),
         # x, y, cw, cp, pre, h, cols, radices, count, adjoint, stream
         "wgfft_fused_cols": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                              ctypes.c_longlong, _INTS, ctypes.c_int, ctypes.c_int, _P),

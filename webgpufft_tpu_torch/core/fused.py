@@ -24,7 +24,8 @@ point launches the design that K1's rule gives the length
 16384, the warp design at 512, the mixed-radix design at the
 lengths of ``radix.MIXED_LINES``, the packed design at the short lengths of
 ``radix.PACKED_LINES``, the general mixed-radix design at the lengths of
-``radix.GENERAL_LINES``, the direct design elsewhere) on the chain
+``radix.GENERAL_LINES``, the cluster design at the lengths of
+``radix.CLUSTER_LINES``, the direct design elsewhere) on the chain
 ``radix.lines_chain``, for which ``cw`` is laid out; ``launch_report`` says
 what a launch would be (the design the C rule gave the length, CTAs an SM,
 SMs, grid, waves).  ``fused_lines_chain_reference`` is its pass schedule on the CPU, a
@@ -158,9 +159,14 @@ def fused_lines_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor],
 def fused_lines_chain_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor],
                                 adjoint: bool = False) -> torch.Tensor:
     """The CUDA kernel's pass schedule on the CPU (``radix.radix_chain_reference``
-    with the chain and tables the kernel gets, ``radix.lines_chain``, in
-    either design): a test aid, on no plan path."""
-    return radix.radix_chain_reference(x, radix.lines_chain(x.shape[1]), tables, adjoint)
+    with the chain and tables the kernel gets, ``radix.lines_chain``; at a
+    length of the cluster design its split over the cluster,
+    ``radix.cluster_chain_reference``): a test aid, on no plan path."""
+    n = x.shape[1]
+    line = radix.CLUSTER_LINES.get(n)
+    if line is not None:
+        return radix.cluster_chain_reference(x, line.chain, line.clusters, tables, adjoint)
+    return radix.radix_chain_reference(x, radix.lines_chain(n), tables, adjoint)
 
 
 def _check_cuda(x: torch.Tensor) -> None:
@@ -208,7 +214,8 @@ class LinesLaunch(NamedTuple):
 # numbering of the C entry point's report (LinesDesign, csrc/lines.cuh)
 KERNEL_NAMES = {"direct": "fused_lines_kernel", "pow2": "pow2_lines_kernel",
                 "warp": "warp_lines_kernel", "mixed": "mixed_lines_kernel",
-                "packed": "packed_lines_kernel", "general": "general_lines_kernel"}
+                "packed": "packed_lines_kernel", "general": "general_lines_kernel",
+                "cluster": "cluster_kernel"}
 DESIGNS = tuple(KERNEL_NAMES)
 
 

@@ -16,18 +16,21 @@ against DFT(h1) with the scale folded in, and write row k = h2 * k1 + k2.
 CPU tensor; there is no fallback between the two.  The CUDA kernel reaches
 the same natural-order result by a chain of in-register radix butterflies
 (``core/radix.py``) and reads only the ``cw`` and ``cp`` tables (laid out
-for ``cols_chain(H)``: the general design's chain where ``GENERAL_COLS``
-names H, ``radix.radix_chain(H)`` at every other height);
+for ``cols_chain(H)``: the general or the cluster design's chain where
+``GENERAL_COLS`` or ``CLUSTER_COLS`` names H, ``radix.radix_chain(H)`` at
+every other height);
 ``fused_cols_chain_reference`` is its pass schedule on the CPU, a test aid.
 
-Which of K2's four designs a view runs is K2's rule, ``cols_rule`` here
+Which of K2's five designs a view runs is K2's rule, ``cols_rule`` here
 and ``cols_rule`` in ``csrc/cols.cuh``: the fixed design
 (``csrc/cols_fixed.cuh``, a kernel per height, tile and cluster size) for
 the heights and column counts of ``FIXED_COLS``, the general design
 (``csrc/cols_general.cuh``, a run-time chain of two to four passes, a
 kernel per class of points a thread) for the heights of ``GENERAL_COLS``,
-read from that header's table, else the direct design or the ring by the
-tile alone.  ``launch_shape`` asks the card's copy and raises where the
+read from that header's table, the cluster design (``csrc/cluster.cuh``,
+shared with K1: the general design's passes on a tile split over a
+thread-block cluster) for the heights of ``CLUSTER_COLS``, read from that
+header, else the direct design or the ring by the tile alone.  ``launch_shape`` asks the card's copy and raises where the
 two disagree.
 
 Autodiff: as for K1 (``core/fused.py``).  ``FusedCols`` is the one
@@ -42,7 +45,6 @@ under ``torch.export`` and of ``FusedCols``.
 from __future__ import annotations
 
 import ctypes
-import re
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -142,15 +144,23 @@ def fused_cols_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor],
 def fused_cols_chain_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor],
                                adjoint: bool = False) -> torch.Tensor:
     """The CUDA kernel's pass schedule on the CPU (``radix.radix_chain_reference``
-    with the chain and tables the kernel gets): a test aid, on no plan path."""
+    with the chain and tables the kernel gets; at a height of the cluster
+    design its split over the cluster of the view's entry,
+    ``radix.cluster_chain_reference``): a test aid, on no plan path."""
     pre, h, lanes = x.shape
-    y = radix.radix_chain_reference(x.reshape(pre, h, lanes // 2, 2),
-                                    cols_chain(h), tables, adjoint)
+    entry = next((g for g in CLUSTER_COLS
+                  if g.h == h and g.least <= pre * (lanes // 2) <= g.most), None)
+    if entry is not None:
+        y = radix.cluster_chain_reference(x.reshape(pre, h, lanes // 2, 2), entry.chain,
+                                          entry.clusters, tables, adjoint)
+    else:
+        y = radix.radix_chain_reference(x.reshape(pre, h, lanes // 2, 2),
+                                        cols_chain(h), tables, adjoint)
     return y.reshape(pre, h, lanes)
 
 
 # K2's designs, as the C entry point numbers them (csrc/cols.cuh, ColsDesign)
-DESIGNS = ("direct", "ring", "ring-async", "fixed", "general")
+DESIGNS = ("direct", "ring", "ring-async", "fixed", "general", "cluster")
 RING_MIN_POINTS = 8192   # kRingMinPoints (csrc/stage.cuh)
 RING_MIN_COLS = 4        # kRingMinCols (csrc/cols.cuh)
 MAX_TILE_ELEMS = 16384   # kMaxTileElems (csrc/cols.cuh)
@@ -183,7 +193,7 @@ class FixedCols(NamedTuple):
 
 # the rule's entries, in the order of kFixedCols and of the switch of
 # csrc/cols_fixed.cu
-ALL_COLUMNS = 1 << 40   # kAllColumns: an entry with no upper end
+ALL_COLUMNS = radix.ALL_COLUMNS   # kAllColumns: an entry with no upper end
 FIXED_COLS = (
     FixedCols(64, 16, 1, 128, 1, ALL_COLUMNS, ((8,), (8,)), 0),
     FixedCols(128, 32, 1, 256, 1, ALL_COLUMNS, ((16,), (8,)), 0),
@@ -223,29 +233,47 @@ def read_general_cols(text: str) -> Tuple[GeneralCols, ...]:
     """The entries of ``WGFFT_GENERAL_COLS(X)`` in the text of
     csrc/cols_general.cuh, in order: the one copy of the general design's
     table, which the C rule compiles and this module reads."""
-    body = re.search(r"#define WGFFT_GENERAL_COLS\(X\)((?:.*\\\n)*.*)\n", text)
-    if body is None:
-        raise ValueError("fused_cols: csrc/cols_general.cuh has no WGFFT_GENERAL_COLS(X)")
-    out = []
-    for args in re.findall(r"X\(([^)]*)\)", body.group(1)):
-        v = [ALL_COLUMNS if a.strip() == "kAllColumns" else int(a) for a in args.split(",")]
-        out.append(GeneralCols(v[0], v[1], v[2], v[3], v[4], tuple(v[5:])))
-    return tuple(out)
+    return tuple(GeneralCols(*v[:5], tuple(v[5:]))
+                 for v in radix.read_table(text, "WGFFT_GENERAL_COLS"))
 
 
 # the general design's entries, in the order of kGeneralCols
 GENERAL_COLS = read_general_cols(GENERAL_HEADER.read_text())
 _GENERAL_CHAINS = {g.h: g.chain for g in GENERAL_COLS}
+
+
+class ClusterCols(NamedTuple):
+    """An entry of K2's rule for its cluster design (``WGFFT_CLUSTER_COLS``,
+    csrc/cluster.cuh): height ``h`` for views of ``least`` to ``most``
+    columns in all (pre * cols), in the class of ``points`` with tiles of
+    ``tile`` columns split over ``clusters`` CTAs, on ``chain`` (its first
+    radix across the cluster)."""
+    h: int
+    least: int
+    most: int
+    points: int
+    tile: int
+    clusters: int
+    chain: Tuple[int, ...]
+
+
+# the cluster design's entries, in the order of kClusterCols: read from
+# csrc/cluster.cuh, which chip_probes/k2_general_variants.py --cluster --fit
+# writes
+CLUSTER_COLS = tuple(ClusterCols(*e[:6], tuple(e[6:])) for e in radix.read_table(
+    radix.CLUSTER_HEADER.read_text(), "WGFFT_CLUSTER_COLS"))
+_CLUSTER_CHAINS = {g.h: g.chain for g in CLUSTER_COLS}
 GENERAL_MAX_TILE = 64        # general_cols::kMaxTile
 GENERAL_MAX_SHARED = 227 << 10
 
 
 def cols_chain(h: int) -> Tuple[int, ...]:
-    """K2's chain for height ``h``: the general design's where
-    ``GENERAL_COLS`` names ``h``, ``radix.radix_chain(h)`` (the direct
-    design's, the ring's and the fixed design's) everywhere else.  K2's
-    ``cw`` table is laid out for this chain."""
-    return _GENERAL_CHAINS.get(h) or radix.radix_chain(h)
+    """K2's chain for height ``h``: the general or the cluster design's
+    where ``GENERAL_COLS`` or ``CLUSTER_COLS`` names ``h``,
+    ``radix.radix_chain(h)`` (the direct design's, the ring's and the fixed
+    design's) everywhere else.  K2's ``cw`` table is laid out for this
+    chain."""
+    return _GENERAL_CHAINS.get(h) or _CLUSTER_CHAINS.get(h) or radix.radix_chain(h)
 
 
 def general_cols_shared(h: int, chain, tile: int) -> int:
@@ -390,8 +418,9 @@ def cols_rule(pre: int, h: int, cols: int, sms: int = H100_SMS) -> ColsLaunch:
     cols) fall in an entry's range runs that entry of the fixed design;
     every other view the direct design or the ring at its own tile, the
     ring on one CTA an SM.  A height of ``GENERAL_COLS`` runs the entry
-    whose range holds pre * cols in the general design.  Raises ValueError
-    for a view the rule does not cover."""
+    whose range holds pre * cols in the general design, one of
+    ``CLUSTER_COLS`` in the cluster design.  Raises ValueError for a view
+    the rule does not cover."""
     chain = radix.radix_chain(h)
     if sms < 1 or pre < 1 or cols < 1:
         raise ValueError(f"fused_cols: no design runs ({pre}, {h}, {2 * cols})")
@@ -415,6 +444,17 @@ def cols_rule(pre: int, h: int, cols: int, sms: int = H100_SMS) -> ColsLaunch:
         return ColsLaunch("general", g.tile, 1, units, units, threads)
     if h in _GENERAL_CHAINS:
         raise ValueError(f"fused_cols: no entry of the general design holds ({pre}, {h}, "
+                         f"{2 * cols})")
+    for g in CLUSTER_COLS:
+        if g.h != h or not g.least <= pre * cols <= g.most:
+            continue
+        shape = radix.cluster_plan(h, g.chain, g.points, g.tile, g.clusters)
+        units = pre * -(-cols // g.tile)
+        if shape is None or units * g.clusters > 0x7fffffff:
+            raise ValueError(f"fused_cols: no design runs ({pre}, {h}, {2 * cols})")
+        return ColsLaunch("cluster", g.tile, g.clusters, units, units * g.clusters, shape[0])
+    if h in _CLUSTER_CHAINS:
+        raise ValueError(f"fused_cols: no entry of the cluster design holds ({pre}, {h}, "
                          f"{2 * cols})")
     design = _design(chain, h, cols)
     plan = _plan(chain, h, pre, cols, design, 0)

@@ -25,7 +25,7 @@ schedule on the CPU with the same index maps, tables and butterfly algebra
 as the CUDA code (``radix_chain_reference``): a test aid that no plan path
 calls.
 
-K1 has six designs (``csrc/fused_lines.cu``).  The lengths of
+K1 has seven designs (``csrc/fused_lines.cu``).  The lengths of
 ``POW2_LINES`` (256, 1024, 2048, 4096, 8192, 16384) run the power-of-two
 design (``csrc/lines_pow2.cu``, a kernel per length, one line a CTA) on
 three passes, the first of radix 32 at 8192 and 16384, 8 * 8 * 4 at 256;
@@ -41,10 +41,16 @@ run there, on ``radix_chain(n)``: ``packed_lines_reference`` models its
 block-staged layout); the lengths of ``GENERAL_LINES`` run the general
 mixed-radix design (``csrc/lines_general.cu``, one kernel a class of points
 a thread for every chain of two to four passes of ``GENERAL_RADICES``, in
-the fewest passes they allow: ``general_threads`` sizes its CTA); every
-other length runs the direct design on ``radix_chain(n)``.  The C entry
-point holds the same tables (``kPow2Lines``, ``kWarpLines``,
-``kMixedLines``, ``kPackedLines``, ``kGeneralLines``, ``csrc/lines.cuh``)
+the fewest passes they allow: ``general_threads`` sizes its CTA); the
+lengths of ``CLUSTER_LINES`` (from 11583) run the cluster design
+(``csrc/cluster.cu``, shared with K2: the general design's passes on a line
+split over a thread-block cluster, the first pass across it;
+``cluster_plan`` sizes its CTA, ``cluster_chain_reference`` models its
+schedule); every other length runs the direct design on
+``radix_chain(n)``.  The C entry point holds the same tables
+(``kPow2Lines``, ``kWarpLines``, ``kMixedLines``, ``kPackedLines``,
+``kGeneralLines``, ``csrc/lines.cuh``; ``kClusterLines``,
+``csrc/cluster.cuh``, which this module reads)
 and refuses any other chain at those lengths, so K1's ``cw`` table is laid
 out for ``lines_chain(n)``.  K2 runs ``radix_chain`` at
 every height.
@@ -53,7 +59,9 @@ every height.
 from __future__ import annotations
 
 import math
+import re
 from functools import lru_cache
+from pathlib import Path
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -357,6 +365,44 @@ _GENERAL = (
 )
 GENERAL_LINES = {e[0]: GeneralLine(e[1], e[2], tuple(e[3:])) for e in _GENERAL}
 
+# the cluster design (csrc/cluster.cuh, one kernel a class for K1 and K2):
+# its cluster sizes, and its classes (cluster::max_threads): the most points
+# a thread holds -> the most threads a CTA (the least radix as in
+# GENERAL_CLASSES)
+CLUSTER_HEADER = Path(__file__).resolve().parent.parent / "csrc" / "cluster.cuh"
+CLUSTER_SIZES = (2, 4, 8)
+CLUSTER_CLASSES = {24: 512, 32: 512, 64: 352}
+ALL_COLUMNS = 1 << 40   # kAllColumns (csrc/cols_fixed.cuh): an entry with no upper end
+
+
+def read_table(text: str, name: str) -> Tuple[Tuple[int, ...], ...]:
+    """The entries of the X-macro table ``name`` (``#define name(X) X(...)
+    X(...) ...``) in the text of a C header, in order, each a tuple of
+    ints (``kAllColumns`` read as ``ALL_COLUMNS``): the one copy of a
+    table that the C rule compiles and Python reads."""
+    body = re.search(rf"#define {name}\(X\)((?:.*\\\n)*.*)\n", text)
+    if body is None:
+        raise ValueError(f"radix: the header has no {name}(X)")
+    return tuple(tuple(ALL_COLUMNS if a.strip() == "kAllColumns" else int(a)
+                       for a in args.split(","))
+                 for args in re.findall(r"X\(([^)]*)\)", body.group(1)))
+
+
+class ClusterLine(NamedTuple):
+    """A length's entry in K1's cluster design's table."""
+    points: int               # the most points a thread holds: the kernel's class
+    clusters: int             # CTAs a cluster, a line split over them
+    chain: Tuple[int, ...]    # the first radix across the cluster
+
+
+# N -> (points, clusters, chain) of the cluster design (csrc/cluster.cu): the
+# lengths from 11583 that no single CTA of the general design holds, where
+# its sweep on the H100 beat the direct design at both line counts; read
+# from WGFFT_CLUSTER_LINES of csrc/cluster.cuh, which
+# chip_probes/k1_general_variants.py --cluster --fit writes
+CLUSTER_LINES = {e[0]: ClusterLine(e[1], e[2], tuple(e[3:]))
+                 for e in read_table(CLUSTER_HEADER.read_text(), "WGFFT_CLUSTER_LINES")}
+
 
 @lru_cache(maxsize=None)
 def radix_chain(n: int) -> Tuple[int, ...]:
@@ -384,21 +430,24 @@ def radix_chain(n: int) -> Tuple[int, ...]:
 
 _DESIGNS = {"pow2": POW2_LINES, "warp": WARP_LINES, "mixed": MIXED_LINES,
             "packed": PACKED_LINES,
-            "general": {n: line.chain for n, line in GENERAL_LINES.items()}}
+            "general": {n: line.chain for n, line in GENERAL_LINES.items()},
+            "cluster": {n: line.chain for n, line in CLUSTER_LINES.items()}}
 
 
 def lines_chain(n: int) -> Tuple[int, ...]:
     """K1's chain for length ``n``: the power-of-two, the warp, the
-    mixed-radix, the packed or the general design's where ``POW2_LINES``,
-    ``WARP_LINES``, ``MIXED_LINES``, ``PACKED_LINES`` or ``GENERAL_LINES``
-    names ``n``, ``radix_chain(n)`` (the direct design's) everywhere else.
+    mixed-radix, the packed, the general or the cluster design's where
+    ``POW2_LINES``, ``WARP_LINES``, ``MIXED_LINES``, ``PACKED_LINES``,
+    ``GENERAL_LINES`` or ``CLUSTER_LINES`` names ``n``, ``radix_chain(n)``
+    (the direct design's) everywhere else.
     K1's ``cw`` table is laid out for this chain."""
     return next((table[n] for table in _DESIGNS.values() if n in table), None) or radix_chain(n)
 
 
 def lines_design(n: int) -> str:
     """The design K1's entry point launches for length ``n``: ``"pow2"``,
-    ``"warp"``, ``"mixed"``, ``"packed"``, ``"general"`` or ``"direct"``."""
+    ``"warp"``, ``"mixed"``, ``"packed"``, ``"general"``, ``"cluster"`` or
+    ``"direct"``."""
     return next((name for name, table in _DESIGNS.items() if n in table), "direct")
 
 
@@ -429,6 +478,45 @@ def general_threads(n: int, chain: Sequence[int], points: int, lines: int) -> Op
         return None
     threads = max(-(-(lines * (n // r)) // (points // r)) for r in chain)
     return threads if threads <= most else None
+
+
+def cluster_plan(h: int, chain: Sequence[int], points: int, tile: int,
+                 clusters: int) -> Optional[Tuple[int, int]]:
+    """(threads, shared bytes) of a CTA of the cluster design for ``chain``
+    down a tile of ``tile`` columns of height ``h`` (K1: a line, tile 1)
+    split over ``clusters`` CTAs with at most ``points`` points a thread (the
+    C ``cluster::make_plan``), or None where it refuses the shape: a class
+    or cluster size it has no kernel for, not two to four passes of the
+    class's radices that multiply to ``h``, a first radix under
+    2 * ``clusters``, a tile that is no power of two up to 64, too many
+    threads for the class, or over 227 KB of shared memory.  A CTA holds Q
+    = ``chain[0] // clusters`` or one more classes of the first pass, Q *
+    h / chain[0] points, in two exchange buffers (one for two passes), one
+    row of padding in every Q after the first pass where Q is even and in
+    every ns * R after a later pass of even radix R, where the tile is
+    narrower than 16 columns."""
+    least = GENERAL_CLASSES.get(points, (points + 1, 0))[0]
+    most = CLUSTER_CLASSES.get(points, 0)
+    if (points not in CLUSTER_CLASSES or clusters not in CLUSTER_SIZES
+            or not 2 <= len(chain) <= 4 or math.prod(chain) != h or not 4 <= h <= MAX_LENGTH
+            or any(r not in GENERAL_RADICES or not least <= r <= points for r in chain)
+            or chain[0] < 2 * clusters or not 1 <= tile <= 64 or tile & (tile - 1)):
+        return None
+    pad = tile < 16
+    m0 = h // chain[0]
+    threads = -(-(-(-m0 // clusters) * tile) // (points // chain[0]))
+    pitch = 0
+    for q in {chain[0] // clusters, -(-chain[0] // clusters)}:
+        n = q * m0
+        pitch = max(pitch, n + ((n - 1) // q if pad and q % 2 == 0 else 0))
+        ns = q
+        for p, r in enumerate(chain[1:], 1):
+            threads = max(threads, -(-(n // r * tile) // (points // r)))
+            if pad and p + 1 < len(chain) and r % 2 == 0:
+                pitch = max(pitch, n + (n - 1) // (ns * r))
+            ns *= r
+    smem = (2 if len(chain) > 2 else 1) * pitch * tile * 8
+    return (threads, smem) if threads <= most and smem <= 227 << 10 else None
 
 
 def lines_in_place(n: int) -> bool:
@@ -809,3 +897,61 @@ def radix_chain_reference(x: torch.Tensor, radices: Sequence[int],
         cur = out
         ns *= radix
     return (conj_pairs(cur) if adjoint else cur) * scale
+
+
+def cluster_chain_reference(x: torch.Tensor, radices: Sequence[int], clusters: int,
+                            tables: Dict[str, torch.Tensor],
+                            adjoint: bool = False) -> torch.Tensor:
+    """The cluster design's schedule (``csrc/cluster.cuh``) in plain torch,
+    along axis 1 of float32 ``x`` (units, N, ..., 2): the first pass (radix
+    R0 = ``radices[0]``, no twiddle) on butterflies j of rows j + r * N / R0,
+    its output q landed in the points of the CTA of ``clusters`` that owns
+    class q (CTA c: classes [c R0 / C, (c + 1) R0 / C), Q_c of them, at
+    local position (q - lo) + Q_c j); on each CTA's Q_c * N / R0 points the
+    later passes as a Stockham chain of local stride ns_l = Q_c ns / R0 with
+    the ``cw`` entry of the chain's k = lo + (k_l mod Q_c) + R0 (k_l div
+    Q_c); local point i stored at row lo + (i mod Q_c) + R0 (i div Q_c),
+    scaled by ``cp[0]``.  ``adjoint`` conjugates on the first load and the
+    last store.  Equal to ``radix_chain_reference`` on the same chain (the
+    same twiddles, butterflies and order of operations), which the tests
+    hold; a test aid that no plan path calls.  Returns a new tensor of x's
+    shape."""
+    n = x.shape[1]
+    if math.prod(radices) != n or len(radices) < 2 or radices[0] < 2 * clusters:
+        raise ValueError(f"cluster_chain_reference: radices {tuple(radices)} over "
+                         f"{clusters} CTAs do not run {n}")
+    tw = tables["cw"]
+    scale, s = float(tables["cp"][0]), float(tables["cp"][1])
+    ride = (1,) * (x.dim() - 3) + (2,)
+    units, rest = x.shape[0], x.shape[2:]
+    cur = conj_pairs(x) if adjoint else x
+    r0 = radices[0]
+    m0 = n // r0
+    first = _butterfly([cur[:, r * m0:(r + 1) * m0] for r in range(r0)], s)
+    out = torch.empty(cur.shape, dtype=cur.dtype, device=cur.device)
+    rows = out.view(units, m0, r0, *rest)          # row q + R0 * j
+    for c in range(clusters):
+        lo, hi = c * r0 // clusters, (c + 1) * r0 // clusters
+        q = hi - lo
+        local = torch.stack(first[lo:hi], dim=2).reshape(units, q * m0, *rest)
+        ns, gns = q, r0
+        for radix in radices[1:]:
+            m = q * m0 // radix
+            v = [local[:, r * m:(r + 1) * m] for r in range(radix)]
+            kl = torch.arange(ns, device=x.device)
+            k = lo + kl % q + r0 * (kl // q)
+            for r in range(1, radix):
+                w = tw[gns - 1 + (r - 1) * gns + k].repeat(m // ns, 1).reshape(1, m, *ride)
+                wr, wi = w[..., 0], w[..., 1]
+                vr, vi = v[r][..., 0], v[r][..., 1]
+                v[r] = torch.stack([vr * wr - vi * wi, vr * wi + vi * wr], dim=-1)
+            v = _butterfly(v, s)
+            nxt = torch.empty(local.shape, dtype=local.dtype, device=local.device)
+            groups = nxt.view(units, m // ns, radix, ns, *rest)
+            for r in range(radix):
+                groups[:, :, r] = v[r].reshape(units, m // ns, ns, *rest)
+            local = nxt
+            ns *= radix
+            gns *= radix
+        rows[:, :, lo:hi] = local.view(units, m0, q, *rest)
+    return (conj_pairs(out) if adjoint else out) * scale

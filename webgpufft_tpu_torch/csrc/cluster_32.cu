@@ -1,0 +1,17 @@
+// K1's and K2's cluster design (cluster.cuh), its class of 32 points a
+// thread, in a translation unit of its own so that the classes compile side
+// by side.
+
+#include <cuda_runtime.h>
+
+#include "cluster.cuh"
+
+namespace wgfft {
+namespace cluster {
+
+cudaError_t launch_32(const Launch& g) {
+  return launch_kernel<32, max_threads(32)>(g);
+}
+
+}  // namespace cluster
+}  // namespace wgfft

@@ -8,6 +8,7 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
+#include "cluster.cuh"
 #include "cols_fixed.cuh"
 #include "cols_general.cuh"
 #include "radix.cuh"
@@ -296,7 +297,8 @@ enum ColsDesign {
   kColsRing = 1,
   kColsRingAsync = 2,
   kColsFixed = 3,
-  kColsGeneral = 4
+  kColsGeneral = 4,
+  kColsCluster = 5
 };
 
 // The choice by the tile alone, the rule's starting point: the ring
@@ -319,7 +321,8 @@ inline int cols_design(const Chain& chain, int h, long long cols) {
 // What K2 launches for a view.
 struct ColsPlan {
   int design;       // ColsDesign
-  int entry;        // the kFixedCols (kColsFixed) or kGeneralCols (kColsGeneral) entry, else -1
+  int entry;        // the kFixedCols (kColsFixed), kGeneralCols (kColsGeneral) or
+                    // kClusterCols (kColsCluster) entry, else -1
   ColsShape shape;  // the direct or ring design's CTA shape
   int tile, cluster, threads;
   long long units;  // tiles: pre * ceil(cols / tile)
@@ -368,8 +371,10 @@ inline bool same_chain(const Chain& chain, const int* radix, int count) {
 // kFixedCols whose view's columns in all fall in an entry's range runs that
 // entry (and must come with the entry's chain); else a height of
 // kGeneralCols runs its entry for the view's columns in all (and must come
-// with the entry's chain, cols_chain); every other view runs the direct
-// design or the ring at its own tile, the ring on one CTA an SM.
+// with the entry's chain, cols_chain); else a height of kClusterCols runs
+// its entry for the view's columns in all in the cluster design (and must
+// come with the entry's chain); every other view runs the direct design or
+// the ring at its own tile, the ring on one CTA an SM.
 inline bool cols_rule(const Chain& chain, int h, long long pre, long long cols, int sms,
                       ColsPlan* out) {
   if (sms < 1 || pre < 1 || cols < 1) return false;
@@ -405,6 +410,25 @@ inline bool cols_rule(const Chain& chain, int h, long long pre, long long cols, 
     out->threads = threads;
     out->units = pre * ((cols + e.tile - 1) / e.tile);
     out->grid = out->units;
+    return out->grid <= 0x7fffffffLL;
+  }
+  const int c = wgfft::cluster_cols_entry(h, pre * cols);
+  if (c != -1) {
+    if (c < 0) return false;
+    const wgfft::ClusterCols& e = wgfft::kClusterCols[c];
+    wgfft::cluster::Plan plan;
+    int threads = 0, smem = 0;
+    if (!same_chain(chain, e.radix, e.count) ||
+        !wgfft::cluster::make_plan(h, e.radix, e.count, e.points, e.tile, e.clusters, &plan,
+                                   &threads, &smem))
+      return false;
+    out->design = kColsCluster;
+    out->entry = c;
+    out->tile = e.tile;
+    out->cluster = e.clusters;
+    out->threads = threads;
+    out->units = pre * ((cols + e.tile - 1) / e.tile);
+    out->grid = out->units * e.clusters;
     return out->grid <= 0x7fffffffLL;
   }
   if (!cols_plan(chain, h, pre, cols, cols_design(chain, h, cols), 0, out)) return false;

@@ -21,11 +21,13 @@
 // threads take neighbouring columns: every global access of a row is one
 // contiguous run of tc * 8 bytes although rows are L floats apart, and a
 // row's twiddle is one broadcast load.  Columns past the ragged edge load
-// zeros and store nothing.  Four designs, chosen by K2's rule (cols.cuh,
+// zeros and store nothing.  Five designs, chosen by K2's rule (cols.cuh,
 // cols_rule, with its Python copy fused_cols.cols_rule): the fixed design
 // (cols_fixed.cu) for the views of its entries, kFixedCols, the general
 // design (cols_general.cu) for the heights of its table,
-// WGFFT_GENERAL_COLS, and by the tile alone (cols_design) elsewhere:
+// WGFFT_GENERAL_COLS, the cluster design (cluster.cu) for the heights of
+// its table, WGFFT_CLUSTER_COLS, and by the tile alone (cols_design)
+// elsewhere:
 //
 // - Tiles of fewer than 8192 points (the direct design; H < 512 at 16 columns):
 //   tc = 16, shrunk so H * tc <= 16384 points and no wider than the column
@@ -67,10 +69,16 @@
 //   run-time chain; 1080 = 12 * 10 * 9 where radix_chain takes five
 //   passes), with K2's `cw` laid out for that chain (cols_chain); the
 //   direct design and the ring keep the heights where it lost (PERF.md).
+// - The cluster design (cluster.cuh, cluster.cu; shared with K1): the
+//   heights from 11583, where no single CTA holds two exchange buffers of
+//   even one column: the general design's passes on a tile of tc columns
+//   split over a thread-block cluster of 2 to 8 CTAs, the first pass across
+//   it through distributed shared memory (PERF.md).
 //
 // C interface: wgfft_fused_cols returns the cudaError_t of the launch;
 // cudaErrorInvalidValue for a chain or view its rule does not cover (at a
-// height of kFixedCols or kGeneralCols, any chain but the entry's).  adjoint != 0 runs the
+// height of kFixedCols, kGeneralCols or kClusterCols, any chain but the
+// entry's).  adjoint != 0 runs the
 // conjugate transpose of the same tables' transform (autograd's backward).
 // y may be x (in place) for a chain of two or more passes: a CTA owns every
 // tile it transforms and reads a tile before it writes any of it (a
@@ -101,11 +109,12 @@ cudaError_t device_sms(int* sms) {
 }
 
 // The chain an entry point is handed, as a Chain: at a height of the
-// general design's table its radices as they are (up to 32; cols_rule
+// general or the cluster design's table its radices as they are (up to 32; cols_rule
 // holds them to the table's chain), elsewhere the direct design's radices
 // that multiply to h (make_chain).
 bool entry_chain(const int* radices, int count, int h, Chain* out) {
-  if (wgfft::general_cols_entry(h, 1) == -1) return wgfft::make_chain(radices, count, h, out);
+  if (wgfft::general_cols_entry(h, 1) == -1 && wgfft::cluster_cols_entry(h, 1) == -1)
+    return wgfft::make_chain(radices, count, h, out);
   if (count < 1 || count > wgfft::general::kMaxPasses) return false;
   *out = {};
   out->count = count;
@@ -113,10 +122,12 @@ bool entry_chain(const int* radices, int count, int h, Chain* out) {
   return true;
 }
 
-// launch_cols, and the general design's entries, which it leaves out
+// launch_cols, and the general and the cluster designs' entries, which it
+// leaves out
 cudaError_t launch_k2(const wgfft::ColsCall& call, const Chain& chain, const ColsPlan& plan,
                       int* slots) {
   if (plan.design == kColsGeneral) return wgfft::launch_cols_general(call, plan.entry, slots);
+  if (plan.design == kColsCluster) return wgfft::launch_cluster_cols(call, plan.entry, slots);
   return launch_cols(call, chain, plan, slots);
 }
 

@@ -17,10 +17,11 @@
 // passes, each inner pass a trip through shared memory between two
 // barriers, with nothing to cover it when an SM holds one CTA.
 //
-// Six designs, and a rule (kPow2Lines, kWarpLines, kMixedLines,
-// kPackedLines and kGeneralLines, lines.cuh; core/radix.py POW2_LINES,
-// WARP_LINES, MIXED_LINES, PACKED_LINES and GENERAL_LINES) that gives each
-// length one of them:
+// Seven designs, and a rule (kPow2Lines, kWarpLines, kMixedLines,
+// kPackedLines and kGeneralLines, lines.cuh, and kClusterLines,
+// cluster.cuh; core/radix.py POW2_LINES, WARP_LINES, MIXED_LINES,
+// PACKED_LINES, GENERAL_LINES and CLUSTER_LINES) that gives each length one
+// of them:
 // - the power-of-two design (lines_pow2.cu, lines_pow2.cuh) for 256, 1024,
 //   2048, 4096, 8192 and 16384: a kernel per length whose chain, strides
 //   and twiddle offsets are template constants, one line a CTA, three
@@ -60,9 +61,13 @@
 //   all of its 715 lengths; on the NVIDIA H100 80GB HBM3 at 700 W each ran
 //   in 0.11-0.91 of the direct design's time at 1000 lines and at 67 MB
 //   (PERF.md);
-// - the direct design below for every other length (25 lengths from 11583
-//   points, which no class of the general design holds in one CTA: two
-//   exchange buffers over 227 KB, or more threads than the class has).
+// - the cluster design (cluster.cu, cluster.cuh; shared with K2) for the
+//   lengths of its table, from 11583 points, which no class of the general
+//   design holds in one CTA (two exchange buffers over 227 KB, or more
+//   threads than the class has): the general design's passes on a line
+//   split over a thread-block cluster of 2 to 8 CTAs, the first pass across
+//   it through distributed shared memory (PERF.md);
+// - the direct design below for every other length.
 //
 // Direct design: a CTA takes as many whole lines as keep about 256 threads
 // busy with one butterfly group each in every pass (16 lines at N = 128 =
@@ -83,6 +88,7 @@
 
 #include <cuda_runtime.h>
 
+#include "cluster.cuh"
 #include "lines.cuh"
 #include "radix.cuh"
 
@@ -151,10 +157,11 @@ struct DescribeLines {
 };
 
 // K1's rule: a length that kPow2Lines, kWarpLines, kMixedLines,
-// kPackedLines or kGeneralLines (lines.cuh) names runs the power-of-two
-// design (lines_pow2.cu), the warp design (lines_warp.cu), the mixed-radix
-// design (lines_mixed.cu), the packed design (lines_packed.cu) or the
-// general design (lines_general.cu) and must be handed that design's chain;
+// kPackedLines, kGeneralLines (lines.cuh) or kClusterLines (cluster.cuh)
+// names runs the power-of-two design (lines_pow2.cu), the warp design
+// (lines_warp.cu), the mixed-radix design (lines_mixed.cu), the packed
+// design (lines_packed.cu), the general design (lines_general.cu) or the
+// cluster design (cluster.cu) and must be handed that design's chain;
 // every other length runs the direct design on the chain it is handed.
 // Each design launches or the call fails: there is no
 // fallback from one to another.  With `report` the launch is not made, and
@@ -201,6 +208,14 @@ int lines_entry(const void* x, void* y, const void* tw, const void* params, long
     design(wgfft::kGeneral);
     return static_cast<int>(
         wgfft::launch_general_lines(xs, ys, tws, ps, lines, n, cj, st, report));
+  }
+  if (const wgfft::ClusterLine* c = wgfft::cluster_line(n)) {
+    bool same = count == c->count;
+    for (int p = 0; same && p < count; ++p) same = radices[p] == c->radix[p];
+    if (!same) return static_cast<int>(cudaErrorInvalidValue);
+    design(wgfft::kCluster);
+    return static_cast<int>(
+        wgfft::launch_cluster_lines(xs, ys, tws, ps, lines, n, cj, st, report));
   }
   design(wgfft::kDirect);
   Chain chain;

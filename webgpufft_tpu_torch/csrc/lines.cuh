@@ -92,7 +92,15 @@ cudaError_t dispatch_lines(const Chain& chain, const LinesShape& shape, const F&
 
 // K1's designs, in the numbering of LinesReport::design (core/fused.py
 // DESIGNS holds the same names in the same order).
-enum LinesDesign { kDirect = 0, kPow2 = 1, kWarp = 2, kMixed = 3, kPacked = 4, kGeneral = 5 };
+enum LinesDesign {
+  kDirect = 0,
+  kPow2 = 1,
+  kWarp = 2,
+  kMixed = 3,
+  kPacked = 4,
+  kGeneral = 5,
+  kCluster = 6
+};
 
 // What a K1 launch would be, written by the launch functions instead of
 // launching when a caller asks (wgfft_fused_lines_resident): the CTAs an SM

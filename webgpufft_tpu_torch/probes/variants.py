@@ -1,6 +1,7 @@
 """K2 in a design, tile or fixed-design variant the caller names; K1's
 power-of-two, warp, mixed-radix and packed designs in a variant the caller
-names, and its general design on a chain and shape the caller names.
+names, and its general design and the cluster design of both on a chain and
+shape the caller names.
 
 No Pallas probe stands behind this module: it launches the counterpart of
 K2 (``webgpufft_tpu/core/fused_cols.py:161``) in one of its designs by name,
@@ -58,6 +59,15 @@ plans' library's own entry point ``wgfft_general_lines``, so that no
 kernel is built twice; ``general_report`` says what that launch would be.
 The plans' entry point launches the shape ``radix.GENERAL_LINES`` names,
 fitted to the sweep of ``chip_probes/k1_general_variants.py``.
+
+``cluster_variant(x, tables, chain, points, tile, clusters)`` launches the
+cluster design that K1 and K2 share (``csrc/cluster.cuh``: a line or a tile
+split over a thread-block cluster, the first pass across it) on a (pre, H,
+L) view through the plans' library's entry point ``wgfft_cluster`` (K1's
+(lines, N, 2) is that view with tile 1), ``cluster_report`` says what it
+would be; the plans' entry points launch the shapes ``radix.CLUSTER_LINES``
+and ``fused_cols.CLUSTER_COLS`` name, fitted to the sweeps of the two
+scripts with ``--cluster``.
 
 Each wrapper runs the kernel's plain version on a CPU tensor and launches or
 raises on a CUDA tensor; ``launches`` counts kernel launches only.
@@ -390,6 +400,121 @@ def general_cols_report(pre: int, h: int, cols: int, chain: Tuple[int, ...], poi
                                              out, None)
     _build.check(rc, f"general_cols_variant {tuple(chain)} points {points} tile {tile}")
     return GeneralReport(out[0], out[1], out[2], out[3])
+
+
+def cluster_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor], chain: Tuple[int, ...],
+                    points: int, tile: int, clusters: int, adjoint: bool = False,
+                    inplace: bool = False) -> torch.Tensor:
+    """The transform (its adjoint with ``adjoint``) along axis 1 of
+    interleaved float32 ``x`` (pre, H, L) in the cluster design
+    (``csrc/cluster.cuh``) on any ``chain`` of two to four passes of
+    ``radix.GENERAL_RADICES`` that multiplies to H, its first radix across
+    a cluster of ``clusters`` CTAs, in the class of ``points`` with tiles of
+    ``tile`` columns, whatever K1's or K2's rule says of H, with ``tables``
+    laid out for the chain (``radix.chain_consts``); with ``inplace``
+    written over ``x``.  K1's (lines, N, 2) is the view (lines, N, 2) with
+    tile 1: the variants of ``chip_probes/k1_general_variants.py`` and
+    ``k2_general_variants.py`` with ``--cluster``.  A CUDA tensor launches
+    the kernel of the plans' library (and counts one launch here, none in
+    ``fused_lines`` or ``fused_cols``) or raises where the design cannot run
+    that shape; a CPU tensor runs ``radix.cluster_chain_reference``."""
+    pre, h, lanes = x.shape
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"cluster_variant: unsupported device {x.device}")
+    fused_cols._check_cuda(x)
+    if radix.cluster_plan(h, tuple(chain), points, tile, clusters) is None:
+        raise ValueError(f"cluster_variant: the cluster design does not run H = {h} on "
+                         f"{tuple(chain)} at {points} points a thread, tiles of {tile}, "
+                         f"{clusters} CTAs a cluster")
+    if x.device.type == "cpu":
+        y = radix.cluster_chain_reference(x.reshape(pre, h, lanes // 2, 2), chain, clusters,
+                                          tables, adjoint).reshape(pre, h, lanes)
+        return x.copy_(y) if inplace else y
+    ptrs = _build.table_ptrs(x, tables, {"cw": (h, 2), "cp": (2,)}, "cluster_variant")
+    y = x if inplace else torch.empty_like(x)
+    with _build.on_device(x.device):
+        rc = _build.library().wgfft_cluster(
+            x.data_ptr(), y.data_ptr(), *ptrs, pre, h, lanes // 2,
+            *_build.chain_arg(tuple(chain)), points, tile, clusters, int(adjoint), None,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, f"cluster_variant {tuple(chain)} points {points} tile {tile} "
+                     f"clusters {clusters}")
+    cluster_variant.launches += 1
+    return y
+
+
+cluster_variant.launches = 0
+
+
+def fewest_passes(n: int, radices: Sequence[int], least: int = 2) -> List[Tuple[int, ...]]:
+    """Every multiset (sorted, widest first) of the fewest ``radices`` that
+    multiply to n in ``least`` to four passes."""
+    for passes in range(least, 5):
+        found = []
+
+        def rec(rem, k, top, pre):
+            if k == 0:
+                if rem == 1:
+                    found.append(tuple(pre))
+                return
+            for r in radices:
+                if r <= top and rem % r == 0:
+                    rec(rem // r, k - 1, r, pre + [r])
+        rec(n, passes, max(radices), [])
+        if found:
+            return found
+    return []
+
+
+def cluster_candidates(h: int, tiles: Sequence[int] = (1,)) -> List[tuple]:
+    """The cluster design's variants of height (length) ``h``: (name,
+    chain, points, tile, clusters).  Chains: the two multisets of the fewest
+    passes of ``radix.GENERAL_RADICES`` whose widest radix is the least
+    (then whose narrowest is the most), each with every distinct radix first
+    (the pass across the cluster) and the rest widest first; every cluster
+    size of ``radix.CLUSTER_SIZES`` the first radix holds (two classes a CTA
+    at least); every tile of ``tiles``; in the least class of
+    ``radix.CLUSTER_CLASSES`` whose radices, threads and shared memory hold
+    it, and the widest class too where that is another.  K1 sweeps tile 1,
+    K2 several."""
+    sets = sorted(fewest_passes(h, radix.GENERAL_RADICES), key=lambda s: (max(s), -min(s)))[:2]
+    out = []
+    for chain in sets:
+        for first in dict.fromkeys(chain):
+            rest = list(chain)
+            rest.remove(first)
+            order = (first, *sorted(rest, reverse=True))
+            for clusters in radix.CLUSTER_SIZES:
+                for tile in tiles:
+                    held = [e for e in radix.CLUSTER_CLASSES
+                            if radix.cluster_plan(h, order, e, tile, clusters)]
+                    for e in dict.fromkeys(held[:1] + held[-1:]):
+                        name = f"{'x'.join(map(str, order))} E{e} T{tile} C{clusters}"
+                        out.append((name, order, e, tile, clusters))
+    return out
+
+
+class ClusterReport(NamedTuple):
+    """What a launch of the cluster design would be (``cluster_report``)."""
+    resident: int    # CTAs an SM holds of the kernel
+    sms: int
+    clusters: int    # clusters the device holds at once
+    grid: int        # CTAs
+    threads: int     # a CTA
+    shared: int      # bytes a CTA
+
+
+def cluster_report(pre: int, h: int, cols: int, chain: Tuple[int, ...], points: int, tile: int,
+                   clusters: int) -> ClusterReport:
+    """What ``cluster_variant`` would launch for a (pre, h, 2 * cols) view
+    on the current CUDA device; needs the card."""
+    out = (ctypes.c_longlong * 6)()
+    rc = _build.library().wgfft_cluster(None, None, None, None, pre, h, cols,
+                                        *_build.chain_arg(tuple(chain)), points, tile, clusters,
+                                        0, out, None)
+    _build.check(rc, f"cluster_variant {tuple(chain)} points {points} tile {tile} "
+                     f"clusters {clusters}")
+    return ClusterReport(*out)
 
 
 def _cols_call(x, tables, design, adjoint, tile, slots, y):
