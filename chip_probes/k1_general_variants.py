@@ -6,6 +6,7 @@
     python3 chip_probes/k1_general_variants.py --summary BEFORE.jsonl [AFTER.jsonl]
     python3 chip_probes/k1_general_variants.py --cluster [--repo DIR] [--variants] [--n ...]
     python3 chip_probes/k1_general_variants.py --ab P1.jsonl C1.jsonl C2.jsonl P2.jsonl
+    python3 chip_probes/k1_general_variants.py --split --n N ... --lines L ... [--out PATH]
 
 For every length K1's rule gives the general or the direct design
 (``radix.lines_design``; in a checkout without the general design, the 740
@@ -41,6 +42,13 @@ A/B (the plans' launch of each run): every shape whose design moved, C / P
 (the mean of two arms each), whether both C arms beat both P arms, and the
 ratio to cuFFT unscaled before and after (min / median / max); the shapes
 whose design did not move, and those outside 1 %.
+
+``--split --n N ... --lines L ...`` breaks the plans' launch of each length
+of the cluster design at that many lines into its load, passes and store
+with the split probe (``probes.variants.cluster_variant`` with ``stop``,
+``variants.split_parts``): each stop timed in two turns beside the plans'
+launch (and its adjoint), the plain version, ``torch.fft.fft`` with and
+without the norm, and the bound.
 
 ``--repo DIR`` imports ``webgpufft_tpu_torch`` from DIR (default: this
 repository), so that a parent commit unpacked with ``git archive`` and this
@@ -259,6 +267,57 @@ def sweep(args):
             del x, z, want
     if out is not None:
         out.close()
+
+
+def split(args):
+    """``--split``: each length of ``--n`` at the lines of ``--lines`` in
+    its cluster entry, split into load, passes and store, beside the plans'
+    launch and the bound."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("k1_general_variants: needs an NVIDIA GPU")
+    sys.path.insert(0, str(Path(args.repo).resolve()))
+    from webgpufft_tpu_torch.core import fused, radix
+    from webgpufft_tpu_torch.probes import variants
+    from webgpufft_tpu_torch.runtime import profile
+    card = profile.card_line()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    for n, lines in zip(args.n, args.lines):
+        line = radix.CLUSTER_LINES[n]
+        t = {k.rsplit("/", 1)[1]: torch.as_tensor(v, device="cuda")
+             for k, v in fused.lines_consts(n, "forward", 1.0 / math.sqrt(n), "p").items()}
+        x = torch.randn(lines, n, 2, device="cuda", generator=gen)
+        stops = [*range(len(line.chain) + 1), variants.STOP_ALL]
+        z = torch.view_as_complex(x)
+        arms = {"plans": lambda: fused.fused_lines(x, t),
+                "adjoint": lambda: fused.fused_lines(x, t, adjoint=True),
+                "plain": lambda: fused.fused_lines_reference(x, t),
+                "library": lambda: torch.fft.fft(z, norm="ortho"),
+                "unscaled": lambda: torch.fft.fft(z)}
+        arms.update({k: (lambda k=k: variants.cluster_variant(
+            x, t, line.chain, line.points, 1, line.clusters, stop=k)) for k in stops})
+        times = {a: [] for a in arms}
+        for turn in (list(arms), list(arms)[::-1]):
+            for a in turn:
+                times[a] += profile.time_queued(arms[a], runs=RUNS)
+        ms = {a: profile.median(v) for a, v in times.items()}
+        parts = variants.split_parts(ms, len(line.chain))
+        bound = profile.bound_ms(16 * n * lines, 0.0)[0]
+        launch = fused.launch_report(n, lines)
+        rec = {"split": [n, lines], "card": card, "chain": list(line.chain),
+               "points": line.points, "clusters": line.clusters, "grid": launch.grid,
+               "resident": launch.resident, "bound_ms": bound,
+               **{f"{a}_ms": ms[a] for a in ("plans", "adjoint", "plain", "library", "unscaled")},
+               "stops_ms": [ms[k] for k in stops], "split_ms": parts}
+        print(f"K1 N={n} x {lines} cluster {tuple(line.chain)} E{line.points} "
+              f"C{line.clusters}: " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+              + f" ms; plans {ms['plans']:.4f} ms (adjoint {ms['adjoint']:.4f}, plain "
+              f"{ms['plain']:.4f}, torch.fft.fft {ms['library']:.4f}, unscaled "
+              f"{ms['unscaled']:.4f}); bound {bound:.4f} ms [{card}]", flush=True)
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(json.dumps(rec) + "\n")
+        del x
 
 
 def read(path):
@@ -481,8 +540,14 @@ def main():
                     help="write the general design's table from a sweep (no GPU)")
     ap.add_argument("--summary", nargs="+", metavar="RUN",
                     help="print PERF.md's tables of a run, beside a later one (no GPU)")
+    ap.add_argument("--split", action="store_true",
+                    help="split the cluster design's launch at each --n into load, passes, store")
+    ap.add_argument("--lines", type=int, nargs="+", default=[],
+                    help="--split: the lines of each length of --n")
     args = ap.parse_args()
-    if args.ab:
+    if args.split:
+        split(args)
+    elif args.ab:
         ab(*args.ab)
     elif args.fit and args.cluster:
         table, left = fit_cluster(*args.fit)

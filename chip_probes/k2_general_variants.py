@@ -7,6 +7,7 @@
     python3 chip_probes/k2_general_variants.py --cluster [--repo DIR] [--variants] [--h ...]
     python3 chip_probes/k2_general_variants.py --summary BEFORE.jsonl [AFTER.jsonl]
     python3 chip_probes/k2_general_variants.py --ab P1.jsonl C1.jsonl C2.jsonl P2.jsonl
+    python3 chip_probes/k2_general_variants.py --split --views PRE,H,L ... [--out PATH]
 
 For every height K2 takes outside its fixed design (``fused_cols.FIXED_COLS``),
 or the heights of ``--h``, at two views (``views_for``: (2, H, 2 * 33), the
@@ -67,6 +68,14 @@ unscaled at each view, the 20 worst ratios, the designs.  ``--ab P1 C1 C2
 P2`` (no GPU) compares the four arms of a parent / change A/B: every view
 the change runs in the general design, C / P and whether both C arms beat
 both P arms.
+
+``--split --views PRE,H,L ...`` breaks the plans' launch at each view (L
+floats; the general or the cluster design, the entry K2's rule takes) into
+its load, passes and store with the split probe
+(``probes.variants.general_cols_variant`` / ``cluster_variant`` with
+``stop``, ``variants.split_parts``): each stop timed in two turns beside
+the plans' launch (and its adjoint), the plain version, ``torch.fft.fft``
+with and without the norm, and the bound.
 """
 
 import argparse
@@ -351,6 +360,61 @@ def fft2_split(args, shape, torch, fused, fused_cols, radix, profile, wfft, card
             f.write(json.dumps(rec) + "\n")
 
 
+def split(args):
+    """``--split``: each view of ``--views`` in its entry's design, split
+    into load, passes and store, beside the plans' launch and the bound."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("k2_general_variants: needs an NVIDIA GPU")
+    T, fused, fused_cols, radix, variants, profile = load(args.repo)
+    card = profile.card_line()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    for view in args.views:
+        pre, h, lanes = map(int, view.split(","))
+        cols = lanes // 2
+        launch, resident = fused_cols.launch_shape(pre, h, cols)
+        table = {"general": fused_cols.GENERAL_COLS, "cluster": fused_cols.CLUSTER_COLS}
+        if launch.design not in table:
+            print(f"K2 ({pre}, {h}, {lanes}): {launch.design} design, no split probe")
+            continue
+        g = next(g for g in table[launch.design] if g.h == h and g.least <= pre * cols <= g.most)
+        t = dev_tables(fused_cols.cols_consts(h, "forward", 1.0 / math.sqrt(h), "p"))
+        x = torch.randn(pre, h, lanes, device="cuda", generator=gen)
+        shape = (g.tile, g.clusters) if launch.design == "cluster" else (g.tile,)
+        run = variants.cluster_variant if launch.design == "cluster" else \
+            variants.general_cols_variant
+        stops = [*range(len(g.chain) + 1), variants.STOP_ALL]
+        z = torch.view_as_complex(x.view(pre, h, cols, 2))
+        arms = {"plans": lambda: fused_cols.fused_cols(x, t),
+                "adjoint": lambda: fused_cols.fused_cols(x, t, adjoint=True),
+                "plain": lambda: fused_cols.fused_cols_reference(x, t),
+                "library": lambda: torch.fft.fft(z, dim=1, norm="ortho"),
+                "unscaled": lambda: torch.fft.fft(z, dim=1)}
+        arms.update({k: (lambda k=k: run(x, t, g.chain, g.points, *shape, stop=k))
+                     for k in stops})
+        times = {a: [] for a in arms}
+        for turn in (list(arms), list(arms)[::-1]):
+            for a in turn:
+                times[a] += profile.time_queued(arms[a], runs=RUNS)
+        ms = {a: profile.median(v) for a, v in times.items()}
+        parts = variants.split_parts(ms, len(g.chain))
+        bound = profile.bound_ms(16 * h * cols * pre, 0.0)[0]
+        rec = {"split": [pre, h, lanes], "card": card, "design": launch.design,
+               "chain": list(g.chain), "points": g.points, "shape": list(shape),
+               "grid": launch.grid, "resident": resident, "bound_ms": bound,
+               **{f"{a}_ms": ms[a] for a in ("plans", "adjoint", "plain", "library", "unscaled")},
+               "stops_ms": [ms[k] for k in stops], "split_ms": parts}
+        print(f"K2 ({pre}, {h}, {lanes}) {launch.design} {tuple(g.chain)} E{g.points} "
+              f"shape {shape}: " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+              + f" ms; plans {ms['plans']:.4f} ms (adjoint {ms['adjoint']:.4f}, plain "
+              f"{ms['plain']:.4f}, torch.fft.fft {ms['library']:.4f}, unscaled "
+              f"{ms['unscaled']:.4f}); bound {bound:.4f} ms [{card}]", flush=True)
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(json.dumps(rec) + "\n")
+        del x
+
+
 def read(path):
     """{(h, pre, cols): record} of a JSON-lines file of this probe."""
     recs = [json.loads(line) for line in Path(path).read_text().splitlines() if line.strip()]
@@ -525,6 +589,10 @@ def main():
                     help="write the general design's table from a sweep (no GPU)")
     ap.add_argument("--summary", nargs="+", metavar="RUN",
                     help="print PERF.md's tables of a run, beside a later one (no GPU)")
+    ap.add_argument("--split", action="store_true",
+                    help="split the plans' launch at each view of --views into load, passes, store")
+    ap.add_argument("--views", nargs="+", metavar="PRE,H,L", default=[],
+                    help="--split: the views, L floats")
     ap.add_argument("--ab", nargs=4, metavar=("P1", "C1", "C2", "P2"),
                     help="compare the arms of a parent / change A/B (no GPU)")
     args = ap.parse_args()
@@ -544,6 +612,8 @@ def main():
         ab(*args.ab)
     elif args.fft2:
         fft2(args)
+    elif args.split:
+        split(args)
     else:
         sweep(args)
 

@@ -1811,3 +1811,53 @@ def test_training_step_kernel_gradient_on_the_card(cuda_device):
             assert fused.fused_lines.launches - before >= 2     # forward and adjoint
         grads.append(g.cpu())
     assert_close(grads[0], grads[1], label="d loss / d kernel")
+
+
+# The split probe (csrc/probes/split.cu): the plans' kernel bodies of the
+# cluster design and of K2's general design, stopped after the load or after
+# a pass.  Every cluster entry of K1 and K2, and the general entries of the
+# paths' heights and one height of each class.
+SPLIT_GENERAL_HEIGHTS = sorted({1078, 1080, 1920, 6561} | {
+    next(g.h for g in fused_cols.GENERAL_COLS if g.points == e)
+    for e in {g.points for g in fused_cols.GENERAL_COLS}})
+SPLIT_CASES = ([("K1", n) for n in sorted(radix.CLUSTER_LINES)]
+               + [("cluster", h) for h in sorted({g.h for g in fused_cols.CLUSTER_COLS})]
+               + [("general", h) for h in SPLIT_GENERAL_HEIGHTS])
+
+
+@pytest.mark.parametrize("design,h", SPLIT_CASES)
+def test_split_probe_runs_the_plans_kernel(design, h, cuda_device):
+    """At each view of the entries of height (length) h: the split probe run
+    whole (``variants.STOP_ALL``) is bitwise the plans' variant launch,
+    forward and adjoint, and matches the plain version; every stop 0 ..
+    count launches in place on the view and leaves it as it was (a stopped
+    launch writes shared memory only), on an 8-byte offset view too."""
+    from webgpufft_tpu_torch.probes import variants
+    if design == "K1":
+        line = radix.CLUSTER_LINES[h]
+        views = [(3, 1, line.chain, line.points, (1, line.clusters))]
+    else:
+        pick = _cluster_views if design == "cluster" else _general_views
+        views = [(pre, cols, g.chain, g.points,
+                  (g.tile, g.clusters) if design == "cluster" else (g.tile,))
+                 for pre, cols, g in pick(h)]
+    run = variants.general_cols_variant if design == "general" else variants.cluster_variant
+    for pre, cols, chain, points, shape in views:
+        t = _dev_tables(radix.chain_consts(h, "forward", 1.0, "p", chain), cuda_device)
+        gen = torch.Generator(device=cuda_device).manual_seed(h * cols)
+        base = torch.randn(pre * h * cols + 1, 2, device=cuda_device, generator=gen)
+        label = f"split {design} ({pre}, {h}, {2 * cols}) {chain} {points} points {shape}"
+        for off in (0, 1):
+            x = base[off:off + pre * h * cols].view(pre, h, 2 * cols)
+            for adj in (False, True):
+                whole = run(x, t, chain, points, *shape, adj, stop=variants.STOP_ALL)
+                plans = run(x, t, chain, points, *shape, adj)
+                assert torch.equal(whole, plans), f"{label} adjoint {adj}"
+                want = radix.radix_chain_reference(x.reshape(pre, h, cols, 2), chain, t, adj)
+                assert_close(whole.cpu(), want.reshape(x.shape).cpu(), label=label)
+            for stop in range(len(chain) + 1):
+                work = base.clone()
+                run(work[off:off + pre * h * cols].view(pre, h, 2 * cols), t, chain, points,
+                    *shape, inplace=True, stop=stop)
+                torch.cuda.synchronize()
+                assert torch.equal(work, base), f"{label} offset {off} stop {stop}"

@@ -424,7 +424,10 @@ def test_probe_library_is_a_second_library():
     assert {s.name for s in _build.sources("probes")} == {
         "stream_copy.cu", "lines_stages.cu", "lines_planes.cu", "tile_copy.cu",
         "cols_variants.cu", "cols_fixed_variants.cu", "lines_variants.cu",
-        "lines_mixed_variants.cu", "lines_mixed_variants_long.cu", "lines_packed_variants.cu"}
+        "lines_mixed_variants.cu", "lines_mixed_variants_long.cu", "lines_packed_variants.cu",
+        "split.cu", "split_cluster_24.cu", "split_cluster_32.cu", "split_general_16.cu",
+        "split_general_20.cu", "split_general_24.cu", "split_general_32.cu",
+        "split_general_64.cu"}
     assert {s.name for s in _build.sources("core")} == {
         "fused_lines.cu", "fused_cols.cu", "cols_fixed.cu", "lines_pow2.cu", "lines_warp.cu",
         "lines_mixed.cu", "lines_packed.cu", "lines_packed_2.cu", "lines_packed_3.cu",
@@ -532,3 +535,65 @@ def test_chain_ab_passes_the_adjoint_flag():
         torch.cuda.current_stream = real
     assert len(seen["args"]) == len(_build._SIGNATURES["core"]["wgfft_fused_lines"])
     assert seen["args"][-2:] == (0, 7)
+
+
+@pytest.mark.parametrize("count", [2, 3, 4])
+def test_split_parts_add_up_to_the_whole_launch(count):
+    """``variants.split_parts`` reads the split probe's stops as the load
+    (stop 0), each pass (the step to the next stop) and the store (the
+    whole launch less stop ``count``), and the parts add up to the whole."""
+    from webgpufft_tpu_torch.probes import variants
+    stops = {k: 0.01 * (k + 1) ** 2 for k in range(count + 1)}
+    stops[variants.STOP_ALL] = 0.5
+    parts = variants.split_parts(stops, count)
+    assert list(parts) == ["load", *(f"pass {p}" for p in range(count)), "store", "all"]
+    assert parts["load"] == stops[0] and parts["all"] == 0.5
+    assert parts["store"] == pytest.approx(0.5 - stops[count])
+    assert sum(v for k, v in parts.items() if k != "all") == pytest.approx(parts["all"])
+
+
+def test_split_stop_runs_on_the_card_only():
+    """The split probe's ``stop`` (``cluster_variant``, ``general_cols_variant``)
+    raises on a CPU tensor, which has no stopped kernel, and for a stop
+    outside 0 .. count and ``STOP_ALL``; without it the CPU runs the plain
+    version."""
+    from webgpufft_tpu_torch.core import fused_cols
+    from webgpufft_tpu_torch.probes import variants
+    n = 16000
+    line = radix.CLUSTER_LINES[n]
+    t = {k.rsplit("/", 1)[1]: torch.as_tensor(v)
+         for k, v in radix.chain_consts(n, "forward", 1.0, "p", line.chain).items()}
+    x = torch.randn(1, n, 2)
+    want = variants.cluster_variant(x, t, line.chain, line.points, 1, line.clusters)
+    assert want.shape == x.shape
+    for stop in (0, len(line.chain), variants.STOP_ALL):
+        with pytest.raises(ValueError, match="CUDA tensor only"):
+            variants.cluster_variant(x, t, line.chain, line.points, 1, line.clusters, stop=stop)
+    with pytest.raises(ValueError, match="stop must be"):
+        variants.cluster_variant(x, t, line.chain, line.points, 1, line.clusters,
+                                 stop=len(line.chain) + 1)
+    g = next(g for g in fused_cols.GENERAL_COLS if g.h == 1080)
+    tg = {k.rsplit("/", 1)[1]: torch.as_tensor(v)
+          for k, v in radix.chain_consts(1080, "forward", 1.0, "p", g.chain).items()}
+    xg = torch.randn(1, 1080, 2 * g.tile)
+    with pytest.raises(ValueError, match="CUDA tensor only"):
+        variants.general_cols_variant(xg, tg, g.chain, g.points, g.tile, stop=0)
+    with pytest.raises(ValueError, match="stop must be"):
+        variants.general_cols_variant(xg, tg, g.chain, g.points, g.tile, stop=-1)
+
+
+def test_split_probe_has_a_kernel_for_every_class_of_the_tables():
+    """csrc/probes/split.cu instantiates the split kernels one class a file:
+    every class the cluster tables (K1 and K2) and the general design's
+    table use has its file, and the entry point takes the cluster classes
+    it has."""
+    from webgpufft_tpu_torch.core import fused_cols
+    names = {s.name for s in _build.sources("probes")}
+    cluster = {e.points for e in radix.CLUSTER_LINES.values()} | {
+        g.points for g in fused_cols.CLUSTER_COLS}
+    general = {g.points for g in fused_cols.GENERAL_COLS}
+    assert {f"split_cluster_{e}.cu" for e in cluster} <= names
+    assert {f"split_general_{e}.cu" for e in general} <= names
+    text = (_build.CSRC / "probes" / "split.cu").read_text()
+    assert all(f"cluster_{e}(" in text for e in cluster)
+    assert all(f"general_{e}(" in text for e in general)

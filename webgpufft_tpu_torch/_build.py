@@ -115,6 +115,16 @@ _SIGNATURES = {
         # x, y, cw, cp, pre, h, cols, variant, adjoint, slots (int* or null), stream
         "wgfft_cols_fixed": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                              ctypes.c_int, ctypes.c_int, _INTS, _P),
+        # x, y, cw, cp, pre, h, cols, radices, count, points, tile, clusters,
+        # stop, adjoint, stream: the cluster design to the split probe's stop
+        "wgfft_cluster_split": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                                ctypes.c_longlong, _INTS, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
+        # x, y, cw, cp, pre, h, cols, radices, count, points, tile, stop,
+        # adjoint, stream: K2's general design to the split probe's stop
+        "wgfft_general_cols_split": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_longlong, _INTS, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
     },
 }
 _SOURCE_DIRS = {"core": CSRC, "probes": CSRC / "probes"}

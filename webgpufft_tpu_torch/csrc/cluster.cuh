@@ -242,8 +242,9 @@ inline bool make_plan(int h, const int* radices, int count, int points, int tile
 // Before its first store a thread waits on the cluster barrier the kernel
 // arrived at (every CTA of the cluster runs), so that its first loads are
 // in flight meanwhile; a thread without a butterfly waits at the end.  x
-// points at the tile's first column in row 0.
-template <int E, int R, int C>
+// points at the tile's first column in row 0.  Without STORE (the split
+// probe's stop 0) the stores to the cluster are left out.
+template <int E, int R, int C, bool STORE = true>
 __device__ __noinline__ void cross(const float2* __restrict__ x, long long cols, int tc,
                                    int shift, int m0, int j0, int share, int live, bool pad,
                                    float s, float cj) {
@@ -275,6 +276,10 @@ __device__ __noinline__ void cross(const float2* __restrict__ x, long long cols,
     if (!waited) {
       asm volatile("barrier.cluster.wait;" ::: "memory");
       waited = true;
+    }
+    if constexpr (!STORE) {
+      general::keep(v);
+      continue;
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -342,14 +347,14 @@ __device__ __noinline__ void local(float2* __restrict__ y, const float2* __restr
   }
 }
 
-template <int E, int C>
+template <int E, int C, bool STORE = true>
 __device__ __forceinline__ void cross_at(const float2* __restrict__ x, long long cols,
                                          const Plan& plan, int j0, int live, float s, float cj) {
 #define WGFFT_CLUSTER_CROSS(R)                                                              \
   case R:                                                                                   \
     if constexpr (general::takes(E, R) && R >= 2 * C)                                       \
-      cross<E, R, C>(x, cols, plan.tc, plan.shift, plan.m0, j0, plan.share, live,           \
-                     plan.pad != 0, s, cj);                                                 \
+      cross<E, R, C, STORE>(x, cols, plan.tc, plan.shift, plan.m0, j0, plan.share, live,    \
+                            plan.pad != 0, s, cj);                                          \
     break;
   switch (plan.r0) {
     WGFFT_CLUSTER_CROSS(4) WGFFT_CLUSTER_CROSS(5) WGFFT_CLUSTER_CROSS(6)
@@ -364,6 +369,29 @@ __device__ __forceinline__ void cross_at(const float2* __restrict__ x, long long
   }
 #undef WGFFT_CLUSTER_CROSS
 }
+
+// Pass ps of the CTA's own points (local) by its radix, a switch uniform
+// across the CTA: the body of cluster_kernel's and cluster_split_kernel's
+// loops over the later passes.
+#define WGFFT_CLUSTER_PASS(R)                                                              \
+  case R:                                                                                  \
+    if constexpr (general::takes(E, R))                                                    \
+      local<E, R>(y, tw, cols, plan.tc, plan.shift, ps, lo, q,                            \
+                  big ? plan.side[1].q_magic : plan.side[0].q_magic, plan.r0, in, out, live, \
+                  last, s, scale, cj);                                                     \
+    break;
+#define WGFFT_CLUSTER_LOCAL                                                                 \
+  switch (ps.radix) {                                                                      \
+    WGFFT_CLUSTER_PASS(2) WGFFT_CLUSTER_PASS(3) WGFFT_CLUSTER_PASS(4) WGFFT_CLUSTER_PASS(5) \
+    WGFFT_CLUSTER_PASS(6) WGFFT_CLUSTER_PASS(7) WGFFT_CLUSTER_PASS(8) WGFFT_CLUSTER_PASS(9) \
+    WGFFT_CLUSTER_PASS(10) WGFFT_CLUSTER_PASS(11) WGFFT_CLUSTER_PASS(12)                    \
+    WGFFT_CLUSTER_PASS(13) WGFFT_CLUSTER_PASS(14) WGFFT_CLUSTER_PASS(15)                    \
+    WGFFT_CLUSTER_PASS(16) WGFFT_CLUSTER_PASS(18) WGFFT_CLUSTER_PASS(20)                    \
+    WGFFT_CLUSTER_PASS(21) WGFFT_CLUSTER_PASS(22) WGFFT_CLUSTER_PASS(24)                    \
+    WGFFT_CLUSTER_PASS(25) WGFFT_CLUSTER_PASS(26) WGFFT_CLUSTER_PASS(27)                    \
+    WGFFT_CLUSTER_PASS(28) WGFFT_CLUSTER_PASS(30) WGFFT_CLUSTER_PASS(32)                    \
+    default: break;                                                                        \
+  }
 
 template <int E, int MAXT>
 __global__ void __launch_bounds__(MAXT, 1)
@@ -403,28 +431,65 @@ cluster_kernel(const float2* __restrict__ x, float2* __restrict__ y,
     const Pass ps = pass_at(plan, big, pp);
     const bool last = pp == plan.count - 1;
     const int in = ((pp + 1) & 1) * buffer, out = (pp & 1) * buffer;
-#define WGFFT_CLUSTER_PASS(R)                                                              \
-  case R:                                                                                  \
-    if constexpr (general::takes(E, R))                                                    \
-      local<E, R>(y, tw, cols, plan.tc, plan.shift, ps, lo, q,                            \
-                  big ? plan.side[1].q_magic : plan.side[0].q_magic, plan.r0, in, out, live, \
-                  last, s, scale, cj);                                                     \
-    break;
-    switch (ps.radix) {
-      WGFFT_CLUSTER_PASS(2) WGFFT_CLUSTER_PASS(3) WGFFT_CLUSTER_PASS(4) WGFFT_CLUSTER_PASS(5)
-      WGFFT_CLUSTER_PASS(6) WGFFT_CLUSTER_PASS(7) WGFFT_CLUSTER_PASS(8) WGFFT_CLUSTER_PASS(9)
-      WGFFT_CLUSTER_PASS(10) WGFFT_CLUSTER_PASS(11) WGFFT_CLUSTER_PASS(12)
-      WGFFT_CLUSTER_PASS(13) WGFFT_CLUSTER_PASS(14) WGFFT_CLUSTER_PASS(15)
-      WGFFT_CLUSTER_PASS(16) WGFFT_CLUSTER_PASS(18) WGFFT_CLUSTER_PASS(20)
-      WGFFT_CLUSTER_PASS(21) WGFFT_CLUSTER_PASS(22) WGFFT_CLUSTER_PASS(24)
-      WGFFT_CLUSTER_PASS(25) WGFFT_CLUSTER_PASS(26) WGFFT_CLUSTER_PASS(27)
-      WGFFT_CLUSTER_PASS(28) WGFFT_CLUSTER_PASS(30) WGFFT_CLUSTER_PASS(32)
-      default: break;
-    }
-#undef WGFFT_CLUSTER_PASS
+    WGFFT_CLUSTER_LOCAL
     if (!last) __syncthreads();
   }
 }
+
+// The split probe's kernel (csrc/probes/split.cu; instantiated by the
+// probes' library only): cluster_kernel stopped after the first `stop`
+// passes of a tile, the last of them into shared memory, or running them
+// all where `stop` is past the chain's last; a stop of 0 runs the first
+// pass's loads and butterflies with its stores to the cluster left out.
+template <int E, int MAXT>
+__global__ void __launch_bounds__(MAXT, 1)
+cluster_split_kernel(const float2* __restrict__ x, float2* __restrict__ y,
+                     const float2* __restrict__ tw, const float* __restrict__ params,
+                     long long cols, float cj, const Plan plan, int stop) {
+  namespace cg = cooperative_groups;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const float scale = __ldg(params);
+  const float s = __ldg(params + 1);
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long t = static_cast<long long>(blockIdx.x) / plan.clusters;
+  const long long p = t / plan.tiles;
+  const long long col0 = (t - p * plan.tiles) << plan.shift;
+  const long long left = cols - col0;
+  const int live = static_cast<int>(left < plan.tc ? left : plan.tc);
+  const size_t at = static_cast<size_t>(p) * plan.h * cols + col0;
+  x += at;
+  y += at;
+  const int lo = class_lo(rank, plan.r0, plan.clusters);
+  const int q = class_lo(rank + 1, plan.r0, plan.clusters) - lo;
+  const bool big = q == plan.side[1].q;
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  const int j0 = rank * plan.share;
+  if (stop == 0) {
+    switch (plan.clusters) {
+      case 2: cross_at<E, 2, false>(x, cols, plan, j0, live, s, cj); break;
+      case 4: cross_at<E, 4, false>(x, cols, plan, j0, live, s, cj); break;
+      default: cross_at<E, 8, false>(x, cols, plan, j0, live, s, cj); break;
+    }
+    return;
+  }
+  switch (plan.clusters) {
+    case 2: cross_at<E, 2>(x, cols, plan, j0, live, s, cj); break;
+    case 4: cross_at<E, 4>(x, cols, plan, j0, live, s, cj); break;
+    default: cross_at<E, 8>(x, cols, plan, j0, live, s, cj); break;
+  }
+  cluster.sync();
+  const int buffer = plan.pitch * plan.tc;
+  const int run = stop < plan.count ? stop : plan.count;
+  for (int pp = 1; pp < run; ++pp) {
+    const Pass ps = pass_at(plan, big, pp);
+    const bool last = pp == plan.count - 1 && stop > plan.count;
+    const int in = ((pp + 1) & 1) * buffer, out = (pp & 1) * buffer;
+    WGFFT_CLUSTER_LOCAL
+    if (pp + 1 < run) __syncthreads();
+  }
+}
+#undef WGFFT_CLUSTER_LOCAL
+#undef WGFFT_CLUSTER_PASS
 
 // A launch of the design over a (pre, h, cols) view.
 struct Launch {
@@ -441,9 +506,13 @@ struct Launch {
 // side): cudaLaunchKernelEx with the cluster dimension.  With `report`,
 // nothing launches and report[0..2] get the CTAs an SM holds, the SMs and
 // the clusters the device holds at once (cudaOccupancyMaxActiveClusters).
-template <int E, int MAXT>
-cudaError_t launch_kernel(const Launch& g) {
-  auto* const kernel = &cluster_kernel<E, MAXT>;
+// With SPLIT, cluster_split_kernel with the split probe's `stop`.
+template <int E, int MAXT, bool SPLIT = false>
+cudaError_t launch_kernel(const Launch& g, int stop = 0) {
+  auto* const kernel = [] {
+    if constexpr (SPLIT) return &cluster_split_kernel<E, MAXT>;
+    else return &cluster_kernel<E, MAXT>;
+  }();
   if (g.threads > MAXT || g.grid < 1 || g.grid > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
@@ -475,7 +544,10 @@ cudaError_t launch_kernel(const Launch& g) {
     g.report[2] = clusters;
     return e;
   }
-  e = cudaLaunchKernelEx(&cfg, kernel, c.x, c.y, c.tw, c.params, c.cols, c.cj, g.plan);
+  if constexpr (SPLIT)
+    e = cudaLaunchKernelEx(&cfg, kernel, c.x, c.y, c.tw, c.params, c.cols, c.cj, g.plan, stop);
+  else
+    e = cudaLaunchKernelEx(&cfg, kernel, c.x, c.y, c.tw, c.params, c.cols, c.cj, g.plan);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 

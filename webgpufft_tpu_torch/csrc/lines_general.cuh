@@ -77,6 +77,19 @@ __device__ __forceinline__ Pass pass_at(const Plan& plan, int p) {
 
 __device__ __forceinline__ int padded(int pos, unsigned period) { return pos + quot(pos, period); }
 
+// A first-pass butterfly whose stores the split probe suppresses (its stop
+// 0, csrc/probes/split.cu): its outputs summed and the sum stored to the
+// CTA's shared memory only where its bits are a signalling NaN, which no
+// arithmetic gives, so that its loads and its butterfly are not dead code.
+template <int R>
+__device__ __forceinline__ void keep(const float2 (&v)[R]) {
+  extern __shared__ float2 sm[];
+  float a = 0.f;
+#pragma unroll
+  for (int r = 0; r < R; ++r) a += v[r].x + v[r].y;
+  if (__float_as_uint(a) == 0x7f800001u) sm[threadIdx.x] = v[0];
+}
+
 // One pass of radix R over the CTA's lines, a butterfly at a time: a thread
 // loads butterfly b's R points (from x in the first pass, else from the
 // exchange at `in` with their twiddles), runs it and stores it (to y in the

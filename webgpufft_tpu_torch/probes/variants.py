@@ -67,7 +67,10 @@ L) view through the plans' library's entry point ``wgfft_cluster`` (K1's
 (lines, N, 2) is that view with tile 1), ``cluster_report`` says what it
 would be; the plans' entry points launch the shapes ``radix.CLUSTER_LINES``
 and ``fused_cols.CLUSTER_COLS`` name, fitted to the sweeps of the two
-scripts with ``--cluster``.
+scripts with ``--cluster``.  Both it and ``general_cols_variant`` take the
+split probe's ``stop`` (the probes' library, ``csrc/probes/split.cu``: the
+plans' kernel body stopped after its load or after a pass), which the two
+scripts' ``--split`` reads as load, passes and store.
 
 Each wrapper runs the kernel's plain version on a CPU tensor and launches or
 raises on a CUDA tensor; ``launches`` counts kernel launches only.
@@ -77,7 +80,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -330,6 +333,36 @@ def general_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor], chain: Tup
 general_variant.launches = 0
 
 
+# the split probe's stop (``cluster_variant``, ``general_cols_variant``) that
+# runs the whole transform: past every chain's last pass
+STOP_ALL = 8
+
+
+def _split_stop(stop: Optional[int], count: int, x: torch.Tensor, what: str) -> None:
+    """Raise for a split ``stop`` the probe does not take (0 .. count or
+    ``STOP_ALL``), and for any on a CPU tensor: the probe times the card's
+    kernels, and a stopped launch has no plain version."""
+    if stop is None:
+        return
+    if stop != STOP_ALL and not 0 <= stop <= count:
+        raise ValueError(f"{what}: stop must be 0 .. {count} or STOP_ALL, got {stop}")
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: the split probe runs on a CUDA tensor only")
+
+
+def split_parts(stops_ms: Dict[int, float], count: int) -> Dict[str, float]:
+    """The split probe's times by stop (0 .. ``count`` and ``STOP_ALL``)
+    read as the parts of a launch: the load (stop 0), pass p (stop p + 1
+    less stop p: its butterflies' work past the load for pass 0, with the
+    first pass's stores), the store (the whole transform less stop
+    ``count``) and all; the parts add up to all."""
+    parts = {"load": stops_ms[0]}
+    parts.update({f"pass {p}": stops_ms[p + 1] - stops_ms[p] for p in range(count)})
+    parts["store"] = stops_ms[STOP_ALL] - stops_ms[count]
+    parts["all"] = stops_ms[STOP_ALL]
+    return parts
+
+
 class GeneralReport(NamedTuple):
     """What a launch of the general design would be (``general_report``)."""
     resident: int    # CTAs an SM holds of the kernel
@@ -352,7 +385,7 @@ def general_report(n: int, count: int, chain: Tuple[int, ...], points: int,
 
 def general_cols_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor],
                          chain: Tuple[int, ...], points: int, tile: int, adjoint: bool = False,
-                         inplace: bool = False) -> torch.Tensor:
+                         inplace: bool = False, stop: Optional[int] = None) -> torch.Tensor:
     """K2's transform (its adjoint with ``adjoint``) along axis 1 of
     interleaved float32 ``x`` (pre, H, L) in the general design
     (``csrc/cols_general.cuh``) on any ``chain`` of two to four passes of
@@ -363,7 +396,12 @@ def general_cols_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor],
     ``chip_probes/k2_general_variants.py``.  A CUDA tensor launches the
     kernel of the plans' library (and counts one launch here, none in
     ``fused_cols``) or raises where the design cannot run that shape; a CPU
-    tensor runs the chain through ``radix.radix_chain_reference``."""
+    tensor runs the chain through ``radix.radix_chain_reference``.  With a
+    ``stop``, the split probe (``csrc/probes/split.cu``, a CUDA tensor
+    only): the same kernel body stopped after the first ``stop`` passes,
+    the last of them into shared memory (y then holds what it held), or at
+    0 after the first pass's loads and butterflies; ``STOP_ALL`` runs it
+    whole."""
     pre, h, lanes = x.shape
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"general_cols_variant: unsupported device {x.device}")
@@ -371,18 +409,26 @@ def general_cols_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor],
     if fused_cols.general_cols_threads(h, tuple(chain), points, tile) is None:
         raise ValueError(f"general_cols_variant: the general design does not run H = {h} on "
                          f"{tuple(chain)} at {points} points a thread, tiles of {tile}")
+    _split_stop(stop, len(chain), x, "general_cols_variant")
     if x.device.type == "cpu":
         y = radix.radix_chain_reference(x.reshape(pre, h, lanes // 2, 2), chain, tables,
                                         adjoint).reshape(pre, h, lanes)
         return x.copy_(y) if inplace else y
     ptrs = _build.table_ptrs(x, tables, {"cw": (h, 2), "cp": (2,)}, "general_cols_variant")
     y = x if inplace else torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
     with _build.on_device(x.device):
-        rc = _build.library().wgfft_general_cols(
-            x.data_ptr(), y.data_ptr(), *ptrs, pre, h, lanes // 2,
-            *_build.chain_arg(tuple(chain)), points, tile, int(adjoint), None,
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, f"general_cols_variant {tuple(chain)} points {points} tile {tile}")
+        if stop is None:
+            rc = _build.library().wgfft_general_cols(
+                x.data_ptr(), y.data_ptr(), *ptrs, pre, h, lanes // 2,
+                *_build.chain_arg(tuple(chain)), points, tile, int(adjoint), None, stream)
+        else:
+            rc = _build.library("probes").wgfft_general_cols_split(
+                x.data_ptr(), y.data_ptr(), *ptrs, pre, h, lanes // 2,
+                *_build.chain_arg(tuple(chain)), points, tile, stop, int(adjoint), stream)
+    _build.check(rc, f"general_cols_variant {tuple(chain)} points {points} tile {tile}"
+                     f"{'' if stop is None else f' stop {stop}'}",
+                 "core" if stop is None else "probes")
     general_cols_variant.launches += 1
     return y
 
@@ -404,7 +450,7 @@ def general_cols_report(pre: int, h: int, cols: int, chain: Tuple[int, ...], poi
 
 def cluster_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor], chain: Tuple[int, ...],
                     points: int, tile: int, clusters: int, adjoint: bool = False,
-                    inplace: bool = False) -> torch.Tensor:
+                    inplace: bool = False, stop: Optional[int] = None) -> torch.Tensor:
     """The transform (its adjoint with ``adjoint``) along axis 1 of
     interleaved float32 ``x`` (pre, H, L) in the cluster design
     (``csrc/cluster.cuh``) on any ``chain`` of two to four passes of
@@ -417,7 +463,10 @@ def cluster_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor], chain: Tup
     ``k2_general_variants.py`` with ``--cluster``.  A CUDA tensor launches
     the kernel of the plans' library (and counts one launch here, none in
     ``fused_lines`` or ``fused_cols``) or raises where the design cannot run
-    that shape; a CPU tensor runs ``radix.cluster_chain_reference``."""
+    that shape; a CPU tensor runs ``radix.cluster_chain_reference``.  With a
+    ``stop``, the split probe as ``general_cols_variant``'s (0: the first
+    pass's loads and butterflies without its stores to the cluster), in the
+    classes of 24 and 32 points a thread."""
     pre, h, lanes = x.shape
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"cluster_variant: unsupported device {x.device}")
@@ -426,19 +475,28 @@ def cluster_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor], chain: Tup
         raise ValueError(f"cluster_variant: the cluster design does not run H = {h} on "
                          f"{tuple(chain)} at {points} points a thread, tiles of {tile}, "
                          f"{clusters} CTAs a cluster")
+    _split_stop(stop, len(chain), x, "cluster_variant")
     if x.device.type == "cpu":
         y = radix.cluster_chain_reference(x.reshape(pre, h, lanes // 2, 2), chain, clusters,
                                           tables, adjoint).reshape(pre, h, lanes)
         return x.copy_(y) if inplace else y
     ptrs = _build.table_ptrs(x, tables, {"cw": (h, 2), "cp": (2,)}, "cluster_variant")
     y = x if inplace else torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
     with _build.on_device(x.device):
-        rc = _build.library().wgfft_cluster(
-            x.data_ptr(), y.data_ptr(), *ptrs, pre, h, lanes // 2,
-            *_build.chain_arg(tuple(chain)), points, tile, clusters, int(adjoint), None,
-            torch.cuda.current_stream().cuda_stream)
+        if stop is None:
+            rc = _build.library().wgfft_cluster(
+                x.data_ptr(), y.data_ptr(), *ptrs, pre, h, lanes // 2,
+                *_build.chain_arg(tuple(chain)), points, tile, clusters, int(adjoint), None,
+                stream)
+        else:
+            rc = _build.library("probes").wgfft_cluster_split(
+                x.data_ptr(), y.data_ptr(), *ptrs, pre, h, lanes // 2,
+                *_build.chain_arg(tuple(chain)), points, tile, clusters, stop, int(adjoint),
+                stream)
     _build.check(rc, f"cluster_variant {tuple(chain)} points {points} tile {tile} "
-                     f"clusters {clusters}")
+                     f"clusters {clusters}{'' if stop is None else f' stop {stop}'}",
+                 "core" if stop is None else "probes")
     cluster_variant.launches += 1
     return y
 
