@@ -5,6 +5,7 @@
     python3 chip_probes/k1_general_variants.py --fit SWEEP.jsonl BEFORE.jsonl [--cluster]
     python3 chip_probes/k1_general_variants.py --summary BEFORE.jsonl [AFTER.jsonl]
     python3 chip_probes/k1_general_variants.py --cluster [--repo DIR] [--variants] [--n ...]
+                                               [--ctas 1 2]
     python3 chip_probes/k1_general_variants.py --ab P1.jsonl C1.jsonl C2.jsonl P2.jsonl
     python3 chip_probes/k1_general_variants.py --split --n N ... --lines L ... [--out PATH]
 
@@ -31,14 +32,18 @@ of ``probes.variants.cluster_candidates(n)`` in the cluster design
 (``probes.variants.cluster_variant`` on the (lines, N, 2) view, tile 1: a
 chain of the fewest passes with each of its radices first, across the
 cluster, every cluster size of 2, 4 and 8 its first radix holds, the least
-and the widest class of 24, 32 and 64 points a thread that holds it); with
-``--fit`` it writes the cluster design's table, ``WGFFT_CLUSTER_LINES`` of
-``webgpufft_tpu_torch/csrc/cluster.cuh`` (which ``core/radix.py`` reads),
-with the lengths whose best variant beats BEFORE at both counts by
-``MARGIN``.
+and the widest class of 24, 32 and 64 points a thread that holds it, in the
+kernel of each of ``--ctas`` CTAs an SM: 1, two exchange buffers, or 2, one
+buffer with the middle passes in place); with ``--fit`` it rewrites the
+cluster design's table, ``WGFFT_CLUSTER_LINES`` of
+``webgpufft_tpu_torch/csrc/cluster.cuh`` (which ``core/radix.py`` reads):
+a length whose best variant beats BEFORE at both counts by ``MARGIN`` takes
+it, every other length keeps its entry.  BEFORE may be the sweep itself
+(its plans' launch is this checkout's entry, timed in the same call).
 
 ``--ab P1 C1 C2 P2`` (no GPU) compares the four arms of a parent / change
-A/B (the plans' launch of each run): every shape whose design moved, C / P
+A/B (the plans' launch of each run): every shape whose design or cluster
+entry (class, CTAs an SM, cluster size, chain) moved, C / P
 (the mean of two arms each), whether both C arms beat both P arms, and the
 ratio to cuFFT unscaled before and after (min / median / max); the shapes
 whose design did not move, and those outside 1 %.
@@ -183,17 +188,17 @@ def sweep(args):
         if not args.variants:
             cands = []
         elif args.cluster:
-            cands = [(name, c, e, clusters)
-                     for name, c, e, _, clusters in variants.cluster_candidates(n)]
+            cands = [(name, c, e, (clusters, per)) for name, c, e, _, clusters, per
+                     in variants.cluster_candidates(n, (1,), args.ctas)]
         else:
             cands = candidates(n, radix)
         vt = {name: {k.rsplit("/", 1)[1]: torch.as_tensor(v, device="cuda")
                      for k, v in radix.chain_consts(n, "forward", scale, "p", c).items()}
               for name, c, _, _ in cands}
         launch_variant = (
-            (lambda x, tt, c, e, per, adj=False:
-             variants.cluster_variant(x, tt, c, e, 1, per, adj)) if args.cluster
-            else variants.general_variant)
+            (lambda x, tt, c, e, shape, adj=False:
+             variants.cluster_variant(x, tt, c, e, 1, shape[0], adj, ctas=shape[1]))
+            if args.cluster else variants.general_variant)
         for lines in lines_for(n):
             x = torch.randn(lines, n, 2, device="cuda", generator=gen)
             want = {adj: fused.fused_lines_reference(x, t, adj) for adj in (False, True)}
@@ -231,6 +236,7 @@ def sweep(args):
             launch = fused.launch_report(n, lines)
             rec = {"n": n, "lines": lines, "bound_ms": bound, "card": card,
                    "plans_design": launch.design, "plans_chain": list(radix.lines_chain(n)),
+                   "plans_entry": cluster_entry(radix, n),
                    "plans_resident": launch.resident, "plans_grid": launch.grid,
                    "plans_waves": launch.waves, "plans_err": err,
                    **{f"{a}_ms": ms[a] for a in ("plans", "library", "unscaled")},
@@ -239,11 +245,11 @@ def sweep(args):
                 if name not in ms:
                     continue
                 if args.cluster:
-                    r = variants.cluster_report(lines, n, 1, c, e, 1, per)
+                    r = variants.cluster_report(lines, n, 1, c, e, 1, *per)
                     rec["variants"][name] = {"ms": ms[name], "err": errs[name], "chain": list(c),
-                                             "points": e, "clusters": per, "threads": r.threads,
-                                             "resident": r.resident, "held": r.clusters,
-                                             "shared": r.shared}
+                                             "points": e, "clusters": per[0], "ctas": per[1],
+                                             "threads": r.threads, "resident": r.resident,
+                                             "held": r.clusters, "shared": r.shared}
                     continue
                 r = variants.general_report(n, lines, c, e, per)
                 rec["variants"][name] = {"ms": ms[name], "err": errs[name], "chain": list(c),
@@ -295,7 +301,8 @@ def split(args):
                 "library": lambda: torch.fft.fft(z, norm="ortho"),
                 "unscaled": lambda: torch.fft.fft(z)}
         arms.update({k: (lambda k=k: variants.cluster_variant(
-            x, t, line.chain, line.points, 1, line.clusters, stop=k)) for k in stops})
+            x, t, line.chain, line.points, 1, line.clusters, stop=k, ctas=line.ctas))
+            for k in stops})
         times = {a: [] for a in arms}
         for turn in (list(arms), list(arms)[::-1]):
             for a in turn:
@@ -305,12 +312,13 @@ def split(args):
         bound = profile.bound_ms(16 * n * lines, 0.0)[0]
         launch = fused.launch_report(n, lines)
         rec = {"split": [n, lines], "card": card, "chain": list(line.chain),
-               "points": line.points, "clusters": line.clusters, "grid": launch.grid,
+               "points": line.points, "clusters": line.clusters, "ctas": line.ctas,
+               "grid": launch.grid,
                "resident": launch.resident, "bound_ms": bound,
                **{f"{a}_ms": ms[a] for a in ("plans", "adjoint", "plain", "library", "unscaled")},
                "stops_ms": [ms[k] for k in stops], "split_ms": parts}
         print(f"K1 N={n} x {lines} cluster {tuple(line.chain)} E{line.points} "
-              f"C{line.clusters}: " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+              f"C{line.clusters} {line.ctas}/SM ({launch.resident} CTAs an SM): " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
               + f" ms; plans {ms['plans']:.4f} ms (adjoint {ms['adjoint']:.4f}, plain "
               f"{ms['plain']:.4f}, torch.fft.fft {ms['library']:.4f}, unscaled "
               f"{ms['unscaled']:.4f}); bound {bound:.4f} ms [{card}]", flush=True)
@@ -318,6 +326,16 @@ def split(args):
             with open(args.out, "a") as f:
                 f.write(json.dumps(rec) + "\n")
         del x
+
+
+def cluster_entry(radix, n):
+    """K1's cluster entry of length n in the checkout ``radix`` comes from
+    (class, CTAs an SM, cluster size, chain), or None: a checkout before the
+    CTAs column has only the kernel of one CTA an SM."""
+    line = getattr(radix, "CLUSTER_LINES", {}).get(n)
+    if line is None:
+        return None
+    return [line.points, getattr(line, "ctas", 1), line.clusters, list(line.chain)]
 
 
 def read(path):
@@ -354,15 +372,20 @@ def fit(sweep_path, before_path):
 
 def fit_cluster(sweep_path, before_path):
     """The cluster design's table from a sweep with ``--cluster --variants``
-    and BEFORE's plans' launch: {n: (points, clusters, chain, variant, worse
-    ratio)} for the lengths whose best variant (the least worse ratio over
-    the two counts) beats BEFORE at both by ``MARGIN``; and the lengths
-    left, {n: (best variant, its worse ratio)}."""
+    and BEFORE's plans' launch: {n: (points, ctas, clusters, chain, variant,
+    worse ratio)}, this checkout's entry for every length but those whose
+    best variant (the least worse ratio over the two counts) beats BEFORE
+    at both by ``MARGIN``, which take that variant; and the lengths left,
+    {n: (best variant, its worse ratio)}."""
+    sys.path.insert(0, str(ROOT))
+    from webgpufft_tpu_torch.core import radix
     runs, before = read(sweep_path), read(before_path)
     by_n = {}
     for (n, lines), rec in runs.items():
         by_n.setdefault(n, {})[lines] = rec
-    table, left = {}, {}
+    table = {n: (e.points, e.ctas, e.clusters, e.chain, "kept", 1.0)
+             for n, e in radix.CLUSTER_LINES.items()}
+    left = {}
     for n, counts in sorted(by_n.items()):
         names = set.intersection(*(set(r["variants"]) for r in counts.values()))
         scored = [(max(r["variants"][name]["ms"] / before[(n, lines)]["plans_ms"]
@@ -375,15 +398,15 @@ def fit_cluster(sweep_path, before_path):
             left[n] = (name, worst)
             continue
         v = next(iter(counts.values()))["variants"][name]
-        table[n] = (v["points"], v["clusters"], tuple(v["chain"]), name, worst)
+        table[n] = (v["points"], v.get("ctas", 1), v["clusters"], tuple(v["chain"]), name, worst)
     return table, left
 
 
 def write_cluster_rule(table):
-    """Write ``table`` ({n: (points, clusters, chain, ...)}) as the cluster
-    design's K1 table, ``WGFFT_CLUSTER_LINES`` of csrc/cluster.cuh."""
-    items = [f"X({n}, {e}, {c}, {', '.join(map(str, chain))})"
-             for n, (e, c, chain, *_) in sorted(table.items())]
+    """Write ``table`` ({n: (points, ctas, clusters, chain, ...)}) as the
+    cluster design's K1 table, ``WGFFT_CLUSTER_LINES`` of csrc/cluster.cuh."""
+    items = [f"X({n}, {e}, {per}, {c}, {', '.join(map(str, chain))})"
+             for n, (e, per, c, chain, *_) in sorted(table.items())]
     rows, row = [], ""
     for item in items:
         if row and len(row) + len(item) + 1 > 94:
@@ -494,7 +517,8 @@ def ab(p1, c1, c2, p2):
         cs = (c["plans_ms"], C2[key]["plans_ms"])
         ps = (P1[key]["plans_ms"], P2[key]["plans_ms"])
         ratio = sum(cs) / sum(ps)
-        if c["plans_design"] != P1[key]["plans_design"]:
+        if (c["plans_design"], c.get("plans_entry")) != (P1[key]["plans_design"],
+                                                          P1[key].get("plans_entry")):
             moved.append((ratio, key))
             if max(cs) >= min(ps):
                 losers.append((key, cs, ps))
@@ -544,6 +568,8 @@ def main():
                     help="split the cluster design's launch at each --n into load, passes, store")
     ap.add_argument("--lines", type=int, nargs="+", default=[],
                     help="--split: the lines of each length of --n")
+    ap.add_argument("--ctas", type=int, nargs="+", default=[1, 2],
+                    help="--cluster --variants: the kernels of these CTAs an SM")
     args = ap.parse_args()
     if args.split:
         split(args)
@@ -552,11 +578,13 @@ def main():
     elif args.fit and args.cluster:
         table, left = fit_cluster(*args.fit)
         write_cluster_rule(table)
-        for n, (e, c, chain, name, worst) in sorted(table.items()):
-            print(f"{n}: {name} (worse ratio to BEFORE {worst:.3f})")
+        for n, (e, per, c, chain, name, worst) in sorted(table.items()):
+            if name != "kept":
+                print(f"{n}: {name} (worse ratio to BEFORE {worst:.3f})")
         for n, (name, worst) in sorted(left.items()):
             print(f"{n} stays: best variant {name}, worse ratio to BEFORE {worst:.3f}")
-        print(f"{len(table)} lengths to the cluster design, {len(left)} left")
+        moved = sum(entry[4] != "kept" for entry in table.values())
+        print(f"{len(table)} lengths in the cluster design, {moved} on a new entry")
     elif args.fit:
         table, left = fit(*args.fit)
         write_rule(table)

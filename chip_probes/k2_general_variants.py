@@ -1,7 +1,8 @@
 """Probe: K2 at the heights outside its fixed design, the plans' launch and the general design's variants.
 
     python3 chip_probes/k2_general_variants.py [--repo DIR] [--variants] [--h ...]
-                                               [--out PATH]   (from the repository root)
+                                               [--one-image] [--out PATH]
+                                               (from the repository root)
     python3 chip_probes/k2_general_variants.py --fft2 [--repo DIR] [--out PATH]
     python3 chip_probes/k2_general_variants.py --fit SWEEP.jsonl BEFORE.jsonl [--cluster]
     python3 chip_probes/k2_general_variants.py --cluster [--repo DIR] [--variants] [--h ...]
@@ -10,8 +11,9 @@
     python3 chip_probes/k2_general_variants.py --split --views PRE,H,L ... [--out PATH]
 
 For every height K2 takes outside its fixed design (``fused_cols.FIXED_COLS``),
-or the heights of ``--h``, at two views (``views_for``: (2, H, 2 * 33), the
-``domain`` phase's view of few column tiles, and (1, H, 2 * cols) with the
+or the heights of ``--h``, at three views (``views_for``: (2, H, 2 * 33), the
+``domain`` phase's view of few column tiles; (1, H, 2 * H), one H x H image,
+whose grid fills few waves of the card; and (1, H, 2 * cols) with the
 fewest columns that move 67.1 MB): the plans' own launch
 (``fused_cols.fused_cols`` on the unitary tables), first checked against
 K2's plain version (1e-5 of max|plain|, forward and adjoint), with what
@@ -49,6 +51,16 @@ column passes (``torch.fft.fft`` along each axis) and their bounds; the
 rest of the call is the queued call less the two; and the device time of
 every kernel of ten calls under ``torch.profiler``.
 
+``--land P1 C1 C2 P2`` (no GPU) keeps a band where its one image won in
+both C arms of an A/B of the bands' views, to its end M where the view at
+M won too and to the one image's columns where it lost, and drops it
+elsewhere; it rewrites the table.  ``--views PRE,H,L ...`` times those views alone (with ``--split``, splits
+them).  ``--one-image`` times the one-image view alone; its variants only where the
+plans' grid there is under two waves of the CTAs the card holds (and the
+view is wider than the few-tile entry's ``SPLIT`` columns), in the
+height's own chain (``cols_chain``: the table's chain stays) at every tile
+and class that holds it.
+
 ``--repo DIR`` imports ``webgpufft_tpu_torch`` from DIR (default: this
 repository), so that a parent commit unpacked with ``git archive`` and this
 one are measured in one call on one card.  With ``--out PATH`` one JSON
@@ -59,14 +71,20 @@ with ``--variants`` and the parent's times of BEFORE (its plans' launch):
 for each chain order, the fastest variant at each view; of the orders whose
 variants beat the parent at both views by ``MARGIN``, the one whose worse
 ratio to it is the least.  Where the two views' winners differ, the height
-gets two entries, views of up to ``SPLIT`` columns in all and views of more.
+gets two entries, views of up to ``SPLIT`` columns in all and views of more;
+a height without both of those views in the sweep keeps its entries.  Then,
+where the one-image view's fastest variant beats BEFORE there by
+``MARGIN`` in another class or tile, the height gains a band for it (views
+of ``SPLIT`` + 1 to M columns in all, M the columns whose grid at BEFORE's
+tile is two waves of the CTAs the card holds, below the 67 MB view's), the
+entry it splits serving the views above M.
 It writes the general design's table, ``WGFFT_GENERAL_COLS`` of
 ``webgpufft_tpu_torch/csrc/cols_general.cuh`` (which
 ``core/fused_cols.py`` reads).  ``--summary BEFORE [AFTER]`` (no GPU) prints
 the tables PERF.md keeps: the distribution of the plans' launch over cuFFT
 unscaled at each view, the 20 worst ratios, the designs.  ``--ab P1 C1 C2
 P2`` (no GPU) compares the four arms of a parent / change A/B: every view
-the change runs in the general design, C / P and whether both C arms beat
+whose design, tile or threads moved, C / P and whether both C arms beat
 both P arms.
 
 ``--split --views PRE,H,L ...`` breaks the plans' launch at each view (L
@@ -104,9 +122,18 @@ CLUSTER_TILES = (1, 2, 4, 8, 16)
 
 
 def views_for(h):
-    """The (pre, cols) views a height is timed at: (2, 33) and (1, the
-    fewest columns that move ``MIN_BYTES``, 16 bytes a point)."""
-    return [(FEW_PRE, FEW_COLS), (1, math.ceil(MIN_BYTES / (16 * h)))]
+    """The (pre, cols) views a height is timed at: (2, 33), one H x H
+    image (1, H) and (1, the fewest columns that move ``MIN_BYTES``, 16
+    bytes a point)."""
+    return list(dict.fromkeys([(FEW_PRE, FEW_COLS), one_image(h), big_view(h)]))
+
+
+def one_image(h):
+    return (1, h)
+
+
+def big_view(h):
+    return (1, math.ceil(MIN_BYTES / (16 * h)))
 
 
 def fewest_passes(n, radices, least=2):
@@ -158,6 +185,18 @@ def candidates(h, radix, fused_cols):
     return out
 
 
+def chain_candidates(h, chain, radix, fused_cols):
+    """The general design's variants of height h on ``chain`` alone (the
+    one-image sweep keeps the table's chain): at every tile of ``TILES``
+    the two least classes that hold it."""
+    out = []
+    for t in TILES:
+        held = [e for e in sorted(radix.GENERAL_CLASSES)
+                if fused_cols.general_cols_threads(h, chain, e, t)]
+        out += [(f"{'x'.join(map(str, chain))} E{e} T{t}", chain, e, t) for e in held[:2]]
+    return out
+
+
 def rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
@@ -193,6 +232,12 @@ def sweep(args):
     heights = args.h or [h for h in range(2, radix.MAX_LENGTH + 1)
                          if fused_cols.choose_split(h) and h not in fixed
                          and (h >= CLUSTER_FROM or not args.cluster)]
+    given = {}   # --views: the views of each height, those alone
+    for view in args.views:
+        pre, h, lanes = map(int, view.split(","))
+        given.setdefault(h, []).append((pre, lanes // 2))
+    if given:
+        heights = sorted(given)
     chain_of = getattr(fused_cols, "cols_chain", radix.radix_chain)
     gen = torch.Generator(device="cuda").manual_seed(21)
     out = open(args.out, "w") if args.out else None
@@ -205,6 +250,8 @@ def sweep(args):
         elif args.cluster:
             cands = [(name, c, e, (tile, clusters)) for name, c, e, tile, clusters
                      in variants.cluster_candidates(h, CLUSTER_TILES)]
+        elif args.one_image:
+            cands = chain_candidates(h, tuple(chain_of(h)), radix, fused_cols)
         else:
             cands = candidates(h, radix, fused_cols)
         vt = {c: dev_tables(radix.chain_consts(h, "forward", scale, "p", c))
@@ -213,7 +260,13 @@ def sweep(args):
             (lambda x, tt, c, e, shape, adj=False:
              variants.cluster_variant(x, tt, c, e, *shape, adj)) if args.cluster
             else variants.general_cols_variant)
-        for pre, cols in views_for(h):
+        for pre, cols in (given.get(h) or ([one_image(h)] if args.one_image else
+                                            views_for(h))):
+            launch, resident = fused_cols.launch_shape(pre, h, cols)
+            view_cands = cands
+            if args.one_image:   # the height's own chain, and only at few waves
+                few = cols > SPLIT and launch.grid < 2 * resident
+                view_cands = [v for v in cands if few and v[1] == tuple(chain_of(h))]
             x = torch.randn(pre, h, 2 * cols, device="cuda", generator=gen)
             want = {adj: fused_cols.fused_cols_reference(x, t, adj) for adj in (False, True)}
             z = torch.view_as_complex(x.view(pre, h, cols, 2))
@@ -221,7 +274,7 @@ def sweep(args):
                     "library": lambda: torch.fft.fft(z, dim=1, norm="ortho"),
                     "unscaled": lambda: torch.fft.fft(z, dim=1)}
             runs = {"plans": lambda adj: fused_cols.fused_cols(x, t, adjoint=adj)}
-            for name, c, e, tile in cands:
+            for name, c, e, tile in view_cands:
                 runs[name] = (lambda adj, c=c, e=e, tile=tile:
                               launch_variant(x, vt[c], c, e, tile, adj))
                 arms[name] = (lambda c=c, e=e, tile=tile:
@@ -248,7 +301,6 @@ def sweep(args):
             ms = {a: profile.median(v) for a, v in times.items()}
             ms.setdefault("plans", float("nan"))
             bound = profile.bound_ms(16 * h * cols * pre, 0.0)[0]
-            launch, resident = fused_cols.launch_shape(pre, h, cols)
             rec = {"h": h, "pre": pre, "cols": cols, "bound_ms": bound, "card": card,
                    "plans_design": launch.design, "plans_chain": list(chain_of(h)),
                    "plans_tile": launch.tile, "plans_grid": launch.grid,
@@ -256,7 +308,7 @@ def sweep(args):
                    "plans_err": errs["plans"],
                    **{f"{a}_ms": ms[a] for a in ("plans", "library", "unscaled")},
                    "variants": {}}
-            for name, c, e, tile in cands:
+            for name, c, e, tile in view_cands:
                 if name not in ms:
                     continue
                 if args.cluster:
@@ -421,17 +473,35 @@ def read(path):
     return {(r["h"], r["pre"], r["cols"]): r for r in recs if "h" in r}
 
 
-def fit(sweep_path, before_path):
+def current_table(cluster=False):
+    """This checkout's general (or cluster) design's table in ``fit``'s form:
+    {h: (chain, [(least, most, points, tile, "kept", 1.0)], 1.0)}."""
+    sys.path.insert(0, str(ROOT))
+    from webgpufft_tpu_torch.core import fused_cols
+    table = {}
+    for g in fused_cols.CLUSTER_COLS if cluster else fused_cols.GENERAL_COLS:
+        shape = (g.tile, g.clusters) if cluster else g.tile
+        table.setdefault(g.h, (g.chain, [], 1.0))[1].append(
+            (g.least, g.most, g.points, shape, "kept", 1.0))
+    return table
+
+
+def fit(sweep_path, before_path, cluster=False):
     """The general design's table from a sweep with ``--variants`` and the
     parent's times (BEFORE's plans' launch): {h: (chain, [(least, most,
-    points, tile, variant, ratio)], worse ratio)}, and the heights left to
-    the parent's designs with the reason."""
+    points, tile, variant, ratio)], worse ratio)}, starting from this
+    checkout's table (a height without the few-tile and the 67 MB view in
+    the sweep keeps its entries), then the one-image views' bands
+    (``bands``); and the heights left with the reason."""
     runs, before = read(sweep_path), read(before_path)
     by_h = {}
     for (h, pre, cols), rec in runs.items():
         by_h.setdefault(h, {})[(pre, cols)] = rec
-    table, left = {}, {}
-    for h, views in sorted(by_h.items()):
+    table, left = current_table(cluster), {}
+    for h, all_views in sorted(by_h.items()):
+        views = {k: all_views[k] for k in ((FEW_PRE, FEW_COLS), big_view(h)) if k in all_views}
+        if len(views) < 2:
+            continue
         chains = {tuple(v["chain"]) for r in views.values() for v in r["variants"].values()}
         best = None
         for chain in sorted(chains):
@@ -455,7 +525,7 @@ def fit(sweep_path, before_path):
             continue
         chain, picks, worst = best
         few = picks[(FEW_PRE, FEW_COLS)]
-        big = next(p for key, p in picks.items() if key != (FEW_PRE, FEW_COLS))
+        big = picks[big_view(h)]
 
         def shape(v):
             return (v["tile"], v["clusters"]) if "clusters" in v else v["tile"]
@@ -466,7 +536,76 @@ def fit(sweep_path, before_path):
                        (SPLIT + 1, ALL_COLUMNS, big[1]["points"], shape(big[1]), big[0],
                         big[2])]
         table[h] = (chain, entries, worst)
+    if not cluster:
+        bands(table, runs, before)
     return table, left
+
+
+def bands(table, runs, before):
+    """Add to ``table`` (``fit``'s form) a band for each one-image view (1,
+    H, 2H) of ``runs`` whose fastest variant in the height's chain beats
+    BEFORE's plans' launch there by ``MARGIN`` in another class or tile:
+    views of ``SPLIT`` + 1 (or the entry's least) to M columns in all take
+    it, M = the columns
+    whose grid at BEFORE's tile is two waves of the CTAs the card holds
+    (under the 67 MB view's columns), the entry it splits keeps the views
+    above M."""
+    for (h, pre, cols), rec in sorted(runs.items()):
+        if (pre, cols) != one_image(h) or one_image(h) == big_view(h) or h not in table:
+            continue
+        chain, entries, worst = table[h]
+        mine = [(v["ms"], name, v) for name, v in rec["variants"].items()
+                if tuple(v["chain"]) == tuple(chain)]
+        if not mine:
+            continue
+        ms, name, v = min(mine, key=lambda m: m[0])
+        was = before[(h, pre, cols)]
+        ratio = ms / was["plans_ms"]
+        most = min(2 * was["plans_resident"] * was["plans_tile"], big_view(h)[1] - 1)
+        at = next(i for i, e in enumerate(entries) if e[0] <= cols <= e[1])
+        least, top, points, tile, *_ = entries[at]
+        if (ratio >= MARGIN or (points, tile) == (v["points"], v["tile"])
+                or not max(least, SPLIT + 1) <= cols <= most < top):
+            continue
+        low = max(least, SPLIT + 1)
+        entries[at:at + 1] = ([(least, SPLIT, points, tile, *entries[at][4:])] * (least < low)
+                              + [(low, most, v["points"], v["tile"], name, ratio),
+                                 (most + 1, top, points, tile, *entries[at][4:])])
+        table[h] = (chain, entries, worst)
+
+
+def land(p1, c1, c2, p2):
+    """The bands of this checkout's general table (``bands``) after a P C C
+    P A/B of their views (``--views``: the one image (1, H, 2H) and the
+    band's last view (1, H, 2M)): a band stays where its one image is faster
+    in both C arms than in both P arms, to M where its last view is too and
+    to the one image's H columns where that view lost; a band whose one
+    image lost goes (the entry above it takes its views again).  Returns
+    the table (``fit``'s form) and {h: what happened}."""
+    arms = [read(p) for p in (p1, c1, c2, p2)]
+
+    def wins(key):
+        if not all(key in a for a in arms):
+            return False
+        return max(arms[1][key]["plans_ms"], arms[2][key]["plans_ms"]) < min(
+            arms[0][key]["plans_ms"], arms[3][key]["plans_ms"])
+    table, what = current_table(), {}
+    for h, (chain, entries, worst) in table.items():
+        for i, (least, most, points, tile, *_) in enumerate(entries):
+            if least <= SPLIT or most == ALL_COLUMNS:
+                continue
+            above = entries[i + 1]
+            if not wins((h, *one_image(h))):
+                entries[i:i + 2] = [(least, *above[1:])]
+                what[h] = "dropped"
+            elif most != h and not wins((h, 1, most)):
+                entries[i:i + 2] = [(least, h, points, tile, *entries[i][4:]),
+                                    (h + 1, *above[1:])]
+                what[h] = f"to {h} columns (lost at {most})"
+            else:
+                what[h] = f"to {most} columns"
+            break
+    return table, what
 
 
 def write_rule(table, cluster=False):
@@ -508,6 +647,13 @@ def quantiles(ratios):
             f"under 1: {sum(x < 1 for x in ratios)}")
 
 
+def view_name(r):
+    """Which of ``views_for``'s views a record is."""
+    key = (r["pre"], r["cols"])
+    return ("few tiles" if key == (FEW_PRE, FEW_COLS) else
+            "67 MB" if key == big_view(r["h"]) else "one image")
+
+
 def summary(before_path, after_path=None):
     """The tables PERF.md keeps of a run of this probe (and of a later one)."""
     before = read(before_path)
@@ -517,8 +663,10 @@ def summary(before_path, after_path=None):
     for name, runs in (("before", before), ("after", after)):
         if not runs:
             continue
-        for view in ("few tiles", "67 MB"):
-            sel = [r for r in runs.values() if (r["pre"] == FEW_PRE) == (view == "few tiles")]
+        for view in ("few tiles", "one image", "67 MB"):
+            sel = [r for r in runs.values() if view_name(r) == view]
+            if not sel:
+                continue
             designs = {}
             for r in sel:
                 designs[r["plans_design"]] = designs.get(r["plans_design"], 0) + 1
@@ -550,7 +698,7 @@ def ab(p1, c1, c2, p2):
         cs = (c["plans_ms"], C2[key]["plans_ms"])
         ps = (P1[key]["plans_ms"], P2[key]["plans_ms"])
         ratio = sum(cs) / sum(ps)
-        if c["plans_design"] != P1[key]["plans_design"]:
+        if any(c[k] != P1[key][k] for k in ("plans_design", "plans_tile", "plans_threads")):
             moved.append((ratio, key))
             if max(cs) >= min(ps):
                 losers.append((key, cs, ps))
@@ -592,12 +740,23 @@ def main():
     ap.add_argument("--split", action="store_true",
                     help="split the plans' launch at each view of --views into load, passes, store")
     ap.add_argument("--views", nargs="+", metavar="PRE,H,L", default=[],
-                    help="--split: the views, L floats")
+                    help="--split, or the sweep: only these views, L floats")
     ap.add_argument("--ab", nargs=4, metavar=("P1", "C1", "C2", "P2"),
                     help="compare the arms of a parent / change A/B (no GPU)")
+    ap.add_argument("--land", nargs=4, metavar=("P1", "C1", "C2", "P2"),
+                    help="keep or trim the general table's bands by an A/B of their views "
+                         "(no GPU)")
+    ap.add_argument("--one-image", action="store_true",
+                    help="only the one-image view (1, H, 2H), its variants at few waves")
     args = ap.parse_args()
-    if args.fit:
-        table, left = fit(*args.fit)
+    if args.land:
+        table, what = land(*args.land)
+        write_rule(table)
+        for h, why in sorted(what.items()):
+            print(f"{h}: band {why}")
+        print(f"{sum(w != 'dropped' for w in what.values())} of {len(what)} bands kept")
+    elif args.fit:
+        table, left = fit(*args.fit, cluster=args.cluster)
         write_rule(table, args.cluster)
         for h, (chain, entries, worst) in sorted(table.items()):
             print(f"{h}: {chain} " + "; ".join(f"{e[0]}..{e[1]} {e[4]} ({e[5]:.3f})"

@@ -136,7 +136,8 @@ held against the plain version once more, with the path's own tables:
   ``torch.fft``.
 
 Two phases after the listed kernel shapes hold the kernels and the port over
-their whole domain (neither is a path; their launches count for none):
+their whole domain, and a third splits two kernels into their parts (none
+is a path; their launches count for none):
 
 - domain: every length K1 accepts and every height K2 accepts
   (``domain_lengths()``, read from ``fused.choose_split`` and
@@ -153,10 +154,12 @@ their whole domain (neither is a path; their launches count for none):
   the rule runs the height on the ring once the tiles fill the card, the
   four launches (in place included) again on ``ring_units(grid)`` tiles:
   every stage of every persistent CTA used and then reused twice, and a
-  ragged last turn.  Every failure is listed before the phase fails; one
-  JSON line ``{"domain": {...}}`` gives the counts (K1 lengths and K2
-  heights by design), the launches, the ring's share of them, the worst
-  error and where, and the seconds;
+  ragged last turn; where the general design has a band of few-tile views
+  (one image's: a narrower tile at more CTAs an SM), a view of the band and
+  the first view of the entry above it.  Every failure is listed before the
+  phase fails; one JSON line ``{"domain": {...}}`` gives the counts (K1
+  lengths and K2 heights by design), the launches, the ring's and the
+  bands' share of them, the worst error and where, and the seconds;
 - fuzz: the seeded random specs of ``tests/test_torch_fuzz.py`` (the JAX
   file's draws, copied here) through the port's entry points on the card
   against float64 numpy / scipy oracles at the JAX file's tolerances: c2c
@@ -164,7 +167,11 @@ their whole domain (neither is a path; their launches count for none):
   ``impl: "auto"`` (K1 and K2 must both launch) and ``"xla"``, the façade
   N-D ``s=`` / ``axes=`` lane (30; both compute or both raise
   ``PlanError``), short-time / envelope (6) and the DSP toolkit (8); one JSON
-  line ``{"fuzz": {...}}``.
+  line ``{"fuzz": {...}}``;
+- split: the split probe at K1 16000 x 512 and K2 (1, 1078, 2156) in the
+  entries the rules take (``SPLIT_VIEWS``): whole, bitwise the entry's own
+  launch; every stop in place, the view left as it was; load, passes and
+  store timed beside the plans' launch; one JSON line ``{"split": [...]}``.
 
 To run either alone on the card, import ``chip_smoke`` from a script in the
 repo and call ``phase_device()``, ``phase_build()`` and then
@@ -271,7 +278,7 @@ def phase_build():
     from webgpufft_tpu_torch import _build
     t0 = time.perf_counter()
     fresh = {which: not _build.library_path(which).exists() for which in ("core", "probes")}
-    paths = _build.build_all()   # both libraries, every nvcc at once
+    paths = _build.build_all()   # both libraries, their compiles in one pool
     for which in paths:
         _build.library(which)
     secs = time.perf_counter() - t0
@@ -335,7 +342,9 @@ def phase_k1(gen):
     # design's table, which holds 16, 6, 64, 4 and 8 above); then the
     # facade path's HD frames (8640 lines of 1920) and 25 ms frames (8192
     # lines of 1200), the general design; then its 16-s seismic records
-    # trace-major (512 lines of 16000), the cluster design
+    # trace-major (512 lines of 16000), the cluster design; then the three
+    # cluster lengths on its kernel of two CTAs an SM (one exchange buffer)
+    # at the fewest lines that move 67 MB
     for n, lines, direction, normalize in [
             (1024, 4096, "forward", "unitary"), (1024, 4096, "inverse", "unitary"),
             (2048, 4096, "forward", "none"), (360, 4096, "inverse", "backward"),
@@ -354,7 +363,8 @@ def phase_k1(gen):
             (2079, 4096, "forward", "none"), (6144, 1024, "inverse", "unitary"),
             (3000, 4096, "forward", "none"), (128, 196608, "forward", "none"),
             (1920, 8640, "forward", "none"), (1200, 8192, "forward", "none"),
-            (16000, 512, "forward", "none")]:
+            (16000, 512, "forward", "none"), (14336, 293, "forward", "unitary"),
+            (14625, 287, "forward", "unitary"), (15625, 269, "forward", "unitary")]:
         scale = {"none": 1.0, "unitary": 1.0 / math.sqrt(n),
                  "backward": 1.0 / n if direction == "inverse" else 1.0}[normalize]
         tables = to_dev(fused.lines_consts(n, direction, scale, "p"))
@@ -385,7 +395,9 @@ def phase_k2(gen):
     # the kind the NS-3D main at n 32 gives it, heights of the general design;
     # then its 16-s seismic records time-major (8, 16000, 128), the cluster
     # design; then the halo fftconv [1000, 1000] x 8 and one image of the
-    # examples and distributed paths ((8, 1078, 2156), (1, 1078, 2156))
+    # examples and distributed paths ((8, 1078, 2156), (1, 1078, 2156): the
+    # general design's band of few-tile views); and one 384 x 384 image,
+    # the band that gained most
     for pre, h, lanes, direction in [
             (256, 256, 512, "forward"), (1, 256, 131072, "forward"),
             (64, 360, 512, "forward"), (256, 16, 512, "forward"),
@@ -399,7 +411,7 @@ def phase_k2(gen):
             (8, 2048, 1024, "forward"), (64, 1024, 66, "inverse"),
             (8, 1080, 3840, "forward"), (3, 32, 1088, "inverse"),
             (8, 16000, 128, "forward"), (8, 1078, 2156, "forward"),
-            (1, 1078, 2156, "forward")]:
+            (1, 1078, 2156, "forward"), (1, 384, 768, "forward")]:
         if (pre, h) == (256, 16):
             tables = cols_tables_h2_is_1(h, direction, 1.0)
             split = (16, 1)
@@ -467,7 +479,11 @@ def phase_domain(gen):
     each design), in place too where that is the fixed or the general design.  Where the
     rule runs the height on the ring once its tiles fill the card, the same
     three launches and K2 in place again on ``ring_units(grid)`` tiles: the
-    ring turned three times with a ragged tail.  Every failure is
+    ring turned three times with a ragged tail.  Where the general design
+    has a band of few-tile views (an entry of more than 128 and fewer than
+    all columns: one image's, a narrower tile at more CTAs an SM), the same
+    but the inverse at a view of the band (the one image where it holds it)
+    and at the first view of the entry above it.  Every failure is
     collected first and all of them are printed before the phase fails.
     These launches count for no path."""
     from webgpufft_tpu_torch import _build, probes
@@ -478,6 +494,7 @@ def phase_domain(gen):
     failures = []
     worst = {"err": 0.0, "at": None}
     ring = {"k2_heights": 0, "k2_tiles": 0}
+    bands = {"k2_heights": 0}   # heights with a band of few-tile views
     designs = {}   # K1 lengths by the design its rule gives them
 
     def check(label, run, plain):
@@ -570,12 +587,31 @@ def phase_domain(gen):
             ring["k2_heights"] += 1
             ring["k2_tiles"] += pre * tiles
             del big
+        # a band of few-tile views of the general design (one image's: a
+        # narrower tile, more CTAs an SM) at a view of its own, and the entry
+        # above it at its first column count
+        for g in [g for g in fused_cols.GENERAL_COLS if g.h == h and g.least > 128
+                  and g.most < radix.ALL_COLUMNS]:
+            for cols in (min(max(h, g.least), g.most), g.most + 1):
+                img = torch.randn(1, h, 2 * cols, device="cuda", generator=gen)
+                band_label = (f"K2 H={h} chain={fused_cols.cols_chain(h)} band {g.least}.."
+                              f"{g.most} view={tuple(img.shape)} "
+                              f"{fused_cols.launch_shape(1, h, cols)[0]}")
+                check(f"{band_label} forward", lambda: fused_cols.fused_cols(img, fwd),
+                      lambda: fused_cols.fused_cols_reference(img, fwd))
+                check(f"{band_label} adjoint",
+                      lambda: fused_cols.fused_cols(img, fwd, adjoint=True),
+                      lambda: fused_cols.fused_cols_reference(img, fwd, adjoint=True))
+                check(f"{band_label} in place", lambda: probes.cols_inplace(img.clone(), fwd),
+                      lambda: fused_cols.fused_cols_reference(img, fwd))
+                del img
+            bands["k2_heights"] += 1
     after = launches()
     summary = {"k1_lengths": len(k1_lengths), "k1_designs": designs,
                "k2_heights": len(k2_heights), "k2_designs": k2_designs,
                "launches": after[0] - before[0] + after[1] - before[1],
                "k1_launches": after[0] - before[0], "k2_launches": after[1] - before[1],
-               "ring": ring,
+               "ring": ring, "bands": bands,
                "worst_rel_err": worst["err"], "worst_at": worst["at"],
                "failures": len(failures), "seconds": round(time.perf_counter() - t0, 2)}
     for line in failures:
@@ -583,6 +619,75 @@ def phase_domain(gen):
     print(json.dumps({"domain": summary}))
     require(not failures, f"domain: {len(failures)} launches disagree or fail (listed above)")
     return summary
+
+
+# the split probe's views: K1 16000 x 512 (the facade's trace-major fft2 of
+# 16-s records) and K2 (1, 1078, 2156) (one image of the halo fftconv)
+SPLIT_VIEWS = (("K1", 512, 16000, 2), ("K2", 1, 1078, 2156))
+
+
+def phase_split(smi):
+    """The split probe (the plans' library's ``wgfft_cluster_split`` and
+    ``wgfft_general_cols_split``: the plans' kernel bodies stopped after the
+    load or after a pass) at ``SPLIT_VIEWS``, in the entry each rule takes
+    there (K1's cluster entry in the kernel of its CTAs an SM; K2's general
+    entry of the view's band): run whole it is bitwise the entry's variant
+    launch; each stop launched in place leaves the view as it was; its parts
+    (load, passes, store: ``variants.split_parts``) are timed beside the
+    plans' launch.  One ``{"split": [...]}`` line.  These launches count
+    for no path."""
+    from webgpufft_tpu_torch.core import fused, fused_cols, radix
+    from webgpufft_tpu_torch.probes import variants
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    out = []
+    for kernel, pre, h, lanes in SPLIT_VIEWS:
+        x = torch.randn(pre, h, lanes, device="cuda", generator=gen)
+        if kernel == "K1":
+            line = radix.CLUSTER_LINES[h]
+            t = to_dev(fused.lines_consts(h, "forward", 1.0 / math.sqrt(h), "p"))
+            chain, entry = line.chain, f"cluster E{line.points} C{line.clusters} {line.ctas}/SM"
+            run = lambda stop, v=x: variants.cluster_variant(
+                v, t, line.chain, line.points, 1, line.clusters, stop=stop, ctas=line.ctas,
+                inplace=v is not x)
+            plans = lambda: fused.fused_lines(x, t)
+            resident = fused.launch_report(h, pre).resident
+        else:
+            g = next(g for g in fused_cols.GENERAL_COLS
+                     if g.h == h and g.least <= pre * lanes // 2 <= g.most)
+            t = to_dev(fused_cols.cols_consts(h, "forward", 1.0 / math.sqrt(h), "p"))
+            chain, entry = g.chain, f"general E{g.points} tile {g.tile}"
+            run = lambda stop, v=x: variants.general_cols_variant(
+                v, t, g.chain, g.points, g.tile, stop=stop, inplace=v is not x)
+            plans = lambda: fused_cols.fused_cols(x, t)
+            resident = fused_cols.launch_shape(pre, h, lanes // 2)[1]
+        whole = run(variants.STOP_ALL)
+        require(torch.equal(whole, plans()),
+                f"split {kernel} {(pre, h, lanes)}: the probe run whole is not the plans' launch")
+        for stop in range(len(chain) + 1):
+            work = x.clone()
+            run(stop, work)
+            torch.cuda.synchronize()
+            require(torch.equal(work, x), f"split {kernel} {(pre, h, lanes)}: stop {stop} "
+                                          f"wrote the view")
+        stops = [*range(len(chain) + 1), variants.STOP_ALL]
+        arms = {k: (lambda k=k: run(k)) for k in stops}
+        arms["plans"] = plans
+        times = {a: [] for a in arms}
+        for turn in (list(arms), list(arms)[::-1]):
+            for a in turn:
+                times[a] += profile.time_queued(arms[a], runs=profile.RUNS)
+        ms = {a: profile.median(v) for a, v in times.items()}
+        parts = variants.split_parts(ms, len(chain))
+        bound = profile.bound_ms(16 * pre * h * lanes // 2, 0.0)[0]
+        out.append({"kernel": kernel, "view": [pre, h, lanes], "entry": entry,
+                    "chain": list(chain), "held": resident, "parts_ms": parts,
+                    "plans_ms": ms["plans"], "bound_ms": bound})
+        print(f"split {kernel} {(pre, h, lanes)} {entry} {chain} ({resident} held): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+              + f" ms; plans {ms['plans']:.4f} ms; bound {bound:.4f} ms [{smi}]")
+        del x, whole
+    print(json.dumps({"split": out}))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3937,6 +4042,7 @@ def main():
     k2_cases, k2_err = phase_k2(gen)
     phase_domain(gen)
     phase_fuzz()
+    phase_split(smi)
     adj_err = phase_adjoint(gen, k1_cases, k2_cases)
     print(f"kernel adjoints: worst max abs err vs the plain adjoint {adj_err:.3e}")
     probe_err, copies, lines_cases = phase_probe_kernels(gen)
@@ -4009,7 +4115,8 @@ def main():
               "lines_general_20.cu", "lines_general_24.cu", "lines_general_32.cu",
               "lines_general_64.cu", "cluster.cu", "cluster_24.cu", "cluster_32.cu",
               "cluster_64.cu"),
-             ["direct", "pow2", "warp", "mixed", "packed", "general", "cluster"],
+             ["direct", "pow2", "warp", "mixed", "packed", "general", "cluster",
+              "cluster one exchange buffer, two CTAs an SM"],
              "webgpufft_tpu/core/fused.py:223", k1_err, "N=1024 x 4096 lines",
              ("K1", 1024, 4096)),
             ("fused_cols", "fused_cols.cu",
@@ -4017,7 +4124,7 @@ def main():
               "cols_general_20.cu", "cols_general_24.cu", "cols_general_32.cu",
               "cols_general_64.cu", "cluster.cu", "cluster_24.cu", "cluster_32.cu",
               "cluster_64.cu"),
-             ["direct", "ring", "fixed", "general", "cluster"],
+             ["direct", "ring", "fixed", "general", "general few-tile band", "cluster"],
              "webgpufft_tpu/core/fused_cols.py:161", k2_err, "view (256, 256, 512)",
              ("K2", 256, 256, 512))]] + [
         {"name": name, "route": "cuda", "source": f"webgpufft_tpu_torch/csrc/probes/{src}",

@@ -8,7 +8,10 @@ classes.  ``radix.cluster_chain_reference`` is that schedule in plain
 torch (the same classes, index maps, ``cw`` entries and butterflies); here
 it is held to ``numpy.fft`` at every length of the two tables, forward,
 inverse and adjoint, to the JAX package's K1 and K2 (Pallas in interpret
-mode) at 16000 samples, and to ``radix_chain_reference`` bit for bit.
+mode) at 16000 samples, and to ``radix_chain_reference`` bit for bit; so is
+its schedule in the kernel built for two CTAs an SM (``ctas`` = 2: one
+exchange buffer of ``radix.cluster_pitch`` rows, the middle passes in
+place), at every K1 length, whichever kernel its table entry names.
 Tolerance: 1e-5 * max|expected| (conftest._assert_close).  The kernel
 itself is held to the plain versions on the card by tests/test_torch_cuda.py.
 """
@@ -169,10 +172,12 @@ def test_cluster_tables_are_the_c_header():
     ``make_plan``); K2's entries of a height share one chain (its ``cw``)
     and cover every column count; the lengths start at 11583."""
     lines = _c_table("WGFFT_CLUSTER_LINES")
-    assert {e[0]: radix.ClusterLine(e[1], e[2], e[3:]) for e in lines} == radix.CLUSTER_LINES
+    assert {e[0]: radix.ClusterLine(e[1], e[2], e[3], e[4:]) for e in lines} == \
+        radix.CLUSTER_LINES
     assert len(lines) == len(radix.CLUSTER_LINES) and min(radix.CLUSTER_LINES) >= 11583
     for n, line in radix.CLUSTER_LINES.items():
-        assert radix.cluster_plan(n, line.chain, line.points, 1, line.clusters), n
+        assert line.ctas in radix.CLUSTER_CTAS, n
+        assert radix.cluster_plan(n, line.chain, line.points, 1, line.clusters, line.ctas), n
         assert n not in radix.GENERAL_LINES and radix.lines_in_place(n)
     cols = _c_table("WGFFT_CLUSTER_COLS")
     assert tuple(fused_cols.ClusterCols(*e[:6], e[6:]) for e in cols) == fused_cols.CLUSTER_COLS
@@ -218,3 +223,107 @@ def test_cluster_plan_refuses_what_the_kernel_does_not_run():
     assert radix.cluster_plan(16000, (32, 25, 21), 32, 1, 2) is None
     assert radix.cluster_plan(16000, (32, 25, 20), 32, 3, 2) is None
     assert radix.cluster_plan(16000, (32, 25, 20), 32, 8, 2) is None       # 2 * 8000 * 8 * 8
+
+
+@pytest.mark.parametrize("direction,adjoint", MODES)
+@pytest.mark.parametrize("n", LENGTHS)
+def test_k1_one_buffer_schedule_matches_numpy(n, direction, adjoint, rng, assert_close):
+    """The kernel built for two CTAs an SM at every length of K1's cluster
+    table, on the entry's chain and cluster size: the first pass lands each
+    CTA's classes in its one buffer (NaN elsewhere), each middle pass reads
+    all of its points before it writes its outputs over them, the last reads
+    the buffer (``radix.cluster_chain_reference(..., ctas=2)``); on three
+    lines against ``numpy.fft``, unitary scale, forward, inverse and
+    adjoint."""
+    line = radix.CLUSTER_LINES[n]
+    scale = 1.0 / math.sqrt(n)
+    x = rng.standard_normal((3, n, 2)).astype(np.float32)
+    got = radix.cluster_chain_reference(
+        torch.from_numpy(x), line.chain, line.clusters,
+        _tables(fused.lines_consts(n, direction, scale, "p")), adjoint, ctas=2)
+    want = _numpy_ref(x[..., 0] + 1j * x[..., 1], direction, adjoint, scale, 1)
+    assert not torch.isnan(got).any()
+    assert_close(got.numpy(), np.stack([want.real, want.imag], -1).astype(np.float32),
+                 label=f"K1 one-buffer n={n} {line} {direction} adjoint={adjoint}")
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+def test_k1_one_buffer_schedule_matches_jax_at_16000(direction, adjoint, rng, assert_close):
+    """16 s at 1 ms, trace-major, in the kernel of one exchange buffer: the
+    schedule at N = 16000 (32 * 25 * 20 over 2 CTAs, the radix-25 pass in
+    place) against the JAX package's K1 (``build_fused_lines``, interpret
+    mode) on the same numpy input, unitary scale; the adjoint as
+    conj(F conj x)."""
+    n, lines = 16000, 3
+    scale = normalize_scale("unitary", direction, n)
+    x = rng.standard_normal((lines, n, 2)).astype(np.float32)
+    consts = {}
+    fn = jfused.build_fused_lines(n, lines, direction, TuningSpec(), consts, scale, prefix="p")
+    run = lambda v: np.asarray(fn(jnp.asarray(v), {k: jnp.asarray(c) for k, c in consts.items()}))
+    flip = np.array([1, -1], np.float32)
+    want = run(x * flip) * flip if adjoint else run(x)
+    chain = radix.lines_chain(n)
+    got = radix.cluster_chain_reference(
+        torch.from_numpy(x), chain, 2, _tables(fused.lines_consts(n, direction, scale, "p")),
+        adjoint, ctas=2)
+    assert_close(got.numpy(), want, label=f"K1 one-buffer 16000 {direction} adjoint={adjoint}")
+
+
+@pytest.mark.parametrize("n,clusters", [(n, c) for n in LENGTHS for c in radix.CLUSTER_SIZES
+                                        if radix.CLUSTER_LINES[n].chain[0] >= 2 * c])
+def test_one_buffer_schedule_is_the_pass_schedule(n, clusters):
+    """Through one buffer, the middle passes in place, the schedule gives
+    the chain's own Stockham result bit for bit, as the two buffers do: the
+    buffer moves no arithmetic."""
+    chain = radix.CLUSTER_LINES[n].chain
+    tables = _tables(radix.chain_consts(n, "forward", 1.0, "p", chain))
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal((1, n, 2)).astype(np.float32))
+    assert torch.equal(radix.cluster_chain_reference(x, chain, clusters, tables, ctas=2),
+                       radix.radix_chain_reference(x, chain, tables))
+
+
+# registers a thread of each class (ptxas at the classes' __launch_bounds__:
+# the kernel of two CTAs an SM has half the threads at the same registers)
+CLASS_REGISTERS = {24: 128, 32: 128, 64: 184}
+
+
+@pytest.mark.parametrize("n", LENGTHS)
+def test_one_buffer_plan_holds_two_ctas_an_sm(n):
+    """``radix.cluster_plan`` (the C ``make_plan``) of every two-CTA variant
+    the sweep tries at a length (``probes.variants.cluster_candidates``):
+    one exchange buffer of ``radix.cluster_pitch`` rows, under half of the
+    228 KB an SM has, and threads times the class's registers within half
+    of the SM's 65,536; the table's entry is such a shape where it names two
+    CTAs an SM."""
+    from webgpufft_tpu_torch.probes import variants
+    cands = variants.cluster_candidates(n, (1,), (2,))
+    line = radix.CLUSTER_LINES[n]
+    if line.ctas == 2:
+        assert any((c, e, clusters) == (line.chain, line.points, line.clusters)
+                   for _, c, e, _, clusters, _ in cands)
+    for name, chain, points, tile, clusters, ctas in cands:
+        assert ctas == 2 and tile == 1
+        threads, smem = radix.cluster_plan(n, chain, points, 1, clusters, 2)
+        assert smem == radix.cluster_pitch(n, chain, clusters) * 8, name
+        assert 2 * smem <= 228 << 10, name
+        assert threads * CLASS_REGISTERS[points] <= 32768, name
+        assert threads <= radix.CLUSTER_CTAS[2][points] == radix.CLUSTER_CLASSES[points] // 2
+
+
+def test_one_buffer_plan_at_16000():
+    """16000 = 32 * 25 * 20 over 2 CTAs in the 64-point class: 160 threads
+    (400 butterflies of radix 20 at three a thread, 320 of radix 25 at two),
+    one buffer of 8000 points and a point of padding in every 16 (67,992 B:
+    two CTAs fit an SM); the 32-point class needs 400 threads, over the
+    256 its kernel of two CTAs an SM has; the kernel of one CTA an SM takes
+    two buffers."""
+    assert radix.cluster_plan(16000, (32, 25, 20), 64, 1, 2, 2) == (160, (8000 + 499) * 8)
+    assert radix.cluster_plan(16000, (32, 25, 20), 32, 1, 2, 2) is None
+    assert radix.cluster_plan(16000, (32, 25, 20), 64, 1, 2, 1) == (160, 2 * (8000 + 499) * 8)
+    assert radix.cluster_plan(16000, (32, 25, 20), 64, 1, 2, 3) is None
+    assert radix.cluster_pitch(16000, (32, 25, 20), 2) == 8000 + 499
+    with pytest.raises(ValueError):
+        radix.cluster_chain_reference(torch.zeros(1, 16000, 2), (32, 25, 20), 2,
+                                      _tables(fused.lines_consts(16000, "forward", 1.0, "p")),
+                                      ctas=3)

@@ -524,3 +524,43 @@ def test_wrapper_and_fixed_probe_run_the_plain_version_on_the_cpu(h, pre, cols, 
     assert_close(inplace.numpy(), want, label=f"K2 fixed probe in place {name}")
     with pytest.raises(ValueError, match="runs H ="):
         variants.cols_fixed_variant(torch.zeros(1, h + 1, 8), t, name)
+
+
+# K2's general design's bands of few-tile views: an entry of more than
+# SPLIT and fewer than all columns, fitted where one H x H image (whose grid
+# at the 67 MB entry's tile fills under two waves of the card) won on
+# another tile or class (chip_probes/k2_general_variants.py --one-image)
+BANDS = [g for g in fused_cols.GENERAL_COLS
+         if g.least > 128 and g.most < fused_cols.ALL_COLUMNS]
+
+
+@pytest.mark.parametrize("band", BANDS, ids=lambda g: f"{g.h}-{g.least}-{g.most}")
+def test_one_image_band_of_the_general_design(band):
+    """A band starts after the few-tile entry's 128 columns, holds its
+    height's one-image view (1, H, 2H), and ends where the entry above it
+    (to kAllColumns, another tile or class) takes over, below the 67 MB
+    view's columns; the rule gives the band at its view and the entry above
+    it past its end."""
+    h = band.h
+    above = next(g for g in fused_cols.GENERAL_COLS if g.h == h and g.least == band.most + 1)
+    assert above.most == fused_cols.ALL_COLUMNS and (above.points, above.tile) != (
+        band.points, band.tile)
+    assert band.least == 129 and band.least <= h <= band.most
+    assert band.most < math.ceil((1 << 26) / (16 * h))
+    one = fused_cols.cols_rule(1, h, h, SMS)
+    assert (one.design, one.tile) == ("general", band.tile)
+    assert one.threads == fused_cols.general_cols_threads(h, band.chain, band.points, band.tile)
+    assert fused_cols.cols_rule(1, h, band.most + 1, SMS).tile == above.tile
+
+
+def test_halo_fftconv_one_image_takes_its_band():
+    """The halo fftconv's one image of 1078 rows (1, 1078, 2156) runs the
+    general design's band of few-tile views (tiles of 4, where 270 tiles
+    fill two CTAs an SM), eight images (8, 1078, 2156) the 67 MB entry
+    (tiles of 8), and the HD frames (8, 1080, 3840) theirs, unmoved."""
+    band = next(g for g in BANDS if g.h == 1078)
+    one, eight = fused_cols.cols_rule(1, 1078, 1078, SMS), fused_cols.cols_rule(8, 1078, 1078, SMS)
+    assert (one.tile, one.units) == (band.tile, -(-1078 // band.tile)) == (4, 270)
+    assert eight.tile == 8 and 8 * 1078 > band.most
+    assert fused_cols.cols_rule(8, 1080, 1920, SMS).tile == 4
+    assert not any(g.h == 1080 for g in BANDS)

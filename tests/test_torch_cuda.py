@@ -433,15 +433,71 @@ def test_cluster_design_at_each_length_of_the_rule(n, cuda_device):
     assert_close(zo.cpu(), want, label=f"{label} offset view in place")
     assert torch.equal(work[0], base[0])   # the point before the view untouched
     launch = fused.launch_report(n, lines)
-    assert launch.design == "cluster" and launch.resident >= 1
+    assert launch.design == "cluster" and launch.resident >= line.ctas
     assert launch.grid == launch.work == lines * line.clusters
-    report = variants.cluster_report(lines, n, 1, line.chain, line.points, 1, line.clusters)
+    report = variants.cluster_report(lines, n, 1, line.chain, line.points, 1, line.clusters,
+                                     line.ctas)
     assert report.clusters >= 1 and report.grid == lines * line.clusters
+    assert report.resident == launch.resident
     for other in {radix.radix_chain(n), line.chain[::-1]} - {line.chain}:
         rc = _build.library().wgfft_fused_lines(
             x.data_ptr(), y.data_ptr(), t["cw"].data_ptr(), t["cp"].data_ptr(), lines, n,
             *_build.chain_arg(other), 0, torch.cuda.current_stream().cuda_stream)
         assert rc == 1, other   # cudaErrorInvalidValue
+
+
+@pytest.mark.parametrize("n", sorted(radix.CLUSTER_LINES))
+def test_one_buffer_cluster_kernel_at_each_length(n, cuda_device):
+    """The cluster design's kernel built for two CTAs an SM (one exchange
+    buffer, the middle passes in place) at every K1 cluster length, in every
+    variant the sweep tries (``probes.variants.cluster_candidates(n, (1,),
+    (2,))``): forward, inverse unitary and the adjoint launch against the
+    plain version on the variant's chain, in place too; its report holds two
+    CTAs an SM at least and one buffer of ``radix.cluster_plan``'s size."""
+    from webgpufft_tpu_torch.probes import variants
+    lines = 3
+    gen = torch.Generator(device=cuda_device).manual_seed(n + 24)
+    x = torch.randn(lines, n, 2, device=cuda_device, generator=gen)
+    cands = variants.cluster_candidates(n, (1,), (2,))
+    assert cands
+    for name, chain, points, _, clusters, ctas in cands:
+        t = _dev_tables(radix.chain_consts(n, "forward", 1.0, "p", chain), cuda_device)
+        inv = _dev_tables(radix.chain_consts(n, "inverse", 1.0 / math.sqrt(n), "p", chain),
+                          cuda_device)
+        run = lambda tt, adj=False, inplace=False: variants.cluster_variant(
+            x.clone() if inplace else x, tt, chain, points, 1, clusters, adj, inplace,
+            ctas=ctas)
+        label = f"K1 one-buffer n={n} {name}"
+        assert_close(run(t).cpu(), radix.radix_chain_reference(x, chain, t).cpu(), label=label)
+        assert_close(run(inv).cpu(), radix.radix_chain_reference(x, chain, inv).cpu(),
+                     label=f"{label} inverse")
+        assert_close(run(t, True).cpu(), radix.radix_chain_reference(x, chain, t, True).cpu(),
+                     label=f"{label} adjoint")
+        assert torch.equal(run(t, inplace=True), run(t)), label
+        report = variants.cluster_report(lines, n, 1, chain, points, 1, clusters, ctas)
+        threads, smem = radix.cluster_plan(n, chain, points, 1, clusters, ctas)
+        assert report.resident >= 2 and (report.threads, report.shared) == (threads, smem), label
+
+
+def test_one_image_band_holds_two_ctas_an_sm(cuda_device):
+    """K2's general band of few-tile views at the halo fftconv's one image
+    (1, 1078, 2156): the C rule (``fused_cols.launch_shape``, held to its
+    Python copy) gives the band's tile, and the card holds two of its CTAs
+    an SM at least (one of the 67 MB entry's, which (8, 1078, 2156) runs);
+    the launch matches the plain version, forward and adjoint."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    band = next(g for g in fused_cols.GENERAL_COLS if g.h == 1078 and g.least <= 1078 <= g.most)
+    one, held = fused_cols.launch_shape(1, 1078, 1078)
+    eight, held8 = fused_cols.launch_shape(8, 1078, 1078)
+    assert (one.design, one.tile) == ("general", band.tile) and eight.tile != band.tile
+    assert held >= 2 * sms and held > held8
+    t = _dev_tables(fused_cols.cols_consts(1078, "forward", 1.0, "p"), cuda_device)
+    x = torch.randn(1, 1078, 2156, device=cuda_device,
+                    generator=torch.Generator(device=cuda_device).manual_seed(1078))
+    for adj in (False, True):
+        assert_close(fused_cols.fused_cols(x, t, adjoint=adj).cpu(),
+                     fused_cols.fused_cols_reference(x, t, adj).cpu(),
+                     label=f"K2 (1, 1078, 2156) band adjoint={adj}")
 
 
 def test_k1_rule_is_one_table_in_c_and_python(cuda_device):
@@ -607,7 +663,9 @@ def _general_views(h):
     """(pre, cols) views of each entry of K2's general design at height h:
     (2, 33) (66 columns in all, ragged against every tile) where an entry
     holds it, and 1 x (129 or the tile + 1, whichever is more) where a
-    later entry holds 129 columns."""
+    later entry holds 129 columns; an entry of few-tile views (a band that
+    ends below kAllColumns) at its one-image view (1, h) too, and an entry
+    that starts above 129 at its first column count."""
     entries = [g for g in fused_cols.GENERAL_COLS if g.h == h]
     views = []
     for g in entries:
@@ -615,6 +673,10 @@ def _general_views(h):
             views.append((2, 33, g))
         if g.least <= max(129, g.tile + 1) <= g.most and g.most > 66:
             views.append((1, max(129, g.tile + 1), g))
+        if g.least > 129:
+            views.append((1, g.least, g))
+        if g.least > 66 and g.most < radix.ALL_COLUMNS and g.least <= h <= g.most:
+            views.append((1, h, g))
     return views
 
 
@@ -733,21 +795,25 @@ def test_cluster_cols_design_at_each_height_of_the_rule(h, cuda_device):
 
 def test_cluster_launch_refused_raises(cuda_device):
     """No fallback: a shape the cluster design does not run (a cluster of 16,
-    a first radix under twice the cluster) comes back from the C entry point
-    as cudaErrorInvalidValue with nothing launched, and the wrapper raises."""
+    a first radix under twice the cluster, a kernel of two CTAs an SM with
+    too many threads or at 24 points, three CTAs an SM) comes back from the
+    C entry point as cudaErrorInvalidValue with nothing launched, and the
+    wrapper raises."""
     from webgpufft_tpu_torch import _build
     from webgpufft_tpu_torch.probes import variants
     n = 16000
     t = _dev_tables(radix.chain_consts(n, "forward", 1.0, "p", (32, 25, 20)), cuda_device)
     x = torch.zeros(1, n, 2, device=cuda_device)
-    for chain, clusters in (((32, 25, 20), 16), ((32, 25, 20), 3), ((10, 20, 16, 5), 8)):
+    for chain, points, clusters, ctas in (
+            ((32, 25, 20), 32, 16, 1), ((32, 25, 20), 32, 3, 1), ((10, 20, 16, 5), 32, 8, 1),
+            ((32, 25, 20), 32, 2, 2), ((16, 20, 10, 5), 24, 4, 2), ((32, 25, 20), 64, 2, 3)):
         rc = _build.library().wgfft_cluster(
             x.data_ptr(), x.data_ptr(), t["cw"].data_ptr(), t["cp"].data_ptr(), 1, n, 1,
-            *_build.chain_arg(chain), 32, 1, clusters, 0, None,
+            *_build.chain_arg(chain), points, 1, clusters, ctas, 0, None,
             torch.cuda.current_stream().cuda_stream)
-        assert rc == 1, (chain, clusters)
+        assert rc == 1, (chain, points, clusters, ctas)
         with pytest.raises(ValueError, match="does not run"):
-            variants.cluster_variant(x, t, chain, 32, 1, clusters)
+            variants.cluster_variant(x, t, chain, points, 1, clusters, ctas=ctas)
     with pytest.raises(RuntimeError, match="CUDA launch failed"):
         _build.check(1, "cluster_variant")
 
@@ -1813,10 +1879,11 @@ def test_training_step_kernel_gradient_on_the_card(cuda_device):
     assert_close(grads[0], grads[1], label="d loss / d kernel")
 
 
-# The split probe (csrc/probes/split.cu): the plans' kernel bodies of the
-# cluster design and of K2's general design, stopped after the load or after
-# a pass.  Every cluster entry of K1 and K2, and the general entries of the
-# paths' heights and one height of each class.
+# The split probe (the plans' library's wgfft_cluster_split and
+# wgfft_general_cols_split): the plans' kernel bodies of the cluster design
+# (in the kernel of the entry's CTAs an SM) and of K2's general design,
+# stopped after the load or after a pass.  Every cluster entry of K1 and K2,
+# and the general entries of the paths' heights and one height of each class.
 SPLIT_GENERAL_HEIGHTS = sorted({1078, 1080, 1920, 6561} | {
     next(g.h for g in fused_cols.GENERAL_COLS if g.points == e)
     for e in {g.points for g in fused_cols.GENERAL_COLS}})
@@ -1833,9 +1900,11 @@ def test_split_probe_runs_the_plans_kernel(design, h, cuda_device):
     count launches in place on the view and leaves it as it was (a stopped
     launch writes shared memory only), on an 8-byte offset view too."""
     from webgpufft_tpu_torch.probes import variants
+    extra = {}
     if design == "K1":
         line = radix.CLUSTER_LINES[h]
         views = [(3, 1, line.chain, line.points, (1, line.clusters))]
+        extra = {"ctas": line.ctas}
     else:
         pick = _cluster_views if design == "cluster" else _general_views
         views = [(pre, cols, g.chain, g.points,
@@ -1850,14 +1919,14 @@ def test_split_probe_runs_the_plans_kernel(design, h, cuda_device):
         for off in (0, 1):
             x = base[off:off + pre * h * cols].view(pre, h, 2 * cols)
             for adj in (False, True):
-                whole = run(x, t, chain, points, *shape, adj, stop=variants.STOP_ALL)
-                plans = run(x, t, chain, points, *shape, adj)
+                whole = run(x, t, chain, points, *shape, adj, stop=variants.STOP_ALL, **extra)
+                plans = run(x, t, chain, points, *shape, adj, **extra)
                 assert torch.equal(whole, plans), f"{label} adjoint {adj}"
                 want = radix.radix_chain_reference(x.reshape(pre, h, cols, 2), chain, t, adj)
                 assert_close(whole.cpu(), want.reshape(x.shape).cpu(), label=label)
             for stop in range(len(chain) + 1):
                 work = base.clone()
                 run(work[off:off + pre * h * cols].view(pre, h, 2 * cols), t, chain, points,
-                    *shape, inplace=True, stop=stop)
+                    *shape, inplace=True, stop=stop, **extra)
                 torch.cuda.synchronize()
                 assert torch.equal(work, base), f"{label} offset {off} stop {stop}"

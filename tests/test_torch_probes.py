@@ -424,10 +424,7 @@ def test_probe_library_is_a_second_library():
     assert {s.name for s in _build.sources("probes")} == {
         "stream_copy.cu", "lines_stages.cu", "lines_planes.cu", "tile_copy.cu",
         "cols_variants.cu", "cols_fixed_variants.cu", "lines_variants.cu",
-        "lines_mixed_variants.cu", "lines_mixed_variants_long.cu", "lines_packed_variants.cu",
-        "split.cu", "split_cluster_24.cu", "split_cluster_32.cu", "split_general_16.cu",
-        "split_general_20.cu", "split_general_24.cu", "split_general_32.cu",
-        "split_general_64.cu"}
+        "lines_mixed_variants.cu", "lines_mixed_variants_long.cu", "lines_packed_variants.cu"}
     assert {s.name for s in _build.sources("core")} == {
         "fused_lines.cu", "fused_cols.cu", "cols_fixed.cu", "lines_pow2.cu", "lines_warp.cu",
         "lines_mixed.cu", "lines_packed.cu", "lines_packed_2.cu", "lines_packed_3.cu",
@@ -583,17 +580,29 @@ def test_split_stop_runs_on_the_card_only():
 
 
 def test_split_probe_has_a_kernel_for_every_class_of_the_tables():
-    """csrc/probes/split.cu instantiates the split kernels one class a file:
-    every class the cluster tables (K1 and K2) and the general design's
-    table use has its file, and the entry point takes the cluster classes
-    it has."""
+    """The split kernels are instantiated in the plans' own class files,
+    beside the kernel whose pass bodies they call (``cluster_<E>.cu``,
+    ``cols_general_<E>.cu``; no split source compiles those bodies again):
+    every class of the cluster design (``radix.CLUSTER_CLASSES``, which the
+    cluster tables of K1 and K2 and the kernel of two CTAs an SM use) and of
+    the general design's table has its split launch, and the entry points
+    (``cluster.cu``, ``cols_general.cu``) dispatch every class."""
     from webgpufft_tpu_torch.core import fused_cols
-    names = {s.name for s in _build.sources("probes")}
-    cluster = {e.points for e in radix.CLUSTER_LINES.values()} | {
-        g.points for g in fused_cols.CLUSTER_COLS}
+    names = {s.name for s in _build.sources("core")}
+    cluster = set(radix.CLUSTER_CLASSES)
+    assert {e.points for e in radix.CLUSTER_LINES.values()} | {
+        g.points for g in fused_cols.CLUSTER_COLS} <= cluster
     general = {g.points for g in fused_cols.GENERAL_COLS}
-    assert {f"split_cluster_{e}.cu" for e in cluster} <= names
-    assert {f"split_general_{e}.cu" for e in general} <= names
-    text = (_build.CSRC / "probes" / "split.cu").read_text()
-    assert all(f"cluster_{e}(" in text for e in cluster)
-    assert all(f"general_{e}(" in text for e in general)
+    assert not any(name.startswith("split") for name in
+                   {s.name for s in _build.sources("probes")})
+    for e in cluster:
+        assert f"cluster_{e}.cu" in names
+        text = (_build.CSRC / f"cluster_{e}.cu").read_text()
+        assert f"cudaError_t split_{e}(" in text and "launch_kernel<" in text
+    for e in general:
+        assert f"cols_general_{e}.cu" in names
+        assert f"cudaError_t split_{e}(" in (_build.CSRC / f"cols_general_{e}.cu").read_text()
+    entry = (_build.CSRC / "cluster.cu").read_text().split("wgfft_cluster_split", 1)[1]
+    assert all(f"split_{e}(g, stop)" in entry for e in cluster)
+    entry = (_build.CSRC / "cols_general.cu").read_text().split("wgfft_general_cols_split", 1)[1]
+    assert all(f"split_{e}(g, stop)" in entry for e in general)

@@ -8,8 +8,9 @@ build takes seconds, not minutes), each built at its own first use:
   ``webgpufft_tpu_torch.probes``.  No plan path loads it, so importing or
   running a plan never pays for it.
 
-Both include ``csrc/*.cuh``.  One ``nvcc -c`` per source, all started
-together, then one link:
+Both include ``csrc/*.cuh``.  One ``nvcc -c`` per source, as many at a
+time as the machine has cores (the longest first, ``LONG_FIRST``), then
+one link:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
          -Xcompiler -fPIC -I csrc -c -o _build/<name>.o csrc/<name>.cu
@@ -20,7 +21,7 @@ sources, the headers and the flags, so a later process in the same checkout
 reuses it and an edited source builds anew.  Nothing is prebuilt or
 downloaded.  Only the first CUDA launch calls :func:`library`; importing
 this module touches neither ``nvcc`` nor the GPU.  :func:`build_all` builds
-both libraries at once, every compile in parallel.
+both libraries at once, their compiles in one pool.
 """
 
 from __future__ import annotations
@@ -70,12 +71,25 @@ _SIGNATURES = {
                                ctypes.c_longlong, _INTS, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong), _P),
         # x, y, cw, cp, pre, h, cols, radices, count, points, tile, clusters,
-        # adjoint, report (6 long longs or null: CTAs an SM, SMs, clusters the
-        # device holds, grid, threads, shared bytes), stream: the cluster
-        # design of K1 (a (lines, N, 1) view, tile 1) and K2 on any chain it runs
+        # ctas (the kernel built for 1 or 2 CTAs an SM), adjoint, report (6
+        # long longs or null: CTAs an SM, SMs, clusters the device holds,
+        # grid, threads, shared bytes), stream: the cluster design of K1 (a
+        # (lines, N, 1) view, tile 1) and K2 on any chain it runs
         "wgfft_cluster": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                           _INTS, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_int, ctypes.POINTER(ctypes.c_longlong), _P),
+                          ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong), _P),
+        # x, y, cw, cp, pre, h, cols, radices, count, points, tile, clusters,
+        # ctas, stop, adjoint, stream: the cluster design to the split
+        # probe's stop (no plan launches it)
+        "wgfft_cluster_split": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                                ctypes.c_longlong, _INTS, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_int, _P),
+        # x, y, cw, cp, pre, h, cols, radices, count, points, tile, stop,
+        # adjoint, stream: K2's general design to the split probe's stop
+        "wgfft_general_cols_split": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_longlong, _INTS, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
         # x, y, cw, cp, pre, h, cols, radices, count, adjoint, stream
         "wgfft_fused_cols": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                              ctypes.c_longlong, _INTS, ctypes.c_int, ctypes.c_int, _P),
@@ -115,16 +129,6 @@ _SIGNATURES = {
         # x, y, cw, cp, pre, h, cols, variant, adjoint, slots (int* or null), stream
         "wgfft_cols_fixed": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                              ctypes.c_int, ctypes.c_int, _INTS, _P),
-        # x, y, cw, cp, pre, h, cols, radices, count, points, tile, clusters,
-        # stop, adjoint, stream: the cluster design to the split probe's stop
-        "wgfft_cluster_split": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                                ctypes.c_longlong, _INTS, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
-        # x, y, cw, cp, pre, h, cols, radices, count, points, tile, stop,
-        # adjoint, stream: K2's general design to the split probe's stop
-        "wgfft_general_cols_split": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_longlong, _INTS, ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
     },
 }
 _SOURCE_DIRS = {"core": CSRC, "probes": CSRC / "probes"}
@@ -170,26 +174,53 @@ def library_path(which: str = "core") -> Path:
     return BUILD_DIR / f"libwgfft_{tag}{h.hexdigest()[:16]}.so"
 
 
-def build(which: str = "core") -> Path:
-    """Compile the sources unless the library for them already exists."""
+# the sources whose compile takes longest (45 s or more each on the H100
+# machine's 8 cores), longest first: they start first, so that the bounded
+# pool of compiles does not end on one of them
+LONG_FIRST = ("cluster_64.cu", "fused_cols.cu", "cols_variants.cu", "lines_planes.cu",
+              "cluster_32.cu", "lines_stages.cu", "fused_lines.cu", "cluster_24.cu")
+
+
+def _jobs(which: str):
+    """(source, object, nvcc command) of every source of a library that is
+    not built yet, and where the library goes; no jobs where it exists."""
     out = library_path(which)
     if out.exists():
-        return out
+        return out, []
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     stem = f"{out.stem}.{os.getpid()}"
     jobs = []
     for src in sources(which):
         obj = BUILD_DIR / f"{stem}.{src.stem}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
-        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                stderr=subprocess.STDOUT, text=True)))
-    logs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, _, proc in jobs]
-    tmp = BUILD_DIR / f"{stem}.tmp.so"
+        jobs.append((src, obj, [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+                                str(src)]))
+    return out, jobs
+
+
+def _compile(jobs) -> Dict[Path, Tuple[str, int]]:
+    """Run the compiles, as many at a time as the machine has cores (more at
+    once only slowed the whole build down), the sources of ``LONG_FIRST``
+    first; {object: (log, exit code)}."""
+    order = sorted(jobs, key=lambda j: LONG_FIRST.index(j[0].name)
+                   if j[0].name in LONG_FIRST else len(LONG_FIRST))
+
+    def run(job):
+        proc = subprocess.run(job[2], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+        return job[1], (proc.stdout, proc.returncode)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 8) as pool:
+        return dict(pool.map(run, order))
+
+
+def _link(out: Path, jobs, logs) -> Path:
+    """Link a library's objects into ``out`` (raising on a failed compile)
+    and remove the objects."""
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
     try:
-        for cmd, log, rc in logs:
-            _require_ok(cmd, log, rc)
-        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+        for _, obj, cmd in jobs:
+            _require_ok(cmd, *logs[obj])
+        cmd = [find_nvcc(), "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
         proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         _require_ok(cmd, proc.stdout, proc.returncode)
         os.replace(tmp, out)  # atomic: a concurrent process sees all or nothing
@@ -199,11 +230,19 @@ def build(which: str = "core") -> Path:
     return out
 
 
+def build(which: str = "core") -> Path:
+    """Compile the sources unless the library for them already exists."""
+    out, jobs = _jobs(which)
+    return _link(out, jobs, _compile(jobs)) if jobs else out
+
+
 def build_all() -> Dict[str, Path]:
-    """Build both libraries side by side (a thread each, so every ``nvcc``
-    of both runs at once) and return their paths."""
-    with ThreadPoolExecutor(max_workers=len(_SOURCE_DIRS)) as pool:
-        return dict(zip(_SOURCE_DIRS, pool.map(build, _SOURCE_DIRS)))
+    """Build both libraries at once (one pool of compiles for the sources
+    of both, ``_compile``) and return their paths."""
+    plans = {which: _jobs(which) for which in _SOURCE_DIRS}
+    logs = _compile([job for _, jobs in plans.values() for job in jobs])
+    return {which: _link(out, jobs, logs) if jobs else out
+            for which, (out, jobs) in plans.items()}
 
 
 def _require_ok(cmd, log: str, rc: int) -> None:

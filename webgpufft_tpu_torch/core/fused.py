@@ -165,7 +165,8 @@ def fused_lines_chain_reference(x: torch.Tensor, tables: Dict[str, torch.Tensor]
     n = x.shape[1]
     line = radix.CLUSTER_LINES.get(n)
     if line is not None:
-        return radix.cluster_chain_reference(x, line.chain, line.clusters, tables, adjoint)
+        return radix.cluster_chain_reference(x, line.chain, line.clusters, tables, adjoint,
+                                             line.ctas)
     return radix.radix_chain_reference(x, radix.lines_chain(n), tables, adjoint)
 
 

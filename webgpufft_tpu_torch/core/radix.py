@@ -368,10 +368,13 @@ GENERAL_LINES = {e[0]: GeneralLine(e[1], e[2], tuple(e[3:])) for e in _GENERAL}
 # the cluster design (csrc/cluster.cuh, one kernel a class for K1 and K2):
 # its cluster sizes, and its classes (cluster::max_threads): the most points
 # a thread holds -> the most threads a CTA (the least radix as in
-# GENERAL_CLASSES)
+# GENERAL_CLASSES); CTAs an SM -> the classes of the kernel built for that
+# many: two CTAs an SM (one exchange buffer) at half the threads and the same
+# registers a thread, at 32 and 64 points
 CLUSTER_HEADER = Path(__file__).resolve().parent.parent / "csrc" / "cluster.cuh"
 CLUSTER_SIZES = (2, 4, 8)
 CLUSTER_CLASSES = {24: 512, 32: 512, 64: 352}
+CLUSTER_CTAS = {1: CLUSTER_CLASSES, 2: {32: 256, 64: 176}}
 ALL_COLUMNS = 1 << 40   # kAllColumns (csrc/cols_fixed.cuh): an entry with no upper end
 
 
@@ -391,16 +394,19 @@ def read_table(text: str, name: str) -> Tuple[Tuple[int, ...], ...]:
 class ClusterLine(NamedTuple):
     """A length's entry in K1's cluster design's table."""
     points: int               # the most points a thread holds: the kernel's class
+    ctas: int                 # CTAs an SM its kernel is built for: 1, two exchange
+                              # buffers; 2, one (the middle passes in place)
     clusters: int             # CTAs a cluster, a line split over them
     chain: Tuple[int, ...]    # the first radix across the cluster
 
 
-# N -> (points, clusters, chain) of the cluster design (csrc/cluster.cu): the
-# lengths from 11583 that no single CTA of the general design holds, where
-# its sweep on the H100 beat the direct design at both line counts; read
-# from WGFFT_CLUSTER_LINES of csrc/cluster.cuh, which
+# N -> (points, ctas, clusters, chain) of the cluster design
+# (csrc/cluster.cu): the lengths from 11583 that no single CTA of the general
+# design holds, where its sweep on the H100 beat the direct design at both
+# line counts (and the kernel of two CTAs an SM beat that of one at both);
+# read from WGFFT_CLUSTER_LINES of csrc/cluster.cuh, which
 # chip_probes/k1_general_variants.py --cluster --fit writes
-CLUSTER_LINES = {e[0]: ClusterLine(e[1], e[2], tuple(e[3:]))
+CLUSTER_LINES = {e[0]: ClusterLine(e[1], e[2], e[3], tuple(e[4:]))
                  for e in read_table(CLUSTER_HEADER.read_text(), "WGFFT_CLUSTER_LINES")}
 
 
@@ -480,42 +486,55 @@ def general_threads(n: int, chain: Sequence[int], points: int, lines: int) -> Op
     return threads if threads <= most else None
 
 
+def cluster_pitch(n: int, chain: Sequence[int], clusters: int, tile: int = 1) -> int:
+    """Rows of a CTA's exchange buffer in the cluster design's kernel for
+    ``chain`` of length (height) ``n`` over ``clusters`` CTAs at tiles of
+    ``tile`` columns (the C ``make_plan``'s pitch): the most that any
+    pass's layout of either side's Q * n / chain[0] points takes, a row of
+    padding in every Q after the first pass where Q is even and in every
+    ns * R after a middle pass of even radix R, where the tile is narrower
+    than 16 columns."""
+    pad = tile < 16
+    m0 = n // chain[0]
+    pitch = 0
+    for q in {chain[0] // clusters, -(-chain[0] // clusters)}:
+        local = q * m0
+        pitch = max(pitch, local + ((local - 1) // q if pad and q % 2 == 0 else 0))
+        ns = q
+        for p, r in enumerate(chain[1:], 1):
+            if pad and p + 1 < len(chain) and r % 2 == 0:
+                pitch = max(pitch, local + (local - 1) // (ns * r))
+            ns *= r
+    return pitch
+
+
 def cluster_plan(h: int, chain: Sequence[int], points: int, tile: int,
-                 clusters: int) -> Optional[Tuple[int, int]]:
+                 clusters: int, ctas: int = 1) -> Optional[Tuple[int, int]]:
     """(threads, shared bytes) of a CTA of the cluster design for ``chain``
     down a tile of ``tile`` columns of height ``h`` (K1: a line, tile 1)
-    split over ``clusters`` CTAs with at most ``points`` points a thread (the
-    C ``cluster::make_plan``), or None where it refuses the shape: a class
-    or cluster size it has no kernel for, not two to four passes of the
-    class's radices that multiply to ``h``, a first radix under
-    2 * ``clusters``, a tile that is no power of two up to 64, too many
-    threads for the class, or over 227 KB of shared memory.  A CTA holds Q
-    = ``chain[0] // clusters`` or one more classes of the first pass, Q *
-    h / chain[0] points, in two exchange buffers (one for two passes), one
-    row of padding in every Q after the first pass where Q is even and in
-    every ns * R after a later pass of even radix R, where the tile is
-    narrower than 16 columns."""
+    split over ``clusters`` CTAs with at most ``points`` points a thread, in
+    the kernel built for ``ctas`` CTAs an SM (the C ``cluster::make_plan``),
+    or None where it refuses the shape: a class, cluster size or CTAs an SM
+    it has no kernel for, not two to four passes of the class's radices
+    that multiply to ``h``, a first radix under 2 * ``clusters``, a tile
+    that is no power of two up to 64, too many threads for the class
+    (``CLUSTER_CTAS``), or over 227 KB of shared memory.  A CTA
+    holds Q = ``chain[0] // clusters`` or one more classes of the first
+    pass, Q * h / chain[0] points, in two exchange buffers (one for two
+    passes or two CTAs an SM) of ``cluster_pitch`` rows."""
     least = GENERAL_CLASSES.get(points, (points + 1, 0))[0]
-    most = CLUSTER_CLASSES.get(points, 0)
-    if (points not in CLUSTER_CLASSES or clusters not in CLUSTER_SIZES
+    most = CLUSTER_CTAS.get(ctas, {}).get(points, 0)
+    if (points not in CLUSTER_CLASSES or clusters not in CLUSTER_SIZES or most == 0
             or not 2 <= len(chain) <= 4 or math.prod(chain) != h or not 4 <= h <= MAX_LENGTH
             or any(r not in GENERAL_RADICES or not least <= r <= points for r in chain)
             or chain[0] < 2 * clusters or not 1 <= tile <= 64 or tile & (tile - 1)):
         return None
-    pad = tile < 16
     m0 = h // chain[0]
     threads = -(-(-(-m0 // clusters) * tile) // (points // chain[0]))
-    pitch = 0
     for q in {chain[0] // clusters, -(-chain[0] // clusters)}:
-        n = q * m0
-        pitch = max(pitch, n + ((n - 1) // q if pad and q % 2 == 0 else 0))
-        ns = q
-        for p, r in enumerate(chain[1:], 1):
-            threads = max(threads, -(-(n // r * tile) // (points // r)))
-            if pad and p + 1 < len(chain) and r % 2 == 0:
-                pitch = max(pitch, n + (n - 1) // (ns * r))
-            ns *= r
-    smem = (2 if len(chain) > 2 else 1) * pitch * tile * 8
+        threads = max([threads] + [-(-(q * m0 // r * tile) // (points // r)) for r in chain[1:]])
+    pitch = cluster_pitch(h, chain, clusters, tile)
+    smem = (2 if len(chain) > 2 and ctas == 1 else 1) * pitch * tile * 8
     return (threads, smem) if threads <= most and smem <= 227 << 10 else None
 
 
@@ -899,9 +918,16 @@ def radix_chain_reference(x: torch.Tensor, radices: Sequence[int],
     return (conj_pairs(cur) if adjoint else cur) * scale
 
 
+def _padded(n: int, period: int, device) -> torch.Tensor:
+    """Exchange positions 0 .. n - 1 at their padded rows: one row of
+    padding after every ``period`` (0: none), the C ``general::padded``."""
+    pos = torch.arange(n, device=device)
+    return pos + pos // period if period else pos
+
+
 def cluster_chain_reference(x: torch.Tensor, radices: Sequence[int], clusters: int,
                             tables: Dict[str, torch.Tensor],
-                            adjoint: bool = False) -> torch.Tensor:
+                            adjoint: bool = False, ctas: int = 1) -> torch.Tensor:
     """The cluster design's schedule (``csrc/cluster.cuh``) in plain torch,
     along axis 1 of float32 ``x`` (units, N, ..., 2): the first pass (radix
     R0 = ``radices[0]``, no twiddle) on butterflies j of rows j + r * N / R0,
@@ -912,14 +938,21 @@ def cluster_chain_reference(x: torch.Tensor, radices: Sequence[int], clusters: i
     the ``cw`` entry of the chain's k = lo + (k_l mod Q_c) + R0 (k_l div
     Q_c); local point i stored at row lo + (i mod Q_c) + R0 (i div Q_c),
     scaled by ``cp[0]``.  ``adjoint`` conjugates on the first load and the
-    last store.  Equal to ``radix_chain_reference`` on the same chain (the
-    same twiddles, butterflies and order of operations), which the tests
-    hold; a test aid that no plan path calls.  Returns a new tensor of x's
+    last store.  With ``ctas`` = 2, the schedule of the kernel of one
+    exchange buffer: each CTA's points pass through ONE buffer of
+    ``cluster_pitch`` rows, filled with NaN, at the padded positions of a
+    line (a tile narrower than 16 columns): the first pass lands its
+    classes there, each later pass reads all of its points from it and
+    then writes its outputs over them (in place), the last reads it.
+    Equal to ``radix_chain_reference`` on the same chain (the same
+    twiddles, butterflies and order of operations), which the tests hold; a
+    test aid that no plan path calls.  Returns a new tensor of x's
     shape."""
     n = x.shape[1]
-    if math.prod(radices) != n or len(radices) < 2 or radices[0] < 2 * clusters:
+    if (math.prod(radices) != n or len(radices) < 2 or radices[0] < 2 * clusters
+            or ctas not in CLUSTER_CTAS):
         raise ValueError(f"cluster_chain_reference: radices {tuple(radices)} over "
-                         f"{clusters} CTAs do not run {n}")
+                         f"{clusters} CTAs ({ctas} an SM) do not run {n}")
     tw = tables["cw"]
     scale, s = float(tables["cp"][0]), float(tables["cp"][1])
     ride = (1,) * (x.dim() - 3) + (2,)
@@ -934,8 +967,15 @@ def cluster_chain_reference(x: torch.Tensor, radices: Sequence[int], clusters: i
         lo, hi = c * r0 // clusters, (c + 1) * r0 // clusters
         q = hi - lo
         local = torch.stack(first[lo:hi], dim=2).reshape(units, q * m0, *rest)
+        if ctas == 2:
+            buf = torch.full((units, cluster_pitch(n, radices, clusters), *rest), math.nan,
+                             dtype=local.dtype, device=local.device)
+            writes = _padded(q * m0, q if q % 2 == 0 else 0, local.device)
+            buf.index_copy_(1, writes, local)
         ns, gns = q, r0
-        for radix in radices[1:]:
+        for p, radix in enumerate(radices[1:], 1):
+            if ctas == 2:       # every read of the pass before its first write
+                local = buf.index_select(1, writes)
             m = q * m0 // radix
             v = [local[:, r * m:(r + 1) * m] for r in range(radix)]
             kl = torch.arange(ns, device=x.device)
@@ -951,6 +991,10 @@ def cluster_chain_reference(x: torch.Tensor, radices: Sequence[int], clusters: i
             for r in range(radix):
                 groups[:, :, r] = v[r].reshape(units, m // ns, ns, *rest)
             local = nxt
+            if ctas == 2 and p + 1 < len(radices):
+                period = ns * radix if radix % 2 == 0 else 0
+                writes = _padded(q * m0, period, local.device)
+                buf.index_copy_(1, writes, local)
             ns *= radix
             gns *= radix
         rows[:, :, lo:hi] = local.view(units, m0, q, *rest)

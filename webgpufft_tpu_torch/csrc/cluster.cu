@@ -47,12 +47,14 @@ namespace {
 
 // Launch (or, with `report`, describe: report[0..2] as launch_kernel's,
 // report[3] the grid, report[4] the threads a CTA, report[5] the shared
-// memory a CTA) `chain` over `call`'s view.
+// memory a CTA) `chain` over `call`'s view in the kernel built for `ctas`
+// CTAs an SM.
 cudaError_t launch(const ColsCall& call, const int* radices, int count, int points, int tile,
-                   int clusters, long long* report) {
-  Launch g = {&call, {}, 0, 0, 0, report};
-  if (call.pre < 1 || call.cols < 1 || max_threads(points) == 0 ||
-      !make_plan(call.h, radices, count, points, tile, clusters, &g.plan, &g.threads, &g.smem))
+                   int clusters, int ctas, long long* report) {
+  Launch g = {&call, {}, 0, 0, 0, report, ctas};
+  if (call.pre < 1 || call.cols < 1 || max_threads(points, ctas) == 0 ||
+      !make_plan(call.h, radices, count, points, tile, clusters, &g.plan, &g.threads, &g.smem,
+                 ctas))
     return cudaErrorInvalidValue;
   g.plan.tiles = (call.cols + tile - 1) / tile;
   g.grid = call.pre * g.plan.tiles * clusters;
@@ -78,10 +80,11 @@ cudaError_t launch_cluster_lines(const float2* x, float2* y, const float2* tw, c
   if (c == nullptr) return cudaErrorInvalidValue;
   const ColsCall call = {x, y, tw, params, lines, 1, n, cj, stream};
   if (report == nullptr)
-    return cluster::launch(call, c->radix, c->count, c->points, 1, c->clusters, nullptr);
+    return cluster::launch(call, c->radix, c->count, c->points, 1, c->clusters, c->ctas,
+                           nullptr);
   long long r[6] = {};
   const cudaError_t e =
-      cluster::launch(call, c->radix, c->count, c->points, 1, c->clusters, r);
+      cluster::launch(call, c->radix, c->count, c->points, 1, c->clusters, c->ctas, r);
   *report = {r[0], r[1], r[3], r[3], report->design};
   return e;
 }
@@ -90,9 +93,10 @@ cudaError_t launch_cluster_cols(const ColsCall& call, int entry, int* slots) {
   if (entry < 0 || entry >= kClusterColsEntries) return cudaErrorInvalidValue;
   const ClusterCols& c = kClusterCols[entry];
   if (slots == nullptr)
-    return cluster::launch(call, c.radix, c.count, c.points, c.tile, c.clusters, nullptr);
+    return cluster::launch(call, c.radix, c.count, c.points, c.tile, c.clusters, 1, nullptr);
   long long r[6] = {};
-  const cudaError_t e = cluster::launch(call, c.radix, c.count, c.points, c.tile, c.clusters, r);
+  const cudaError_t e =
+      cluster::launch(call, c.radix, c.count, c.points, c.tile, c.clusters, 1, r);
   *slots = static_cast<int>(r[2]);
   return e;
 }
@@ -104,19 +108,53 @@ cudaError_t launch_cluster_cols(const ColsCall& call, int entry, int* slots) {
 // tile 1) and k2_general_variants.py with --cluster, whose sweeps the
 // tables are fitted to.  `points` is the class (24, 32 or 64 points a
 // thread at most), `tile` the columns a tile, `clusters` the CTAs a
-// cluster (2, 4 or 8).  y may be x.  With `report` not null nothing
+// cluster (2, 4 or 8), `ctas` the CTAs an SM its kernel is built for (1:
+// two exchange buffers; 2: one, the middle passes in place).  y may be x.  With `report` not null nothing
 // launches, and report[0..5] get the CTAs an SM holds, the SMs, the
 // clusters the device holds at once, the grid, the threads a CTA and the
 // shared memory a CTA.  Returns the cudaError_t: cudaErrorInvalidValue for
 // what the design cannot run.
 extern "C" int wgfft_cluster(const void* x, void* y, const void* tw, const void* params,
                              long long pre, int h, long long cols, const int* radices, int count,
-                             int points, int tile, int clusters, int adjoint, long long* report,
-                             void* stream) {
+                             int points, int tile, int clusters, int ctas, int adjoint,
+                             long long* report, void* stream) {
   const wgfft::ColsCall call = {static_cast<const float2*>(x), static_cast<float2*>(y),
                                 static_cast<const float2*>(tw), static_cast<const float*>(params),
                                 pre, cols, h, adjoint ? -1.f : 1.f,
                                 static_cast<cudaStream_t>(stream)};
   return static_cast<int>(wgfft::cluster::launch(call, radices, count, points, tile, clusters,
-                                                 report));
+                                                 ctas, report));
+}
+
+// The split probe of the cluster design (wgfft_cluster's arguments, without
+// the report): the plans' kernel bodies (cluster_split_kernel) stopped after
+// `stop` passes of a tile, the last of them into shared memory; 0 runs the
+// first pass's loads and butterflies with its stores left out; a stop past
+// the chain's last pass runs the whole transform, as wgfft_cluster.  The
+// load is stop 0, pass p the step from stop p to p + 1, the store the step
+// from stop count to the whole (chip_probes/k1_general_variants.py and
+// k2_general_variants.py with --split).  A probe of no TPU kernel of its
+// own; bound by bytes, as K1 and K2.  y may be x.  Returns the cudaError_t,
+// cudaErrorInvalidValue for what it cannot run.
+extern "C" int wgfft_cluster_split(const void* x, void* y, const void* tw, const void* params,
+                                   long long pre, int h, long long cols, const int* radices,
+                                   int count, int points, int tile, int clusters, int ctas,
+                                   int stop, int adjoint, void* stream) {
+  using namespace wgfft;
+  const ColsCall call = {static_cast<const float2*>(x), static_cast<float2*>(y),
+                         static_cast<const float2*>(tw), static_cast<const float*>(params), pre,
+                         cols, h, adjoint ? -1.f : 1.f, static_cast<cudaStream_t>(stream)};
+  cluster::Launch g = {&call, {}, 0, 0, 0, nullptr, ctas};
+  if (pre < 1 || cols < 1 || stop < 0 || cluster::max_threads(points, ctas) == 0 ||
+      !cluster::make_plan(h, radices, count, points, tile, clusters, &g.plan, &g.threads,
+                          &g.smem, ctas) ||
+      !general::split_room(stop, count, &g.smem, cluster::kMaxShared, ctas == 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  g.plan.tiles = (cols + tile - 1) / tile;
+  g.grid = pre * g.plan.tiles * clusters;
+  switch (points) {
+    case 24: return static_cast<int>(cluster::split_24(g, stop));
+    case 32: return static_cast<int>(cluster::split_32(g, stop));
+    default: return static_cast<int>(cluster::split_64(g, stop));
+  }
 }

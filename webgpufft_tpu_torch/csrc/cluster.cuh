@@ -32,7 +32,14 @@
 // body a radix (and, for the first pass, a cluster size, so that the owner
 // of each output is a constant), dispatched by a switch uniform across the
 // CTA, one butterfly at a time, two exchange buffers in turn with one
-// barrier a pass.  Every thread arrives at a cluster barrier first and waits
+// barrier a pass.  Or, in the kernel built for two CTAs an SM (CTAS = 2,
+// half the threads at the same registers a thread), ONE exchange buffer:
+// the first pass lands in it, each later pass but the last runs in place
+// (`held`: a thread loads and runs all of its butterflies of the pass, the
+// CTA passes a barrier, then it stores them), and the last reads it and
+// stores to y; so a CTA takes half the shared memory, and one CTA's loads
+// and crossing run beside another's passes on the same SM.  Every thread
+// arrives at a cluster barrier first and waits
 // on it after its first loads, before its first store to another CTA (no
 // CTA writes another's shared memory before that one runs); a cluster sync
 // follows the first pass (every class landed and every read of x done: y
@@ -53,21 +60,25 @@
 namespace wgfft {
 
 // K1's cluster design's table, one entry a length: X(N, points a thread
-// (24, 32 or 64: the kernel's class), CTAs a cluster, chain...),
+// (24, 32 or 64: the kernel's class), CTAs an SM the kernel is built for
+// (1: two exchange buffers; 2: one, the middle passes in place), CTAs a
+// cluster, chain...),
 // the chain's first radix across the cluster.  Generated from the sweep's
 // winners (chip_probes/k1_general_variants.py --cluster --fit); the plans'
 // chain and `cw` of these lengths (core/radix.py CLUSTER_LINES, which reads
 // this table, and lines_chain).
 #define WGFFT_CLUSTER_LINES(X) \
-  X(11583, 32, 4, 11, 13, 9, 9) X(11858, 24, 4, 11, 22, 7, 7) X(11979, 32, 4, 11, 11, 11, 9)     \
-  X(12375, 24, 2, 15, 15, 11, 5) X(12705, 32, 2, 21, 11, 11, 5) X(12870, 32, 2, 11, 15, 13, 6)   \
-  X(13310, 24, 2, 22, 11, 11, 5) X(13689, 32, 2, 13, 13, 9, 9) X(14157, 32, 2, 11, 13, 11, 9)    \
-  X(14336, 32, 2, 14, 32, 32) X(14520, 32, 2, 22, 30, 22) X(14625, 32, 4, 25, 13, 9, 5)          \
-  X(14641, 32, 2, 11, 11, 11, 11) X(14742, 32, 2, 26, 27, 21) X(14976, 32, 2, 24, 26, 24)        \
-  X(15000, 32, 2, 24, 25, 25) X(15120, 32, 2, 24, 30, 21) X(15125, 32, 2, 25, 11, 11, 5)         \
-  X(15246, 32, 2, 14, 11, 11, 9) X(15488, 32, 2, 32, 22, 22) X(15625, 32, 2, 25, 25, 25)         \
-  X(15750, 32, 2, 30, 25, 21) X(15876, 32, 2, 21, 28, 27) X(16000, 32, 2, 32, 25, 20)            \
-  X(16128, 32, 2, 24, 28, 24)
+  X(11583, 32, 1, 4, 11, 13, 9, 9) X(11858, 24, 1, 4, 11, 22, 7, 7)                              \
+  X(11979, 32, 1, 4, 11, 11, 11, 9) X(12375, 24, 1, 2, 15, 15, 11, 5)                            \
+  X(12705, 32, 1, 2, 21, 11, 11, 5) X(12870, 32, 1, 2, 11, 15, 13, 6)                            \
+  X(13310, 24, 1, 2, 22, 11, 11, 5) X(13689, 32, 1, 2, 13, 13, 9, 9)                             \
+  X(14157, 32, 1, 2, 11, 13, 11, 9) X(14336, 32, 2, 2, 16, 32, 28)                               \
+  X(14520, 32, 1, 2, 22, 30, 22) X(14625, 32, 2, 4, 13, 15, 15, 5)                               \
+  X(14641, 32, 1, 2, 11, 11, 11, 11) X(14742, 32, 1, 2, 26, 27, 21)                              \
+  X(14976, 32, 1, 2, 24, 26, 24) X(15000, 32, 1, 2, 24, 25, 25) X(15120, 32, 1, 2, 24, 30, 21)   \
+  X(15125, 32, 1, 2, 25, 11, 11, 5) X(15246, 32, 1, 2, 14, 11, 11, 9)                            \
+  X(15488, 32, 1, 2, 32, 22, 22) X(15625, 64, 2, 2, 25, 25, 25) X(15750, 32, 1, 2, 30, 25, 21)   \
+  X(15876, 32, 1, 2, 21, 28, 27) X(16000, 32, 1, 2, 32, 25, 20) X(16128, 32, 1, 2, 24, 28, 24)
 
 // K2's: X(H, least, most columns in all (pre * cols) of the views it serves,
 // points a thread, the tile's columns, CTAs a cluster, chain...); every
@@ -112,8 +123,15 @@ __host__ __device__ constexpr bool cluster_size(int c) { return c == 2 || c == 4
 // the registers a thread may have (__launch_bounds__): 128 at 24 and 32
 // points (the general design's 24-point class allows 640 threads and 96
 // registers, where this design's first pass, which holds an address a CTA
-// of the cluster beside its butterfly, spilled), 184 at 64.
-constexpr int max_threads(int e) { return e == 24 || e == 32 ? 512 : e == 64 ? 352 : 0; }
+// of the cluster beside its butterfly, spilled), 184 at 64.  The kernel
+// built for `ctas` = 2 CTAs an SM has half as many threads, so the same
+// registers a thread, at 32 and 64 points (at 24 points it won at no length
+// of the sweep and was left out).
+constexpr int max_threads(int e, int ctas = 1) {
+  return ctas == 1 ? (e == 24 || e == 32 ? 512 : e == 64 ? 352 : 0)
+         : ctas == 2 ? (e == 32 ? 256 : e == 64 ? 176 : 0)
+                     : 0;
+}
 
 // Classes [lo(c), lo(c) + Q_c) of the first pass's R0 outputs that CTA c of
 // C owns.
@@ -165,15 +183,16 @@ __device__ __forceinline__ Pass pass_at(const Plan& plan, bool big, int p) {
 }
 
 // The plan of `chain` down a height-h tile of `tile` columns split over
-// `clusters` CTAs, E = `points` points a thread; its threads and shared
-// memory.  False where the design cannot run it: not two to four passes of
-// the class's radices that multiply to h, a cluster size it has no kernel
-// for, a first radix under 2 C (a CTA holds two classes or more), a tile
-// that is no power of two up to kMaxTile, too many threads for the class,
-// or more shared memory than a CTA may have.
+// `clusters` CTAs, E = `points` points a thread, in the kernel built for
+// `ctas` CTAs an SM; its threads and shared memory.  False where the design
+// cannot run it: not two to four passes of the class's radices that
+// multiply to h, a cluster size it has no kernel for, a first radix under
+// 2 C (a CTA holds two classes or more), a tile that is no power of two up
+// to kMaxTile, too many threads for the class, or more shared memory than a
+// CTA may have (two exchange buffers, one for two passes or two CTAs an SM).
 inline bool make_plan(int h, const int* radices, int count, int points, int tile, int clusters,
-                      Plan* plan, int* threads, int* smem) {
-  const int limit = max_threads(points);
+                      Plan* plan, int* threads, int* smem, int ctas = 1) {
+  const int limit = max_threads(points, ctas);
   if (count < 2 || count > general::kMaxPasses || limit == 0 || tile < 1 || tile > kMaxTile ||
       (tile & (tile - 1)) || h < 4 || h > kMaxLength || !cluster_size(clusters))
     return false;
@@ -227,7 +246,7 @@ inline bool make_plan(int h, const int* radices, int count, int points, int tile
     }
   }
   plan->pitch = pitch;
-  const int buffers = count > 2 ? 2 : 1;
+  const int buffers = count > 2 && ctas == 1 ? 2 : 1;
   const long long bytes = static_cast<long long>(buffers) * pitch * tile * sizeof(float2);
   if (t > limit || bytes > kMaxShared) return false;
   *threads = t;
@@ -347,6 +366,68 @@ __device__ __noinline__ void local(float2* __restrict__ y, const float2* __restr
   }
 }
 
+// A later pass of the kernel of one exchange buffer (CTAS = 2): `local`'s
+// butterflies, reads and stores, but a thread first loads and runs every
+// butterfly it has of the pass, then (but in the last pass) the CTA passes a
+// barrier, then the thread stores them, so that the pass reads and writes
+// the buffer in place.  Every thread calls it (the barrier), with or
+// without butterflies of its own.
+template <int E, int R>
+__device__ __noinline__ void held(float2* __restrict__ y, const float2* __restrict__ tw,
+                                  long long cols, int tc, int shift, const Pass ps, int lo, int q,
+                                  unsigned q_magic, int r0, int live, bool last, float s,
+                                  float scale, float cj) {
+  extern __shared__ float2 sm[];
+  constexpr int PER = E / R;
+  static_assert(PER >= 1, "a thread holds a whole butterfly");
+  const int T = static_cast<int>(blockDim.x);
+  const int B = ps.m << shift;
+  float2 v[PER][R];
+#pragma unroll
+  for (int qq = 0; qq < PER; ++qq) {
+    // a thread past the pass's last butterfly loads and runs that one
+    // (stores nothing): loads under a guard kept the results in local memory
+    const int b = min(static_cast<int>(threadIdx.x) + qq * T, B - 1);
+    const int u = b & (tc - 1);
+    const int j = b >> shift;
+    const int t = general::quot(j, ps.ns_magic);
+    const int kl = j - t * ps.ns;
+    const int kq = general::quot(kl, q_magic);
+    const int k = lo + (kl - kq * q) + r0 * kq;
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[qq][r] = sm[general::padded(j + r * ps.m, ps.pad_in) * tc + u];
+    const float2* w = tw + (ps.gns - 1) + k;
+#pragma unroll
+    for (int r = 1; r < R; ++r) v[qq][r] = cmul(v[qq][r], __ldg(w + (r - 1) * ps.gns));
+    mixed::Dft<R>::run(v[qq], s);
+  }
+  if (!last) __syncthreads();
+#pragma unroll
+  for (int qq = 0; qq < PER; ++qq) {
+    const int b = static_cast<int>(threadIdx.x) + qq * T;
+    if (b >= B) break;
+    const int u = b & (tc - 1);
+    const int j = b >> shift;
+    const int t = general::quot(j, ps.ns_magic);
+    const int kl = j - t * ps.ns;
+    if (last) {
+      if (u < live) {
+        const int kq = general::quot(kl, q_magic);
+        const int k = lo + (kl - kq * q) + r0 * kq;
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          y[static_cast<size_t>(k + ps.gns * (t * R + r)) * cols + u] =
+              make_float2(v[qq][r].x * scale, v[qq][r].y * (scale * cj));
+      }
+    } else {
+      const int j0 = t * R * ps.ns + kl;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        sm[general::padded(j0 + r * ps.ns, ps.pad_out) * tc + u] = v[qq][r];
+    }
+  }
+}
+
 template <int E, int C, bool STORE = true>
 __device__ __forceinline__ void cross_at(const float2* __restrict__ x, long long cols,
                                          const Plan& plan, int j0, int live, float s, float cj) {
@@ -392,9 +473,31 @@ __device__ __forceinline__ void cross_at(const float2* __restrict__ x, long long
     WGFFT_CLUSTER_PASS(28) WGFFT_CLUSTER_PASS(30) WGFFT_CLUSTER_PASS(32)                    \
     default: break;                                                                        \
   }
+// ... and of the kernel of one exchange buffer (held)
+#define WGFFT_CLUSTER_HOLD(R)                                                             \
+  case R:                                                                                 \
+    if constexpr (general::takes(E, R))                                                   \
+      held<E, R>(y, tw, cols, plan.tc, plan.shift, ps, lo, q,                             \
+                 big ? plan.side[1].q_magic : plan.side[0].q_magic, plan.r0, live, last, s, \
+                 scale, cj);                                                              \
+    break;
+#define WGFFT_CLUSTER_HELD                                                                  \
+  switch (ps.radix) {                                                                      \
+    WGFFT_CLUSTER_HOLD(2) WGFFT_CLUSTER_HOLD(3) WGFFT_CLUSTER_HOLD(4) WGFFT_CLUSTER_HOLD(5) \
+    WGFFT_CLUSTER_HOLD(6) WGFFT_CLUSTER_HOLD(7) WGFFT_CLUSTER_HOLD(8) WGFFT_CLUSTER_HOLD(9) \
+    WGFFT_CLUSTER_HOLD(10) WGFFT_CLUSTER_HOLD(11) WGFFT_CLUSTER_HOLD(12)                    \
+    WGFFT_CLUSTER_HOLD(13) WGFFT_CLUSTER_HOLD(14) WGFFT_CLUSTER_HOLD(15)                    \
+    WGFFT_CLUSTER_HOLD(16) WGFFT_CLUSTER_HOLD(18) WGFFT_CLUSTER_HOLD(20)                    \
+    WGFFT_CLUSTER_HOLD(21) WGFFT_CLUSTER_HOLD(22) WGFFT_CLUSTER_HOLD(24)                    \
+    WGFFT_CLUSTER_HOLD(25) WGFFT_CLUSTER_HOLD(26) WGFFT_CLUSTER_HOLD(27)                    \
+    WGFFT_CLUSTER_HOLD(28) WGFFT_CLUSTER_HOLD(30) WGFFT_CLUSTER_HOLD(32)                    \
+    default: break;                                                                        \
+  }
 
-template <int E, int MAXT>
-__global__ void __launch_bounds__(MAXT, 1)
+// CTAS = 1: two exchange buffers, one CTA an SM; CTAS = 2: one buffer, the
+// middle passes in place (held), two CTAs an SM at the same registers.
+template <int E, int MAXT, int CTAS = 1>
+__global__ void __launch_bounds__(MAXT, CTAS)
 cluster_kernel(const float2* __restrict__ x, float2* __restrict__ y,
                const float2* __restrict__ tw, const float* __restrict__ params, long long cols,
                float cj, const Plan plan) {
@@ -426,23 +529,33 @@ cluster_kernel(const float2* __restrict__ x, float2* __restrict__ y,
   // every CTA's classes landed, and every read of x is done (y may be x);
   // from here on each CTA reads and writes only its own shared memory
   cluster.sync();
-  const int buffer = plan.pitch * plan.tc;
-  for (int pp = 1; pp < plan.count; ++pp) {
-    const Pass ps = pass_at(plan, big, pp);
-    const bool last = pp == plan.count - 1;
-    const int in = ((pp + 1) & 1) * buffer, out = (pp & 1) * buffer;
-    WGFFT_CLUSTER_LOCAL
-    if (!last) __syncthreads();
+  if constexpr (CTAS == 1) {
+    const int buffer = plan.pitch * plan.tc;
+    for (int pp = 1; pp < plan.count; ++pp) {
+      const Pass ps = pass_at(plan, big, pp);
+      const bool last = pp == plan.count - 1;
+      const int in = ((pp + 1) & 1) * buffer, out = (pp & 1) * buffer;
+      WGFFT_CLUSTER_LOCAL
+      if (!last) __syncthreads();
+    }
+  } else {
+    for (int pp = 1; pp < plan.count; ++pp) {
+      const Pass ps = pass_at(plan, big, pp);
+      const bool last = pp == plan.count - 1;
+      WGFFT_CLUSTER_HELD
+      if (!last) __syncthreads();
+    }
   }
 }
 
-// The split probe's kernel (csrc/probes/split.cu; instantiated by the
-// probes' library only): cluster_kernel stopped after the first `stop`
+// The split probe's kernel (cluster.cu's wgfft_cluster_split, instantiated
+// beside cluster_kernel in cluster_24.cu .. _64.cu, on no plan's path):
+// cluster_kernel stopped after the first `stop`
 // passes of a tile, the last of them into shared memory, or running them
 // all where `stop` is past the chain's last; a stop of 0 runs the first
 // pass's loads and butterflies with its stores to the cluster left out.
-template <int E, int MAXT>
-__global__ void __launch_bounds__(MAXT, 1)
+template <int E, int MAXT, int CTAS = 1>
+__global__ void __launch_bounds__(MAXT, CTAS)
 cluster_split_kernel(const float2* __restrict__ x, float2* __restrict__ y,
                      const float2* __restrict__ tw, const float* __restrict__ params,
                      long long cols, float cj, const Plan plan, int stop) {
@@ -480,14 +593,23 @@ cluster_split_kernel(const float2* __restrict__ x, float2* __restrict__ y,
   cluster.sync();
   const int buffer = plan.pitch * plan.tc;
   const int run = stop < plan.count ? stop : plan.count;
+  const bool whole = stop > plan.count;
   for (int pp = 1; pp < run; ++pp) {
     const Pass ps = pass_at(plan, big, pp);
-    const bool last = pp == plan.count - 1 && stop > plan.count;
-    const int in = ((pp + 1) & 1) * buffer, out = (pp & 1) * buffer;
-    WGFFT_CLUSTER_LOCAL
-    if (pp + 1 < run) __syncthreads();
+    const bool last = whole && pp == plan.count - 1;
+    if constexpr (CTAS == 1) {
+      const int in = ((pp + 1) & 1) * buffer, out = (pp & 1) * buffer;
+      WGFFT_CLUSTER_LOCAL
+    } else {
+      WGFFT_CLUSTER_HELD
+    }
+    // (`!last` changes nothing here, but without it the kernel of two CTAs
+    // an SM spilled 16 bytes at 64 points a thread)
+    if (!last && pp + 1 < run) __syncthreads();
   }
 }
+#undef WGFFT_CLUSTER_HELD
+#undef WGFFT_CLUSTER_HOLD
 #undef WGFFT_CLUSTER_LOCAL
 #undef WGFFT_CLUSTER_PASS
 
@@ -499,19 +621,20 @@ struct Launch {
   int smem;
   long long grid;     // CTAs: pre * tiles * C
   long long* report;  // not null: describe the launch there instead (below)
+  int ctas;           // the kernel built for 1 or 2 CTAs an SM
 };
 
-// Launch cluster_kernel<E, MAXT> as `g` says (cluster_24.cu, _32.cu and
-// _64.cu each instantiate one class of E, so that they compile side by
+// Launch cluster_kernel<E, MAXT, CTAS> as `g` says (cluster_24.cu, _32.cu
+// and _64.cu each instantiate one class of E, so that they compile side by
 // side): cudaLaunchKernelEx with the cluster dimension.  With `report`,
 // nothing launches and report[0..2] get the CTAs an SM holds, the SMs and
 // the clusters the device holds at once (cudaOccupancyMaxActiveClusters).
 // With SPLIT, cluster_split_kernel with the split probe's `stop`.
-template <int E, int MAXT, bool SPLIT = false>
+template <int E, int MAXT, int CTAS = 1, bool SPLIT = false>
 cudaError_t launch_kernel(const Launch& g, int stop = 0) {
   auto* const kernel = [] {
-    if constexpr (SPLIT) return &cluster_split_kernel<E, MAXT>;
-    else return &cluster_kernel<E, MAXT>;
+    if constexpr (SPLIT) return &cluster_split_kernel<E, MAXT, CTAS>;
+    else return &cluster_kernel<E, MAXT, CTAS>;
   }();
   if (g.threads > MAXT || g.grid < 1 || g.grid > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaError_t e =
@@ -554,13 +677,17 @@ cudaError_t launch_kernel(const Launch& g, int stop = 0) {
 cudaError_t launch_24(const Launch& g);
 cudaError_t launch_32(const Launch& g);
 cudaError_t launch_64(const Launch& g);
+// ... and the split probe's kernel (SPLIT) of each class, to `stop`
+cudaError_t split_24(const Launch& g, int stop);
+cudaError_t split_32(const Launch& g, int stop);
+cudaError_t split_64(const Launch& g, int stop);
 
 
 }  // namespace cluster
 
 // The tables, each with an entry of height 0 that ends it.
 struct ClusterLine {
-  int n, points, clusters, count, radix[general::kMaxPasses];
+  int n, points, ctas, clusters, count, radix[general::kMaxPasses];
 };
 struct ClusterCols {
   int h;
@@ -568,16 +695,16 @@ struct ClusterCols {
   int points, tile, clusters, count, radix[general::kMaxPasses];
 };
 template <int... R>
-constexpr ClusterLine cluster_line_of(int n, int points, int clusters) {
-  return {n, points, clusters, static_cast<int>(sizeof...(R)), {R...}};
+constexpr ClusterLine cluster_line_of(int n, int points, int ctas, int clusters) {
+  return {n, points, ctas, clusters, static_cast<int>(sizeof...(R)), {R...}};
 }
 template <int... R>
 constexpr ClusterCols cluster_cols_of(int h, long long least, long long most, int points,
                                       int tile, int clusters) {
   return {h, least, most, points, tile, clusters, static_cast<int>(sizeof...(R)), {R...}};
 }
-#define WGFFT_CLUSTER_LINES_RULE(N, POINTS, CLUSTERS, ...) \
-  cluster_line_of<__VA_ARGS__>(N, POINTS, CLUSTERS),
+#define WGFFT_CLUSTER_LINES_RULE(N, POINTS, CTAS, CLUSTERS, ...) \
+  cluster_line_of<__VA_ARGS__>(N, POINTS, CTAS, CLUSTERS),
 #define WGFFT_CLUSTER_COLS_RULE(H, LEAST, MOST, POINTS, TILE, CLUSTERS, ...) \
   cluster_cols_of<__VA_ARGS__>(H, LEAST, MOST, POINTS, TILE, CLUSTERS),
 constexpr ClusterLine kClusterLines[] = {WGFFT_CLUSTER_LINES(WGFFT_CLUSTER_LINES_RULE){}};

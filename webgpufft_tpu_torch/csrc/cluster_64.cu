@@ -1,6 +1,8 @@
 // K1's and K2's cluster design (cluster.cuh), its class of 64 points a
 // thread, in a translation unit of its own so that the classes compile side
-// by side.
+// by side; with the split probe's kernel of the class (cluster_split_kernel,
+// cluster.cu's wgfft_cluster_split), which calls this unit's pass bodies
+// instead of compiling its own.
 
 #include <cuda_runtime.h>
 
@@ -10,7 +12,13 @@ namespace wgfft {
 namespace cluster {
 
 cudaError_t launch_64(const Launch& g) {
-  return launch_kernel<64, max_threads(64)>(g);
+  return g.ctas == 2 ? launch_kernel<64, max_threads(64, 2), 2>(g)
+                    : launch_kernel<64, max_threads(64)>(g);
+}
+
+cudaError_t split_64(const Launch& g, int stop) {
+  return g.ctas == 2 ? launch_kernel<64, max_threads(64, 2), 2, true>(g, stop)
+                    : launch_kernel<64, max_threads(64), 1, true>(g, stop);
 }
 
 }  // namespace cluster

@@ -93,3 +93,30 @@ extern "C" int wgfft_general_cols(const void* x, void* y, const void* tw, const 
   }
   return rc;
 }
+
+// The split probe of K2's general design (wgfft_general_cols's arguments,
+// without the report), to `stop` as wgfft_cluster_split (cluster.cu).
+extern "C" int wgfft_general_cols_split(const void* x, void* y, const void* tw,
+                                        const void* params, long long pre, int h, long long cols,
+                                        const int* radices, int count, int points, int tile,
+                                        int stop, int adjoint, void* stream) {
+  using namespace wgfft;
+  const ColsCall call = {static_cast<const float2*>(x), static_cast<float2*>(y),
+                         static_cast<const float2*>(tw), static_cast<const float*>(params), pre,
+                         cols, h, adjoint ? -1.f : 1.f, static_cast<cudaStream_t>(stream)};
+  general_cols::Launch g = {&call, {}, 0, 0, 0, nullptr, nullptr};
+  if (pre < 1 || cols < 1 || stop < 0 ||
+      !general_cols::make_plan(h, radices, count, points, tile, &g.plan, &g.threads, &g.smem) ||
+      !general::split_room(stop, count, &g.smem, general_cols::kMaxShared, false))
+    return static_cast<int>(cudaErrorInvalidValue);
+  g.plan.tiles = (cols + tile - 1) / tile;
+  g.grid = pre * g.plan.tiles;
+  if (g.grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  switch (points) {
+    case 16: return static_cast<int>(general_cols::split_16(g, stop));
+    case 20: return static_cast<int>(general_cols::split_20(g, stop));
+    case 24: return static_cast<int>(general_cols::split_24(g, stop));
+    case 32: return static_cast<int>(general_cols::split_32(g, stop));
+    default: return static_cast<int>(general_cols::split_64(g, stop));
+  }
+}

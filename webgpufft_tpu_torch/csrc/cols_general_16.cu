@@ -1,5 +1,8 @@
 // K2's general design (cols_general.cuh), its class of 16 points a thread, in
-// a translation unit of its own so that the classes compile side by side.
+// a translation unit of its own so that the classes compile side by side;
+// with the split probe's kernel of the class (general_cols_split_kernel,
+// cols_general.cu's wgfft_general_cols_split), which calls this unit's pass
+// bodies instead of compiling its own.
 
 #include <cuda_runtime.h>
 
@@ -10,6 +13,10 @@ namespace general_cols {
 
 cudaError_t launch_16(const Launch& g) {
   return launch_kernel<16, general::max_threads(16)>(g);
+}
+
+cudaError_t split_16(const Launch& g, int stop) {
+  return launch_kernel<16, general::max_threads(16), true>(g, stop);
 }
 
 }  // namespace general_cols

@@ -77,10 +77,23 @@ __device__ __forceinline__ Pass pass_at(const Plan& plan, int p) {
 
 __device__ __forceinline__ int padded(int pos, unsigned period) { return pos + quot(pos, period); }
 
+// The split probe (wgfft_cluster_split, wgfft_general_cols_split): a stop
+// at the chain's last pass writes the exchange buffer that the last pass of
+// a chain of two passes does not otherwise have: twice the shared memory
+// there, or false where that does not fit.  A kernel of one exchange buffer
+// (`in_place`: the cluster design's of two CTAs an SM) writes it in place.
+inline bool split_room(int stop, int count, int* smem, int most, bool in_place) {
+  if (stop != count || count != 2 || in_place) return true;
+  if (2LL * *smem > most) return false;
+  *smem *= 2;
+  return true;
+}
+
 // A first-pass butterfly whose stores the split probe suppresses (its stop
-// 0, csrc/probes/split.cu): its outputs summed and the sum stored to the
-// CTA's shared memory only where its bits are a signalling NaN, which no
-// arithmetic gives, so that its loads and its butterfly are not dead code.
+// 0: wgfft_cluster_split, wgfft_general_cols_split): its outputs summed and
+// the sum stored to the CTA's shared memory only where its bits are a
+// signalling NaN, which no arithmetic gives, so that its loads and its
+// butterfly are not dead code.
 template <int R>
 __device__ __forceinline__ void keep(const float2 (&v)[R]) {
   extern __shared__ float2 sm[];

@@ -68,9 +68,10 @@ L) view through the plans' library's entry point ``wgfft_cluster`` (K1's
 would be; the plans' entry points launch the shapes ``radix.CLUSTER_LINES``
 and ``fused_cols.CLUSTER_COLS`` name, fitted to the sweeps of the two
 scripts with ``--cluster``.  Both it and ``general_cols_variant`` take the
-split probe's ``stop`` (the probes' library, ``csrc/probes/split.cu``: the
-plans' kernel body stopped after its load or after a pass), which the two
-scripts' ``--split`` reads as load, passes and store.
+split probe's ``stop`` (the plans' library's ``wgfft_cluster_split`` and
+``wgfft_general_cols_split``: the plans' kernel body stopped after its load
+or after a pass, instantiated beside it so that no body compiles twice),
+which the two scripts' ``--split`` reads as load, passes and store.
 
 Each wrapper runs the kernel's plain version on a CPU tensor and launches or
 raises on a CUDA tensor; ``launches`` counts kernel launches only.
@@ -397,8 +398,9 @@ def general_cols_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor],
     kernel of the plans' library (and counts one launch here, none in
     ``fused_cols``) or raises where the design cannot run that shape; a CPU
     tensor runs the chain through ``radix.radix_chain_reference``.  With a
-    ``stop``, the split probe (``csrc/probes/split.cu``, a CUDA tensor
-    only): the same kernel body stopped after the first ``stop`` passes,
+    ``stop``, the split probe (the plans' library's
+    ``wgfft_general_cols_split``, a CUDA tensor only): the same kernel body
+    stopped after the first ``stop`` passes,
     the last of them into shared memory (y then holds what it held), or at
     0 after the first pass's loads and butterflies; ``STOP_ALL`` runs it
     whole."""
@@ -423,12 +425,11 @@ def general_cols_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor],
                 x.data_ptr(), y.data_ptr(), *ptrs, pre, h, lanes // 2,
                 *_build.chain_arg(tuple(chain)), points, tile, int(adjoint), None, stream)
         else:
-            rc = _build.library("probes").wgfft_general_cols_split(
+            rc = _build.library().wgfft_general_cols_split(
                 x.data_ptr(), y.data_ptr(), *ptrs, pre, h, lanes // 2,
                 *_build.chain_arg(tuple(chain)), points, tile, stop, int(adjoint), stream)
     _build.check(rc, f"general_cols_variant {tuple(chain)} points {points} tile {tile}"
-                     f"{'' if stop is None else f' stop {stop}'}",
-                 "core" if stop is None else "probes")
+                     f"{'' if stop is None else f' stop {stop}'}")
     general_cols_variant.launches += 1
     return y
 
@@ -450,13 +451,16 @@ def general_cols_report(pre: int, h: int, cols: int, chain: Tuple[int, ...], poi
 
 def cluster_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor], chain: Tuple[int, ...],
                     points: int, tile: int, clusters: int, adjoint: bool = False,
-                    inplace: bool = False, stop: Optional[int] = None) -> torch.Tensor:
+                    inplace: bool = False, stop: Optional[int] = None,
+                    ctas: int = 1) -> torch.Tensor:
     """The transform (its adjoint with ``adjoint``) along axis 1 of
     interleaved float32 ``x`` (pre, H, L) in the cluster design
     (``csrc/cluster.cuh``) on any ``chain`` of two to four passes of
     ``radix.GENERAL_RADICES`` that multiplies to H, its first radix across
     a cluster of ``clusters`` CTAs, in the class of ``points`` with tiles of
-    ``tile`` columns, whatever K1's or K2's rule says of H, with ``tables``
+    ``tile`` columns, in the kernel built for ``ctas`` CTAs an SM (1: two
+    exchange buffers; 2: one, the middle passes in place), whatever K1's or
+    K2's rule says of H, with ``tables``
     laid out for the chain (``radix.chain_consts``); with ``inplace``
     written over ``x``.  K1's (lines, N, 2) is the view (lines, N, 2) with
     tile 1: the variants of ``chip_probes/k1_general_variants.py`` and
@@ -465,20 +469,19 @@ def cluster_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor], chain: Tup
     ``fused_lines`` or ``fused_cols``) or raises where the design cannot run
     that shape; a CPU tensor runs ``radix.cluster_chain_reference``.  With a
     ``stop``, the split probe as ``general_cols_variant``'s (0: the first
-    pass's loads and butterflies without its stores to the cluster), in the
-    classes of 24 and 32 points a thread."""
+    pass's loads and butterflies without its stores to the cluster)."""
     pre, h, lanes = x.shape
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"cluster_variant: unsupported device {x.device}")
     fused_cols._check_cuda(x)
-    if radix.cluster_plan(h, tuple(chain), points, tile, clusters) is None:
+    if radix.cluster_plan(h, tuple(chain), points, tile, clusters, ctas) is None:
         raise ValueError(f"cluster_variant: the cluster design does not run H = {h} on "
                          f"{tuple(chain)} at {points} points a thread, tiles of {tile}, "
-                         f"{clusters} CTAs a cluster")
+                         f"{clusters} CTAs a cluster, {ctas} an SM")
     _split_stop(stop, len(chain), x, "cluster_variant")
     if x.device.type == "cpu":
         y = radix.cluster_chain_reference(x.reshape(pre, h, lanes // 2, 2), chain, clusters,
-                                          tables, adjoint).reshape(pre, h, lanes)
+                                          tables, adjoint, ctas).reshape(pre, h, lanes)
         return x.copy_(y) if inplace else y
     ptrs = _build.table_ptrs(x, tables, {"cw": (h, 2), "cp": (2,)}, "cluster_variant")
     y = x if inplace else torch.empty_like(x)
@@ -487,16 +490,15 @@ def cluster_variant(x: torch.Tensor, tables: Dict[str, torch.Tensor], chain: Tup
         if stop is None:
             rc = _build.library().wgfft_cluster(
                 x.data_ptr(), y.data_ptr(), *ptrs, pre, h, lanes // 2,
-                *_build.chain_arg(tuple(chain)), points, tile, clusters, int(adjoint), None,
-                stream)
+                *_build.chain_arg(tuple(chain)), points, tile, clusters, ctas, int(adjoint),
+                None, stream)
         else:
-            rc = _build.library("probes").wgfft_cluster_split(
+            rc = _build.library().wgfft_cluster_split(
                 x.data_ptr(), y.data_ptr(), *ptrs, pre, h, lanes // 2,
-                *_build.chain_arg(tuple(chain)), points, tile, clusters, stop, int(adjoint),
-                stream)
+                *_build.chain_arg(tuple(chain)), points, tile, clusters, ctas, stop,
+                int(adjoint), stream)
     _build.check(rc, f"cluster_variant {tuple(chain)} points {points} tile {tile} "
-                     f"clusters {clusters}{'' if stop is None else f' stop {stop}'}",
-                 "core" if stop is None else "probes")
+                     f"clusters {clusters} ctas {ctas}{'' if stop is None else f' stop {stop}'}")
     cluster_variant.launches += 1
     return y
 
@@ -524,17 +526,19 @@ def fewest_passes(n: int, radices: Sequence[int], least: int = 2) -> List[Tuple[
     return []
 
 
-def cluster_candidates(h: int, tiles: Sequence[int] = (1,)) -> List[tuple]:
+def cluster_candidates(h: int, tiles: Sequence[int] = (1,),
+                       ctas: Sequence[int] = (1,)) -> List[tuple]:
     """The cluster design's variants of height (length) ``h``: (name,
-    chain, points, tile, clusters).  Chains: the two multisets of the fewest
+    chain, points, tile, clusters, ctas).  Chains: the two multisets of the fewest
     passes of ``radix.GENERAL_RADICES`` whose widest radix is the least
     (then whose narrowest is the most), each with every distinct radix first
     (the pass across the cluster) and the rest widest first; every cluster
     size of ``radix.CLUSTER_SIZES`` the first radix holds (two classes a CTA
     at least); every tile of ``tiles``; in the least class of
     ``radix.CLUSTER_CLASSES`` whose radices, threads and shared memory hold
-    it, and the widest class too where that is another.  K1 sweeps tile 1,
-    K2 several."""
+    it, and the widest class too where that is another; in the kernel of
+    each of ``ctas`` CTAs an SM (``radix.CLUSTER_CTAS``; a name ends in
+    ``2/SM`` for two).  K1 sweeps tile 1, K2 several."""
     sets = sorted(fewest_passes(h, radix.GENERAL_RADICES), key=lambda s: (max(s), -min(s)))[:2]
     out = []
     for chain in sets:
@@ -544,11 +548,13 @@ def cluster_candidates(h: int, tiles: Sequence[int] = (1,)) -> List[tuple]:
             order = (first, *sorted(rest, reverse=True))
             for clusters in radix.CLUSTER_SIZES:
                 for tile in tiles:
-                    held = [e for e in radix.CLUSTER_CLASSES
-                            if radix.cluster_plan(h, order, e, tile, clusters)]
-                    for e in dict.fromkeys(held[:1] + held[-1:]):
-                        name = f"{'x'.join(map(str, order))} E{e} T{tile} C{clusters}"
-                        out.append((name, order, e, tile, clusters))
+                    for per in ctas:
+                        held = [e for e in radix.CLUSTER_CLASSES
+                                if radix.cluster_plan(h, order, e, tile, clusters, per)]
+                        for e in dict.fromkeys(held[:1] + held[-1:]):
+                            name = (f"{'x'.join(map(str, order))} E{e} T{tile} C{clusters}"
+                                    + ("" if per == 1 else f" {per}/SM"))
+                            out.append((name, order, e, tile, clusters, per))
     return out
 
 
@@ -563,15 +569,15 @@ class ClusterReport(NamedTuple):
 
 
 def cluster_report(pre: int, h: int, cols: int, chain: Tuple[int, ...], points: int, tile: int,
-                   clusters: int) -> ClusterReport:
+                   clusters: int, ctas: int = 1) -> ClusterReport:
     """What ``cluster_variant`` would launch for a (pre, h, 2 * cols) view
     on the current CUDA device; needs the card."""
     out = (ctypes.c_longlong * 6)()
     rc = _build.library().wgfft_cluster(None, None, None, None, pre, h, cols,
                                         *_build.chain_arg(tuple(chain)), points, tile, clusters,
-                                        0, out, None)
+                                        ctas, 0, out, None)
     _build.check(rc, f"cluster_variant {tuple(chain)} points {points} tile {tile} "
-                     f"clusters {clusters}")
+                     f"clusters {clusters} ctas {ctas}")
     return ClusterReport(*out)
 
 
